@@ -1,0 +1,240 @@
+"""The port's device kernels and their plain PyTorch versions — the
+counterpart of ``paddlebox_tpu/ops/pallas_kernels.py``.
+
+Each kernel wrapper takes its plain version for a tensor on the CPU and
+launches the CUDA kernel (``csrc/<name>.cu``, built on first use by
+``ops/_build.py``) for a tensor on the card. There is no other dispatch:
+a CUDA tensor never reaches a plain version inside the port, and a
+failed build or launch raises. Each wrapper counts its launches in its
+``launches`` attribute, so a run can show which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from paddlebox_tpu_torch.ops import _build
+
+#: static CVM epilogue modes (which head columns transform)
+CVM_NONE = 0      # no transform (use_cvm=False; the head is sliced off)
+CVM_FULL = 1      # [log1p(show), log1p(clk)-log1p(show), embedx…]
+CVM_SHOW = 2      # clk_filter head: [log1p(show), embedx…]
+CVM_CONV = 3      # conv head: [log1p(show), log1p(clk), log1p(conv)-log1p(clk)]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# C signatures of the kernel entries (csrc/*.cu)
+_GATHER_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]
+_POOL_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
+              ctypes.c_float, _P]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous input")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def show_clk_keep(values: torch.Tensor, show_coeff: float, clk_coeff: float,
+                  threshold: float) -> torch.Tensor:
+    """The show/clk significance filter (QuantFilter), bool [K]."""
+    show, clk = values[:, 0], values[:, 1]
+    return ((show - clk) * show_coeff + clk * clk_coeff) >= threshold
+
+
+def keep_or_ones(values: torch.Tensor, need_filter: bool, show_coeff: float,
+                 clk_coeff: float, threshold: float) -> torch.Tensor:
+    """bool [K] keep mask: the show/clk filter when requested, all-ones
+    otherwise."""
+    if need_filter:
+        return show_clk_keep(values, show_coeff, clk_coeff, threshold)
+    return torch.ones(values.shape[0], dtype=torch.bool,
+                      device=values.device)
+
+
+# ---------------------------------------------------------------------------
+# Row gather (the pull)
+# ---------------------------------------------------------------------------
+
+def gather_rows_plain(table: torch.Tensor, rows: torch.Tensor
+                      ) -> torch.Tensor:
+    """table [C+1, F], rows [U] int → [U, F]; ids outside [0, C] read the
+    sentinel row C."""
+    c = table.shape[0] - 1
+    r = rows.long().clamp_max(c)
+    return table[torch.where(r < 0, c, r)]
+
+
+def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """table [C+1, F] f32, rows [U] int32 → [U, F] = table[min(rows, C)]
+    (ids outside [0, C] read the zero sentinel row C). Exact."""
+    if table.device.type == "cpu" and rows.device.type == "cpu":
+        return gather_rows_plain(table, rows)
+    _require_cuda("gather_rows", table, rows)
+    if table.dtype != torch.float32 or rows.dtype != torch.int32:
+        raise TypeError("gather_rows: needs a float32 table and int32 rows")
+    if table.dim() != 2 or rows.dim() != 1:
+        raise ValueError("gather_rows: table [C+1, F] and rows [U]")
+    u, f = rows.shape[0], table.shape[1]
+    out = torch.empty((u, f), dtype=table.dtype, device=table.device)
+    if u == 0:
+        return out
+    vec = 4 if (f % 4 == 0 and table.data_ptr() % 16 == 0
+                and out.data_ptr() % 16 == 0) else 1
+    fn = _build.function("gather_rows", "pbx_gather_rows", _GATHER_ARGS)
+    _build.check(fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                    u, table.shape[0] - 1, f, vec, _stream(table)),
+                 "gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused pool + CVM forward
+# ---------------------------------------------------------------------------
+
+def _cvm_transform_wide(pooled: torch.Tensor, cvm_mode: int
+                        ) -> torch.Tensor:
+    """Column-in-place CVM transform of the pooled block (the head
+    columns are replaced, the width is unchanged)."""
+    if cvm_mode == CVM_NONE:
+        return pooled
+    out = pooled.clone()
+    l0 = torch.log1p(pooled[..., 0])
+    out[..., 0] = l0
+    if cvm_mode == CVM_FULL:
+        out[..., 1] = torch.log1p(pooled[..., 1]) - l0
+    elif cvm_mode == CVM_CONV:
+        l1 = torch.log1p(pooled[..., 1])
+        out[..., 1] = l1
+        out[..., 2] = torch.log1p(pooled[..., 2]) - l1
+    return out
+
+
+def _cvm_slice(buf: torch.Tensor, cvm_mode: int, cvm_offset: int,
+               ets: int) -> torch.Tensor:
+    """The output columns of a transformed block, per head mode (the
+    InferShape width contract)."""
+    if cvm_mode == CVM_NONE:
+        return buf[..., cvm_offset + ets:]
+    if cvm_mode == CVM_FULL:
+        return torch.cat([buf[..., :2], buf[..., cvm_offset:]], dim=-1)
+    if cvm_mode == CVM_SHOW:
+        return torch.cat([buf[..., :1], buf[..., cvm_offset:]], dim=-1)
+    return buf
+
+
+def cvm_out_width(d: int, cvm_mode: int, cvm_offset: int, ets: int) -> int:
+    """Output width per segment; raises on a mode/offset combination the
+    head cannot take."""
+    need = {CVM_NONE: (0, cvm_offset + ets), CVM_FULL: (2, cvm_offset),
+            CVM_SHOW: (1, cvm_offset), CVM_CONV: (0, 3)}
+    if cvm_mode not in need:
+        raise ValueError(f"unknown cvm_mode {cvm_mode}")
+    min_off, cut = need[cvm_mode]
+    if cvm_offset < min_off or cut > d or ets < 0:
+        raise ValueError(f"cvm_mode {cvm_mode} with cvm_offset "
+                         f"{cvm_offset}, ets {ets} on width {d}")
+    if cvm_mode == CVM_NONE:
+        return d - cut
+    if cvm_mode == CVM_CONV:
+        return d
+    return min_off + d - cut
+
+
+def pool_cvm_plain(values: torch.Tensor, segments: torch.Tensor,
+                   keep: Optional[torch.Tensor], batch_size: int,
+                   num_slots: int, cvm_mode: int = CVM_FULL,
+                   cvm_offset: int = 2, ets: int = 0,
+                   pad_value: float = 0.0) -> torch.Tensor:
+    """Plain version of :func:`pool_cvm`: ``index_add_`` over the
+    segments (ids outside [0, B*S) fall into a discarded bin), then
+    ``pad_value`` and the CVM epilogue."""
+    k, d = values.shape
+    n = batch_size * num_slots
+    cvm_out_width(d, cvm_mode, cvm_offset, ets)
+    seg = segments.long()
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)
+    v = values.float()
+    if keep is not None:
+        v = torch.where(keep[:, None] != 0, v, 0.0)
+    pooled = torch.zeros((n + 1, d), dtype=torch.float32,
+                         device=values.device).index_add_(0, seg, v)[:n]
+    out = _cvm_slice(_cvm_transform_wide(pooled + pad_value, cvm_mode),
+                     cvm_mode, cvm_offset, ets)
+    return out.reshape(batch_size, num_slots, -1).to(values.dtype)
+
+
+def _suffix_min(x: torch.Tensor, fill: int, row: int = 1024
+                ) -> torch.Tensor:
+    """out[j] = min(x[j:]) for a 1-D tensor, in two levels: within rows
+    of ``row`` elements, then across rows: PyTorch's CUDA scan of a 1-D
+    tensor runs in a single thread block, of a 2-D one in a block per
+    row."""
+    k = x.shape[0]
+    rows = max(1, -(-k // row))
+    xp = x.new_full((rows * row,), fill)
+    xp[:k] = x
+    m = xp.view(rows, row).flip(1).cummin(1).values.flip(1)
+    later = m[:, 0].flip(0).cummin(0).values.flip(0)[1:]   # min of rows > r
+    carry = torch.cat([later, later.new_full((1,), fill)])
+    return torch.minimum(m, carry[:, None]).view(-1)[:k]
+
+
+def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
+             keep: Optional[torch.Tensor], batch_size: int, num_slots: int,
+             cvm_mode: int = CVM_FULL, cvm_offset: int = 2, ets: int = 0,
+             pad_value: float = 0.0) -> torch.Tensor:
+    """values [K, D] f32 pulled embeddings, segments [K] int32 (ins*S +
+    slot; the ids inside [0, B*S) must be nondecreasing, anything else is
+    dropped), keep [K] optional 0/1 key mask → the CVM-transformed pooled
+    output [B, S, D_out] in one kernel (``csrc/pool_cvm.cu``). ``ets``
+    (embed_thres_size) only affects the CVM_NONE output slice."""
+    if values.device.type == "cpu" and segments.device.type == "cpu":
+        return pool_cvm_plain(values, segments, keep, batch_size, num_slots,
+                              cvm_mode, cvm_offset, ets, pad_value)
+    if keep is None:
+        keep = torch.ones(values.shape[0], dtype=torch.float32,
+                          device=values.device)
+    _require_cuda("pool_cvm", values, segments, keep)
+    if values.dtype != torch.float32 or segments.dtype != torch.int32:
+        raise TypeError("pool_cvm: needs float32 values, int32 segments")
+    k, d = values.shape
+    n = batch_size * num_slots
+    d_out = cvm_out_width(d, cvm_mode, cvm_offset, ets)
+    if d > 128:
+        raise ValueError(f"pool_cvm: width {d} > 128")
+    # the kernel binary-searches each segment's run of keys: make the id
+    # stream nondecreasing by giving each dropped key (keep → 0) the id
+    # of the NEXT valid key, so the tail pads get n and join no segment
+    valid = (segments >= 0) & (segments < n)
+    seg = _suffix_min(torch.where(valid, segments, n), n).contiguous()
+    keep_v = torch.where(valid, keep.float(), 0.0).contiguous()
+    out = torch.empty((n, d_out), dtype=torch.float32, device=values.device)
+    if n == 0:
+        return out.reshape(batch_size, num_slots, d_out)
+    fn = _build.function("pool_cvm", "pbx_pool_cvm", _POOL_ARGS)
+    _build.check(fn(values.data_ptr(), seg.data_ptr(), keep_v.data_ptr(),
+                    out.data_ptr(), k, n, d, d_out, cvm_mode, cvm_offset,
+                    ets, float(pad_value), _stream(values)), "pool_cvm")
+    pool_cvm.launches += 1
+    return out.reshape(batch_size, num_slots, d_out)
+
+
+pool_cvm.launches = 0
