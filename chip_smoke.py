@@ -6,19 +6,35 @@
 Phases, each of which fails the run:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build every kernel of the serving path from ``paddlebox_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print the build seconds;
-3. at the serving path's full-width shapes, hold each kernel against its
-   plain PyTorch version on the card (``gather_rows`` exact, ``pool_cvm``
-   in all four CVM modes within rtol 3e-5 / atol 1e-6) and time kernel,
-   plain version and the nearest single PyTorch call with CUDA events;
+2. build every kernel of the serving and training paths from
+   ``paddlebox_tpu_torch/csrc`` (one ``nvcc`` per source, all at once)
+   and print the build seconds;
+3. at the full-width shapes of those paths, hold each kernel against its
+   plain PyTorch version on the card (``gather_rows``, ``segment_gather``
+   in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
+   four CVM modes within rtol 3e-5 / atol 1e-6) and time kernel, plain
+   version and the nearest single PyTorch call with CUDA events;
 4. serve ragged DeepFM batches end to end: a seeded ``save_base``-format
    table of 2.6M keyed rows loads into ``ServingModel(device="cuda")``
    with seeded random dense params, and ``predict`` answers ``--batches``
    batches of 4096 records (26 slots, 1 + Poisson(4) keys per slot,
    13 dense). Predictions must be finite, in (0, 1), and match the same
    forward through the plain versions; both kernels' launch counters
-   must advance once per batch.
+   must advance once per batch;
+5. train on the same batches: ``EmbeddingTable(device="cuda")`` loads a
+   seeded ``save_base``-format file of the keys with id < 90 000 of each
+   slot (so every step also assigns new rows, and a quarter of the
+   loaded rows have no mf yet, so lazy mf creation runs), and
+   ``Trainer.train_pass`` takes ``--batches`` steps of DeepFM (512, 256,
+   128) with sparse Adagrad and dense Adam. The loss must be finite at every step, each of the four
+   kernels must launch once per step, the sentinel row must stay zero,
+   rows the pass did not touch must stay bit-identical, and the trained
+   table's ``save_base`` must load into ``ServingModel`` and predict.
+   Then the same batches run twice more from the same start with the
+   float32 tower and TF32 off, once through the kernels and once through
+   the plain versions (passed in explicitly): touched table rows and
+   dense params must agree within rtol 2e-4 / atol 2e-5. These two runs
+   time each step synchronized, split into prepare, h2d and step.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -43,6 +59,7 @@ DENSE_DIM = 13
 MF_DIM = 8                       # Adagrad → row width 8 + 8 = 16
 AVG_KEYS = 5.0                   # keys per (record, slot) = 1 + Poisson(4)
 VOCAB_PER_SLOT = 100_000
+TRAIN_BASE_VOCAB = 90_000        # the train base holds ids < this per slot
 BATCH = 4096
 CAPACITY = 1 << 23               # table [8 388 609, 16] f32 = 512 MiB
 HIDDEN = (512, 256, 128)
@@ -55,6 +72,11 @@ POOL_RTOL, POOL_ATOL = 3e-5, 1e-6
 # order only; a flipped bf16 rounding of a tower input moves a
 # probability by far less than this
 PRED_ATOL = 2e-3
+# the ragged train-state class. The plain pool sums in the kernel's key
+# order and every other kernel is exact, so the kernel and plain training
+# runs should agree bit for bit; a pooling-order difference of 1 ulp can
+# flip a ReLU of the tower and move a few rows by ~1e-3, far past this
+STATE_RTOL, STATE_ATOL = 2e-4, 2e-5
 
 
 def log(msg: str) -> None:
@@ -87,10 +109,15 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
-def make_table_blob(rng, convert):
-    """Every key of the vocabulary (2.6M) with a seeded logical row."""
-    n = NUM_SLOTS * VOCAB_PER_SLOT
-    keys = np.arange(n, dtype=np.uint64)   # slot * VOCAB + id
+def make_table_blob(rng, convert, vocab: int = VOCAB_PER_SLOT,
+                    no_mf: float = 0.0):
+    """The keys with id < ``vocab`` of every slot (2.6M for the whole
+    vocabulary) with seeded logical rows; a ``no_mf`` share of them has
+    no mf yet (mf_size 0)."""
+    keys = (np.arange(NUM_SLOTS, dtype=np.uint64)[:, None]
+            * np.uint64(VOCAB_PER_SLOT)
+            + np.arange(vocab, dtype=np.uint64)[None, :]).reshape(-1)
+    n = len(keys)
     rows = np.zeros((n, 8 + MF_DIM), np.float32)
     show = rng.integers(1, 200, size=n).astype(np.float32)
     rows[:, 0] = show
@@ -101,6 +128,10 @@ def make_table_blob(rng, convert):
     rows[:, 5:7] = 3.0
     rows[:, 7] = 1.0                       # mf_size > 0: embedx served
     rows[:, 8:] = rng.normal(0, 0.05, size=(n, MF_DIM)).astype(np.float32)
+    if no_mf:
+        lazy = rng.random(n) < no_mf
+        rows[lazy, 7] = 0.0
+        rows[lazy, 8:] = 0.0
     return convert.table_rows_from_logical(keys, rows, MF_DIM)
 
 
@@ -135,6 +166,219 @@ def check_close(name, got, ref, rtol, atol) -> float:
             f"{name}: {int(bad.sum())} elements outside rtol {rtol} / atol "
             f"{atol}, max abs err {float(err.max()):.3g}")
     return float(err.nan_to_num(0.0).max())
+
+
+def profile_step(torch, step, state, batch, gen):
+    """Device time per kernel (name, ms, launches) of one synchronized
+    training step under ``torch.profiler``, largest first. Only the
+    device-side kernel events count: the ops that launched them, and
+    annotated ranges on the device timeline (the optimizer's step),
+    carry the same time and would count it twice."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if (not str(e.device_type).endswith("CUDA")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def train_phase(torch, args, card, desc, records, batches, details):
+    """Phase 5: ``Trainer.train_pass`` at full width from a seeded base
+    file, its invariants, the trained table served, and the
+    kernel-vs-plain training runs. Returns each kernel's launches during
+    the train pass."""
+    from paddlebox_tpu_torch import convert
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_base.npz")
+        np.savez(path, **base)
+        n_base = len(base["keys"])
+        del base
+        return _train(torch, args, card, desc, records, batches, details,
+                      tmp, path, n_base)
+
+
+def _train(torch, args, card, desc, records, batches, details, tmp,
+           base_path, n_base):
+    from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, InMemoryDataset,
+                                     ServingModel, Trainer)
+    from paddlebox_tpu_torch.device import seeded_generator
+    from paddlebox_tpu_torch.metrics import init_auc_state
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.train.step import (StepState, TrainStep,
+                                                default_tx,
+                                                make_device_batch)
+
+    cuda = torch.device("cuda")
+
+    def fresh_table():
+        t = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY, seed=args.seed,
+                           device="cuda")
+        t.load(base_path)
+        return t
+
+    t0 = time.perf_counter()
+    table = fresh_table()
+    start = table.state.data.clone()
+    torch.manual_seed(args.seed + 2)
+    model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN)
+    init_params = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, table, desc, seed=args.seed,
+                      check_nan_inf=True, device="cuda")
+    ds = InMemoryDataset(desc)
+    ds.records = records
+    torch.cuda.synchronize()
+    log(f"train setup: base file of {n_base} rows loaded in "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    fns = (K.gather_rows, K.pool_cvm, K.segment_gather, K.scatter_add_update)
+    for fn in fns:
+        fn.launches = 0
+    # check_nan_inf: the loss is read, and must be finite, at every step
+    res = trainer.train_pass(ds)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in fns}
+    for name, n in launches.items():
+        if n != len(batches):
+            raise AssertionError(f"train: {name} launched {n} times for "
+                                 f"{len(batches)} steps")
+    if res["batches"] != len(batches) or not np.isfinite(res["last_loss"]):
+        raise AssertionError(f"train pass went wrong: {res}")
+    data = table.state.data
+    if bool(data[CAPACITY].any()):
+        raise AssertionError("the sentinel row was written")
+    touched = torch.from_numpy(table._touched).to(cuda)
+    changed = (data != start).any(dim=1)
+    if bool((changed & ~touched).any()):
+        raise AssertionError("rows the pass did not touch changed")
+    n_touched, n_changed = int(touched.sum()), int(changed.sum())
+    n_new = len(table.index) - n_base
+    created = int(((start[:, 7] == 0) & (data[:, 7] > 0)
+                   & (start[:, 0] > 0)).sum())
+    if n_new <= 0 or created <= 0 or n_changed <= 0:
+        raise AssertionError(f"train pass assigned {n_new} new rows, "
+                             f"created {created} mf blocks, changed "
+                             f"{n_changed} rows")
+    del start, changed, touched
+    stages = {k: [x * 1e3 for x in v]
+              for k, v in trainer.stage_timers.seconds.items()}
+    log(f"train pass: {res['batches']} steps of {BATCH}, "
+        f"{res['examples_per_sec']:.0f} examples/s (bf16 tower, prefetch "
+        f"pipeline, loss read every step), auc {res['auc']:.4f}, last "
+        f"loss {res['last_loss']:.4f}; {n_new} new rows, {created} mf "
+        f"created, {n_changed} of {n_touched} touched rows changed "
+        f"({card})")
+
+    # the trained table's save_base serves
+    path = os.path.join(tmp, "trained.npz")
+    t0 = time.perf_counter()
+    n_saved = table.save_base(path)
+    save_s = time.perf_counter() - t0
+    srv = ServingModel(DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                              hidden=HIDDEN), desc, mf_dim=MF_DIM,
+                       capacity=CAPACITY, device="cuda")
+    if srv.load_base(path) != n_saved:
+        raise AssertionError("save_base rows did not all load")
+    srv.load_params(model.state_dict())
+    pred, ins_w = srv.predict(batches[0], return_valid=True)
+    live = pred[ins_w > 0]
+    if (pred.shape != (BATCH,) or not np.isfinite(pred).all()
+            or not ((live > 0) & (live < 1)).all()):
+        raise AssertionError("the trained table serves bad predictions")
+    del srv
+    log(f"save_base: {n_saved} rows in {save_s:.2f}s, served batch 0")
+
+    # kernel vs plain training, from the same start, f32 tower, TF32 off;
+    # the index work (prepare) runs once and both runs replay it
+    fresh = fresh_table()
+    prep_ms, idxs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        idxs.append(fresh.prepare(b))
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    rows_t = torch.from_numpy(np.nonzero(fresh._touched)[0]).to(cuda)
+
+    def run(ops):
+        m = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN,
+                   compute_dtype=torch.float32).to(cuda)
+        m.load_state_dict(init_params)
+        st = StepState(table=TableState(fresh.state.data.clone(),
+                                        fresh.state.ext),
+                       model=m, opt=default_tx(m.parameters()),
+                       auc=init_auc_state(device=cuda))
+        step = TrainStep(fresh.cfg, BATCH, NUM_SLOTS, ops=ops)
+        h2d, step_ms, losses = [], [], []
+        for i, (b, ix) in enumerate(zip(batches, idxs), start=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dv = make_device_batch(b, ix, cuda)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            stats = step(st, dv, seeded_generator(cuda, args.seed + 1, i))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            h2d.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t1) * 1e3)
+            losses.append(float(stats["loss"]))
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite loss: {losses}")
+        return st, h2d, step_ms, losses
+
+    sk, h2d_k, step_k, loss_k = run(K.KERNELS)
+    sp, h2d_p, step_p, loss_p = run(K.PLAIN)
+    row_err = check_close("train: touched table rows, kernels vs plain",
+                          sk.table.data[rows_t], sp.table.data[rows_t],
+                          STATE_RTOL, STATE_ATOL)
+    pk, pp = sk.model.state_dict(), sp.model.state_dict()
+    param_err = max(check_close(f"train: dense param {k}", pk[k], pp[k],
+                                STATE_RTOL, STATE_ATOL) for k in pk)
+    split = {"prepare_ms": float(np.median(prep_ms)),
+             "h2d_ms": float(np.median(h2d_k)),
+             "step_ms": float(np.median(step_k))}
+    step_p50 = sum(split.values())
+    log(f"train steps (f32 tower, synchronized): p50 "
+        f"{step_p50:.2f} ms = "
+        f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, "
+        f"{BATCH / step_p50 * 1e3:.0f} examples/s; device step p50 "
+        f"{split['step_ms']:.3f} ms through the kernels, "
+        f"{float(np.median(step_p)):.3f} ms through the plain versions; "
+        f"kernels vs plain max abs err rows {row_err:.3g}, params "
+        f"{param_err:.3g} ({card})")
+    # where one device step's time goes (kernel state, batch 0 again)
+    prof = profile_step(torch, TrainStep(fresh.cfg, BATCH, NUM_SLOTS), sk,
+                        make_device_batch(batches[0], idxs[0], cuda),
+                        seeded_generator(cuda, args.seed + 1, 0))
+    busy = sum(r[1] for r in prof)
+    log(f"train step profile (f32 tower): device busy {busy:.3f} ms in "
+        f"{sum(r[2] for r in prof)} launches, {busy / split['step_ms']:.1%} "
+        f"of the step p50; top: "
+        + "; ".join(f"{name[:48]} {ms:.3f} ms x{n}"
+                    for name, ms, n in prof[:8]) + f" ({card})")
+    details["train"] = {
+        "profile_device_ms": prof, "profile_busy_ms": busy,
+        "pass": res, "stage_ms": stages, "new_rows": n_new,
+        "mf_created": created, "rows_changed": n_changed,
+        "rows_touched": n_touched, "saved_rows": n_saved,
+        "save_base_s": save_s, "launches": launches,
+        "prepare_ms": prep_ms, "h2d_ms": h2d_k, "step_ms": step_k,
+        "plain_h2d_ms": h2d_p, "plain_step_ms": step_p,
+        "loss_kernels": loss_k, "loss_plain": loss_p,
+        "step_p50_ms": step_p50, "split_p50_ms": split,
+        "row_max_abs_err": row_err, "param_max_abs_err": param_err}
+    return launches
 
 
 def main() -> int:
@@ -243,12 +487,14 @@ def main() -> int:
          "bound_ms": (2 * u_real * feat * 4 + u_real * 4) / PEAK_BYTES * 1e3,
          "bound_by": "bytes"}
 
-    values = expand_pull(pull_values(ref, MF_DIM), dev.gather_idx)
+    # the path pools the batch's real keys (the key bucket's padded tail
+    # is dropped before the expand, see train/step.py _expand_pool)
+    k_real = b0.num_keys
+    values = expand_pull(pull_values(ref, MF_DIM), dev.gather_idx[:k_real])
     values = values.contiguous()
-    segs = dev.segments.contiguous()
+    segs = dev.segments[:k_real].contiguous()
     keep = K.show_clk_keep(values, 0.2, 1.0, 0.96).float()
     n_seg = BATCH * NUM_SLOTS
-    k_real = b0.num_keys
     pool_err = 0.0
     for mode, off, pad in ((K.CVM_NONE, 2, 0.0), (K.CVM_FULL, 2, 0.0),
                            (K.CVM_SHOW, 2, 0.25), (K.CVM_CONV, 3, 0.25)):
@@ -286,9 +532,80 @@ def main() -> int:
         values.data_ptr(), seg_s.data_ptr(), keep_s.data_ptr(),
         out_s.data_ptr(), values.shape[0], n_seg, d, d, K.CVM_FULL, 2, 0,
         0.0, stream), flush)
-    log(f"kernels vs plain: gather_rows exact; pool_cvm 4 modes max abs err "
+
+    # segment_gather at the pool backward's shapes: the output grad of
+    # the pooled [B, S, 3 + MF] block with its two head columns sliced
+    # off (a strided view) and the batch show/clk head; the path passes
+    # no mask (need_filter off), the check adds one as well
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    g_out = torch.randn((n_seg, d), generator=gen, device="cuda")
+    src = g_out[:, 2:]
+    head = dev.show_clk.contiguous()
+    for mode, extra in (("gather", ()),
+                        ("fused", (head, None, BATCH, NUM_SLOTS, 0)),
+                        ("fused, masked", (head, keep, BATCH, NUM_SLOTS, 1))):
+        got = K.segment_gather(src, segs, *extra)
+        want = K.segment_gather_plain(src, segs, *extra)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"segment_gather ({mode} mode) differs "
+                                 f"from its plain version")
+    w = src.shape[1]
+    n_src = int(torch.unique(segs[valid]).numel())
+    live_ids = torch.where(valid, segs.long(), n_seg)
+    src_z = torch.cat([src, src.new_zeros((1, w))])
+    sg = {"name": "segment_gather", "route": "cuda",
+          "source": "paddlebox_tpu_torch/csrc/segment_gather.cu",
+          "replaces": "paddlebox_tpu/ops/pallas_kernels.py:531",
+          "max_abs_err": 0.0,
+          "ms": time_ms(torch, lambda: K.segment_gather(
+              src, segs, head, None, BATCH, NUM_SLOTS), flush),
+          "plain_ms": time_ms(torch, lambda: K.segment_gather_plain(
+              src, segs, head, None, BATCH, NUM_SLOTS), flush),
+          "library_ms": time_ms(
+              torch, lambda: torch.index_select(src_z, 0, live_ids), flush),
+          # ids + head + the distinct src rows read, [K, 2 + w] written
+          "bound_ms": (k_real * 4 + head.numel() * 4 + n_src * w * 4
+                       + k_real * (2 + w) * 4) / PEAK_BYTES * 1e3,
+          "bound_by": "bytes"}
+    details["segment_gather_gather_mode_ms"] = time_ms(
+        torch, lambda: K.segment_gather(src, segs), flush)
+
+    # scatter_add_update at the push's shapes: the batch's unique rows
+    # into the [C, 16] table (copies: the serving table stays as it is)
+    rows_u = dev.unique_rows.contiguous()
+    u_pad = rows_u.shape[0]
+    deltas = torch.randn((u_pad, feat), generator=gen, device="cuda") * 1e-3
+    vals_k = table[:CAPACITY].clone()
+    vals_p = vals_k.clone()
+    K.scatter_add_update(vals_k, rows_u, deltas)
+    K.scatter_add_update_plain(vals_p, rows_u, deltas)
+    torch.cuda.synchronize()
+    if not torch.equal(vals_k, vals_p):
+        raise AssertionError("scatter_add_update differs from its plain "
+                             "version")
+    kept = (rows_u >= 0) & (rows_u < CAPACITY)
+    rows_kept, deltas_kept = rows_u[kept].long(), deltas[kept]
+    sa = {"name": "scatter_add_update", "route": "cuda",
+          "source": "paddlebox_tpu_torch/csrc/scatter_add_update.cu",
+          "replaces": "paddlebox_tpu/ops/pallas_index.py:412",
+          "max_abs_err": 0.0,
+          "ms": time_ms(torch, lambda: K.scatter_add_update(
+              vals_k, rows_u, deltas), flush),
+          "plain_ms": time_ms(torch, lambda: K.scatter_add_update_plain(
+              vals_p, rows_u, deltas), flush),
+          "library_ms": time_ms(torch, lambda: vals_p.index_add_(
+              0, rows_kept, deltas_kept), flush),
+          # every id read; each kept row: its delta and table row read,
+          # the table row written
+          "bound_ms": (u_pad * 4 + u_real * 3 * feat * 4) / PEAK_BYTES * 1e3,
+          "bound_by": "bytes"}
+    del vals_k, vals_p, g_out, src_z
+    log(f"kernels vs plain: gather_rows, segment_gather (3 modes), "
+        f"scatter_add_update exact; pool_cvm 4 modes max abs err "
         f"{pool_err:.3g}")
-    for r in (g, p):
+    for r in (g, p, sg, sa):
         log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({card})")
@@ -321,9 +638,10 @@ def main() -> int:
         ix = snap.table.prepare_eval(b)
         dv = make_device_batch(b, ix, srv.device)
         with torch.inference_mode():
+            nk = b.num_keys
             v = expand_pull(pull_values(K.gather_rows_plain(
-                table, dv.unique_rows), MF_DIM), dv.gather_idx)
-            pooled = K.pool_cvm_plain(v, dv.segments, None, BATCH,
+                table, dv.unique_rows), MF_DIM), dv.gather_idx[:nk])
+            pooled = K.pool_cvm_plain(v, dv.segments[:nk], None, BATCH,
                                       NUM_SLOTS)
             want = torch.sigmoid(snap.model(pooled, dv.dense)).cpu().numpy()
         err = max(err, float(np.abs(pred - want).max()))
@@ -353,17 +671,23 @@ def main() -> int:
         f"ms, {BATCH / p50 * 1e3:.0f} examples/s; p50 split "
         f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
         f"max |pred - plain| {err:.3g} ({card})")
-    g["launches"] = launches["gather_rows"]
-    p["launches"] = launches["pool_cvm"]
     details.update(predict_ms=lat, predict_p50_ms=p50, split_p50_ms=split,
-                   pred_max_abs_err=err, kernels=[g, p])
+                   pred_max_abs_err=err, serve_launches=launches)
+
+    # ---- phase 5: the training path ----
+    train_launches = train_phase(torch, args, card, desc, records, batches,
+                                 details)
+    kernels = [g, p, sg, sa]
+    for r in kernels:
+        r["launches"] = train_launches[r["name"]]
+    details["kernels"] = kernels
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out + ".json", "w") as fh:
         json.dump(details, fh, indent=1, default=str)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in (g, p)]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

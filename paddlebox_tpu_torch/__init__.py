@@ -7,8 +7,12 @@ for the CPU; on the CPU every kernel wrapper takes its plain PyTorch
 version.
 """
 
+from paddlebox_tpu_torch.data.dataset import InMemoryDataset
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.serving import ServingModel
+from paddlebox_tpu_torch.train.step import TrainStep
+from paddlebox_tpu_torch.train.trainer import Trainer
 
-__all__ = ["DeepFM", "EmbeddingTable", "ServingModel"]
+__all__ = ["DeepFM", "EmbeddingTable", "InMemoryDataset", "ServingModel",
+           "TrainStep", "Trainer"]

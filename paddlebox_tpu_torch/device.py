@@ -20,3 +20,13 @@ def resolve_device(device: Union[str, torch.device] = "cuda"
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def seeded_generator(device: torch.device, seed: int,
+                     counter: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, counter), so a run
+    that replays the same counters draws the same numbers (Philox on the
+    card, the Mersenne twister on the CPU)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed & 0xFFFFFFFF) << 32) | (counter & 0xFFFFFFFF))
+    return g

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("gather_rows", "pool_cvm")
+KERNELS = ("gather_rows", "pool_cvm", "segment_gather",
+           "scatter_add_update")
 
 _lock = threading.Lock()
 _fns: Dict[str, object] = {}

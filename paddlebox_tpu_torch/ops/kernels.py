@@ -12,7 +12,7 @@ failed build or launch raises. Each wrapper counts its launches in its
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -31,6 +31,9 @@ _I32 = ctypes.c_int
 _GATHER_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]
 _POOL_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
               ctypes.c_float, _P]
+_SEG_GATHER_ARGS = [_P, _I64, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                    _I32, _I32, _P]
+_SCATTER_ADD_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -53,16 +56,6 @@ def show_clk_keep(values: torch.Tensor, show_coeff: float, clk_coeff: float,
     """The show/clk significance filter (QuantFilter), bool [K]."""
     show, clk = values[:, 0], values[:, 1]
     return ((show - clk) * show_coeff + clk * clk_coeff) >= threshold
-
-
-def keep_or_ones(values: torch.Tensor, need_filter: bool, show_coeff: float,
-                 clk_coeff: float, threshold: float) -> torch.Tensor:
-    """bool [K] keep mask: the show/clk filter when requested, all-ones
-    otherwise."""
-    if need_filter:
-        return show_clk_keep(values, show_coeff, clk_coeff, threshold)
-    return torch.ones(values.shape[0], dtype=torch.bool,
-                      device=values.device)
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +156,12 @@ def pool_cvm_plain(values: torch.Tensor, segments: torch.Tensor,
                    num_slots: int, cvm_mode: int = CVM_FULL,
                    cvm_offset: int = 2, ets: int = 0,
                    pad_value: float = 0.0) -> torch.Tensor:
-    """Plain version of :func:`pool_cvm`: ``index_add_`` over the
-    segments (ids outside [0, B*S) fall into a discarded bin), then
-    ``pad_value`` and the CVM epilogue."""
+    """Plain version of :func:`pool_cvm`: an accumulating ``index_put_``
+    over the segments (ids outside [0, B*S) fall into a discarded bin),
+    then ``pad_value`` and the CVM epilogue. The accumulating put sorts
+    the ids stably and sums each segment's keys in key order, as the
+    kernel does, so the two agree bit for bit on the card (``index_add_``
+    would add in atomic order there, which differs from run to run)."""
     k, d = values.shape
     n = batch_size * num_slots
     cvm_out_width(d, cvm_mode, cvm_offset, ets)
@@ -175,7 +171,8 @@ def pool_cvm_plain(values: torch.Tensor, segments: torch.Tensor,
     if keep is not None:
         v = torch.where(keep[:, None] != 0, v, 0.0)
     pooled = torch.zeros((n + 1, d), dtype=torch.float32,
-                         device=values.device).index_add_(0, seg, v)[:n]
+                         device=values.device).index_put_(
+                             (seg,), v, accumulate=True)[:n]
     out = _cvm_slice(_cvm_transform_wide(pooled + pad_value, cvm_mode),
                      cvm_mode, cvm_offset, ets)
     return out.reshape(batch_size, num_slots, -1).to(values.dtype)
@@ -238,3 +235,154 @@ def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
 
 
 pool_cvm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Segment gather (the pool backward)
+# ---------------------------------------------------------------------------
+
+def segment_gather_plain(src: torch.Tensor, ids: torch.Tensor,
+                         head: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         batch_size: int = 0, num_slots: int = 0,
+                         ets: int = 0) -> torch.Tensor:
+    """Plain version of :func:`segment_gather`: an index into ``src``
+    with a zero row appended for the ids outside [0, N), then the
+    epilogue's head, zeros and mask."""
+    n, w = src.shape
+    idl = ids.long()
+    ok = (idl >= 0) & (idl < n)
+    live = ok if mask is None else ok & (mask != 0)
+    flat = torch.cat([src, src.new_zeros((1, w))])
+    out = flat[torch.where(ok, idl, n)]
+    if head is not None:
+        ins = (torch.where(ok, idl, 0) // num_slots).clamp_max(
+            batch_size - 1)
+        out = torch.cat([head[ins], src.new_zeros((ids.shape[0], ets)),
+                         out], dim=1)
+    return torch.where(live[:, None], out, 0.0)
+
+
+def segment_gather(src: torch.Tensor, ids: torch.Tensor,
+                   head: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None,
+                   batch_size: int = 0, num_slots: int = 0,
+                   ets: int = 0) -> torch.Tensor:
+    """src [N, w] f32 (rows may be strided, columns contiguous), ids [K]
+    int32 → out [K, w] = src[ids] with zero rows for ids outside [0, N)
+    (``csrc/segment_gather.cu``). Exact.
+
+    With ``head`` [batch_size, H] f32 it writes the fused seqpool grad
+    row instead, out [K, H + ets + w] = [head[min(ids // num_slots,
+    batch_size - 1)] | zeros(ets) | src[ids]]. ``mask`` [K] f32 zeroes
+    the rows where it is 0 (in both modes)."""
+    if src.device.type == "cpu" and ids.device.type == "cpu":
+        return segment_gather_plain(src, ids, head, mask, batch_size,
+                                    num_slots, ets)
+    extra = [t for t in (head, mask) if t is not None]
+    _require_cuda("segment_gather", ids, *extra)
+    if src.device != ids.device:
+        raise ValueError(f"segment_gather: tensors on {ids.device} and "
+                         f"{src.device}")
+    if (src.dtype != torch.float32 or ids.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in extra)):
+        raise TypeError("segment_gather: needs float32 src/head/mask and "
+                        "int32 ids")
+    if src.dim() != 2 or ids.dim() != 1 or (src.shape[1] > 1
+                                            and src.stride(1) != 1):
+        raise ValueError("segment_gather: src [N, w] with contiguous "
+                         "columns and ids [K]")
+    n, w = src.shape
+    k = ids.shape[0]
+    n_head = 0
+    if head is not None:
+        if head.dim() != 2 or head.shape[0] != batch_size \
+                or batch_size < 1 or num_slots < 1:
+            raise ValueError("segment_gather: head [batch_size, H] needs "
+                             "batch_size, num_slots >= 1")
+        n_head = head.shape[1]
+    elif ets:
+        raise ValueError("segment_gather: ets needs the head epilogue")
+    if mask is not None and mask.shape != (k,):
+        raise ValueError("segment_gather: mask [K]")
+    out = torch.empty((k, n_head + ets + w), dtype=torch.float32,
+                      device=src.device)
+    if out.numel() == 0:
+        return out
+    ld = src.stride(0) if n else w
+    fn = _build.function("segment_gather", "pbx_segment_gather",
+                         _SEG_GATHER_ARGS)
+    _build.check(fn(src.data_ptr(), ld, ids.data_ptr(),
+                    None if head is None else head.data_ptr(),
+                    None if mask is None else mask.data_ptr(),
+                    out.data_ptr(), k, n, w, n_head, ets, max(num_slots, 1),
+                    max(batch_size, 1), _stream(ids)), "segment_gather")
+    segment_gather.launches += 1
+    return out
+
+
+segment_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Unique-row scatter-add (the push write-back)
+# ---------------------------------------------------------------------------
+
+def scatter_add_update_plain(values: torch.Tensor, rows: torch.Tensor,
+                             deltas: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`scatter_add_update`: ``index_add_`` of
+    the rows inside [0, C)."""
+    r = rows.long()
+    keep = (r >= 0) & (r < values.shape[0])
+    return values.index_add_(0, r[keep], deltas[keep])
+
+
+def scatter_add_update(values: torch.Tensor, rows: torch.Tensor,
+                       deltas: torch.Tensor) -> torch.Tensor:
+    """values [C, F] f32 += deltas [U, F] at rows [U] int32, IN PLACE
+    (``csrc/scatter_add_update.cu``); rows must be duplicate-free inside
+    [0, C), rows outside it are dropped. Returns ``values``. Exact."""
+    if values.device.type == "cpu" and rows.device.type == "cpu":
+        return scatter_add_update_plain(values, rows, deltas)
+    _require_cuda("scatter_add_update", values, rows, deltas)
+    if (values.dtype != torch.float32 or deltas.dtype != torch.float32
+            or rows.dtype != torch.int32):
+        raise TypeError("scatter_add_update: needs float32 values/deltas "
+                        "and int32 rows")
+    if values.dim() != 2 or rows.dim() != 1 or deltas.shape != (
+            rows.shape[0], values.shape[1]):
+        raise ValueError("scatter_add_update: values [C, F], rows [U], "
+                         "deltas [U, F]")
+    u, f = deltas.shape
+    if u == 0 or f == 0:
+        return values
+    vec = 4 if (f % 4 == 0 and values.data_ptr() % 16 == 0
+                and deltas.data_ptr() % 16 == 0) else 1
+    fn = _build.function("scatter_add_update", "pbx_scatter_add_update",
+                         _SCATTER_ADD_ARGS)
+    _build.check(fn(values.data_ptr(), rows.data_ptr(), deltas.data_ptr(),
+                    u, values.shape[0], f, vec, _stream(values)),
+                 "scatter_add_update")
+    scatter_add_update.launches += 1
+    return values
+
+
+scatter_add_update.launches = 0
+
+
+class KernelSet(NamedTuple):
+    """The device functions the training and serving paths call.
+    ``KERNELS`` is what every entry point uses; ``PLAIN`` exists so a
+    check on the card can run the same path through the plain versions
+    (it is passed explicitly, never chosen by a device test)."""
+
+    gather_rows: Callable
+    pool_cvm: Callable
+    segment_gather: Callable
+    scatter_add_update: Callable
+
+
+KERNELS = KernelSet(gather_rows, pool_cvm, segment_gather,
+                    scatter_add_update)
+PLAIN = KernelSet(gather_rows_plain, pool_cvm_plain, segment_gather_plain,
+                  scatter_add_update_plain)

@@ -1,8 +1,12 @@
 """Host key→row index (copy of the python ``PyKV`` in
 ``paddlebox_tpu/ps/kv.py``): uint64 keys → int32 rows with a hard row
-capacity. The serving table only assigns rows when it loads a file and
-only reads them while it answers queries, so no release/free-list is
-carried over.
+capacity. Rows are handed out densely from 0 and never released: the
+port has no shrink yet, so no free list is carried over.
+
+``assign_unique`` is the training path's per-batch dedup + assign. It
+yields uniques, and allocates new rows, in FIRST-OCCURRENCE order, as the
+reference's native index does (``NativeKV.assign_unique``), so a batch's
+``unique_rows`` match the reference row for row.
 """
 
 from __future__ import annotations
@@ -14,6 +18,19 @@ import numpy as np
 
 class TableFullError(RuntimeError):
     pass
+
+
+def dedup_first_seen(keys: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dedup ``keys`` in first-seen order → (uniq, first_idx, inv), the
+    three-pass formulation of ``_dedup_first_seen_py`` in
+    ``paddlebox_tpu/ps/table.py``."""
+    uniq_s, first_s, inv_s = np.unique(keys, return_index=True,
+                                       return_inverse=True)
+    order = np.argsort(first_s, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order), dtype=np.int64)
+    return uniq_s[order], first_s[order], rank[inv_s]
 
 
 class PyKV:
@@ -40,6 +57,14 @@ class PyKV:
                 m[k] = r
             rows[i] = r
         return rows
+
+    def assign_unique(self, keys: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Dedup + assign → (rows of the uniques, inverse int32): uniques
+        and new rows come in first-occurrence order."""
+        keys = np.ascontiguousarray(keys, np.uint64)
+        uniq, _, inv = dedup_first_seen(keys)
+        return self.assign(uniq), inv.astype(np.int32)
 
     def lookup(self, keys: np.ndarray) -> np.ndarray:
         """Rows for ``keys``; unknown keys → -1."""

@@ -1,15 +1,16 @@
-"""Embedding table, serving half — counterpart of
-``paddlebox_tpu/ps/table.py``.
+"""Embedding table — counterpart of ``paddlebox_tpu/ps/table.py``.
 
 The device side is one plain row-major ``[C+1, 8+mf_dim+ext]`` float32
 tensor (row C is a permanent zero sentinel that padding reads); the
 128-lane packed line layout of the reference is a TPU artefact and is not
 carried over. The key→row mapping is a host index; per-batch key dedup
-happens on the host, so the device work of a pull is one row gather
-(``ops.kernels.gather_rows``) plus two slicing/indexing steps.
+and row assignment happen on the host, so the device work of a pull is
+one row gather (``ops.kernels.gather_rows``) plus slicing, and the device
+work of a push is the Adagrad row math plus one in-place unique-row
+scatter-add of ``new − old`` (``ops.kernels.scatter_add_update``).
 
-Table state crosses from the JAX package to the port through the same
-``.npz`` files ``EmbeddingTable.save_base``/``save_delta`` write there.
+Table state crosses between the two packages through the ``.npz`` files
+``EmbeddingTable.save_base``/``save_delta`` write in either.
 """
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ from __future__ import annotations
 import hashlib
 import logging
 import threading
-from typing import Mapping, NamedTuple, Optional, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch.data.batch import SlotBatch
-from paddlebox_tpu_torch.device import resolve_device
-from paddlebox_tpu_torch.ops.kernels import gather_rows
+from paddlebox_tpu_torch.device import resolve_device, seeded_generator
+from paddlebox_tpu_torch.ops.kernels import KERNELS, KernelSet
 from paddlebox_tpu_torch.ps.kv import PyKV
-from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig, opt_ext_width
+from paddlebox_tpu_torch.ps.sgd import (RowState, SparseSGDConfig,
+                                        opt_ext_width, sparse_update)
 
 log = logging.getLogger(__name__)
 
@@ -50,8 +52,8 @@ def next_bucket(minimum: int, need: int) -> int:
 
 def fill_oob_pads(unique_rows: np.ndarray, u: int, capacity: int) -> None:
     """Fill positions [u:] with DISTINCT out-of-bounds row ids (>
-    capacity): gathers through them read the zero sentinel row, and they
-    never collide with real rows or each other."""
+    capacity): gathers through them read the zero sentinel row, scatters
+    drop them, and they never collide with real rows or each other."""
     n = len(unique_rows) - u
     unique_rows[u:] = capacity + np.arange(1, n + 1, dtype=np.int32)
 
@@ -92,8 +94,13 @@ class TableState:
     """The device table: ``data`` [C+1, 8+mf_dim+ext] f32, row-major.
     Columns 0..7 = show, clk, delta_score, slot, embed_w, embed_g2sum,
     embedx_g2sum, mf_size; then embedx_w [mf_dim]; then the optimizer
-    extension [ext]. Row C is the zero sentinel. A state is never
-    written after construction: every load builds a new one."""
+    extension [ext]. Row C is the zero sentinel.
+
+    Training writes ``data`` IN PLACE (``apply_push``); the slot column
+    is not maintained there (slot is host metadata,
+    ``EmbeddingTable.slot_host``). A load always builds a new state, so
+    a serving snapshot, which holds the state of a table that only ever
+    loads, never shares a tensor that training writes."""
 
     def __init__(self, data: torch.Tensor, ext: int = 0) -> None:
         self.data = data
@@ -103,6 +110,10 @@ class TableState:
     def from_logical(cls, data: np.ndarray, ext: int,
                      device: torch.device) -> "TableState":
         return cls(torch.from_numpy(data).to(device), ext)
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0] - 1
 
     @property
     def feat(self) -> int:
@@ -119,11 +130,11 @@ def init_table_state(capacity: int, mf_dim: int, ext: int,
                                   dtype=torch.float32, device=device), ext)
 
 
-def gather_full_rows(state: TableState,
-                     unique_rows: torch.Tensor) -> torch.Tensor:
+def gather_full_rows(state: TableState, unique_rows: torch.Tensor,
+                     ops: KernelSet = KERNELS) -> torch.Tensor:
     """Complete feature rows for the batch's unique rows → [U, F]; pad
     ids (> C) read the zero sentinel row."""
-    return gather_rows(state.data, unique_rows)
+    return ops.gather_rows(state.data, unique_rows)
 
 
 def pull_values(rows_full: torch.Tensor,
@@ -140,17 +151,66 @@ def pull_values(rows_full: torch.Tensor,
 def expand_pull(values_u: torch.Tensor,
                 gather_idx: torch.Tensor) -> torch.Tensor:
     """[U, D] unique values → [K, D] per-key-occurrence values; indices
-    past the end read the last row (the reference's clamped gather)."""
+    past the end read the last row (the reference's clamped gather). Its
+    autograd backward is the per-unique-row grad merge (an accumulating
+    index_put)."""
     u = values_u.shape[0]
     return values_u[gather_idx.long().clamp(0, u - 1)]
 
 
+def apply_push(state: TableState, unique_rows: torch.Tensor,
+               unique_grads: torch.Tensor, cfg: SparseSGDConfig,
+               generator: Optional[torch.Generator] = None,
+               rows_full: Optional[torch.Tensor] = None,
+               init: Optional[torch.Tensor] = None,
+               ops: KernelSet = KERNELS) -> TableState:
+    """In-table optimizer on merged grads (dy_mf_update_value,
+    optimizer.cuh.h:80) and its write-back, IN PLACE.
+
+    ``unique_grads`` [U_pad, 3+mf_dim] = [g_show, g_clk, g_embed,
+    g_embedx…]; ``rows_full`` reuses the rows gathered for the pull. The
+    write is one unique-row scatter-add of ``new − old`` (the reference
+    writes ``old + (new − old)`` too, which can differ from ``new`` by
+    one ulp) into rows [0, C): the pads' out-of-bounds ids drop and the
+    sentinel row C stays zero. ``init`` / ``generator`` feed lazy mf
+    creation (see ``sgd.adagrad_update``). Returns ``state``."""
+    g = unique_grads
+    cap = state.capacity
+    # strictly < capacity: real rows are always below the sentinel
+    touched = unique_rows < cap
+    if rows_full is None:
+        rows_full = gather_full_rows(state, unique_rows, ops)
+    mf_end = NUM_FIXED + state.mf_dim
+    rows = RowState(
+        show=rows_full[:, 0], clk=rows_full[:, 1],
+        delta_score=rows_full[:, 2],
+        embed_w=rows_full[:, 4], embed_g2sum=rows_full[:, 5],
+        embedx_w=rows_full[:, NUM_FIXED:mf_end],
+        embedx_g2sum=rows_full[:, 6],
+        mf_size=rows_full[:, 7],
+        opt_ext=rows_full[:, mf_end:])
+    new = sparse_update(rows, g[:, 0], g[:, 1], g[:, 2],
+                        g[:, 3:3 + state.mf_dim], touched, cfg, init=init,
+                        generator=generator)
+    new_mat = torch.cat([
+        new.show[:, None], new.clk[:, None], new.delta_score[:, None],
+        rows_full[:, 3:4], new.embed_w[:, None], new.embed_g2sum[:, None],
+        new.embedx_g2sum[:, None], new.mf_size[:, None], new.embedx_w,
+        new.opt_ext], dim=1)
+    # where, not multiply: an untouched row holding NaN would otherwise
+    # turn its masked-out delta into NaN (0 * NaN)
+    delta = torch.where(touched[:, None], new_mat - rows_full, 0.0)
+    ops.scatter_add_update(state.data[:cap], unique_rows.contiguous(),
+                           delta.contiguous())
+    return state
+
+
 class EmbeddingTable:
-    """Single-shard embedding table, read side (the serving consumer of
-    the reference's save files)."""
+    """Single-shard embedding PS facade: per-batch row assignment for
+    training, read-only lookups for serving, and the save/load files."""
 
     def __init__(self, mf_dim: int = 8, capacity: int = 1 << 20,
-                 cfg: Optional[SparseSGDConfig] = None,
+                 cfg: Optional[SparseSGDConfig] = None, seed: int = 0,
                  unique_bucket_min: int = 1024,
                  device: Union[str, torch.device] = "cuda") -> None:
         self.device = resolve_device(device)
@@ -161,15 +221,24 @@ class EmbeddingTable:
         self.index = PyKV(capacity)
         self.state = init_table_state(capacity, mf_dim, self.opt_ext,
                                       self.device)
+        self.seed = seed
+        self._push_count = 0
         self.unique_bucket_min = unique_bucket_min
-        # serializes index replacement against readers of this table
+        # rows assigned since the last clearing save (the delta set)
+        self._touched = np.zeros(capacity + 1, dtype=bool)
+        # per-row slot id: HOST metadata (the FeatureValue slot field).
+        # Slot never changes for a key and the host sees every key at
+        # assign time, so no device work tracks it.
+        self.slot_host = np.zeros(capacity + 1, dtype=np.int16)
+        # serializes host-side index/touched mutation across threads
+        # (prefetch prepare, save, load)
         self.host_lock = threading.Lock()
 
-    # ---- per-batch host prep (dedup + row lookup) ----
+    # ---- per-batch host prep (dedup + row assignment / lookup) ----
     def _build_index(self, batch: SlotBatch, rows: np.ndarray,
                      inv: np.ndarray) -> PullIndex:
-        """Padding/bucketing tail of prepare_eval: pad positions (where
-        padded keys also point) get distinct out-of-bounds rows."""
+        """Padding/bucketing tail of prepare/prepare_eval: pad positions
+        (where padded keys also point) get distinct out-of-bounds rows."""
         u = len(rows)
         cap = next_bucket(self.unique_bucket_min, u + 1)
         unique_rows = np.empty(cap, dtype=np.int32)
@@ -180,6 +249,26 @@ class EmbeddingTable:
         gather_idx[:batch.num_keys] = inv
         return PullIndex(unique_rows, gather_idx, u)
 
+    def record_slots(self, rows: np.ndarray, inv: np.ndarray,
+                     slot_of_key: np.ndarray) -> None:
+        """Record each unique row's slot (first key occurrence wins via
+        the reversed assignment). Caller holds host_lock."""
+        self.slot_host[rows[inv[::-1]]] = slot_of_key[::-1]
+
+    def prepare(self, batch: SlotBatch) -> PullIndex:
+        """Training prepare: dedup the batch's keys and assign rows to
+        new ones (first-occurrence order), mark them touched and record
+        their slots."""
+        valid = batch.keys[:batch.num_keys]
+        with self.host_lock:
+            rows, inv = self.index.assign_unique(valid)
+            self._touched[rows] = True
+            self.record_slots(
+                rows, inv,
+                (batch.segments[:batch.num_keys]
+                 % batch.num_slots).astype(np.int16))
+        return self._build_index(batch, rows, inv)
+
     def prepare_eval(self, batch: SlotBatch) -> PullIndex:
         """Read-only prepare: unknown keys map to the zero sentinel row
         instead of allocating (no index mutation)."""
@@ -187,6 +276,12 @@ class EmbeddingTable:
         with self.host_lock:
             rows, inv = self.index.lookup_unique(valid, self.capacity)
         return self._build_index(batch, rows, inv)
+
+    def next_generator(self) -> torch.Generator:
+        """A fresh generator on the table's device for one push (the
+        counterpart of the reference's ``next_rng`` fold-in)."""
+        self._push_count += 1
+        return seeded_generator(self.device, self.seed, self._push_count)
 
     def host_pull(self, keys: np.ndarray,
                   data: Optional[np.ndarray] = None) -> np.ndarray:
@@ -211,11 +306,55 @@ class EmbeddingTable:
         h.update(np.ascontiguousarray(data[rows[order]]).tobytes())
         return h.hexdigest()
 
-    # ---- loading the reference's save files ----
+    # ---- save files (box_wrapper.cc:1383-1415) ----
+    def _gather_host(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
+        """Per-field host dict of ``rows`` (the save-file format). The
+        slot field comes from host metadata."""
+        idx = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+        sub = self.state.data.index_select(0, idx).cpu().numpy()
+        mf_end = NUM_FIXED + self.mf_dim
+        out = {f: (sub[:, NUM_FIXED:mf_end] if f == "embedx_w"
+                   else sub[:, FIELD_COL[f]]) for f in FIELDS}
+        out["slot"] = self.slot_host[rows].astype(np.float32)
+        if self.opt_ext:
+            out["opt_ext"] = sub[:, mf_end:]
+        return out
+
+    def save_base(self, path: str, clear_touched: bool = True) -> int:
+        """Full model dump. Returns rows saved. ``clear_touched=False``
+        keeps the delta set (a mid-pass snapshot, while a prefetch
+        pipeline may have assigned rows not yet pushed)."""
+        with self.host_lock:
+            keys, rows = self.index.items()
+            if clear_touched:
+                self._touched[rows] = False
+        np.savez_compressed(path, keys=keys, **self._gather_host(rows))
+        return len(keys)
+
+    def save_delta(self, path: str, clear_touched: bool = True) -> int:
+        """Incremental dump of the rows touched since the last clearing
+        save. Returns rows saved."""
+        with self.host_lock:
+            keys, rows = self.index.items()
+            mask = self._touched[rows]
+            keys, rows = keys[mask], rows[mask]
+            if clear_touched:
+                self._touched[rows] = False
+        np.savez_compressed(path, keys=keys, **self._gather_host(rows))
+        return len(keys)
+
+    def clear_touched_flags(self) -> None:
+        """Post-commit half of a staged export: a ``save_*(clear_touched=
+        False)`` followed by this equals the plain clearing save. Call
+        only between passes."""
+        with self.host_lock:
+            self._touched[:] = False
+
+    # ---- loading save files ----
     def _insert_file_rows(self, data: np.ndarray, rows: np.ndarray,
                           blob) -> None:
-        """Write a save file's field blocks (all but slot, which the
-        device table does not keep) into ``data`` at ``rows``."""
+        """Write a save file's field blocks (all but slot, which is host
+        metadata) into ``data`` at ``rows``."""
         mf_end = NUM_FIXED + self.mf_dim
         for f in FIELDS:
             if f == "slot":
@@ -237,7 +376,8 @@ class EmbeddingTable:
         """Load a save_base/save_delta ``.npz`` (or the same mapping in
         memory, see ``convert.table_rows_from_logical``); ``merge=True``
         keeps existing rows (delta apply), else the table starts empty.
-        Sharded-format saves load too. Returns the rows in the file."""
+        Sharded-format saves load too. Returns the rows in the file. The
+        table gets a NEW state either way."""
         if isinstance(path, Mapping):
             blob = path
         else:
@@ -250,9 +390,12 @@ class EmbeddingTable:
                 data = self.state.data.cpu().numpy().copy()
             else:
                 self.index = PyKV(self.capacity)
+                self._touched[:] = False
+                self.slot_host[:] = 0
                 data = np.zeros((self.capacity + 1, self.state.feat),
                                 np.float32)
             rows = self.index.assign(keys)
+            self.slot_host[rows] = np.asarray(blob["slot"]).astype(np.int16)
             self._insert_file_rows(data, rows, blob)
             self.state = TableState.from_logical(data, self.opt_ext,
                                                  self.device)

@@ -130,8 +130,9 @@ class ServingModel:
     # ---- snapshot materialization (copy-on-publish) ----
     def _materialize(self) -> ServingSnapshot:
         """Freeze the loader's current state: a private copy of the key
-        index (the device state is never written after a load, so it is
-        shared) and one host mirror of the rows."""
+        index (the loader table is private to this model and never
+        trained, and every load builds it a new device state, so that
+        state is shared) and one host mirror of the rows."""
         loader = self.table
         with loader.host_lock:
             keys, rows = loader.index.items()

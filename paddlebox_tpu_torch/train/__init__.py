@@ -1,4 +1,7 @@
-from paddlebox_tpu_torch.train.step import (DeviceBatch, ctr_forward,
+from paddlebox_tpu_torch.train.step import (DeviceBatch, StepState,
+                                            TrainStep, ctr_forward,
                                             make_device_batch)
+from paddlebox_tpu_torch.train.trainer import NanInfError, Trainer
 
-__all__ = ["DeviceBatch", "ctr_forward", "make_device_batch"]
+__all__ = ["DeviceBatch", "NanInfError", "StepState", "TrainStep",
+           "Trainer", "ctr_forward", "make_device_batch"]

@@ -5,15 +5,18 @@ jax nor the JAX package, so they run on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the gather is exact; the pool sums in key order where the
-plain ``index_add_`` uses atomics, so it holds rtol 3e-5 / atol 1e-6.
+Tolerances: the gathers and the scatter-add are exact; the pool holds
+the pooling-forward class, rtol 3e-5 / atol 1e-6, and a training run on
+the card against the same run on the CPU (other summation orders in the
+tower) holds the ragged train-state class, rtol 2e-4 / atol 2e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from paddlebox_tpu_torch import DeepFM, ServingModel
+from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, InMemoryDataset,
+                                 ServingModel, Trainer)
 from paddlebox_tpu_torch.convert import table_rows_from_logical
 from paddlebox_tpu_torch.data import (BatchBuilder, DataFeedDesc, SlotDef,
                                       SlotRecord)
@@ -108,3 +111,128 @@ def test_serving_on_card_matches_cpu(cuda):
             [1, 1] if dev == "cuda" else [0, 0])
     np.testing.assert_allclose(preds["cuda"], preds["cpu"], rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [9, 3])      # widths not divisible by 4
+def test_segment_gather_exact(cuda, w):
+    rng = np.random.default_rng(w)
+    n, k = 700, 5000
+    block = torch.from_numpy(
+        rng.normal(size=(n, w + 2)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(
+        rng.integers(-3, n + 5, size=k).astype(np.int32)).to(cuda)
+    for src in (block[:, :w], block[:, 2:].contiguous()):   # strided too
+        got = tk.segment_gather(src, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.segment_gather_plain(src, ids))
+    # the fused seqpool-grad epilogue: head, ets zeros, mask
+    b, s = 70, 10
+    head = torch.from_numpy(
+        rng.normal(size=(b, 2)).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(
+        (rng.random(k) < 0.7).astype(np.float32)).to(cuda)
+    for ets in (0, 1):
+        got = tk.segment_gather(block[:, :w], ids, head, mask, b, s, ets)
+        want = tk.segment_gather_plain(block[:, :w], ids, head, mask, b, s,
+                                       ets)
+        torch.cuda.synchronize()
+        assert got.shape == (k, 2 + ets + w) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_segment_gather_empty_and_all_dropped(cuda):
+    src = torch.ones((5, 9), device=cuda)
+    before = tk.segment_gather.launches
+    empty = tk.segment_gather(src, torch.zeros(0, dtype=torch.int32,
+                                                device=cuda))
+    assert empty.shape == (0, 9) and tk.segment_gather.launches == before
+    ids = torch.tensor([-1, 5, 99, -7], dtype=torch.int32, device=cuda)
+    got = tk.segment_gather(src, ids)
+    no_src = tk.segment_gather(src[:0], ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+    assert torch.equal(no_src, torch.zeros_like(no_src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [16, 13])   # vector and scalar paths
+def test_scatter_add_update_exact(cuda, feat):
+    rng = np.random.default_rng(feat)
+    c, u = 6000, 4000
+    table = torch.from_numpy(
+        rng.normal(size=(c, feat)).astype(np.float32)).to(cuda)
+    rows = rng.permutation(c + 500)[:u].astype(np.int32) - 200
+    rows = torch.from_numpy(rows).to(cuda)        # negatives and OOB drop
+    deltas = torch.from_numpy(
+        rng.normal(size=(u, feat)).astype(np.float32)).to(cuda)
+    got = tk.scatter_add_update(table.clone(), rows, deltas)
+    want = tk.scatter_add_update_plain(table.clone(), rows, deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # empty and all-dropped inputs leave the table as it was
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    same = tk.scatter_add_update(table.clone(), none,
+                                 deltas[:0].contiguous())
+    dropped = tk.scatter_add_update(
+        table.clone(), torch.full((u,), -1, dtype=torch.int32, device=cuda),
+        deltas)
+    torch.cuda.synchronize()
+    assert torch.equal(same, table) and torch.equal(dropped, table)
+
+
+@pytest.mark.cuda
+def test_training_on_card_matches_cpu(cuda):
+    """Two passes of the training slice on the card (all four kernels,
+    each launched once per step) against the same run on the CPU (plain
+    versions). f32 tower, TF32 off; lazy mf creation draws nothing
+    (mf_initial_range 0), so the generators do not matter."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    S, mf, bs = 4, 4, 64
+    slots = [SlotDef("label", "float", 1), SlotDef("d", "float", 3)] + [
+        SlotDef(f"S{i}", "uint64") for i in range(S)]
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=512)
+    recs = []
+    for i in range(4 * bs):
+        counts = np.minimum(rng.zipf(1.5, size=S), 8)
+        offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        recs.append(SlotRecord(
+            keys=rng.integers(0, 3000, size=offs[-1]).astype(np.uint64),
+            slot_offsets=offs, dense=rng.normal(size=3).astype(np.float32),
+            label=float(i % 2), show=1.0, clk=float(i % 2)))
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
+    torch.manual_seed(0)
+    model = DeepFM(S, 3 + mf, 3, hidden=(16, 8), compute_dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        table = EmbeddingTable(mf_dim=mf, capacity=1 << 12, cfg=cfg,
+                               unique_bucket_min=512, device=dev)
+        m = DeepFM(S, 3 + mf, 3, hidden=(16, 8), compute_dtype=torch.float32)
+        m.load_state_dict(model.state_dict())
+        tr = Trainer(m, table, desc, seed=3, check_nan_inf=True, device=dev)
+        ds = InMemoryDataset(desc)
+        ds.records = recs
+        names = ("gather_rows", "pool_cvm", "segment_gather",
+                 "scatter_add_update")
+        before = [getattr(tk, n).launches for n in names]
+        res = [tr.train_pass(ds) for _ in range(2)]
+        after = [getattr(tk, n).launches for n in names]
+        steps = 2 * res[0]["batches"]
+        assert [a - b for a, b in zip(after, before)] == (
+            [steps] * 4 if dev == "cuda" else [0] * 4)
+        keys, rows = table.index.items()
+        order = np.argsort(keys)
+        out[dev] = (keys[order], table.state.data.cpu().numpy()[rows[order]],
+                    {k: v.cpu().numpy() for k, v in m.state_dict().items()},
+                    res[1]["auc"])
+        assert not table.state.data[-1].any()          # sentinel stays 0
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=2e-4,
+                               atol=2e-5)
+    for name, want in out["cpu"][2].items():
+        np.testing.assert_allclose(out["cuda"][2][name], want, rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+    assert abs(out["cuda"][3] - out["cpu"][3]) < 1e-5

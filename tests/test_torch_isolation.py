@@ -53,7 +53,8 @@ def test_no_forbidden_imports(path):
 
 
 def test_no_gpu_raises_instead_of_falling_back(monkeypatch):
-    from paddlebox_tpu_torch import DeepFM, EmbeddingTable, ServingModel
+    from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, ServingModel,
+                                     Trainer)
     from paddlebox_tpu_torch.data import DataFeedDesc
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = DeepFM(num_slots=2, slot_width=7, dense_dim=1, hidden=(4,))
@@ -65,3 +66,10 @@ def test_no_gpu_raises_instead_of_falling_back(monkeypatch):
     srv = ServingModel(model, DataFeedDesc.criteo(), mf_dim=4, capacity=16,
                        device="cpu")
     assert srv.table.state.data.device.type == "cpu"
+    # training: the trainer defaults to the card as well
+    table = EmbeddingTable(mf_dim=4, capacity=16, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, table, DataFeedDesc.criteo())
+    tr = Trainer(model, table, DataFeedDesc.criteo(), device="cpu")
+    assert tr.state.auc.buckets.device.type == "cpu"
+    assert table.next_generator().device.type == "cpu"

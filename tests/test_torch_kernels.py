@@ -155,7 +155,8 @@ def test_fused_seqpool_cvm_forward(flags, kw):
             args["quant_ratio"], args["clk_filter"],
             embed_thres_size=ets))
     got = fused_seqpool_cvm(torch.from_numpy(values),
-                            torch.from_numpy(segments), b, s,
+                            torch.from_numpy(segments),
+                            torch.from_numpy(show_clk), b, s,
                             embed_thres_size=ets, **args)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
@@ -174,16 +175,19 @@ def test_fused_seqpool_cvm_trivial_layout(kw, k):
     ref = np.asarray(j_seqpool(
         jnp.asarray(values), None, jnp.ones((b, 2)), b, s, args["use_cvm"],
         2, args["pad_value"], clk_filter=args["clk_filter"]))
-    got = fused_seqpool_cvm(torch.from_numpy(values), None, b, s, **args)
+    got = fused_seqpool_cvm(torch.from_numpy(values), None,
+                            torch.ones((b, 2)), b, s, **args)
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
 def test_fused_seqpool_cvm_unported_attrs_raise():
     values, segments, _, b, s = _ragged()
     v, sg = torch.from_numpy(values), torch.from_numpy(segments)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_seqpool_cvm(v, sg, b, s, use_cvm=False, embedx_concate_size=2)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_seqpool_cvm(v, sg, b, s, embed_threshold_filter=True)
+    sc = torch.ones((b, 2))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fused_seqpool_cvm(v, sg, sc, b, s, use_cvm=False,
+                          embedx_concate_size=2)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fused_seqpool_cvm(v, sg, sc, b, s, embed_threshold_filter=True)
     # plain CVM ignores the concat size, as the reference does
-    fused_seqpool_cvm(v, sg, b, s, embedx_concate_size=2)
+    fused_seqpool_cvm(v, sg, sc, b, s, embedx_concate_size=2)
