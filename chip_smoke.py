@@ -12,8 +12,11 @@ Phases, each of which fails the run:
 3. at the full-width shapes of those paths, hold each kernel against its
    plain PyTorch version on the card (``gather_rows``, ``segment_gather``
    in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
-   four CVM modes within rtol 3e-5 / atol 1e-6) and time kernel, plain
-   version and the nearest single PyTorch call with CUDA events;
+   four CVM modes within rtol 3e-5 / atol 1e-6; the key index's insert
+   and lookup exact in rows and new-masks, with the pass's unique keys
+   going into a copy of an index seeded with the train base's keys) and
+   time kernel, plain version and the nearest single PyTorch call with
+   CUDA events;
 4. serve ragged DeepFM batches end to end: a seeded ``save_base``-format
    table of 2.6M keyed rows loads into ``ServingModel(device="cuda")``
    with seeded random dense params, and ``predict`` answers ``--batches``
@@ -34,7 +37,22 @@ Phases, each of which fails the run:
    float32 tower and TF32 off, once through the kernels and once through
    the plain versions (passed in explicitly): touched table rows and
    dense params must agree within rtol 2e-4 / atol 2e-5. These two runs
-   time each step synchronized, split into prepare, h2d and step.
+   time each step synchronized, split into prepare, h2d and step;
+6. train the same batches through the resident pass with the device key
+   index (``use_pallas_index``): a fresh table loads the same base file,
+   its ``DeviceKeyIndex`` is seeded from the host kv (insert kernel), and
+   ``Trainer.train_pass_resident`` runs a pass whose rows were assigned
+   on the card (device dedup + insert kernel). The index must not
+   degrade, the insert kernel must launch for the seed and for the build
+   and the four step kernels once per step, ``lookup_rows`` of the kv's
+   keys (lookup kernel) must give the kv's rows, the pass's pull indexes
+   and host kv must equal those of the host route on a second table, the
+   sentinel row must stay zero and untouched rows bit-identical, and the
+   loss finite. Then, with the float32 tower, TF32 off and no lazy-mf
+   draws (``mf_initial_range`` 0: the two passes lay a batch's unique
+   rows out differently, so their draws land on other rows), the
+   resident pass and ``train_pass`` from the same start must agree
+   within rtol 2e-4 / atol 2e-5.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -91,13 +109,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
+            setup=None) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after an L2
-    flush (the caller's inputs are not assumed cache-resident)."""
+    flush (the caller's inputs are not assumed cache-resident) and after
+    ``setup``, untimed (restores what ``fn`` changes in place)."""
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     total = 0.0
     for _ in range(iters):
+        if setup is not None:
+            setup()
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -109,14 +133,20 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
+def base_keys(vocab: int) -> np.ndarray:
+    """The keys with id < ``vocab`` of every slot, slot by slot: the rows
+    of a loaded base file, in row order."""
+    return (np.arange(NUM_SLOTS, dtype=np.uint64)[:, None]
+            * np.uint64(VOCAB_PER_SLOT)
+            + np.arange(vocab, dtype=np.uint64)[None, :]).reshape(-1)
+
+
 def make_table_blob(rng, convert, vocab: int = VOCAB_PER_SLOT,
                     no_mf: float = 0.0):
     """The keys with id < ``vocab`` of every slot (2.6M for the whole
     vocabulary) with seeded logical rows; a ``no_mf`` share of them has
     no mf yet (mf_size 0)."""
-    keys = (np.arange(NUM_SLOTS, dtype=np.uint64)[:, None]
-            * np.uint64(VOCAB_PER_SLOT)
-            + np.arange(vocab, dtype=np.uint64)[None, :]).reshape(-1)
+    keys = base_keys(vocab)
     n = len(keys)
     rows = np.zeros((n, 8 + MF_DIM), np.float32)
     show = rng.integers(1, 200, size=n).astype(np.float32)
@@ -193,11 +223,107 @@ def profile_step(torch, step, state, batch, gen):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def index_phase(torch, batches, flush, card, details):
+    """Phase 3, the key index: the pass's unique keys inserted into a copy
+    of an index seeded with the train base's keys, through the insert
+    kernel and through its plain version (rows and new-masks exact), then
+    looked up through both lookups in both indexes (rows exact). Returns
+    the two kernels' rows of the ``kernels`` line."""
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
+    cuda = torch.device("cuda")
+    base = base_keys(TRAIN_BASE_VOCAB)
+    n_base = len(base)
+    seeded = IX.DeviceKeyIndex(CAPACITY, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = seeded.assign_unique(base)
+    seed_s = time.perf_counter() - t0
+    if (out is None or not np.array_equal(out[0], np.arange(n_base))
+            or not out[1].all()):
+        raise AssertionError("seeding the key index did not give rows "
+                             "0..n-1")
+    keys = torch.from_numpy(np.concatenate(
+        [b.keys[:b.num_keys] for b in batches]).view(np.int64)).to(cuda)
+    uniq, _, _, u = dedup_keys_first_seen(keys)
+    uniq = uniq[:u].contiguous()
+    work = (seeded.keys.clone(), seeded.rows.clone())
+    plain = (seeded.keys.clone(), seeded.rows.clone())
+    rows, new, failed = IX.insert(*work, uniq, n_base, CAPACITY)
+    rows_p, new_p, failed_p = IX.insert_plain(*plain, uniq, n_base, CAPACITY)
+    torch.cuda.synchronize()
+    if bool(failed) or bool(failed_p):
+        raise AssertionError("the key index overflowed")
+    if not (torch.equal(rows, rows_p) and torch.equal(new, new_p)):
+        raise AssertionError("index_insert differs from its plain version")
+    n_new = int(new.sum())
+    for what, got in (
+            ("kernel, kernel's index", IX.lookup(*work, uniq)),
+            ("plain, kernel's index", IX.lookup_plain(*work, uniq)),
+            ("kernel, plain index", IX.lookup(*plain, uniq)),
+            ("plain, plain index", IX.lookup_plain(*plain, uniq))):
+        if not torch.equal(got, rows):
+            raise AssertionError(f"index_lookup ({what}) differs from the "
+                                 f"inserted rows")
+    # probe steps of this run's keys in the kernel's index: a key that
+    # sits d buckets from its home took d + 1 steps to claim or match it
+    # in the insert, and takes d + 1 in the lookup
+    nb = seeded.n_buckets
+    occ = torch.nonzero(work[1] >= 0).squeeze(1)
+    off = (occ - IX._hash32(work[0][occ])) & (nb - 1)
+    off_of_row = torch.zeros(CAPACITY, dtype=torch.int64, device=cuda)
+    off_of_row[work[1][occ].long()] = off
+    key_off = off_of_row[rows.long()]
+    steps = int((key_off + 1).sum())
+
+    def restore(dst):
+        def fn():
+            dst[0].copy_(seeded.keys)
+            dst[1].copy_(seeded.rows)
+        return fn
+
+    src = "paddlebox_tpu_torch/csrc/key_index.cu"
+    ins = {"name": "index_insert", "route": "cuda", "source": src,
+           "replaces": "paddlebox_tpu/ops/pallas_index.py:233",
+           "max_abs_err": 0.0,
+           "ms": time_ms(torch, lambda: IX.insert(
+               *work, uniq, n_base, CAPACITY), flush, setup=restore(work)),
+           "plain_ms": time_ms(torch, lambda: IX.insert_plain(
+               *plain, uniq, n_base, CAPACITY), flush, setup=restore(plain)),
+           "library_ms": None,
+           # keys read, rows and new-mask written, one 32-byte sector of
+           # each bucket array per probe step
+           "bound_ms": (u * (8 + 4 + 4) + steps * 64) / PEAK_BYTES * 1e3,
+           "bound_by": "bytes"}
+    lk = {"name": "index_lookup", "route": "cuda", "source": src,
+          "replaces": "paddlebox_tpu/ops/pallas_index.py:344",
+          "max_abs_err": 0.0,
+          "ms": time_ms(torch, lambda: IX.lookup(*work, uniq), flush),
+          "plain_ms": time_ms(torch, lambda: IX.lookup_plain(*work, uniq),
+                              flush),
+          "library_ms": None,
+          "bound_ms": (u * (8 + 4) + steps * 64) / PEAK_BYTES * 1e3,
+          "bound_by": "bytes"}
+    details["index"] = {
+        "seed_keys": n_base, "seed_s": seed_s, "pass_uniques": u,
+        "new_keys": n_new, "probe_steps": steps,
+        "max_probe_offset": int(key_off.max()), "n_buckets": nb}
+    log(f"key index: {u} pass uniques ({n_new} new) into an index seeded "
+        f"with {n_base} keys ({nb} buckets, seeded in {seed_s:.3f}s); "
+        f"insert and lookup equal their plain versions; {steps} probe "
+        f"steps, longest chain {int(key_off.max()) + 1}")
+    for r in (ins, lk):
+        log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library -, bound {r['bound_ms'] * 1e3:.2f} us ({card})")
+    return ins, lk
+
+
 def train_phase(torch, args, card, desc, records, batches, details):
-    """Phase 5: ``Trainer.train_pass`` at full width from a seeded base
-    file, its invariants, the trained table served, and the
-    kernel-vs-plain training runs. Returns each kernel's launches during
-    the train pass."""
+    """Phases 5 and 6: ``Trainer.train_pass`` at full width from a seeded
+    base file, its invariants, the trained table served, and the
+    kernel-vs-plain training runs; then the resident pass from the same
+    base file. Returns each kernel's launches during the pass that drove
+    it (the four step kernels: phase 5's; the key index: phase 6's)."""
     from paddlebox_tpu_torch import convert
     base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
                            vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
@@ -206,8 +332,11 @@ def train_phase(torch, args, card, desc, records, batches, details):
         np.savez(path, **base)
         n_base = len(base["keys"])
         del base
-        return _train(torch, args, card, desc, records, batches, details,
-                      tmp, path, n_base)
+        launches = _train(torch, args, card, desc, records, batches,
+                          details, tmp, path, n_base)
+        launches.update(_resident(torch, args, card, desc, records,
+                                  batches, details, path, n_base))
+        return launches
 
 
 def _train(torch, args, card, desc, records, batches, details, tmp,
@@ -379,6 +508,167 @@ def _train(torch, args, card, desc, records, batches, details, tmp,
         "step_p50_ms": step_p50, "split_p50_ms": split,
         "row_max_abs_err": row_err, "param_max_abs_err": param_err}
     return launches
+
+
+def _resident(torch, args, card, desc, records, batches, details,
+              base_path, n_base):
+    """Phase 6: ``Trainer.train_pass_resident`` with the device key index
+    from the train base file (see the module docstring). Returns the
+    index kernels' launches in that run."""
+    from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, InMemoryDataset,
+                                     Trainer)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.train.device_pass import ResidentPass
+
+    cuda = torch.device("cuda")
+    nb = len(batches)
+
+    def fresh_table(cfg=None):
+        t = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY, cfg=cfg,
+                           seed=args.seed, device="cuda")
+        t.load(base_path)
+        return t
+
+    def model(dtype=None):
+        torch.manual_seed(args.seed + 2)      # phase 5's initial params
+        kw = {} if dtype is None else {"compute_dtype": dtype}
+        return DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN, **kw)
+
+    ds = InMemoryDataset(desc)
+    ds.records = records
+    table = fresh_table()
+    start = table.state.data.clone()
+    trainer = Trainer(model(), table, desc, seed=args.seed,
+                      check_nan_inf=True, device="cuda")
+    torch.cuda.synchronize()
+
+    fns = {"index_insert": IX.insert, "index_lookup": IX.lookup,
+           "gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update}
+    for fn in fns.values():
+        fn.launches = 0
+    ticks0 = dict(IX.DISPATCH)
+    with flags_scope(use_pallas_index=True):
+        t0 = time.perf_counter()
+        dev = table._device_index()          # seeded from the host kv
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rp = ResidentPass.build(ds, table)
+        t2 = time.perf_counter()
+        res = trainer.train_pass_resident(rp)
+        t3 = time.perf_counter()
+        keys, rows = table.index.items()
+        mirror = dev.lookup_rows(keys)
+    launches = {name: fn.launches for name, fn in fns.items()}
+    ticks = {k: v - ticks0.get(k, 0) for k, v in IX.DISPATCH.items()
+             if v != ticks0.get(k, 0)}
+    seed_s, build_s, pass_s = t1 - t0, t2 - t1, t3 - t2
+
+    if dev.degraded:
+        raise AssertionError(f"the device key index degraded: "
+                             f"{dev.degrade_reason}")
+    if ticks != {("index.assign", "device"): 1}:
+        raise AssertionError(f"index dispatch decisions {ticks}")
+    want = {"index_insert": 2, "index_lookup": 1, "gather_rows": nb,
+            "pool_cvm": nb, "segment_gather": nb, "scatter_add_update": nb}
+    if launches != want:
+        raise AssertionError(f"resident: launches {launches}, expected "
+                             f"{want} (insert: seed + build)")
+    if not np.array_equal(mirror, rows.astype(np.int64)) \
+            or dev.next_row != len(keys):
+        raise AssertionError("the device index does not mirror the kv")
+    if res["batches"] != nb or not np.isfinite(res["last_loss"]):
+        raise AssertionError(f"resident pass went wrong: {res}")
+    data = table.state.data
+    if bool(data[CAPACITY].any()):
+        raise AssertionError("resident: the sentinel row was written")
+    touched = torch.from_numpy(table._touched).to(cuda)
+    changed = (data != start).any(dim=1)
+    if bool((changed & ~touched).any()):
+        raise AssertionError("resident: rows the pass did not touch "
+                             "changed")
+    n_new = len(keys) - n_base
+    created = int(((start[:, 7] == 0) & (data[:, 7] > 0)
+                   & (start[:, 0] > 0)).sum())
+    n_changed = int(changed.sum())
+    if n_new <= 0 or created <= 0 or n_changed <= 0:
+        raise AssertionError(f"resident pass assigned {n_new} new rows, "
+                             f"created {created} mf blocks, changed "
+                             f"{n_changed} rows")
+    del start, changed, touched
+
+    # the host route on a second table gives the same pull indexes and
+    # kv; that table then trains the pass through train_pass (its kv
+    # already holds the rows train_pass would assign)
+    cfg0 = SparseSGDConfig(mf_initial_range=0.0)
+    host = fresh_table(cfg0)
+    with flags_scope(use_pallas_index=False):
+        t0 = time.perf_counter()
+        rp_host = ResidentPass.build(ds, host)
+        host_s = time.perf_counter() - t0
+    host_stats = rp_host.build_stats
+    for a in ("uniq", "gidx", "meta", "segs"):
+        if not np.array_equal(getattr(rp, a), getattr(rp_host, a)):
+            raise AssertionError(f"resident: {a} of the device route "
+                                 f"differs from the host route's")
+    if (host.index._map != table.index._map
+            or not np.array_equal(host.slot_host, table.slot_host)):
+        raise AssertionError("resident: the device route's kv differs "
+                             "from the host route's")
+    del rp_host, table, trainer, dev
+
+    # resident vs train_pass from the same start: f32 tower, TF32 off
+    stream = Trainer(model(torch.float32), host, desc, seed=args.seed,
+                     check_nan_inf=True, device="cuda")
+    res_s = stream.train_pass(ds)
+    resident_t = fresh_table(cfg0)
+    resident = Trainer(model(torch.float32), resident_t, desc,
+                       seed=args.seed, check_nan_inf=True, device="cuda")
+    with flags_scope(use_pallas_index=True):
+        res_r = resident.train_pass_resident(ds)
+    rows_t = torch.from_numpy(np.nonzero(host._touched
+                                         | resident_t._touched)[0]).to(cuda)
+    row_err = check_close("resident vs train_pass: touched rows",
+                          resident_t.state.data[rows_t],
+                          host.state.data[rows_t], STATE_RTOL, STATE_ATOL)
+    ps, pr = stream.model.state_dict(), resident.model.state_dict()
+    param_err = max(check_close(f"resident vs train_pass: {k}", pr[k],
+                                ps[k], STATE_RTOL, STATE_ATOL) for k in ps)
+    auc_diff = abs(res_r["auc"] - res_s["auc"])
+    del host, resident_t, stream, resident
+
+    n_rec = rp.num_records
+    stats = {k: round(v, 4) for k, v in rp.build_stats.items()}
+    phase5 = details["train"]["pass"]["examples_per_sec"]
+    log(f"resident pass: {nb} steps of {BATCH}, index seeded with "
+        f"{n_base} keys in {seed_s:.3f}s; build {build_s:.3f}s "
+        f"{json.dumps(stats)}; steps {res['elapsed_sec']:.3f}s; "
+        f"{n_rec / (build_s + res['elapsed_sec']):.0f} examples/s with "
+        f"the build, {res['examples_per_sec']:.0f} without (bf16 tower; "
+        f"phase 5 train_pass {phase5:.0f}); auc {res['auc']:.4f}, last "
+        f"loss {res['last_loss']:.4f}; {n_new} new rows, {created} mf "
+        f"created; host-route build {host_s:.3f}s "
+        f"{json.dumps({k: round(v, 4) for k, v in host_stats.items()})} "
+        f"({card})")
+    log(f"resident vs train_pass (f32 tower, no mf draws): max abs err "
+        f"rows {row_err:.3g}, params {param_err:.3g}, auc {auc_diff:.3g} "
+        f"({card})")
+    details["resident"] = {
+        "pass": res, "seed_s": seed_s, "build_s": build_s,
+        "pass_s": pass_s, "build_stats": rp.build_stats,
+        "host_build_s": host_s, "host_build_stats": host_stats,
+        "launches": launches, "new_rows": n_new,
+        "mf_created": created, "rows_changed": n_changed,
+        "examples_per_sec_with_build": n_rec / (build_s
+                                                + res["elapsed_sec"]),
+        "wire_bytes": rp.nbytes(), "row_max_abs_err": row_err,
+        "param_max_abs_err": param_err, "auc_diff": auc_diff,
+        "train_pass_f32": res_s, "resident_f32": res_r}
+    return {k: launches[k] for k in ("index_insert", "index_lookup")}
 
 
 def main() -> int:
@@ -611,6 +901,7 @@ def main() -> int:
             f"{r['bound_ms'] * 1e3:.2f} us ({card})")
     log(f"  pool_cvm kernel alone: "
         f"{details['pool_cvm_kernel_only_ms']:.4f} ms ({card})")
+    ins, lk = index_phase(torch, batches, flush, card, details)
 
     # ---- phase 4: the serving path end to end ----
     K.gather_rows.launches = 0
@@ -674,10 +965,10 @@ def main() -> int:
     details.update(predict_ms=lat, predict_p50_ms=p50, split_p50_ms=split,
                    pred_max_abs_err=err, serve_launches=launches)
 
-    # ---- phase 5: the training path ----
+    # ---- phases 5 and 6: the training paths ----
     train_launches = train_phase(torch, args, card, desc, records, batches,
                                  details)
-    kernels = [g, p, sg, sa]
+    kernels = [g, p, sg, sa, ins, lk]
     for r in kernels:
         r["launches"] = train_launches[r["name"]]
     details["kernels"] = kernels

@@ -20,12 +20,14 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("gather_rows", "pool_cvm", "segment_gather",
-           "scatter_add_update")
+           "scatter_add_update", "key_index")
 
 _lock = threading.Lock()
 _fns: Dict[str, object] = {}
@@ -103,6 +105,24 @@ def function(name: str, symbol: str, argtypes: Sequence):
             fn.restype = ctypes.c_int
             _fns[symbol] = fn
     return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a handle for a C
+    entry."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous input")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
 
 
 def check(rc: int, what: str) -> None:

@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from paddlebox_tpu_torch.ops import _build
+from paddlebox_tpu_torch.ops import _build, index
 
 #: static CVM epilogue modes (which head columns transform)
 CVM_NONE = 0      # no transform (use_cvm=False; the head is sliced off)
@@ -34,21 +34,6 @@ _POOL_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
 _SEG_GATHER_ARGS = [_P, _I64, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                     _I32, _I32, _P]
 _SCATTER_ADD_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: non-contiguous input")
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
 
 
 def show_clk_keep(values: torch.Tensor, show_coeff: float, clk_coeff: float,
@@ -76,7 +61,7 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     (ids outside [0, C] read the zero sentinel row C). Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
         return gather_rows_plain(table, rows)
-    _require_cuda("gather_rows", table, rows)
+    _build.require_cuda("gather_rows", table, rows)
     if table.dtype != torch.float32 or rows.dtype != torch.int32:
         raise TypeError("gather_rows: needs a float32 table and int32 rows")
     if table.dim() != 2 or rows.dim() != 1:
@@ -89,7 +74,7 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
                 and out.data_ptr() % 16 == 0) else 1
     fn = _build.function("gather_rows", "pbx_gather_rows", _GATHER_ARGS)
     _build.check(fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(),
-                    u, table.shape[0] - 1, f, vec, _stream(table)),
+                    u, table.shape[0] - 1, f, vec, _build.stream(table)),
                  "gather_rows")
     gather_rows.launches += 1
     return out
@@ -209,7 +194,7 @@ def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
     if keep is None:
         keep = torch.ones(values.shape[0], dtype=torch.float32,
                           device=values.device)
-    _require_cuda("pool_cvm", values, segments, keep)
+    _build.require_cuda("pool_cvm", values, segments, keep)
     if values.dtype != torch.float32 or segments.dtype != torch.int32:
         raise TypeError("pool_cvm: needs float32 values, int32 segments")
     k, d = values.shape
@@ -229,7 +214,7 @@ def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
     fn = _build.function("pool_cvm", "pbx_pool_cvm", _POOL_ARGS)
     _build.check(fn(values.data_ptr(), seg.data_ptr(), keep_v.data_ptr(),
                     out.data_ptr(), k, n, d, d_out, cvm_mode, cvm_offset,
-                    ets, float(pad_value), _stream(values)), "pool_cvm")
+                    ets, float(pad_value), _build.stream(values)), "pool_cvm")
     pool_cvm.launches += 1
     return out.reshape(batch_size, num_slots, d_out)
 
@@ -280,7 +265,7 @@ def segment_gather(src: torch.Tensor, ids: torch.Tensor,
         return segment_gather_plain(src, ids, head, mask, batch_size,
                                     num_slots, ets)
     extra = [t for t in (head, mask) if t is not None]
-    _require_cuda("segment_gather", ids, *extra)
+    _build.require_cuda("segment_gather", ids, *extra)
     if src.device != ids.device:
         raise ValueError(f"segment_gather: tensors on {ids.device} and "
                          f"{src.device}")
@@ -316,7 +301,7 @@ def segment_gather(src: torch.Tensor, ids: torch.Tensor,
                     None if head is None else head.data_ptr(),
                     None if mask is None else mask.data_ptr(),
                     out.data_ptr(), k, n, w, n_head, ets, max(num_slots, 1),
-                    max(batch_size, 1), _stream(ids)), "segment_gather")
+                    max(batch_size, 1), _build.stream(ids)), "segment_gather")
     segment_gather.launches += 1
     return out
 
@@ -344,7 +329,7 @@ def scatter_add_update(values: torch.Tensor, rows: torch.Tensor,
     [0, C), rows outside it are dropped. Returns ``values``. Exact."""
     if values.device.type == "cpu" and rows.device.type == "cpu":
         return scatter_add_update_plain(values, rows, deltas)
-    _require_cuda("scatter_add_update", values, rows, deltas)
+    _build.require_cuda("scatter_add_update", values, rows, deltas)
     if (values.dtype != torch.float32 or deltas.dtype != torch.float32
             or rows.dtype != torch.int32):
         raise TypeError("scatter_add_update: needs float32 values/deltas "
@@ -361,7 +346,7 @@ def scatter_add_update(values: torch.Tensor, rows: torch.Tensor,
     fn = _build.function("scatter_add_update", "pbx_scatter_add_update",
                          _SCATTER_ADD_ARGS)
     _build.check(fn(values.data_ptr(), rows.data_ptr(), deltas.data_ptr(),
-                    u, values.shape[0], f, vec, _stream(values)),
+                    u, values.shape[0], f, vec, _build.stream(values)),
                  "scatter_add_update")
     scatter_add_update.launches += 1
     return values
@@ -371,7 +356,8 @@ scatter_add_update.launches = 0
 
 
 class KernelSet(NamedTuple):
-    """The device functions the training and serving paths call.
+    """The device functions the training, serving and key-index paths
+    call.
     ``KERNELS`` is what every entry point uses; ``PLAIN`` exists so a
     check on the card can run the same path through the plain versions
     (it is passed explicitly, never chosen by a device test)."""
@@ -380,9 +366,12 @@ class KernelSet(NamedTuple):
     pool_cvm: Callable
     segment_gather: Callable
     scatter_add_update: Callable
+    index_insert: Callable
+    index_lookup: Callable
 
 
 KERNELS = KernelSet(gather_rows, pool_cvm, segment_gather,
-                    scatter_add_update)
+                    scatter_add_update, index.insert, index.lookup)
 PLAIN = KernelSet(gather_rows_plain, pool_cvm_plain, segment_gather_plain,
-                  scatter_add_update_plain)
+                  scatter_add_update_plain, index.insert_plain,
+                  index.lookup_plain)

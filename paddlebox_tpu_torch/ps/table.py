@@ -3,8 +3,10 @@
 The device side is one plain row-major ``[C+1, 8+mf_dim+ext]`` float32
 tensor (row C is a permanent zero sentinel that padding reads); the
 128-lane packed line layout of the reference is a TPU artefact and is not
-carried over. The key→row mapping is a host index; per-batch key dedup
-and row assignment happen on the host, so the device work of a pull is
+carried over. The key→row mapping is a host index, mirrored on the device
+for the resident pass's bulk assignment when ``FLAGS.use_pallas_index``
+is on (``ops/index.py``). Per-batch key dedup and row assignment happen
+on the host, so the device work of a pull is
 one row gather (``ops.kernels.gather_rows``) plus slicing, and the device
 work of a push is the Adagrad row math plus one in-place unique-row
 scatter-add of ``new − old`` (``ops.kernels.scatter_add_update``).
@@ -18,15 +20,18 @@ from __future__ import annotations
 import hashlib
 import logging
 import threading
-from typing import Dict, Mapping, NamedTuple, Optional, Union
+import time
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch.data.batch import SlotBatch
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
+from paddlebox_tpu_torch.config import FLAGS
+from paddlebox_tpu_torch.ops.index import DeviceKeyIndex, book_index_dispatch
 from paddlebox_tpu_torch.ops.kernels import KERNELS, KernelSet
-from paddlebox_tpu_torch.ps.kv import PyKV
+from paddlebox_tpu_torch.ps.kv import PyKV, dedup_first_seen
 from paddlebox_tpu_torch.ps.sgd import (RowState, SparseSGDConfig,
                                         opt_ext_width, sparse_update)
 
@@ -48,6 +53,17 @@ def next_bucket(minimum: int, need: int) -> int:
     while cap < need:
         cap *= 2
     return cap
+
+
+def next_bucket_fine(minimum: int, need: int) -> int:
+    """Fine padding ladder for a resident pass's uniform shapes: ``need``
+    rounded up to a step of ~1/16 its magnitude (power-of-two steps of
+    at least 512), so the padding stays near 6% and successive passes of
+    one workload land on the same few shapes."""
+    if need <= minimum:
+        return minimum
+    step = max(512, 1 << max(need.bit_length() - 5, 0))
+    return -(-need // step) * step
 
 
 def fill_oob_pads(unique_rows: np.ndarray, u: int, capacity: int) -> None:
@@ -206,8 +222,9 @@ def apply_push(state: TableState, unique_rows: torch.Tensor,
 
 
 class EmbeddingTable:
-    """Single-shard embedding PS facade: per-batch row assignment for
-    training, read-only lookups for serving, and the save/load files."""
+    """Single-shard embedding PS facade: per-batch and whole-pass row
+    assignment for training, read-only lookups for serving, and the
+    save/load files."""
 
     def __init__(self, mf_dim: int = 8, capacity: int = 1 << 20,
                  cfg: Optional[SparseSGDConfig] = None, seed: int = 0,
@@ -233,6 +250,10 @@ class EmbeddingTable:
         # serializes host-side index/touched mutation across threads
         # (prefetch prepare, save, load)
         self.host_lock = threading.Lock()
+        # the device key index (FLAGS.use_pallas_index), built on first use
+        self._dev_index: Optional[DeviceKeyIndex] = None
+        # seconds of the last bulk assignment: host kv vs device index
+        self.last_assign_seconds = {"index_host": 0.0, "index_device": 0.0}
 
     # ---- per-batch host prep (dedup + row assignment / lookup) ----
     def _build_index(self, batch: SlotBatch, rows: np.ndarray,
@@ -254,6 +275,96 @@ class EmbeddingTable:
         """Record each unique row's slot (first key occurrence wins via
         the reversed assignment). Caller holds host_lock."""
         self.slot_host[rows[inv[::-1]]] = slot_of_key[::-1]
+
+    def bulk_assign_unique(self, keys: np.ndarray, slot_of_key: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """Whole-pass row assignment (the resident pass's build): one
+        first-seen dedup of the pass's keys and ONE index round trip,
+        instead of one per batch. Returns (rows of the first-seen uniques
+        int32, inverse int64) and records each unique's slot (that of its
+        first occurrence in the pass).
+
+        ``FLAGS.use_pallas_index`` routes this through the device key
+        index (``_bulk_assign_device``): the raw ids go to the card, dedup
+        and row assignment happen there, and the host kv takes ONLY the
+        new keys. A call the device route cannot serve exactly (probe or
+        capacity overflow, kv divergence) is redone here, loudly, and
+        counted as ``index.assign/host``."""
+        keys = np.ascontiguousarray(keys, np.uint64)
+        if FLAGS.use_pallas_index:
+            dev = self._device_index()
+            if not dev.degraded:
+                out = self._bulk_assign_device(keys, slot_of_key, dev)
+                if out is not None:
+                    return out
+            book_index_dispatch("assign", "host")
+        uniq, first_idx, inv = dedup_first_seen(keys)
+        slots_first = slot_of_key[first_idx]
+        t1 = time.perf_counter()
+        with self.host_lock:
+            rows = self.index.assign(uniq)
+            self.slot_host[rows] = slots_first.astype(np.int16, copy=False)
+        self.last_assign_seconds = {
+            "index_host": time.perf_counter() - t1, "index_device": 0.0}
+        return rows, inv
+
+    # ---- device key index (FLAGS.use_pallas_index) ----
+    def _device_index(self) -> DeviceKeyIndex:
+        """The table's DeviceKeyIndex, built and seeded from the host kv on
+        first use; it degrades (sticky, loud) when the kv's rows are not
+        dense or the seed overflows."""
+        dev = self._dev_index
+        if dev is None:
+            dev = DeviceKeyIndex(self.capacity, device=self.device)
+            with self.host_lock:
+                if not dev.seed_from_kv(self.index):
+                    dev.degrade("host kv rows are not dense or overflow "
+                                "the device index: cannot seed")
+            self._dev_index = dev
+        return dev
+
+    def _reset_dev_index(self) -> None:
+        """Drop the device index after a host kv lifecycle change (load);
+        the next flag-on bulk assignment seeds a new one from the kv."""
+        self._dev_index = None
+
+    def _bulk_assign_device(self, keys: np.ndarray, slot_of_key: np.ndarray,
+                            dev: DeviceKeyIndex
+                            ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Device route of bulk_assign_unique: first-seen dedup and hash
+        insert on the card, the host kv mirrored with the NEW keys only.
+        Returns None (after degrading ``dev``) whenever the result cannot
+        be trusted bit for bit; the caller then redoes the call on the
+        host path, which is always authoritative."""
+        t0 = time.perf_counter()
+        pre_rows = dev.next_row
+        out = dev.assign_raw(keys)
+        t_dev = time.perf_counter() - t0
+        if out is None:
+            dev.degrade(f"probe/capacity overflow ({len(keys)} keys at "
+                        f"{pre_rows} rows, capacity {self.capacity})")
+            return None
+        uniq, first_idx, inv, rows_u, new_mask = out
+        t1 = time.perf_counter()
+        slots_first = slot_of_key[first_idx]
+        with self.host_lock:
+            if len(self.index) != pre_rows:
+                dev.degrade(f"host kv diverged ({len(self.index)} keys vs "
+                            f"{pre_rows} mirrored)")
+                return None
+            if new_mask.any():
+                krows = self.index.assign(uniq[new_mask])
+                if not np.array_equal(krows,
+                                      rows_u[new_mask].astype(np.int32)):
+                    dev.degrade("host kv allocated other rows than the "
+                                "device index")
+                    return None
+            self.slot_host[rows_u] = slots_first.astype(np.int16, copy=False)
+        self.last_assign_seconds = {
+            "index_host": time.perf_counter() - t1, "index_device": t_dev}
+        book_index_dispatch("assign", "device")
+        return (rows_u.astype(np.int32, copy=False),
+                inv.astype(np.int64, copy=False))
 
     def prepare(self, batch: SlotBatch) -> PullIndex:
         """Training prepare: dedup the batch's keys and assign rows to
@@ -399,4 +510,5 @@ class EmbeddingTable:
             self._insert_file_rows(data, rows, blob)
             self.state = TableState.from_logical(data, self.opt_ext,
                                                  self.device)
+        self._reset_dev_index()
         return len(keys)

@@ -1,10 +1,14 @@
 """Trainer: the per-pass training loop with host/device pipelining
 (counterpart of ``paddlebox_tpu/train/trainer.py``, single device).
 
-Two chained producer threads do the host side of every batch, dedup and
-row assignment (``EmbeddingTable.prepare``) and the host→device copy, so
-the main thread only runs the steps. Checkpointing, dumps, preemption,
-streaming and the metric registry are not ported yet.
+``train_pass``: two chained producer threads do the host side of every
+batch, dedup and row assignment (``EmbeddingTable.prepare``) and the
+host→device copy, so the main thread only runs the steps.
+``train_pass_resident``: the whole pass is assigned rows in bulk, packed
+and staged on the device first (``train/device_pass.py``), then the
+steps run over the staged batches. Checkpointing, dumps, preemption,
+streaming, the preloaded multi-pass driver and the metric registry are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from paddlebox_tpu_torch.data.schema import DataFeedDesc
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
 from paddlebox_tpu_torch.metrics import auc_compute, init_auc_state
 from paddlebox_tpu_torch.ps.table import EmbeddingTable, PullIndex
+from paddlebox_tpu_torch.train.device_pass import (ResidentPass,
+                                                   ResidentPassRunner)
 from paddlebox_tpu_torch.train.step import (DeviceBatch, OptimizerFactory,
                                             StepState, TrainStep, default_tx,
                                             make_device_batch)
@@ -42,8 +48,9 @@ class NanInfError(RuntimeError):
 
 
 class StageTimers:
-    """Host seconds per pipeline stage (prepare, h2d, step) for one pass;
-    prepare and h2d run on the prefetch threads."""
+    """Host seconds per pipeline stage for one pass: prepare, h2d and
+    step for ``train_pass`` (prepare and h2d run on the prefetch
+    threads), build and step for ``train_pass_resident``."""
 
     def __init__(self) -> None:
         self.seconds: Dict[str, List[float]] = defaultdict(list)
@@ -90,6 +97,9 @@ class Trainer:
         self.check_nan_inf = check_nan_inf
         self.global_step = 0
         self.stage_timers = StageTimers()
+        # resident pass runners by (key_capacity, trivial segments)
+        self._resident_runners: Dict[Tuple[int, bool],
+                                     ResidentPassRunner] = {}
 
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of global step ``step``, seeded from
@@ -152,6 +162,51 @@ class Trainer:
                    last_loss=last_loss)
         log.info("%spass done: %d batches, %.0f ex/s, auc=%.4f",
                  log_prefix, nb, out["examples_per_sec"], out["auc"])
+        return out
+
+    def train_pass_resident(self, pass_or_dataset: Union[InMemoryDataset,
+                                                         ResidentPass],
+                            log_prefix: str = "") -> Dict[str, float]:
+        """One pass in device-resident mode (``train/device_pass.py``):
+        the pass's rows are assigned in bulk and its batches staged on
+        the device before the first step, so the steps take no per-batch
+        host work. Takes a dataset (built and uploaded here, timed as
+        the "build" stage) or a prebuilt ``ResidentPass``. Returns what
+        ``train_pass`` returns."""
+        self.stage_timers.reset()
+        st = self.stage_timers
+        t0 = time.perf_counter()
+        if isinstance(pass_or_dataset, ResidentPass):
+            rp = pass_or_dataset
+        else:
+            with st.stage("build"):
+                rp = ResidentPass.build(pass_or_dataset, self.table)
+        trivial = rp.segs is None
+        key = (rp.key_capacity, trivial)
+        runner = self._resident_runners.get(key)
+        if runner is None:
+            runner = ResidentPassRunner(self.step_fn, trivial)
+            self._resident_runners[key] = runner
+        with st.stage("step"):
+            losses = runner.run_pass(self.state, rp, self.seed,
+                                     self.global_step)
+            last_loss = float(losses[-1])
+        if self.check_nan_inf and not bool(
+                torch.isfinite(torch.stack(losses)).all()):
+            raise NanInfError(f"nan/inf loss in the resident pass after "
+                              f"step {self.global_step}")
+        rp.mark_trained_rows(self.table)
+        self.global_step += rp.num_batches
+        elapsed = time.perf_counter() - t0
+        self.sync_table()
+        out = auc_compute(self.state.auc).as_dict()
+        out.update(batches=rp.num_batches, examples=rp.num_records,
+                   elapsed_sec=elapsed,
+                   examples_per_sec=rp.num_records / max(elapsed, 1e-9),
+                   last_loss=last_loss)
+        log.info("%sresident pass done: %d batches, %.0f ex/s, auc=%.4f",
+                 log_prefix, rp.num_batches, out["examples_per_sec"],
+                 out["auc"])
         return out
 
     def eval_pass(self, dataset: InMemoryDataset,

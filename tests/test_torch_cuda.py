@@ -5,10 +5,11 @@ jax nor the JAX package, so they run on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the gathers and the scatter-add are exact; the pool holds
-the pooling-forward class, rtol 3e-5 / atol 1e-6, and a training run on
-the card against the same run on the CPU (other summation orders in the
-tower) holds the ragged train-state class, rtol 2e-4 / atol 2e-5.
+Tolerances: the gathers, the scatter-add and the key index are exact;
+the pool holds the pooling-forward class, rtol 3e-5 / atol 1e-6, and a
+training run on the card against the same run on the CPU (other
+summation orders in the tower) holds the ragged train-state class, rtol
+2e-4 / atol 2e-5.
 """
 
 import numpy as np
@@ -236,3 +237,157 @@ def test_training_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(out["cuda"][2][name], want, rtol=2e-4,
                                    atol=2e-5, err_msg=name)
     assert abs(out["cuda"][3] - out["cpu"][3]) < 1e-5
+
+
+def _key_pool(rng, n):
+    base = rng.integers(0, 2 ** 63, size=n, dtype=np.uint64)
+    base[:3] = [0, 7, 7 + (1 << 32)]        # collide mod 2^32
+    return base
+
+
+def _index_keys(rng, n, pool):
+    """n keys drawn from ``pool`` (an array, or the size of a new one)."""
+    if isinstance(pool, int):
+        pool = _key_pool(rng, pool)
+    keys = pool[rng.integers(0, len(pool), size=n)]
+    return torch.from_numpy(keys.view(np.int64))
+
+
+def _buckets(nb, device):
+    return (torch.zeros(nb, dtype=torch.int64, device=device),
+            torch.full((nb,), -1, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+def test_key_index_insert_and_lookup_match_plain(cuda):
+    """Chained inserts through the kernel and through the plain version
+    give the same rows and new-masks (exact; the bucket placement may
+    differ), and every key looks up to its row in both indexes."""
+    from paddlebox_tpu_torch.ops import index as tix
+    from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
+    rng = np.random.default_rng(11)
+    nb, cap = 1 << 16, 1 << 15
+    kern, plain = _buckets(nb, cuda), _buckets(nb, cuda)
+    next_row, seen = 0, []
+    before = tix.insert.launches
+    pool = _key_pool(rng, 30_000)           # calls share keys
+    for _ in range(4):
+        raw = _index_keys(rng, 20_000, pool).to(cuda)
+        uniq, _, _, u = dedup_keys_first_seen(raw)
+        uniq = uniq[:u].contiguous()
+        r1, n1, f1 = tix.insert(*kern, uniq, next_row, cap)
+        r2, n2, f2 = tix.insert_plain(*plain, uniq, next_row, cap)
+        torch.cuda.synchronize()
+        assert not bool(f1) and not bool(f2)
+        assert torch.equal(r1, r2) and torch.equal(n1, n2)
+        next_row += int(n1.sum())
+        seen.append(uniq)
+    assert tix.insert.launches == before + 4
+    keys = torch.cat(seen + [_index_keys(rng, 5000, 5000).to(cuda)])
+    got = tix.lookup(*kern, keys)
+    assert torch.equal(got, tix.lookup_plain(*kern, keys))
+    assert torch.equal(got, tix.lookup_plain(*plain, keys))
+    n_seen = sum(len(s) for s in seen)
+    assert (got[:n_seen] >= 0).all()
+    assert int((kern[1] >= 0).sum()) == next_row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["probe", "capacity"])
+def test_key_index_overflow_rolls_back(cuda, kind):
+    from paddlebox_tpu_torch.ops import index as tix
+    rng = np.random.default_rng(12)
+    nb = 512
+    bkeys, brows = _buckets(nb, cuda)
+    first = torch.unique(_index_keys(rng, 200, 200)).to(cuda)
+    _, new, failed = tix.insert(bkeys, brows, first, 0, 10_000)
+    assert not bool(failed)
+    n0 = int(new.sum())
+    rows0, keys0 = brows.clone(), torch.where(brows >= 0, bkeys, 0)
+    if kind == "probe":
+        more = torch.unique(_index_keys(rng, 700, 10_000)).to(cuda)
+        *_, failed = tix.insert(bkeys, brows, more, n0, 10_000)
+    else:
+        more = torch.unique(_index_keys(rng, 60, 10_000)).to(cuda)
+        more = more[(tix.lookup(bkeys, brows, more) < 0)].contiguous()
+        *_, failed = tix.insert(bkeys, brows, more, n0, n0 + len(more) - 1)
+    torch.cuda.synchronize()
+    assert bool(failed)
+    assert torch.equal(brows, rows0)
+    assert torch.equal(torch.where(brows >= 0, bkeys, 0), keys0)
+    assert (tix.lookup(bkeys, brows, first) >= 0).all()
+
+
+@pytest.mark.cuda
+def test_dedup_keys_first_seen_on_card_matches_host(cuda):
+    from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
+    from paddlebox_tpu_torch.ps.kv import dedup_first_seen
+    keys = _index_keys(np.random.default_rng(13), 100_000, 40_000)
+    uniq, first, inv, u = dedup_keys_first_seen(keys.to(cuda))
+    hu, hf, hi = dedup_first_seen(keys.numpy().view(np.uint64))
+    assert u == len(hu)
+    np.testing.assert_array_equal(uniq[:u].cpu().numpy().view(np.uint64), hu)
+    np.testing.assert_array_equal(first[:u].cpu().numpy(), hf)
+    np.testing.assert_array_equal(inv.cpu().numpy(), hi)
+
+
+@pytest.mark.cuda
+def test_resident_pass_on_card_matches_cpu(cuda):
+    """Two resident passes with the device key index on the card (insert
+    kernel for the bulk assignment, the four step kernels per step)
+    against the same passes on the CPU. f32 tower, TF32 off, no lazy-mf
+    draws; rows exact, state within rtol 2e-4 / atol 2e-5."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.ops import index as tix
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(14)
+    S, mf, bs = 4, 4, 64
+    slots = [SlotDef("label", "float", 1), SlotDef("d", "float", 3)] + [
+        SlotDef(f"S{i}", "uint64") for i in range(S)]
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=512)
+    recs = []
+    for i in range(4 * bs):
+        counts = np.minimum(rng.zipf(1.5, size=S), 8)
+        offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        keys = (np.repeat(np.arange(S, dtype=np.uint64), counts)
+                * np.uint64(10_000)
+                + rng.integers(0, 600, size=offs[-1]).astype(np.uint64))
+        recs.append(SlotRecord(keys=keys, slot_offsets=offs,
+                               dense=rng.normal(size=3).astype(np.float32),
+                               label=float(i % 2), show=1.0,
+                               clk=float(i % 2)))
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
+    torch.manual_seed(0)
+    model = DeepFM(S, 3 + mf, 3, hidden=(16, 8), compute_dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        table = EmbeddingTable(mf_dim=mf, capacity=1 << 12, cfg=cfg,
+                               unique_bucket_min=512, device=dev)
+        m = DeepFM(S, 3 + mf, 3, hidden=(16, 8), compute_dtype=torch.float32)
+        m.load_state_dict(model.state_dict())
+        tr = Trainer(m, table, desc, seed=3, check_nan_inf=True, device=dev)
+        ds = InMemoryDataset(desc)
+        ds.records = recs
+        before = (tix.insert.launches, tk.pool_cvm.launches)
+        with flags_scope(use_pallas_index=True):
+            res = [tr.train_pass_resident(ds) for _ in range(2)]
+        after = (tix.insert.launches, tk.pool_cvm.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [2, 8] if dev == "cuda" else [0, 0])
+        assert not table._dev_index.degraded
+        keys, rows = table.index.items()
+        order = np.argsort(keys)
+        out[dev] = (keys[order], rows[order],
+                    table.state.data.cpu().numpy()[rows[order]],
+                    {k: v.cpu().numpy() for k, v in m.state_dict().items()},
+                    res[1]["auc"])
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=2e-4,
+                               atol=2e-5)
+    for name, want in out["cpu"][3].items():
+        np.testing.assert_allclose(out["cuda"][3][name], want, rtol=2e-4,
+                                   atol=2e-5, err_msg=name)
+    assert abs(out["cuda"][4] - out["cpu"][4]) < 1e-5
