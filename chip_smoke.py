@@ -6,17 +6,24 @@
 Phases, each of which fails the run:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build every kernel of the serving and training paths from
-   ``paddlebox_tpu_torch/csrc`` (one ``nvcc`` per source, all at once)
-   and print the build seconds;
+2. build every kernel of the serving, training and PV paths from the
+   eight sources of ``paddlebox_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and print the build seconds;
 3. at the full-width shapes of those paths, hold each kernel against its
    plain PyTorch version on the card (``gather_rows``, ``segment_gather``
    in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
    four CVM modes within rtol 3e-5 / atol 1e-6; the key index's insert
    and lookup exact in rows and new-masks, with the pass's unique keys
-   going into a copy of an index seeded with the train base's keys) and
-   time kernel, plain version and the nearest single PyTorch call with
-   CUDA events;
+   going into a copy of an index seeded with the train base's keys;
+   ``rank_attention`` on a real PV batch's rank_offset and on a
+   hand-built one with zero, negative and out-of-range ranks and rows
+   within rtol 1e-5 / atol 1e-6, ``batch_fc`` in its three modes within
+   rtol 1e-6 / atol 1e-6, ``cross_norm`` exact but for its dot column,
+   which holds rtol 1e-5 / atol 1e-6) and time kernel, plain version and
+   the nearest single PyTorch call with CUDA events after an L2 flush
+   (``torch.baddbmm`` for batch_fc; for rank_attention the einsum over
+   the already grouped input, without the decode, gather and grouping;
+   none for cross_norm);
 4. serve ragged DeepFM batches end to end: a seeded ``save_base``-format
    table of 2.6M keyed rows loads into ``ServingModel(device="cuda")``
    with seeded random dense params, and ``predict`` answers ``--batches``
@@ -52,7 +59,27 @@ Phases, each of which fails the run:
    draws (``mf_initial_range`` 0: the two passes lay a batch's unique
    rows out differently, so their draws land on other rows), the
    resident pass and ``train_pass`` from the same start must agree
-   within rtol 2e-4 / atol 2e-5.
+   within rtol 2e-4 / atol 2e-5;
+7. train bench.py's PV ads-ranking configuration (``measure_pv``): 8192
+   PVs of 2-4 ads (shuffled ranks, cmatch 222) through
+   ``PvBatchBuilder`` into batches of 512 PVs padded to 4096 rows, 8
+   slots of one key from 10 000 ids each, 4 dense; an
+   ``EmbeddingTable`` (mf_dim 8, Adagrad, capacity 2^20) loaded from a
+   seeded file of the ids < 9 000 of each slot, a quarter without mf;
+   ``AdsRank(d_model=128, max_rank=3, hidden=(128, 64), slot_fc=True,
+   cross_norm=True)`` with a bf16 tower and a fixed cross-norm summary;
+   Adam 5e-3. ``--batches`` steps of prepare → pull → fused_seqpool_cvm
+   (segments passed, so the pool kernels run) → AdsRank → ins_w-weighted
+   BCE → backward and Adam → embed grads scaled by −B → push. The loss
+   must be finite at every step; rank_attention, batch_fc, cross_norm,
+   pool_cvm, segment_gather and scatter_add_update must launch once a
+   step and gather_rows twice (pull and push); the sentinel row must
+   stay zero and untouched rows bit-identical. Then the same steps run
+   twice more from the same start with the float32 tower, TF32 off and
+   ``mf_initial_range`` 0, through the kernels and through the plain
+   versions: table rows within rtol 2e-4 / atol 2e-5, dense params
+   within rtol 2e-3 / atol 2e-4. Those two runs time each step
+   synchronized, split into prepare, h2d and step.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -82,6 +109,19 @@ BATCH = 4096
 CAPACITY = 1 << 23               # table [8 388 609, 16] f32 = 512 MiB
 HIDDEN = (512, 256, 128)
 
+# phase 7: bench.py's PV ads-ranking configuration (measure_pv,
+# bench.py:596-627)
+PV_PVS = 8192                    # 2-4 ads each, shuffled ranks, cmatch 222
+PV_BATCH = 4096                  # rows; 512 PVs (~1 536 ads) a batch
+PV_SLOTS = 8                     # one key per slot
+PV_VOCAB = 10_000                # ids per slot
+PV_BASE_VOCAB = 9_000            # the PV table file holds ids < this
+PV_DENSE = 4
+PV_DMODEL = 128
+PV_MAX_RANK = 3
+PV_HIDDEN = (128, 64)
+PV_CAPACITY = 1 << 20
+
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -95,6 +135,14 @@ PRED_ATOL = 2e-3
 # runs should agree bit for bit; a pooling-order difference of 1 ulp can
 # flip a ReLU of the tower and move a few rows by ~1e-3, far past this
 STATE_RTOL, STATE_ATOL = 2e-4, 2e-5
+# the CTR kernels against their plain versions (tests/test_pallas_ctr.py):
+# float32 sums in another order; cross_norm is exact but for its dot
+RA_RTOL, RA_ATOL = 1e-5, 1e-6
+FC_RTOL, FC_ATOL = 1e-6, 1e-6
+DOT_RTOL, DOT_ATOL = 1e-5, 1e-6
+# PV kernel-vs-plain training: table rows in STATE_*, dense params in
+# the class of tests/test_pallas_train_gate.py:273
+PARAM_RTOL, PARAM_ATOL = 2e-3, 2e-4
 
 
 def log(msg: str) -> None:
@@ -133,27 +181,30 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
     return total / iters
 
 
-def base_keys(vocab: int) -> np.ndarray:
-    """The keys with id < ``vocab`` of every slot, slot by slot: the rows
-    of a loaded base file, in row order."""
-    return (np.arange(NUM_SLOTS, dtype=np.uint64)[:, None]
-            * np.uint64(VOCAB_PER_SLOT)
+def base_keys(vocab: int, num_slots: int = NUM_SLOTS,
+              stride: int = VOCAB_PER_SLOT) -> np.ndarray:
+    """The keys with id < ``vocab`` of every slot (slot s holds ids from
+    s * stride), slot by slot: the rows of a loaded base file, in row
+    order."""
+    return (np.arange(num_slots, dtype=np.uint64)[:, None]
+            * np.uint64(stride)
             + np.arange(vocab, dtype=np.uint64)[None, :]).reshape(-1)
 
 
 def make_table_blob(rng, convert, vocab: int = VOCAB_PER_SLOT,
-                    no_mf: float = 0.0):
+                    no_mf: float = 0.0, num_slots: int = NUM_SLOTS,
+                    stride: int = VOCAB_PER_SLOT):
     """The keys with id < ``vocab`` of every slot (2.6M for the whole
-    vocabulary) with seeded logical rows; a ``no_mf`` share of them has
-    no mf yet (mf_size 0)."""
-    keys = base_keys(vocab)
+    ragged vocabulary) with seeded logical rows; a ``no_mf`` share of
+    them has no mf yet (mf_size 0)."""
+    keys = base_keys(vocab, num_slots, stride)
     n = len(keys)
     rows = np.zeros((n, 8 + MF_DIM), np.float32)
     show = rng.integers(1, 200, size=n).astype(np.float32)
     rows[:, 0] = show
     rows[:, 1] = np.floor(show * rng.random(n, dtype=np.float32) * 0.3)
     rows[:, 2] = rng.random(n, dtype=np.float32)
-    rows[:, 3] = (keys // VOCAB_PER_SLOT).astype(np.float32)
+    rows[:, 3] = (keys // np.uint64(stride)).astype(np.float32)
     rows[:, 4] = rng.normal(0, 0.05, size=n).astype(np.float32)
     rows[:, 5:7] = 3.0
     rows[:, 7] = 1.0                       # mf_size > 0: embedx served
@@ -183,6 +234,26 @@ def make_records(rng, n: int, SlotRecord):
                        label=float(labels[i]), show=1.0,
                        clk=float(labels[i]))
             for i in range(n)]
+
+
+def make_pv_records(rng, SlotRecord):
+    """bench.py build_pv_records: PV_PVS search pages of 2-4 ads with
+    shuffled 1-based ranks and cmatch 222, one key per slot."""
+    recs = []
+    for sid in range(PV_PVS):
+        n_ads = int(rng.integers(2, 5))
+        ranks = rng.permutation(n_ads) + 1
+        for a in range(n_ads):
+            keys = (rng.integers(0, PV_VOCAB, PV_SLOTS)
+                    + np.arange(PV_SLOTS) * PV_VOCAB).astype(np.uint64)
+            label = float(rng.random() < 0.25)
+            recs.append(SlotRecord(
+                keys=keys,
+                slot_offsets=np.arange(PV_SLOTS + 1, dtype=np.int32),
+                dense=rng.normal(size=PV_DENSE).astype(np.float32),
+                label=label, show=1.0, clk=label, search_id=sid,
+                rank=int(ranks[a]), cmatch=222))
+    return recs
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -671,6 +742,319 @@ def _resident(torch, args, card, desc, records, batches, details,
     return {k: launches[k] for k in ("index_insert", "index_lookup")}
 
 
+def _bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the peak rate."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def ctr_phase(torch, pv_batches, flush, card, details, gen):
+    """Phase 3, the CTR kernels at the PV path's shapes, each against its
+    plain version: rank_attention on a real PV batch's rank_offset (and
+    on a hand-built one with zero, negative and out-of-range ranks and
+    rows), batch_fc in its three modes, cross_norm with a summary folded
+    from one batch. Returns the three kernels' rows of the ``kernels``
+    line."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as C
+    from paddlebox_tpu_torch.ops.cross_norm import (cross_norm_update,
+                                                    init_cross_norm_summary)
+    from paddlebox_tpu_torch.ops.data_norm import data_norm_mean_scale
+    cuda = torch.device("cuda")
+    n, dm, mr = PV_BATCH, PV_DMODEL, PV_MAX_RANK
+
+    # rank_attention: proj [4096, 128] f32, rank_param [9, 128, 128]
+    ro = torch.from_numpy(pv_batches[0][1]).to(cuda)
+    x = torch.randn((n, dm), generator=gen, device=cuda)
+    param = torch.randn((mr * mr, dm, dm), generator=gen, device=cuda) * 0.02
+    rng = np.random.default_rng(5)
+    wild = np.full((n, 1 + 2 * mr), -1, np.int32)
+    wild[:, 0] = rng.integers(-2, mr + 3, size=n)
+    wild[:, 1::2] = rng.integers(-2, mr + 3, size=(n, mr))
+    wild[:, 2::2] = rng.integers(-3, n + 3, size=(n, mr))
+    wild = torch.from_numpy(wild).to(cuda)
+    ra_err = 0.0
+    for what, r in (("PV batch", ro), ("hand-built ranks", wild)):
+        got = C.rank_attention(x, r, param, mr)
+        want = C.rank_attention_plain(x, r, param, mr)
+        torch.cuda.synchronize()
+        ra_err = max(ra_err, check_close(f"rank_attention ({what})", got,
+                                         want, RA_RTOL, RA_ATOL))
+    blk, idx, valid = C.decode_rank_offset(ro, mr, n)
+    n_valid = int(valid.sum())
+    gmat, _ = C._grouped_input(x, blk, idx, valid, mr * mr)
+    ra = {"name": "rank_attention", "route": "cuda",
+          "source": "paddlebox_tpu_torch/csrc/rank_attention.cu",
+          "replaces": "paddlebox_tpu/ops/pallas_ctr.py:138",
+          "max_abs_err": ra_err,
+          "ms": time_ms(torch, lambda: C.rank_attention(x, ro, param, mr),
+                        flush),
+          "plain_ms": time_ms(torch, lambda: C.rank_attention_plain(
+              x, ro, param, mr), flush),
+          # the product over the grouped input only: it leaves out the
+          # decode, the row gather and the grouping
+          "library_ms": time_ms(torch, lambda: torch.einsum(
+              "bnd,bdp->np", gmat, param), flush)}
+    # x, rank_offset and the param blocks read, [N, P] written; 2·D·P
+    # operations per valid (row, co-shown ad) entry of this batch
+    ra["bound_ms"], ra["bound_by"] = _bound(
+        (n * dm + ro.numel() + param.numel() + n * dm) * 4,
+        2.0 * n_valid * dm * dm)
+
+    # batch_fc: the slot_fc tower, [S, B, D] (the pooled block's strided
+    # swapaxes view) x [S, D, D] + [S, D], D = 3 + mf_dim
+    s, dd = PV_SLOTS, 3 + MF_DIM
+    pooled = torch.randn((n, s, dd), generator=gen, device=cuda)
+    xs = pooled.transpose(0, 1)
+    w = torch.randn((s, dd, dd), generator=gen, device=cuda) * 0.3
+    bias = torch.randn((s, dd), generator=gen, device=cuda)
+    flat = xs.reshape(s * n, dd)
+    fc_err = 0.0
+    for what, args in (("default, strided x", (xs, w, bias, False)),
+                       ("batchcount", (flat.view(s, n, dd), w, bias, False)),
+                       ("transpose", (flat.view(s, n, dd),
+                                      w.transpose(1, 2).contiguous(), bias,
+                                      True))):
+        got = C.batch_fc(*args)
+        want = C.batch_fc_plain(*args)
+        torch.cuda.synchronize()
+        fc_err = max(fc_err, check_close(f"batch_fc ({what})", got, want,
+                                         FC_RTOL, FC_ATOL))
+    bfc = {"name": "batch_fc", "route": "cuda",
+           "source": "paddlebox_tpu_torch/csrc/batch_fc.cu",
+           "replaces": "paddlebox_tpu/ops/pallas_ctr.py:248",
+           "max_abs_err": fc_err,
+           "ms": time_ms(torch, lambda: C.batch_fc(xs, w, bias, False),
+                         flush),
+           "plain_ms": time_ms(torch, lambda: C.batch_fc_plain(
+               xs, w, bias, False), flush),
+           "library_ms": time_ms(torch, lambda: torch.baddbmm(
+               bias[:, None, :], xs, w), flush)}
+    bfc["bound_ms"], bfc["bound_by"] = _bound(
+        (2 * s * n * dd + w.numel() + bias.numel()) * 4,
+        2.0 * s * n * dd * dd)
+
+    # cross_norm: h = [proj, attention] [4096, 256] → [4096, 385]
+    h = torch.randn((n, 2 * dm), generator=gen, device=cuda)
+    summ = cross_norm_update(init_cross_norm_summary(1, dm, device=cuda),
+                             h, 1, dm, decay=0.5)
+    mean, scale = data_norm_mean_scale(summ, 1e-4)
+    got = C.cross_norm(h, mean, scale, 1, dm)
+    want = C.cross_norm_plain(h, mean, scale, 1, dm)
+    torch.cuda.synchronize()
+    w_out = 3 * dm + 1
+    if not torch.equal(got[:, :3 * dm], want[:, :3 * dm]):
+        raise AssertionError("cross_norm differs from its plain version "
+                             "outside the dot column")
+    cn_err = check_close("cross_norm (dot column)", got[:, 3 * dm:],
+                         want[:, 3 * dm:], DOT_RTOL, DOT_ATOL)
+    cn = {"name": "cross_norm", "route": "cuda",
+          "source": "paddlebox_tpu_torch/csrc/cross_norm.cu",
+          "replaces": "paddlebox_tpu/ops/pallas_ctr.py:363",
+          "max_abs_err": cn_err,
+          "ms": time_ms(torch, lambda: C.cross_norm(h, mean, scale, 1, dm),
+                        flush),
+          "plain_ms": time_ms(torch, lambda: C.cross_norm_plain(
+              h, mean, scale, 1, dm), flush),
+          "library_ms": None}
+    cn["bound_ms"], cn["bound_by"] = _bound(
+        (h.numel() + 2 * w_out + n * w_out) * 4, 5.0 * n * w_out)
+    details["ctr"] = {"rank_attention_valid_entries": n_valid,
+                      "pv_batch0_rows": int((ro[:, 0] != -1).sum())}
+    log(f"CTR kernels vs plain at the PV shapes: rank_attention max abs err "
+        f"{ra_err:.3g} ({n_valid} valid entries in batch 0), batch_fc 3 "
+        f"modes {fc_err:.3g}, cross_norm exact but the dot, dot {cn_err:.3g}")
+    for r in (ra, bfc, cn):
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library {lib}, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}) ({card})")
+    return ra, bfc, cn
+
+
+class PvDeviceBatch:
+    """One PV batch's tensors on the card (the H2D of the PV loop)."""
+
+    def __init__(self, torch, batch, ro, device) -> None:
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        self.segments = dev(batch.segments)
+        self.show_clk = dev(np.stack([batch.show, batch.clk], axis=1))
+        self.dense = dev(batch.dense)
+        self.label = dev(batch.label)
+        self.ro = dev(ro)
+        self.ins_w = dev((batch.show > 0).astype(np.float32))
+
+
+def pv_step(torch, table, model, opt, summary, idx, dv, ops):
+    """One step of bench.py's PV loop: pull → fused_seqpool_cvm → AdsRank
+    → ins_w-weighted BCE → backward and Adam → embed grads scaled by −B →
+    push. Returns the loss (a device tensor)."""
+    import torch.nn.functional as F
+
+    from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm
+    values_k = table.pull(idx, ops).requires_grad_(True)
+    pooled = fused_seqpool_cvm(values_k, dv.segments, dv.show_clk, PV_BATCH,
+                               PV_SLOTS, ops=ops)
+    logits = model(pooled, dv.dense, dv.ro, summary)
+    ls = F.binary_cross_entropy_with_logits(logits, dv.label,
+                                            reduction="none")
+    loss = (ls * dv.ins_w).sum() / dv.ins_w.sum().clamp_min(1.0)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    gk = values_k.grad
+    gk[:, 2:] *= -1.0 * PV_BATCH
+    table.push(idx, gk, ops=ops)
+    return loss.detach()
+
+
+def pv_phase(torch, args, card, pv_batches, details):
+    """Phase 7: the PV ads-ranking path (see the module docstring).
+    Returns the three CTR kernels' launches in its main run."""
+    from paddlebox_tpu_torch import AdsRank, EmbeddingTable, convert
+    from paddlebox_tpu_torch.ops import ctr_kernels as C
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ops.cross_norm import init_cross_norm_summary
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+
+    cuda = torch.device("cuda")
+    batches = pv_batches[:args.batches]
+    nb = len(batches)
+    ads = int(sum((b.show > 0).sum() for b, _ in batches))
+    base = make_table_blob(np.random.default_rng(args.seed + 3), convert,
+                           vocab=PV_BASE_VOCAB, no_mf=0.25,
+                           num_slots=PV_SLOTS, stride=PV_VOCAB)
+    summary = init_cross_norm_summary(1, PV_DMODEL, device=cuda)  # fixed
+
+    def fresh_table(path, cfg):
+        t = EmbeddingTable(mf_dim=MF_DIM, capacity=PV_CAPACITY, cfg=cfg,
+                           seed=args.seed, unique_bucket_min=512,
+                           device="cuda")
+        t.load(path)
+        return t
+
+    def fresh_model(dtype):
+        torch.manual_seed(args.seed + 4)
+        return AdsRank(PV_SLOTS, 3 + MF_DIM, PV_DENSE, d_model=PV_DMODEL,
+                       max_rank=PV_MAX_RANK, hidden=PV_HIDDEN,
+                       compute_dtype=dtype, slot_fc=True,
+                       cross_norm=True).to(cuda)
+
+    def run(table, model, ops, timed):
+        model.ops = ops
+        opt = torch.optim.Adam(model.parameters(), lr=5e-3, eps=1e-8)
+        losses = []
+        split = {"prepare_ms": [], "h2d_ms": [], "step_ms": []}
+        for batch, ro in batches:
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx = table.prepare(batch)
+            t1 = time.perf_counter()
+            dv = PvDeviceBatch(torch, batch, ro, cuda)
+            if timed:
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            loss = pv_step(torch, table, model, opt, summary, idx, dv, ops)
+            losses.append(float(loss))             # reading it syncs
+            t3 = time.perf_counter()
+            for k, a, b in (("prepare_ms", t0, t1), ("h2d_ms", t1, t2),
+                            ("step_ms", t2, t3)):
+                split[k].append((b - a) * 1e3)
+            if not np.isfinite(losses[-1]):
+                raise AssertionError(f"PV: non-finite loss {losses}")
+        return losses, split
+
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=1e-3)
+    cfg0 = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update,
+           "rank_attention": C.rank_attention, "batch_fc": C.batch_fc,
+           "cross_norm": C.cross_norm}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pv_base.npz")
+        np.savez(path, **base)
+        n_base = len(base["keys"])
+        del base
+        table = fresh_table(path, cfg)
+        start = table.state.data.clone()
+        model = fresh_model(torch.bfloat16)
+        torch.cuda.synchronize()
+
+        # the main path: bf16 tower, the kernels
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses, _ = run(table, model, K.KERNELS, timed=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in fns.items()}
+        want = {name: nb for name in fns}
+        want["gather_rows"] = 2 * nb            # the pull's and the push's
+        if launches != want:
+            raise AssertionError(f"PV: launches {launches}, expected {want}")
+        data = table.state.data
+        if bool(data[PV_CAPACITY].any()):
+            raise AssertionError("PV: the sentinel row was written")
+        touched = torch.from_numpy(table._touched).to(cuda)
+        changed = (data != start).any(dim=1)
+        if bool((changed & ~touched).any()):
+            raise AssertionError("PV: rows the pass did not touch changed")
+        n_new = len(table.index) - n_base
+        created = int(((start[:, 7] == 0) & (data[:, 7] > 0)
+                       & (start[:, 0] > 0)).sum())
+        n_changed = int(changed.sum())
+        if n_new <= 0 or created <= 0 or n_changed <= 0:
+            raise AssertionError(f"PV: {n_new} new rows, {created} mf "
+                                 f"created, {n_changed} rows changed")
+        del table, start, changed, touched, model
+
+        # kernels vs plain from the same start: f32 tower, no mf draws
+        tk, tp = fresh_table(path, cfg0), fresh_table(path, cfg0)
+        mk, mp = fresh_model(torch.float32), fresh_model(torch.float32)
+        loss_k, split_k = run(tk, mk, K.KERNELS, timed=True)
+        loss_p, split_p = run(tp, mp, K.PLAIN, timed=True)
+    rows_t = torch.from_numpy(np.nonzero(tk._touched | tp._touched)[0]).to(
+        cuda)
+    row_err = check_close("PV: touched table rows, kernels vs plain",
+                          tk.state.data[rows_t], tp.state.data[rows_t],
+                          STATE_RTOL, STATE_ATOL)
+    pk, pp = mk.state_dict(), mp.state_dict()
+    param_err = max(check_close(f"PV: dense param {k}", pk[k], pp[k],
+                                PARAM_RTOL, PARAM_ATOL) for k in pk)
+    p50 = {k: float(np.median(v)) for k, v in split_k.items()}
+    step_p50 = sum(p50.values())
+    ads_per_batch = ads / nb
+    log(f"PV train: {nb} steps of {PV_BATCH} rows ({ads} ads, "
+        f"{len(batches[0][0].keys)} key slots a batch), "
+        f"{ads / wall:.0f} examples/s (bf16 tower, loss read every step), "
+        f"last loss {losses[-1]:.4f}; {n_new} new rows, {created} mf "
+        f"created, {n_changed} rows changed; launches "
+        f"{json.dumps(launches)} ({card})")
+    log(f"PV steps (f32 tower, synchronized): p50 {step_p50:.2f} ms = "
+        f"{json.dumps({k: round(v, 3) for k, v in p50.items()})}, "
+        f"{ads_per_batch / step_p50 * 1e3:.0f} examples/s; device step p50 "
+        f"{p50['step_ms']:.3f} ms through the kernels, "
+        f"{float(np.median(split_p['step_ms'])):.3f} ms through the plain "
+        f"versions; kernels vs plain max abs err rows {row_err:.3g}, "
+        f"params {param_err:.3g} ({card})")
+    details["pv"] = {
+        "batches": nb, "ads": ads, "wall_s": wall,
+        "examples_per_sec": ads / wall, "losses": losses,
+        "launches": launches, "new_rows": n_new, "mf_created": created,
+        "rows_changed": n_changed, "split_ms": split_k,
+        "plain_split_ms": split_p, "split_p50_ms": p50,
+        "step_p50_ms": step_p50, "loss_kernels_f32": loss_k,
+        "loss_plain_f32": loss_p, "row_max_abs_err": row_err,
+        "param_max_abs_err": param_err}
+    return {k: launches[k] for k in ("rank_attention", "batch_fc",
+                                     "cross_norm")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -690,7 +1074,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddlebox_tpu_torch import DeepFM, ServingModel, convert
     from paddlebox_tpu_torch.data import (BatchBuilder, DataFeedDesc,
-                                          SlotDef, SlotRecord)
+                                          PvBatchBuilder, SlotDef,
+                                          SlotRecord)
     from paddlebox_tpu_torch.ops import _build
     from paddlebox_tpu_torch.ops import kernels as K
     from paddlebox_tpu_torch.ps.table import expand_pull, pull_values
@@ -733,6 +1118,22 @@ def main() -> int:
     log(f"data: {len(blob['keys'])} keyed rows, {len(batches)} batches, "
         f"{batches[0].num_keys} keys in batch 0 (K_pad "
         f"{batches[0].key_capacity}) in {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    pv_records = make_pv_records(np.random.default_rng(args.seed + 5),
+                                 SlotRecord)
+    pv_slots = ([SlotDef("label", "float", 1),
+                 SlotDef("dense", "float", PV_DENSE)]
+                + [SlotDef(f"C{i}", "uint64") for i in range(PV_SLOTS)])
+    pv_desc = DataFeedDesc(slots=pv_slots, batch_size=PV_BATCH,
+                           label_slot="label", pv_batch_size=PV_BATCH // 8,
+                           key_bucket_min=PV_BATCH * PV_SLOTS)
+    pv_batches = PvBatchBuilder(pv_desc, max_rank=PV_MAX_RANK).batches(
+        pv_records)
+    log(f"PV data: {len(pv_records)} ads in {PV_PVS} PVs, "
+        f"{len(pv_batches)} batches of {PV_BATCH // 8} PVs, "
+        f"{int((pv_batches[0][0].show > 0).sum())} ads in batch 0 in "
+        f"{time.perf_counter() - t0:.2f}s")
+    del pv_records
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "base.npz")
@@ -902,6 +1303,7 @@ def main() -> int:
     log(f"  pool_cvm kernel alone: "
         f"{details['pool_cvm_kernel_only_ms']:.4f} ms ({card})")
     ins, lk = index_phase(torch, batches, flush, card, details)
+    ra, bfc, cn = ctr_phase(torch, pv_batches, flush, card, details, gen)
 
     # ---- phase 4: the serving path end to end ----
     K.gather_rows.launches = 0
@@ -968,7 +1370,10 @@ def main() -> int:
     # ---- phases 5 and 6: the training paths ----
     train_launches = train_phase(torch, args, card, desc, records, batches,
                                  details)
-    kernels = [g, p, sg, sa, ins, lk]
+
+    # ---- phase 7: the PV ads-ranking path ----
+    train_launches.update(pv_phase(torch, args, card, pv_batches, details))
+    kernels = [g, p, sg, sa, ins, lk, ra, bfc, cn]
     for r in kernels:
         r["launches"] = train_launches[r["name"]]
     details["kernels"] = kernels

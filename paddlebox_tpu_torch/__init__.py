@@ -8,11 +8,12 @@ version.
 """
 
 from paddlebox_tpu_torch.data.dataset import InMemoryDataset
+from paddlebox_tpu_torch.models.ads_rank import AdsRank
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.serving import ServingModel
 from paddlebox_tpu_torch.train.step import TrainStep
 from paddlebox_tpu_torch.train.trainer import Trainer
 
-__all__ = ["DeepFM", "EmbeddingTable", "InMemoryDataset", "ServingModel",
-           "TrainStep", "Trainer"]
+__all__ = ["AdsRank", "DeepFM", "EmbeddingTable", "InMemoryDataset",
+           "ServingModel", "TrainStep", "Trainer"]

@@ -4,6 +4,8 @@
   ``jax.device_get(params)`` returns it) → the port's DeepFM
   ``state_dict``. A flax Dense kernel is ``[in, out]``; a torch weight is
   ``[out, in]``.
+- ``ads_rank_state_dict_from_flax``: the same for AdsRank, whose layers
+  carry the flax names.
 - ``table_rows_from_logical``: keys and their logical table rows → the
   field mapping a save file holds, for a table handed over in memory
   rather than through ``.npz`` (``EmbeddingTable.load`` takes either).
@@ -32,10 +34,34 @@ def deepfm_state_dict_from_flax(params_np: Mapping
                + ["out"])
     out: Dict[str, torch.Tensor] = {}
     for name, tgt in zip(names, targets):
-        kernel = np.asarray(tree[name]["kernel"], np.float32)
-        bias = np.asarray(tree[name]["bias"], np.float32)
-        out[f"{tgt}.weight"] = torch.from_numpy(kernel.T.copy())
-        out[f"{tgt}.bias"] = torch.from_numpy(bias.copy())
+        out.update(_dense_params(tree[name], tgt))
+    return out
+
+
+def _dense_params(layer: Mapping, name: str) -> Dict[str, torch.Tensor]:
+    kernel = np.asarray(layer["kernel"], np.float32)
+    bias = np.asarray(layer["bias"], np.float32)
+    return {f"{name}.weight": torch.from_numpy(kernel.T.copy()),
+            f"{name}.bias": torch.from_numpy(bias.copy())}
+
+
+def ads_rank_state_dict_from_flax(params_np: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The flax AdsRank tree → the port's AdsRank ``state_dict``: the
+    ``slot_fc_w`` / ``slot_fc_b`` / ``rank_param`` arrays as they are,
+    the ``ad_proj``, ``mlp_{i}`` and ``head`` Dense layers transposed."""
+    tree = params_np.get("params", params_np)
+    if "rank_param" not in tree or "ad_proj" not in tree:
+        raise ValueError(f"not an AdsRank param tree: {sorted(tree)}")
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("slot_fc_w", "slot_fc_b", "rank_param"):
+        if name in tree:
+            out[name] = torch.from_numpy(
+                np.array(tree[name], dtype=np.float32))
+    mlps = sorted((k for k in tree if k.startswith("mlp_")),
+                  key=lambda k: int(k.split("_")[1]))
+    for name in ["ad_proj", *mlps, "head"]:
+        out.update(_dense_params(tree[name], name))
     return out
 
 

@@ -17,6 +17,8 @@ from typing import Dict, NamedTuple, Union
 import numpy as np
 import torch
 
+from paddlebox_tpu_torch.device import resolve_device
+
 AUC_NUM_BUCKETS = 1_000_000
 
 
@@ -35,10 +37,13 @@ class AucState(NamedTuple):
 
 
 def init_auc_state(nbins: int = AUC_NUM_BUCKETS,
-                   device: Union[str, torch.device] = "cpu") -> AucState:
+                   device: Union[str, torch.device] = "cuda") -> AucState:
+    """Zeroed AUC tables, on the card unless the caller asks for the
+    CPU (raises where no card is present)."""
+    dev = resolve_device(device)
     return AucState(torch.zeros((2, nbins), dtype=torch.float32,
-                                device=device),
-                    torch.zeros(5, dtype=torch.float32, device=device))
+                                device=dev),
+                    torch.zeros(5, dtype=torch.float32, device=dev))
 
 
 def auc_add_batch(state: AucState, pred: torch.Tensor, label: torch.Tensor,

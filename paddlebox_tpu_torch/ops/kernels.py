@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from paddlebox_tpu_torch.ops import _build, index
+from paddlebox_tpu_torch.ops import _build, ctr_kernels, index
 
 #: static CVM epilogue modes (which head columns transform)
 CVM_NONE = 0      # no transform (use_cvm=False; the head is sliced off)
@@ -356,8 +356,8 @@ scatter_add_update.launches = 0
 
 
 class KernelSet(NamedTuple):
-    """The device functions the training, serving and key-index paths
-    call.
+    """The device functions the training, serving, key-index and PV
+    ranking paths call.
     ``KERNELS`` is what every entry point uses; ``PLAIN`` exists so a
     check on the card can run the same path through the plain versions
     (it is passed explicitly, never chosen by a device test)."""
@@ -368,10 +368,16 @@ class KernelSet(NamedTuple):
     scatter_add_update: Callable
     index_insert: Callable
     index_lookup: Callable
+    rank_attention: Callable
+    batch_fc: Callable
+    cross_norm: Callable
 
 
 KERNELS = KernelSet(gather_rows, pool_cvm, segment_gather,
-                    scatter_add_update, index.insert, index.lookup)
+                    scatter_add_update, index.insert, index.lookup,
+                    ctr_kernels.rank_attention, ctr_kernels.batch_fc,
+                    ctr_kernels.cross_norm)
 PLAIN = KernelSet(gather_rows_plain, pool_cvm_plain, segment_gather_plain,
                   scatter_add_update_plain, index.insert_plain,
-                  index.lookup_plain)
+                  index.lookup_plain, ctr_kernels.rank_attention_plain,
+                  ctr_kernels.batch_fc_plain, ctr_kernels.cross_norm_plain)

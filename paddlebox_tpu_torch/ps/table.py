@@ -174,6 +174,49 @@ def expand_pull(values_u: torch.Tensor,
     return values_u[gather_idx.long().clamp(0, u - 1)]
 
 
+def _live_keys(gather_idx: torch.Tensor, key_valid: torch.Tensor,
+               num_unique: int) -> torch.Tensor:
+    """Positions of the keys that merge: valid, and inside [0, U) (JAX's
+    segment_sum drops the rest)."""
+    return torch.nonzero((key_valid > 0) & (gather_idx >= 0)
+                         & (gather_idx < num_unique)).squeeze(1)
+
+
+def merge_push(key_grads: torch.Tensor, gather_idx: torch.Tensor,
+               key_valid: torch.Tensor, slot_of_key: torch.Tensor,
+               num_unique: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dedup-merge per-key-occurrence grads into per-unique-row grads
+    (PushMergeCopy, box_wrapper.cu:417). Returns (unique_grads [U, D],
+    touched [U] bool, slot_val [U]). Only the valid keys are summed, by
+    an accumulating ``index_put_`` (key order): padded keys, which all
+    point at one slot, never reach it."""
+    live = _live_keys(gather_idx, key_valid, num_unique)
+    gi = gather_idx.long()[live]
+    g = key_grads.new_zeros((num_unique, key_grads.shape[1])).index_put_(
+        (gi,), key_grads[live] * key_valid[live, None], accumulate=True)
+    touched, slot_val = push_stats(gather_idx, key_valid, slot_of_key,
+                                   num_unique)
+    return g, touched, slot_val
+
+
+def push_stats(gather_idx: torch.Tensor, key_valid: torch.Tensor,
+               slot_of_key: torch.Tensor,
+               num_unique: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-unique-row touched flag and mean slot id of the valid keys."""
+    live = _live_keys(gather_idx, key_valid, num_unique)
+    gi = gather_idx.long()[live]
+    kv = key_valid[live].float()
+    zeros = torch.zeros(num_unique, dtype=torch.float32,
+                        device=key_valid.device)
+    cnt = zeros.index_put((gi,), kv, accumulate=True)
+    slot_sum = zeros.index_put((gi,), slot_of_key[live].float() * kv,
+                               accumulate=True)
+    touched = cnt > 0
+    slot_val = torch.where(touched, slot_sum / cnt.clamp_min(1.0), 0.0)
+    return touched, slot_val
+
+
 def apply_push(state: TableState, unique_rows: torch.Tensor,
                unique_grads: torch.Tensor, cfg: SparseSGDConfig,
                generator: Optional[torch.Generator] = None,
@@ -393,6 +436,42 @@ class EmbeddingTable:
         counterpart of the reference's ``next_rng`` fold-in)."""
         self._push_count += 1
         return seeded_generator(self.device, self.seed, self._push_count)
+
+    # ---- eager pull/push (the PV loop, tests) ----
+    def pull(self, idx: PullIndex, ops: KernelSet = KERNELS) -> torch.Tensor:
+        """Per-key-occurrence pull values [K_pad, 3+mf_dim] of a prepared
+        batch; the padded keys read the zero sentinel."""
+        rows = torch.from_numpy(idx.unique_rows).to(self.device)
+        gi = torch.from_numpy(idx.gather_idx).to(self.device)
+        vals_u = pull_values(gather_full_rows(self.state, rows, ops),
+                             self.mf_dim)
+        return expand_pull(vals_u, gi)
+
+    def push(self, idx: PullIndex, key_grads: torch.Tensor,
+             slot_of_key: Optional[np.ndarray] = None,
+             ops: KernelSet = KERNELS) -> None:
+        """Per-key-occurrence grads [K_pad, 3+mf_dim] in → merge per
+        unique row → in-table optimizer (``apply_push``). ``slot_of_key``
+        (per padded key) records the rows' slot ids in the host slot
+        metadata.
+
+        The port's ``PullIndex`` has no ``key_valid``: the real keys are
+        those with ``gather_idx < num_unique``, a prefix (``_build_index``
+        points every pad at slot ``num_unique``). Only that prefix is
+        merged, so the pads never reach the accumulating ``index_put_``;
+        the result is the reference's, whose key_valid mask zeroes them."""
+        nk = int(np.count_nonzero(idx.gather_idx < idx.num_unique))
+        if slot_of_key is not None:
+            sok = np.asarray(slot_of_key)[:nk].astype(np.int16)
+            with self.host_lock:
+                self.record_slots(idx.unique_rows, idx.gather_idx[:nk], sok)
+        gi = torch.from_numpy(idx.gather_idx[:nk].astype(np.int64)).to(
+            self.device)
+        g = key_grads.new_zeros((len(idx.unique_rows), key_grads.shape[1]))
+        g.index_put_((gi,), key_grads[:nk], accumulate=True)
+        rows = torch.from_numpy(idx.unique_rows).to(self.device)
+        apply_push(self.state, rows, g, self.cfg,
+                   generator=self.next_generator(), ops=ops)
 
     def host_pull(self, keys: np.ndarray,
                   data: Optional[np.ndarray] = None) -> np.ndarray:

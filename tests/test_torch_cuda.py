@@ -6,6 +6,9 @@ jax nor the JAX package, so they run on a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: the gathers, the scatter-add and the key index are exact;
+rank_attention holds rtol 1e-5 / atol 1e-6 and batch_fc rtol 1e-6 /
+atol 1e-6 (float32 sums in another order); cross_norm is exact but for
+its dot column (rtol 1e-5 / atol 1e-6);
 the pool holds the pooling-forward class, rtol 3e-5 / atol 1e-6, and a
 training run on the card against the same run on the CPU (other
 summation orders in the tower) holds the ragged train-state class, rtol
@@ -391,3 +394,115 @@ def test_resident_pass_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(out["cuda"][3][name], want, rtol=2e-4,
                                    atol=2e-5, err_msg=name)
     assert abs(out["cuda"][4] - out["cpu"][4]) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the CTR op family (rank_attention, batch_fc, cross_norm)
+# ---------------------------------------------------------------------------
+
+def _rank_inputs(rng, n=300, d=40, p=33, mr=3, wild=True):
+    """rank_offset with invalid, zero, out-of-range ranks and rows, and a
+    padded tail (the last fifth) of all -1 rows."""
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    param = (rng.normal(size=(mr * mr, d, p)) * 0.1).astype(np.float32)
+    ro = np.full((n, 1 + 2 * mr), -1, np.int32)
+    live = n - n // 5
+    lo, hi = (-2, mr + 3) if wild else (1, mr + 1)
+    ro[:live, 0] = rng.integers(lo, hi, size=live)
+    for k in range(mr):
+        ro[:live, 1 + 2 * k] = rng.integers(lo, hi, size=live)
+        ro[:live, 2 + 2 * k] = rng.integers(-3 if wild else 0,
+                                            n + 3 if wild else n, size=live)
+    return x, ro, param
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 40, 33, 3), (64, 128, 128, 3),
+                                   (50, 7, 300, 2), (9, 3000, 5, 1)])
+def test_rank_attention_matches_plain(cuda, shape):
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    n, d, p, mr = shape
+    x, ro, param = (torch.from_numpy(a).to(cuda) for a in _rank_inputs(
+        np.random.default_rng(n), n, d, p, mr))
+    before = tc.rank_attention.launches
+    got = tc.rank_attention(x, ro, param, mr)
+    want = tc.rank_attention_plain(x, ro, param, mr)
+    torch.cuda.synchronize()
+    assert tc.rank_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    pad = got[n - n // 5:]
+    assert torch.equal(pad, torch.zeros_like(pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "strided", "batchcount",
+                                  "transpose"])
+def test_batch_fc_matches_plain(cuda, mode):
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    rng = np.random.default_rng(3)
+    s, n, i_dim, o_dim = 8, 1000, 11, 13
+
+    def dev(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(cuda)
+    x = dev(n, s, i_dim).transpose(0, 1) if mode == "strided" \
+        else dev(s, n, i_dim)
+    w = dev(s, o_dim, i_dim) if mode == "transpose" else dev(s, i_dim, o_dim)
+    bias = dev(s, o_dim)
+    tr = mode == "transpose"
+    got = tc.batch_fc(x, w, bias, tr)
+    want = tc.batch_fc_plain(x, w, bias, tr)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 128), (3, 5), (2, 70)])
+def test_cross_norm_matches_plain(cuda, n, d):
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    rng = np.random.default_rng(d)
+    b, w = 257, n * (3 * d + 1)
+    x = torch.from_numpy(rng.normal(size=(b, 2 * n * d)).astype(
+        np.float32)).to(cuda)
+    mean = torch.from_numpy(rng.normal(size=w).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.random(w).astype(np.float32) + 0.5).to(cuda)
+    got = tc.cross_norm(x, mean, scale, n, d)
+    want = tc.cross_norm_plain(x, mean, scale, n, d)
+    torch.cuda.synchronize()
+    dot = torch.zeros(w, dtype=torch.bool, device=cuda)
+    dot[3 * d::3 * d + 1] = True
+    assert torch.equal(got[:, ~dot], want[:, ~dot])
+    torch.testing.assert_close(got[:, dot], want[:, dot], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_ads_rank_on_card_matches_plain(cuda):
+    """AdsRank with both towers: forward and every param grad through the
+    kernels against the same model through the plain versions."""
+    from paddlebox_tpu_torch import AdsRank
+    from paddlebox_tpu_torch.ops.cross_norm import init_cross_norm_summary
+    rng = np.random.default_rng(12)
+    b, s, d, dm = 200, 5, 11, 32
+    x, ro, _ = _rank_inputs(rng, n=b, d=1, p=1, wild=False)
+    pooled = torch.from_numpy(rng.normal(size=(b, s, d)).astype(
+        np.float32)).to(cuda)
+    dense = torch.from_numpy(rng.normal(size=(b, 4)).astype(
+        np.float32)).to(cuda)
+    ro = torch.from_numpy(ro).to(cuda)
+    summ = init_cross_norm_summary(1, dm)
+    torch.manual_seed(0)
+    model = AdsRank(s, d, 4, d_model=dm, hidden=(16,), slot_fc=True,
+                    cross_norm=True, compute_dtype=torch.float32).to(cuda)
+    outs, grads = [], []
+    for ops in (tk.KERNELS, tk.PLAIN):
+        model.ops = ops
+        model.zero_grad()
+        out = model(pooled, dense, ro, summ)
+        (out ** 2).sum().backward()
+        outs.append(out.detach())
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-5)
+    for k in grads[0]:
+        torch.testing.assert_close(grads[0][k], grads[1][k], rtol=5e-3,
+                                   atol=1e-4)

@@ -73,3 +73,19 @@ def test_no_gpu_raises_instead_of_falling_back(monkeypatch):
     tr = Trainer(model, table, DataFeedDesc.criteo(), device="cpu")
     assert tr.state.auc.buckets.device.type == "cpu"
     assert table.next_generator().device.type == "cpu"
+
+
+def test_state_helpers_default_to_the_card(monkeypatch):
+    """The AUC tables and the data_norm / cross_norm summaries are made on
+    the card unless the caller asks for the CPU: without one they raise."""
+    from paddlebox_tpu_torch.metrics import init_auc_state
+    from paddlebox_tpu_torch.ops.cross_norm import init_cross_norm_summary
+    from paddlebox_tpu_torch.ops.data_norm import init_data_norm_summary
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: init_auc_state(16, **kw),
+                 lambda **kw: init_data_norm_summary(4, **kw),
+                 lambda **kw: init_cross_norm_summary(1, 4, **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        state = make(device="cpu")
+        assert all(t.device.type == "cpu" for t in state)

@@ -319,7 +319,7 @@ def test_assign_unique_matches_native_kv():
 def test_auc_matches_reference():
     rng = np.random.default_rng(8)
     nb = 1000
-    js, ts = j_auc_init(nb), tmetrics.init_auc_state(nb)
+    js, ts = j_auc_init(nb), tmetrics.init_auc_state(nb, device="cpu")
     for _ in range(3):
         pred = rng.random(257).astype(np.float32)
         pred[:3] = [0.0, 1.0, 0.9999999]
