@@ -6,9 +6,9 @@
 Phases, each of which fails the run:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build every kernel of the serving, training and PV paths from the
-   eight sources of ``paddlebox_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and print the build seconds;
+2. build every kernel of the serving, training, PV and seqpool paths
+   (13 kernels) from the eleven sources of ``paddlebox_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once) and print the build seconds;
 3. at the full-width shapes of those paths, hold each kernel against its
    plain PyTorch version on the card (``gather_rows``, ``segment_gather``
    in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
@@ -79,7 +79,25 @@ Phases, each of which fails the run:
    ``mf_initial_range`` 0, through the kernels and through the plain
    versions: table rows within rtol 2e-4 / atol 2e-5, dense params
    within rtol 2e-3 / atol 2e-4. Those two runs time each step
-   synchronized, split into prepare, h2d and step.
+   synchronized, split into prepare, h2d and step;
+8. run the seqpool op family on phase 3's ragged batch 0 (B 4096, S 26,
+   its real keys and segment stream; the pulled rows of width 11, seeded
+   extra cvm columns where a variant needs them): the concat form (k 3,
+   clk_filter and no-cvm, pad_value 0.25, embedx_concate_filter),
+   embed_threshold_filter, conv with show_filter, four slot groups,
+   fused_seqpool_concat, fused_embed_pool_cvm, diff_thres with per-slot
+   thresholds, tradew (3 trade columns, both modes), credit, pcoc (p 2)
+   and cvm, each forward and backward through the kernels (counted: every
+   op that pools through segment_sum must launch it) and again through
+   the kernels and the plain versions: forwards within rtol 3e-5 / atol
+   1e-6, grads exact but tradew's trade column (atol 1e-6); the slot
+   groups must equal the monolithic pool. Then ``segment_sum`` on the
+   concat path's stream and on ``_pool_core``'s, and ``scatter_rows``,
+   ``scatter_rows_dma`` and ``gather_rows_dma`` (no consumer in either
+   package: their counted run is a pull and write-back round trip of the
+   batch's 2^19-padded unique rows on a copy of the table, which must
+   restore it) against their plain versions (exact but the racy
+   sentinel row) and timed.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -1055,6 +1073,317 @@ def pv_phase(torch, args, card, pv_batches, details):
                                      "cross_norm")}
 
 
+SEQPOOL_GROUPS = 4              # phase 8: slot_group_bounds(26, 4)
+SEQPOOL_KK = 3                  # phase 8: the concat form's k
+
+
+def _seqpool_ops(torch, values, segs, show_clk, gen):
+    """Phase 8's op table on the ragged batch: (name, pools through
+    segment_sum, the op's input values [K, D], fn(v, ops) → output).
+    Variants that need more cvm columns get seeded ones in front of the
+    pulled embed columns."""
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ops import seqpool_cvm as SC
+    from paddlebox_tpu_torch.ops import seqpool_variants as SV
+    from paddlebox_tpu_torch.ops.cvm import cvm, cvm_grad_passthrough
+    cuda = torch.device("cuda")
+    b, s = BATCH, NUM_SLOTS
+    k = values.shape[0]
+
+    def counts(n_cols):
+        return torch.floor(torch.rand((k, n_cols), generator=gen,
+                                      device=cuda) * 4)
+
+    def heads(n_cols, rows=b):
+        return torch.floor(torch.rand((rows, n_cols), generator=gen,
+                                      device=cuda) * 5)
+
+    show_clk_v, embed = values[:, :2], values[:, 2:]
+    conv_head = heads(3)
+    credit_v = torch.cat([show_clk_v, counts(2), embed], 1).contiguous()
+    credit_head = heads(4)
+    pcoc_v = torch.cat([show_clk_v, counts(4), embed], 1).contiguous()
+    pcoc_head, q_values = heads(6), torch.randn((b, 2), generator=gen,
+                                                device=cuda)
+    trade_v = torch.cat([show_clk_v, torch.rand((k, 3), generator=gen,
+                                                device=cuda), embed],
+                        1).contiguous()
+    thr = (0.2 + 1.8 * torch.rand(s, generator=gen, device=cuda))
+    concat = dict(embedx_concate_size=SEQPOOL_KK, pad_value=0.25,
+                  need_filter=True, embedx_concate_filter=True)
+    slot = segs.long() % s
+    bounds = SC.slot_group_bounds(s, SEQPOOL_GROUPS)
+    picks = [torch.nonzero((slot >= lo) & (slot < hi)).squeeze(1)
+             for lo, hi in bounds]
+
+    def slot_groups(v, ops):
+        return torch.cat([SC.fused_seqpool_cvm_slot_group(
+            v[pk], segs[pk].contiguous(), show_clk, b, s, lo, hi, ops=ops)
+            for (lo, hi), pk in zip(bounds, picks)], dim=1)
+
+    def cvm_pair(v, ops):
+        x = SC.fused_seqpool_concat(v, segs, b, s, ops=ops).reshape(b * s,
+                                                                    -1)
+        return cvm(cvm_grad_passthrough(x), x[:, :2].detach())
+
+    return [
+        ("concat_kk3_show", True, values, lambda v, ops: SC.fused_seqpool_cvm(
+            v, segs, show_clk, b, s, clk_filter=True, ops=ops, **concat)),
+        ("concat_kk3_nocvm", True, values,
+         lambda v, ops: SC.fused_seqpool_cvm(
+             v, segs, show_clk, b, s, use_cvm=False, ops=ops, **concat)),
+        ("embed_threshold_filter", False, values,
+         lambda v, ops: SC.fused_seqpool_cvm(
+             v, segs, show_clk, b, s, need_filter=True,
+             embed_threshold_filter=True, embed_threshold=0.15, ops=ops)),
+        ("conv_show_filter", False, values,
+         lambda v, ops: SC.fused_seqpool_cvm_with_conv(
+             v, segs, conv_head, b, s, show_filter=True, need_filter=True,
+             ops=ops)),
+        ("slot_group_4", False, values, slot_groups),
+        ("seqpool_concat", True, values,
+         lambda v, ops: SC.fused_seqpool_concat(v, segs, b, s, 0.25,
+                                                ops=ops)),
+        ("embed_pool_cvm", False, values,
+         lambda v, ops: K.fused_embed_pool_cvm(
+             v, segs, show_clk, b, s, need_filter=True, ops=ops)),
+        ("diff_thres", True, values,
+         lambda v, ops: SV.fused_seqpool_cvm_with_diff_thres(
+             v, segs, show_clk, thr, b, s, pad_value=0.25, ops=ops)),
+        ("tradew", True, trade_v, lambda v, ops: SV.fused_seqpool_cvm_tradew(
+            v, segs, show_clk, b, s, 3, ops=ops)),
+        ("tradew_trade_id", True, trade_v,
+         lambda v, ops: SV.fused_seqpool_cvm_tradew(
+             v, segs, show_clk, b, s, 3, trade_id=1, ops=ops)),
+        ("credit", True, credit_v,
+         lambda v, ops: SV.fused_seqpool_cvm_with_credit(
+             v, segs, credit_head, b, s, ops=ops)),
+        ("pcoc_p2", True, pcoc_v,
+         lambda v, ops: SV.fused_seqpool_cvm_with_pcoc(
+             v, segs, pcoc_head, q_values, b, s, ops=ops)),
+        ("cvm", True, values, cvm_pair),
+    ]
+
+
+def _run_op(torch, fn, x, ops, gout_seed):
+    """One op forward and backward through ``ops``: (output, grad of the
+    input, synchronized ms). The output grad is seeded, so the kernel and
+    plain runs see the same one."""
+    v = x.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(v, ops)
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(device=out.device).manual_seed(
+                        gout_seed))
+    (grad,) = torch.autograd.grad(out, v, g)
+    torch.cuda.synchronize()
+    return out.detach(), grad, (time.perf_counter() - t0) * 1e3
+
+
+def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
+                  flush, card, details, gen):
+    """Phase 8: the seqpool op family at the ragged batch's full width
+    (see the module docstring), then segment_sum and the three row
+    copies against their plain versions and timed. Returns the four
+    kernels' rows of the ``kernels`` line."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ops import seqpool_cvm as SC
+    cuda = torch.device("cuda")
+    b, s = BATCH, NUM_SLOTS
+    n = b * s
+    ops = _seqpool_ops(torch, values, segs, show_clk, gen)
+    fam = (K.segment_sum, K.pool_cvm, K.segment_gather)
+
+    # the main path: every op forward and backward through the kernels
+    for fn in fam:
+        fn.launches = 0
+    per_op = {}
+    for i, (name, pools, x, fn) in enumerate(ops):
+        before = K.segment_sum.launches
+        out, grad, _ = _run_op(torch, fn, x, K.KERNELS, i)
+        per_op[name] = K.segment_sum.launches - before
+        if pools and per_op[name] == 0:
+            raise AssertionError(f"seqpool: {name} did not launch "
+                                 f"segment_sum")
+        if not (torch.isfinite(out).all() and torch.isfinite(grad).all()):
+            raise AssertionError(f"seqpool: {name} is not finite")
+    fam_launches = {fn.__name__: fn.launches for fn in fam}
+
+    # kernels against plain, op by op (timed, synchronized)
+    fwd_err = grad_err = 0.0
+    op_ms = {}
+    for i, (name, _, x, fn) in enumerate(ops):
+        out_k, grad_k, ms_k = _run_op(torch, fn, x, K.KERNELS, i)
+        out_p, grad_p, ms_p = _run_op(torch, fn, x, K.PLAIN, i)
+        op_ms[name] = {"kernels_ms": ms_k, "plain_ms": ms_p,
+                       "out_shape": list(out_k.shape)}
+        fwd_err = max(fwd_err, check_close(f"seqpool {name} forward", out_k,
+                                           out_p, POOL_RTOL, POOL_ATOL))
+        if name == "tradew_trade_id":    # Σ g·embed: an f32 sum
+            col = 2 + 1
+            rest = torch.ones(grad_k.shape[1], dtype=torch.bool, device=cuda)
+            rest[col] = False
+            grad_err = max(grad_err, check_close(
+                f"seqpool {name} trade grad", grad_k[:, col],
+                grad_p[:, col], 0.0, 1e-6))
+            grad_k, grad_p = grad_k[:, rest], grad_p[:, rest]
+        if not torch.equal(grad_k, grad_p):
+            raise AssertionError(f"seqpool: {name} grad differs from the "
+                                 f"plain version's")
+    # the slot groups, in slot order, are the monolithic op
+    mono = SC.fused_seqpool_cvm(values, segs, show_clk, b, s)
+    slot_groups = {name: fn for name, _, _, fn in ops}["slot_group_4"]
+    if not torch.equal(slot_groups(values, K.KERNELS), mono):
+        raise AssertionError("seqpool: slot groups differ from the "
+                             "monolithic pool")
+
+    # segment_sum on its two streams: the concat path's (−1 markers,
+    # 3 x B*S bins) and _pool_core's (B*S + 1 bins, pads at B*S)
+    rank = SC._segment_ranks(segs)
+    drop = rank >= SEQPOOL_KK
+    seg2 = torch.where(drop, -1, segs * SEQPOOL_KK + rank).to(
+        torch.int32).contiguous()
+    vv = torch.where(drop[:, None], 0.0, values).contiguous()
+    d = values.shape[1]
+    ss_err, streams = 0.0, {}
+    for what, v, ids, nb in (("concat", vv, seg2, SEQPOOL_KK * n + 1),
+                             ("pool_core", values, segs, n + 1)):
+        got = K.segment_sum(v, ids, nb)
+        want = K.segment_sum_plain(v, ids, nb)
+        torch.cuda.synchronize()
+        ss_err = max(ss_err, check_close(f"segment_sum ({what})", got, want,
+                                         POOL_RTOL, POOL_ATOL))
+        ok = (ids >= 0) & (ids < nb)
+        lengths = torch.bincount(ids[ok].long(), minlength=nb)
+        v_ok = v[ok].contiguous()
+        kk = v.shape[0]
+        streams[what] = {
+            "num_segments": nb, "keys": kk, "kept": int(ok.sum()),
+            "ms": time_ms(torch, lambda: K.segment_sum(v, ids, nb), flush),
+            "plain_ms": time_ms(torch, lambda: K.segment_sum_plain(
+                v, ids, nb), flush),
+            "library_ms": time_ms(torch, lambda: torch.segment_reduce(
+                v_ok, "sum", lengths=lengths), flush),
+            # values and ids read once, the [N, D] sums written once
+            "bound_ms": (kk * (d + 1) * 4 + nb * d * 4) / PEAK_BYTES * 1e3}
+    main = streams["pool_core"]
+    # the kernel alone, without its wrapper's id-stream preparation
+    run = K._suffix_min(torch.where(segs >= 0, segs, n + 1), n + 1)
+    out_s = torch.empty((n + 1, d), dtype=torch.float32, device=cuda)
+    raw = _build.function("segment_sum", "pbx_segment_sum", K._SEG_SUM_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    main["kernel_only_ms"] = time_ms(torch, lambda: raw(
+        values.data_ptr(), segs.data_ptr(), run.data_ptr(), out_s.data_ptr(),
+        values.shape[0], n + 1, d, stream), flush)
+    ss = {"name": "segment_sum", "route": "cuda",
+          "source": "paddlebox_tpu_torch/csrc/segment_sum.cu",
+          "replaces": "paddlebox_tpu/ops/pallas_kernels.py:420",
+          "max_abs_err": ss_err, "ms": main["ms"],
+          "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
+          "bound_ms": main["bound_ms"], "bound_by": "bytes",
+          "launches": fam_launches["segment_sum"]}
+
+    # rows 2-4: no consumer; their path here is a pull and write-back
+    # round trip of the batch's unique rows on a copy of the table
+    row_fns = (K.gather_rows_dma, K.scatter_rows_dma, K.scatter_rows)
+    for fn in row_fns:
+        fn.launches = 0
+    pulled = K.gather_rows_dma(table, rows_u)
+    work = table.clone()
+    K.scatter_rows_dma(work, rows_u, pulled + 1.0)
+    moved = not torch.equal(work[:CAPACITY], table[:CAPACITY])
+    K.scatter_rows(work, rows_u, pulled)
+    torch.cuda.synchronize()
+    row_launches = {fn.__name__: fn.launches for fn in row_fns}
+    if not moved or not torch.equal(work[:CAPACITY], table[:CAPACITY]):
+        raise AssertionError("row copies: the round trip did not restore "
+                             "the table")
+    del work
+    u_pad, feat = rows_u.shape[0], table.shape[1]
+    vals = torch.randn((u_pad, feat), generator=gen, device=cuda)
+    rows_c = torch.where((rows_u >= 0) & (rows_u <= CAPACITY), rows_u,
+                         CAPACITY).long()
+    if not torch.equal(K.gather_rows_dma(table, rows_u),
+                       K.gather_rows_dma_plain(table, rows_u)):
+        raise AssertionError("gather_rows_dma differs from its plain "
+                             "version")
+    copies = {}
+    for name, kern, plain in (
+            ("scatter_rows_dma", K.scatter_rows_dma,
+             K.scatter_rows_dma_plain),
+            ("scatter_rows", K.scatter_rows, K.scatter_rows_plain)):
+        t_k, t_p = table.clone(), table.clone()
+        kern(t_k, rows_u, vals)
+        plain(t_p, rows_u, vals)
+        torch.cuda.synchronize()
+        if not torch.equal(t_k[:CAPACITY], t_p[:CAPACITY]):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"(the sentinel row aside)")
+        copies[name] = (t_k, t_p)
+    # ids read; u_real distinct rows + the sentinel on one side, every
+    # padded row on the other
+    row_bound = (u_pad * 4 + (u_pad + u_real + 1) * feat * 4) / PEAK_BYTES \
+        * 1e3
+    rows_out = []
+    for name, src, line, kern, plain, lib in (
+            ("scatter_rows", "scatter_rows.cu", 155,
+             lambda: K.scatter_rows(copies["scatter_rows"][0], rows_u, vals),
+             lambda: K.scatter_rows_plain(copies["scatter_rows"][1], rows_u,
+                                          vals),
+             lambda: copies["scatter_rows"][1].index_copy_(0, rows_c, vals)),
+            ("scatter_rows_dma", "row_dma.cu", 243,
+             lambda: K.scatter_rows_dma(copies["scatter_rows_dma"][0],
+                                        rows_u, vals),
+             lambda: K.scatter_rows_dma_plain(
+                 copies["scatter_rows_dma"][1], rows_u, vals),
+             lambda: copies["scatter_rows_dma"][1].index_copy_(0, rows_c,
+                                                                vals)),
+            ("gather_rows_dma", "row_dma.cu", 278,
+             lambda: K.gather_rows_dma(table, rows_u),
+             lambda: K.gather_rows_dma_plain(table, rows_u),
+             lambda: torch.index_select(table, 0, rows_c))):
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": f"paddlebox_tpu_torch/csrc/{src}",
+            "replaces": f"paddlebox_tpu/ops/pallas_kernels.py:{line}",
+            "max_abs_err": 0.0, "ms": time_ms(torch, kern, flush),
+            "plain_ms": time_ms(torch, plain, flush),
+            "library_ms": time_ms(torch, lib, flush),
+            "bound_ms": row_bound, "bound_by": "bytes",
+            "launches": row_launches[name]})
+    del copies
+    details["seqpool"] = {
+        "ops": op_ms, "segment_sum_launches_per_op": per_op,
+        "main_path_launches": fam_launches, "row_launches": row_launches,
+        "forward_max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
+        "segment_sum_streams": streams, "keys": int(values.shape[0]),
+        "segments": n, "unique_rows": u_real, "padded_rows": u_pad}
+    log(f"seqpool family: {len(ops)} ops forward and backward at B {b}, "
+        f"S {s}, K {values.shape[0]} through the kernels and the plain "
+        f"versions: forward max abs err {fwd_err:.3g}, grads exact (tradew "
+        f"trade column {grad_err:.3g}); main-path launches "
+        f"{json.dumps(fam_launches)}, segment_sum per op "
+        f"{json.dumps(per_op)}; rows round trip launches "
+        f"{json.dumps(row_launches)}")
+    log("  op ms (kernels / plain, fwd+bwd synchronized): " + "; ".join(
+        f"{k} {v['kernels_ms']:.2f}/{v['plain_ms']:.2f}"
+        for k, v in op_ms.items()) + f" ({card})")
+    for what, r in streams.items():
+        log(f"  segment_sum ({what}, {r['num_segments']} bins): "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({card})")
+    log(f"  segment_sum kernel alone (pool_core stream): "
+        f"{main['kernel_only_ms']:.4f} ms ({card})")
+    for r in rows_out:
+        log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({card})")
+    return [ss] + rows_out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -1376,6 +1705,11 @@ def main() -> int:
     kernels = [g, p, sg, sa, ins, lk, ra, bfc, cn]
     for r in kernels:
         r["launches"] = train_launches[r["name"]]
+
+    # ---- phase 8: the seqpool op family ----
+    kernels += seqpool_phase(torch, values, segs, dev.show_clk.contiguous(),
+                             table, rows_u, u_real, flush, card, details,
+                             gen)
     details["kernels"] = kernels
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,9 +2,13 @@
 // ids outside [0, n) giving zero rows. In its fused epilogue mode it writes
 // the whole per-key grad row of fused_seqpool_cvm instead:
 //
-//   out[k] = [head[min(ids[k] / S, B-1), 0:H] | 0 x ets | src[ids[k], 0:w]]
+//   out[k] = [head[ins(ids[k]), 0:H] | 0 x ets | src[ids[k], 0:w]]
 //
-// masked to zero where ids[k] is outside [0, n) or mask[k] == 0.
+// with ins(id) = min(floor(id / S), B-1), read as the JAX package indexes
+// (a negative index counts from the end, then clamps to [0, B)). A key
+// with a negative id keeps its head row and gets zero embedx columns, as
+// in the reference's backward; a row is zero where ids[k] >= n or
+// mask[k] == 0. In gather mode every id outside [0, n) gives a zero row.
 //
 // Replaces: paddlebox_tpu/ops/pallas_kernels.py segment_gather_mxu (a
 // transposed one-hot matmul on the MXU over a (key block, source block)
@@ -42,14 +46,18 @@ __global__ void segment_gather_kernel(
   int c = static_cast<int>(i - key * d);
   long long id = __ldg(ids + key);
   float v = 0.0f;
-  bool live = id >= 0 && id < n &&
-              (mask == nullptr || __ldg(mask + key) != 0.0f);
+  const bool in_range = id >= 0 && id < n;
+  const bool live = (in_range || (head != nullptr && id < 0)) &&
+                    (mask == nullptr || __ldg(mask + key) != 0.0f);
   if (live) {
     if (c < n_head) {
-      long long ins = id / num_slots;
+      long long ins = id >= 0 ? id / num_slots
+                              : -((-id + num_slots - 1) / num_slots);
       if (ins > batch_size - 1) ins = batch_size - 1;
+      if (ins < 0) ins += batch_size;  // from the end, then clamp
+      if (ins < 0) ins = 0;
       v = __ldg(head + ins * n_head + c);
-    } else if (c >= n_head + ets) {
+    } else if (c >= n_head + ets && in_range) {
       v = __ldg(src + id * ld + (c - n_head - ets));
     }
   }

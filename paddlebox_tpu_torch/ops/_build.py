@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("gather_rows", "pool_cvm", "segment_gather",
            "scatter_add_update", "key_index", "rank_attention", "batch_fc",
-           "cross_norm")
+           "cross_norm", "segment_sum", "scatter_rows", "row_dma")
 
 _lock = threading.Lock()
 _fns: Dict[str, object] = {}

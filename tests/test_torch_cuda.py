@@ -506,3 +506,128 @@ def test_ads_rank_on_card_matches_plain(cuda):
     for k in grads[0]:
         torch.testing.assert_close(grads[0][k], grads[1][k], rtol=5e-3,
                                    atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [11, 3, 150])   # not a multiple of 4; > 128
+def test_segment_sum_matches_plain(cuda, d):
+    """Ragged ids with −1 markers, ids past num_segments and a tail of
+    pads in the last (discard) bin; K not a multiple of 32. The sum holds
+    the pooling class; its grad (segment_gather) is exact."""
+    rng = np.random.default_rng(d)
+    values, segments, _, b, s = _ragged(rng, d=d)
+    n = b * s + 1
+    segments[rng.random(len(segments)) < 0.02] = n + 7
+    v = torch.from_numpy(values[:-3]).to(cuda).requires_grad_(True)
+    sg = torch.from_numpy(segments[:-3]).to(cuda)
+    assert sg.shape[0] % 32 != 0
+    w = torch.randn((n, d), device=cuda)
+    before = tk.segment_sum.launches
+    got = tk.segment_sum(v, sg, n)
+    (got * w).sum().backward()
+    g_kernel = v.grad.clone()
+    v.grad = None
+    want = tk.segment_sum_plain(v, sg, n)
+    (want * w).sum().backward()
+    torch.cuda.synchronize()
+    assert tk.segment_sum.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(g_kernel, v.grad)
+
+
+@pytest.mark.cuda
+def test_segment_sum_edges(cuda):
+    """No segments, no keys, a bf16 input (summed in f32), a run of many
+    keys in one segment."""
+    v = torch.randn((37, 5), device=cuda)
+    sg = torch.zeros(37, dtype=torch.int32, device=cuda)
+    before = tk.segment_sum.launches
+    assert tk.segment_sum(v, sg, 0).shape == (0, 5)
+    assert tk.segment_sum.launches == before               # nothing to do
+    empty = tk.segment_sum(v[:0], sg[:0], 4)
+    torch.cuda.synchronize()
+    assert torch.equal(empty, torch.zeros((4, 5), device=cuda))
+    vb = v.to(torch.bfloat16)
+    got = tk.segment_sum(vb, sg, 3)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, tk.segment_sum_plain(vb, sg, 3))
+    long_run = torch.randn((5000, 7), device=cuda)
+    ids = torch.zeros(5000, dtype=torch.int32, device=cuda)
+    ids[::7] = -1
+    torch.testing.assert_close(tk.segment_sum(long_run, ids, 2),
+                               tk.segment_sum_plain(long_run, ids, 2),
+                               rtol=RTOL, atol=1e-5)
+
+
+def _unique_rows(rng, c, k, pads):
+    """k distinct in-bounds rows then ``pads`` distinct out-of-bounds
+    ids (and a few negatives)."""
+    rows = np.concatenate([rng.permutation(c)[:k - pads],
+                           c + 1 + rng.permutation(3 * pads)[:pads]])
+    rows[rng.choice(k - pads, 3, replace=False)] = -5
+    return torch.from_numpy(rows.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [16, 13])   # vector and scalar paths
+def test_scatter_rows_exact(cuda, feat):
+    rng = np.random.default_rng(feat)
+    c, k = 6000, 4001
+    table = torch.from_numpy(
+        rng.normal(size=(c, feat)).astype(np.float32)).to(cuda)
+    rows = _unique_rows(rng, c - 1, k, 300).to(cuda)
+    vals = torch.from_numpy(
+        rng.normal(size=(k, feat)).astype(np.float32)).to(cuda)
+    got = tk.scatter_rows(table.clone(), rows, vals)
+    want = tk.scatter_rows_plain(table.clone(), rows, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:-1], want[:-1])     # the last row is racy
+    same = tk.scatter_rows(table.clone(), rows[:0], vals[:0])
+    assert torch.equal(same, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 13, 150])  # bulk copies; ordinary loads
+@pytest.mark.parametrize("k", [4096, 37])
+def test_row_dma_exact(cuda, d, k):
+    rng = np.random.default_rng(d + k)
+    c = 9000
+    table = torch.from_numpy(
+        rng.normal(size=(c + 1, d)).astype(np.float32)).to(cuda)
+    rows = _unique_rows(rng, c, k, k // 8).to(cuda)
+    vals = torch.from_numpy(
+        rng.normal(size=(k, d)).astype(np.float32)).to(cuda)
+    before = (tk.gather_rows_dma.launches, tk.scatter_rows_dma.launches)
+    got = tk.gather_rows_dma(table, rows)
+    want = tk.gather_rows_dma_plain(table, rows)
+    t_k = tk.scatter_rows_dma(table.clone(), rows, vals)
+    t_p = tk.scatter_rows_dma_plain(table.clone(), rows, vals)
+    torch.cuda.synchronize()
+    assert (tk.gather_rows_dma.launches, tk.scatter_rows_dma.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(t_k[:c], t_p[:c])        # the sentinel row is racy
+    with pytest.raises(ValueError, match="multiple of 2048"):
+        tk.gather_rows_dma(table, rows.repeat(2049)[:2049 * 2 - 1])
+
+
+@pytest.mark.cuda
+def test_segment_gather_negative_head(cuda):
+    """The repaired epilogue: a negative id keeps the head row of
+    instance floor(id / S), counted from the end and clamped, with zero
+    embedx columns; ids >= N and masked keys are zero rows."""
+    b, s, w = 9, 5, 13
+    n = b * s
+    src = torch.randn((n, w), device=cuda)
+    head = torch.randn((b, 3), device=cuda)
+    ids = torch.tensor([-1, -2, -s, -s - 1, -n, -n - 1, -5 * n, 0, n - 1, n,
+                        7 * n, -3] * 3, dtype=torch.int32, device=cuda)
+    mask = torch.ones(ids.shape[0], device=cuda)
+    mask[-1] = 0.0
+    for ets in (0, 2):
+        got = tk.segment_gather(src, ids, head, mask, b, s, ets)
+        want = tk.segment_gather_plain(src, ids, head, mask, b, s, ets)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(got[0, :3], head[b - 1])
+    assert torch.equal(got[6, :3], head[0]) and not got[:7, 3:].any()

@@ -13,6 +13,7 @@ values near zero, where the CVM head's log differences cancel).
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -181,13 +182,152 @@ def test_fused_seqpool_cvm_trivial_layout(kw, k):
 
 
 def test_fused_seqpool_cvm_unported_attrs_raise():
+    """The concat form and embed_threshold_filter, once unported, now run
+    (their parity: tests/test_torch_seqpool_family.py); the output widths
+    follow the reference's InferShape."""
     values, segments, _, b, s = _ragged()
     v, sg = torch.from_numpy(values), torch.from_numpy(segments)
     sc = torch.ones((b, 2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fused_seqpool_cvm(v, sg, sc, b, s, use_cvm=False,
-                          embedx_concate_size=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fused_seqpool_cvm(v, sg, sc, b, s, embed_threshold_filter=True)
+    d = values.shape[1]
+    out = fused_seqpool_cvm(v, sg, sc, b, s, use_cvm=False,
+                            embedx_concate_size=2)
+    assert out.shape == (b, s, (d - 2) * 2)
+    out = fused_seqpool_cvm(v, sg, sc, b, s, clk_filter=True,
+                            embedx_concate_size=3)
+    assert out.shape == (b, s, (d - 1) * 3)
+    out = fused_seqpool_cvm(v, sg, sc, b, s, embed_threshold_filter=True,
+                            embed_threshold=0.5)
+    assert out.shape == (b, s, d) and np.isfinite(out.numpy()).all()
     # plain CVM ignores the concat size, as the reference does
-    fused_seqpool_cvm(v, sg, sc, b, s, embedx_concate_size=2)
+    assert fused_seqpool_cvm(v, sg, sc, b, s,
+                             embedx_concate_size=2).shape == (b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# segment_sum (row 5) and the row copies (rows 2-4)
+# ---------------------------------------------------------------------------
+
+def _sum_case(name):
+    """The segment_sum_mxu cases of tests/test_pallas_kernels.py: values,
+    segments, num_segments."""
+    rng = np.random.default_rng(4)
+    if name.startswith("sweep"):
+        k, n = {"sweep_a": (100, 40), "sweep_b": (700, 200),
+                "sweep_c": (7, 3), "sweep_d": (1500, 3000)}[name]
+        vals = rng.normal(size=(k, 11)).astype(np.float32)
+        return vals, np.sort(rng.integers(0, n, size=k)).astype(np.int32), n
+    if name == "gap_blocks":        # keys only in the last segment
+        return np.ones((8, 4), np.float32), np.full(8, 999, np.int32), 1000
+    if name == "drop_negative":
+        return (np.ones((4, 3), np.float32),
+                np.array([0, 1, -1, -1], np.int32), 2)
+    if name == "leading_interleaved_drops":
+        return (np.arange(20, dtype=np.float32).reshape(5, 4),
+                np.array([-1, 0, -1, 0, 1], np.int32), 2)
+    if name == "discard_bin":       # ids at num_segments - 1 (a pad bin)
+        seg = np.sort(rng.integers(0, 12, size=60)).astype(np.int32)
+        seg[-15:] = 12
+        return rng.normal(size=(60, 5)).astype(np.float32), seg, 13
+    if name == "wide":              # D > 128: several column tiles
+        seg = np.sort(rng.integers(0, 9, size=50)).astype(np.int32)
+        seg[rng.random(50) < 0.2] = -1
+        return rng.normal(size=(50, 150)).astype(np.float32), seg, 9
+    assert name == "empty"          # K = 0
+    return np.zeros((0, 6), np.float32), np.zeros(0, np.int32), 5
+
+
+@pytest.mark.parametrize("name", [
+    "sweep_a", "sweep_b", "sweep_c", "sweep_d", "gap_blocks",
+    "drop_negative", "leading_interleaved_drops", "discard_bin", "wide",
+    "empty"])
+def test_segment_sum_matches_mxu(name):
+    values, segments, n = _sum_case(name)
+    ref = np.asarray(jpk.segment_sum_mxu(jnp.asarray(values),
+                                         jnp.asarray(segments), n))
+    for fn in (tk.segment_sum_plain, tk.segment_sum):
+        got = fn(torch.from_numpy(values), torch.from_numpy(segments), n)
+        assert got.shape == ref.shape == (n, values.shape[1])
+        np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=1e-5)
+
+
+def test_segment_sum_grad_and_dtype():
+    """The grad (a gather of the output grad's rows: segment_gather_mxu
+    under the flag) is exact; a bf16 input sums in f32 and comes back
+    bf16; no segments is an empty result."""
+    rng = np.random.default_rng(6)
+    vals = rng.normal(size=(50, 5)).astype(np.float32)
+    segs = np.sort(rng.integers(0, 12, size=50)).astype(np.int32)
+    segs[[3, 20]] = -1
+    segs[-4:] = 14                                    # past num_segments
+    w = rng.normal(size=(12, 5)).astype(np.float32)
+    with flags_scope(use_pallas_seqpool=True):
+        ref = np.asarray(jax.grad(lambda v: (jpk.segment_sum_mxu(
+            v, jnp.asarray(segs), 12) * jnp.asarray(w)).sum())(
+                jnp.asarray(vals)))
+    for fn in (tk.segment_sum, tk.segment_sum_plain):
+        v = torch.from_numpy(vals).requires_grad_(True)
+        (fn(v, torch.from_numpy(segs), 12) * torch.from_numpy(w)).sum(
+        ).backward()
+        np.testing.assert_array_equal(v.grad.numpy(), ref)
+    vb = torch.from_numpy(vals).to(torch.bfloat16)
+    got = tk.segment_sum(vb, torch.from_numpy(segs), 12)
+    assert got.dtype == torch.bfloat16
+    want = tk.segment_sum_plain(vb.float(), torch.from_numpy(segs), 12)
+    torch.testing.assert_close(got, want.to(torch.bfloat16))
+    assert tk.segment_sum(vb, torch.from_numpy(segs), 0).shape == (0, 5)
+
+
+def _row_case(c=64, d=16, k=32, seed=0):
+    """A zero table [C+1, D], K rows: distinct in-bounds ids, then
+    distinct out-of-bounds pads (the unique-row bucket's contract)."""
+    rng = np.random.default_rng(seed)
+    uq = np.unique(rng.integers(0, c, size=k).astype(np.int32))
+    rows = np.concatenate([uq, c + 1 + np.arange(k - len(uq),
+                                                 dtype=np.int32)])
+    vals = rng.normal(size=(k, d)).astype(np.float32)
+    return np.zeros((c + 1, d), np.float32), rows, vals, len(uq)
+
+
+def test_scatter_rows_matches_pallas():
+    table, rows, vals, u = _row_case(seed=2)
+    table[:] = np.random.default_rng(3).normal(size=table.shape)
+    ref = np.asarray(jpk.scatter_rows(jnp.asarray(table), jnp.asarray(rows),
+                                      jnp.asarray(vals)))
+    for fn in (tk.scatter_rows, tk.scatter_rows_plain):
+        t = torch.from_numpy(table.copy())
+        assert fn(t, torch.from_numpy(rows), torch.from_numpy(vals)) is t
+        # the last row is the pads' racy sentinel
+        np.testing.assert_array_equal(t.numpy()[:-1], ref[:-1])
+        np.testing.assert_array_equal(t.numpy()[rows[:u]], vals[:u])
+
+
+def test_dma_row_copies_match_pallas():
+    """scatter_rows_dma / gather_rows_dma as
+    tests/test_pallas_kernels.py::test_dma_kernels_interpret_semantics
+    runs them (interpret mode): out-of-bounds rows clamp to the sentinel,
+    the scatter writes in place."""
+    table, rows, vals, u = _row_case()
+    c = table.shape[0] - 1
+    ref = np.array(jpk.scatter_rows_dma(jnp.asarray(table),
+                                        jnp.asarray(rows),
+                                        jnp.asarray(vals)))
+    ref[c] = 0.0
+    ref_g = np.asarray(jpk.gather_rows_dma(jnp.asarray(ref),
+                                           jnp.asarray(rows)))
+    for scatter, gather in ((tk.scatter_rows_dma, tk.gather_rows_dma),
+                            (tk.scatter_rows_dma_plain,
+                             tk.gather_rows_dma_plain)):
+        t = torch.from_numpy(table.copy())
+        assert scatter(t, torch.from_numpy(rows),
+                       torch.from_numpy(vals)) is t
+        np.testing.assert_array_equal(t.numpy()[:c], ref[:c])
+        t[c] = 0.0
+        got = gather(t, torch.from_numpy(rows)).numpy()
+        np.testing.assert_array_equal(got, ref_g)
+        np.testing.assert_array_equal(got[u:], 0.0)
+        # the TPU grid's row-count rule: K a multiple of min(2048, K)
+        with pytest.raises(ValueError, match="multiple of 2048"):
+            gather(t, torch.zeros(2049, dtype=torch.int32))
+        with pytest.raises(ValueError, match="multiple of 2048"):
+            scatter(t, torch.zeros(2050, dtype=torch.int32),
+                    torch.zeros((2050, t.shape[1])))

@@ -105,11 +105,14 @@ def test_segment_gather_epilogue_and_empty():
                             torch.from_numpy(ids), torch.from_numpy(head),
                             torch.from_numpy(mask), b, s, ets).numpy()
     for i, (r, m) in enumerate(zip(ids, mask)):
-        if not (0 <= r < n and m):
+        if r >= n or not m:
             np.testing.assert_array_equal(got[i], 0.0)
             continue
+        # a negative id keeps its head row (JAX indexes from the end) and
+        # gets zero embedx columns
+        embedx = src[r, :w] if r >= 0 else np.zeros(w)
         want = np.concatenate([head[min(r // s, b - 1)], np.zeros(ets),
-                               src[r, :w]])
+                               embedx])
         np.testing.assert_array_equal(got[i], want)
     empty = tk.segment_gather(torch.zeros((0, w)),
                               torch.tensor([0, -1], dtype=torch.int32))
