@@ -23,7 +23,11 @@ Phases, each of which fails the run:
    the nearest single PyTorch call with CUDA events after an L2 flush
    (``torch.baddbmm`` for batch_fc; for rank_attention the einsum over
    the already grouped input, without the decode, gather and grouping;
-   none for cross_norm);
+   none for cross_norm). ``pool_cvm`` through its wrapper and
+   ``torch.segment_reduce`` are timed in 5 alternating repeats (median
+   and spread); the two halves of its C call run alone as well: the
+   segment bounds pass, which must equal ``segment_bounds_plain``, and
+   the tile kernel over those bounds, which must equal the wrapper;
 4. serve ragged DeepFM batches end to end: a seeded ``save_base``-format
    table of 2.6M keyed rows loads into ``ServingModel(device="cuda")``
    with seeded random dense params, and ``predict`` answers ``--batches``
@@ -92,7 +96,9 @@ Phases, each of which fails the run:
    the kernels and the plain versions: forwards within rtol 3e-5 / atol
    1e-6, grads exact but tradew's trade column (atol 1e-6); the slot
    groups must equal the monolithic pool. Then ``segment_sum`` on the
-   concat path's stream and on ``_pool_core``'s, and ``scatter_rows``,
+   concat path's stream and on ``_pool_core``'s (each timed as phase 3
+   times ``pool_cvm``: alternating repeats against ``segment_reduce``,
+   the bounds pass and the tile kernel alone), and ``scatter_rows``,
    ``scatter_rows_dma`` and ``gather_rows_dma`` (no consumer in either
    package: their counted run is a pull and write-back round trip of the
    batch's 2^19-padded unique rows on a copy of the table, which must
@@ -197,6 +203,62 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def alternating_ms(torch, fns: dict, flush, repeats: int = 5) -> dict:
+    """Each of ``fns`` (name → fn) timed by :func:`time_ms` ``repeats``
+    times in turns, the order reversed every round (a, b, b, a, a, b,
+    ...): name → {"runs", "median", "spread" (max − min)} in ms."""
+    runs = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(repeats):
+        for name in names if r % 2 == 0 else names[::-1]:
+            runs[name].append(time_ms(torch, fns[name], flush))
+    return {name: {"runs": v, "median": float(np.median(v)),
+                   "spread": max(v) - min(v)} for name, v in runs.items()}
+
+
+def pool_parts_ms(torch, lib, ids, n, tiles_args, out, want, flush
+                  ) -> dict:
+    """The two halves of a pool kernel's C call, checked and timed alone:
+    the bounds pass (a memset + key-parallel atomics) against
+    ``segment_bounds_plain`` (exact), and the tile kernel over bounds
+    computed once beforehand, whose ``out`` must equal ``want`` (the
+    wrapper's result). ``tiles_args(bounds)`` gives the tile entry's
+    arguments before the stream."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import kernels as K
+    stream = torch.cuda.current_stream().cuda_stream
+    bounds = torch.empty((2, n), dtype=torch.int32, device="cuda")
+    fb = _build.function(lib, f"pbx_{lib}_bounds", K._BOUNDS_ARGS)
+    ft = _build.function(lib, f"pbx_{lib}_tiles", K._POOL_ARGS
+                         if lib == "pool_cvm" else K._SEG_SUM_ARGS)
+    b_args = (ids.data_ptr(), ids.shape[0], n, bounds.data_ptr(), stream)
+    _build.check(fb(*b_args), f"{lib} bounds")
+    _build.check(ft(*tiles_args(bounds), stream), f"{lib} tiles")
+    torch.cuda.synchronize()
+    if not torch.equal(bounds, K.segment_bounds_plain(ids, n)):
+        raise AssertionError(f"{lib}: the bounds pass differs from "
+                             f"segment_bounds_plain")
+    if not torch.equal(out, want):
+        raise AssertionError(f"{lib}: the tile kernel alone differs from "
+                             f"its wrapper")
+    return {"bounds_only_ms": time_ms(torch, lambda: fb(*b_args), flush),
+            "kernel_only_ms": time_ms(torch, lambda: ft(
+                *tiles_args(bounds), stream), flush)}
+
+
+def log_pool_timing(name: str, t: dict, card: str) -> None:
+    reps = t["repeats"]
+    log(f"  {name}: wrapper {reps['kernel']['median']:.4f} ms (spread "
+        f"{reps['kernel']['spread']:.4f}) vs segment_reduce "
+        f"{reps['library']['median']:.4f} (spread "
+        f"{reps['library']['spread']:.4f}), medians of "
+        f"{len(reps['kernel']['runs'])} alternating repeats; alone: bounds "
+        f"pass {t['bounds_only_ms']:.4f} ms, tile kernel "
+        f"{t['kernel_only_ms']:.4f} ms, "
+        f"{t['bound_ms'] / t['kernel_only_ms']:.1%} of its bound "
+        f"{t['bound_ms'] * 1e3:.2f} us ({card})")
 
 
 def base_keys(vocab: int, num_slots: int = NUM_SLOTS,
@@ -1187,7 +1249,6 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
     (see the module docstring), then segment_sum and the three row
     copies against their plain versions and timed. Returns the four
     kernels' rows of the ``kernels`` line."""
-    from paddlebox_tpu_torch.ops import _build
     from paddlebox_tpu_torch.ops import kernels as K
     from paddlebox_tpu_torch.ops import seqpool_cvm as SC
     cuda = torch.device("cuda")
@@ -1259,24 +1320,24 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
         lengths = torch.bincount(ids[ok].long(), minlength=nb)
         v_ok = v[ok].contiguous()
         kk = v.shape[0]
+        reps = alternating_ms(torch, {
+            "kernel": lambda: K.segment_sum(v, ids, nb),
+            "library": lambda: torch.segment_reduce(v_ok, "sum",
+                                                    lengths=lengths)}, flush)
         streams[what] = {
             "num_segments": nb, "keys": kk, "kept": int(ok.sum()),
-            "ms": time_ms(torch, lambda: K.segment_sum(v, ids, nb), flush),
+            "ms": reps["kernel"]["median"],
             "plain_ms": time_ms(torch, lambda: K.segment_sum_plain(
                 v, ids, nb), flush),
-            "library_ms": time_ms(torch, lambda: torch.segment_reduce(
-                v_ok, "sum", lengths=lengths), flush),
+            "library_ms": reps["library"]["median"], "repeats": reps,
             # values and ids read once, the [N, D] sums written once
             "bound_ms": (kk * (d + 1) * 4 + nb * d * 4) / PEAK_BYTES * 1e3}
+        out_s = torch.empty((nb, d), dtype=torch.float32, device=cuda)
+        streams[what].update(pool_parts_ms(
+            torch, "segment_sum", ids, nb,
+            lambda bd: (v.data_ptr(), ids.data_ptr(), bd.data_ptr(),
+                        out_s.data_ptr(), kk, nb, d), out_s, got, flush))
     main = streams["pool_core"]
-    # the kernel alone, without its wrapper's id-stream preparation
-    run = K._suffix_min(torch.where(segs >= 0, segs, n + 1), n + 1)
-    out_s = torch.empty((n + 1, d), dtype=torch.float32, device=cuda)
-    raw = _build.function("segment_sum", "pbx_segment_sum", K._SEG_SUM_ARGS)
-    stream = torch.cuda.current_stream().cuda_stream
-    main["kernel_only_ms"] = time_ms(torch, lambda: raw(
-        values.data_ptr(), segs.data_ptr(), run.data_ptr(), out_s.data_ptr(),
-        values.shape[0], n + 1, d, stream), flush)
     ss = {"name": "segment_sum", "route": "cuda",
           "source": "paddlebox_tpu_torch/csrc/segment_sum.cu",
           "replaces": "paddlebox_tpu/ops/pallas_kernels.py:420",
@@ -1371,12 +1432,9 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
         f"{k} {v['kernels_ms']:.2f}/{v['plain_ms']:.2f}"
         for k, v in op_ms.items()) + f" ({card})")
     for what, r in streams.items():
-        log(f"  segment_sum ({what}, {r['num_segments']} bins): "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
-            f"({card})")
-    log(f"  segment_sum kernel alone (pool_core stream): "
-        f"{main['kernel_only_ms']:.4f} ms ({card})")
+        log(f"  segment_sum ({what}, {r['num_segments']} bins): plain "
+            f"{r['plain_ms']:.4f} ms ({card})")
+        log_pool_timing(f"segment_sum ({what})", r, card)
     for r in rows_out:
         log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, library {r['library_ms']:.4f} ms, bound "
@@ -1528,30 +1586,33 @@ def main() -> int:
     d = values.shape[1]
     valid = (segs >= 0) & (segs < n_seg)
     lengths = torch.bincount(segs[valid].long(), minlength=n_seg)
-    vals_valid = (values * keep[:, None])[valid].contiguous()
+    vals_valid = values[valid].contiguous()
+    out_s = torch.empty((n_seg, d), dtype=torch.float32, device="cuda")
+    # the timed calls pass no keep: the values and ids read once, the
+    # [N, D] output written once
+    reps = alternating_ms(torch, {
+        "kernel": lambda: K.pool_cvm(values, segs, None, BATCH, NUM_SLOTS),
+        "library": lambda: torch.segment_reduce(vals_valid, "sum",
+                                                lengths=lengths)}, flush)
     p = {"name": "pool_cvm", "route": "cuda",
          "source": "paddlebox_tpu_torch/csrc/pool_cvm.cu",
          "replaces": "paddlebox_tpu/ops/pallas_kernels.py:654",
-         "max_abs_err": pool_err,
-         "ms": time_ms(torch, lambda: K.pool_cvm(
-             values, segs, None, BATCH, NUM_SLOTS), flush),
+         "max_abs_err": pool_err, "ms": reps["kernel"]["median"],
          "plain_ms": time_ms(torch, lambda: K.pool_cvm_plain(
              values, segs, None, BATCH, NUM_SLOTS), flush),
-         "library_ms": time_ms(torch, lambda: torch.segment_reduce(
-             vals_valid, "sum", lengths=lengths), flush),
-         "bound_ms": max((k_real * (d + 2) * 4 + n_seg * d * 4) / PEAK_BYTES,
+         "library_ms": reps["library"]["median"],
+         "bound_ms": max((k_real * (d + 1) * 4 + n_seg * d * 4) / PEAK_BYTES,
                          k_real * d / PEAK_F32) * 1e3,
          "bound_by": "bytes"}
-    # the pool kernel alone, without its wrapper's id-stream preparation
-    seg_s = K._suffix_min(torch.where(valid, segs, n_seg), n_seg)
-    keep_s = valid.float()
-    out_s = torch.empty((n_seg, d), dtype=torch.float32, device="cuda")
-    raw = _build.function("pool_cvm", "pbx_pool_cvm", K._POOL_ARGS)
-    stream = torch.cuda.current_stream().cuda_stream
-    details["pool_cvm_kernel_only_ms"] = time_ms(torch, lambda: raw(
-        values.data_ptr(), seg_s.data_ptr(), keep_s.data_ptr(),
-        out_s.data_ptr(), values.shape[0], n_seg, d, d, K.CVM_FULL, 2, 0,
-        0.0, stream), flush)
+    parts = pool_parts_ms(
+        torch, "pool_cvm", segs, n_seg,
+        lambda bd: (values.data_ptr(), segs.data_ptr(), None, bd.data_ptr(),
+                    out_s.data_ptr(), k_real, n_seg, d, d, K.CVM_FULL, 2, 0,
+                    0.0), out_s,
+        K.pool_cvm(values, segs, None, BATCH, NUM_SLOTS).view(n_seg, d),
+        flush)
+    details["pool_cvm_timing"] = dict(parts, repeats=reps,
+                                      bound_ms=p["bound_ms"])
 
     # segment_gather at the pool backward's shapes: the output grad of
     # the pooled [B, S, 3 + MF] block with its two head columns sliced
@@ -1629,8 +1690,7 @@ def main() -> int:
         log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({card})")
-    log(f"  pool_cvm kernel alone: "
-        f"{details['pool_cvm_kernel_only_ms']:.4f} ms ({card})")
+    log_pool_timing("pool_cvm", details["pool_cvm_timing"], card)
     ins, lk = index_phase(torch, batches, flush, card, details)
     ra, bfc, cn = ctr_phase(torch, pv_batches, flush, card, details, gen)
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 under ``build/kernels/`` at the checkout root, with a plain C entry point
 (no PyTorch headers, so a build takes seconds). The library name carries a
-hash of the source and the flags, so an edited source never loads a stale
-build. ``build`` compiles several sources at once, one ``nvcc`` process
-each. A failed build raises with the compiler's output.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header never loads a stale build. ``build`` compiles
+several sources at once, one ``nvcc`` process each. A failed build raises
+with the compiler's output.
 """
 
 from __future__ import annotations
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The build of ``csrc/<name>.cu``, named by a hash of the source, of
+    every shared header in ``csrc/`` and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -30,13 +30,16 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 # C signatures of the kernel entries (csrc/*.cu)
 _GATHER_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]
-_POOL_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
+_BOUNDS_ARGS = [_P, _I64, _I32, _P, _P]
+_POOL_ARGS = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _I32,
               ctypes.c_float, _P]
 _SEG_GATHER_ARGS = [_P, _I64, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                     _I32, _I32, _P]
 _SCATTER_ADD_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]
 _SEG_SUM_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _P]
 _ROW_ARGS = [_P, _P, _P, _I64, _I64, _I32, _I32, _P]   # scatter_rows, row_dma
+#: keys a pool kernel takes (its key indexes are int32)
+_MAX_POOL_KEYS = 2 ** 31 - 2
 #: rows per grid block of the TPU's DMA row kernels (pallas_kernels._TR):
 #: their row count must be a multiple of min(_DMA_BLOCK, K)
 _DMA_BLOCK = 2048
@@ -183,20 +186,29 @@ def pool_cvm_plain(values: torch.Tensor, segments: torch.Tensor,
     return out.reshape(batch_size, num_slots, -1).to(values.dtype)
 
 
-def _suffix_min(x: torch.Tensor, fill: int, row: int = 1024
-                ) -> torch.Tensor:
-    """out[j] = min(x[j:]) for a 1-D tensor, in two levels: within rows
-    of ``row`` elements, then across rows: PyTorch's CUDA scan of a 1-D
-    tensor runs in a single thread block, of a 2-D one in a block per
-    row."""
-    k = x.shape[0]
-    rows = max(1, -(-k // row))
-    xp = x.new_full((rows * row,), fill)
-    xp[:k] = x
-    m = xp.view(rows, row).flip(1).cummin(1).values.flip(1)
-    later = m[:, 0].flip(0).cummin(0).values.flip(0)[1:]   # min of rows > r
-    carry = torch.cat([later, later.new_full((1,), fill)])
-    return torch.minimum(m, carry[:, None]).view(-1)[:k]
+def segment_bounds_plain(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """What the pool kernels' bounds pass computes: [2, n] int32, row 0
+    the first key j with ids[j] == s, row 1 the last one + 1, both −1 for
+    a segment with no key. Ids outside [0, n) are dropped."""
+    idl = ids.long()
+    ok = (idl >= 0) & (idl < n)
+    j = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device)[ok]
+    start = torch.full((n,), _MAX_POOL_KEYS, dtype=torch.int32,
+                       device=ids.device).scatter_reduce_(0, idl[ok], j,
+                                                          "amin")
+    end = torch.full((n,), -1, dtype=torch.int32,
+                     device=ids.device).scatter_reduce_(0, idl[ok], j + 1,
+                                                        "amax")
+    return torch.stack([torch.where(end < 0, -1, start), end])
+
+
+def _bounds_scratch(name: str, values: torch.Tensor, n: int
+                    ) -> torch.Tensor:
+    """The [2, n] int32 scratch of a CUDA pool's bounds pass."""
+    if values.shape[0] > _MAX_POOL_KEYS:
+        raise ValueError(f"{name}: {values.shape[0]} keys, more than "
+                         f"{_MAX_POOL_KEYS}")
+    return torch.empty((2, n), dtype=torch.int32, device=values.device)
 
 
 def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
@@ -205,36 +217,36 @@ def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
              pad_value: float = 0.0) -> torch.Tensor:
     """values [K, D] f32 pulled embeddings, segments [K] int32 (ins*S +
     slot; the ids inside [0, B*S) must be nondecreasing, anything else is
-    dropped), keep [K] optional 0/1 key mask → the CVM-transformed pooled
-    output [B, S, D_out] in one kernel (``csrc/pool_cvm.cu``). ``ets``
-    (embed_thres_size) only affects the CVM_NONE output slice."""
+    dropped), keep [K] optional f32 0/1 key mask (None keeps every key) →
+    the CVM-transformed pooled output [B, S, D_out] (``csrc/pool_cvm.cu``:
+    one C call enqueues the segment bounds pass and the tile kernel).
+    ``ets`` (embed_thres_size) only affects the CVM_NONE output slice."""
     if values.device.type == "cpu" and segments.device.type == "cpu":
         return pool_cvm_plain(values, segments, keep, batch_size, num_slots,
                               cvm_mode, cvm_offset, ets, pad_value)
-    if keep is None:
-        keep = torch.ones(values.shape[0], dtype=torch.float32,
-                          device=values.device)
-    _build.require_cuda("pool_cvm", values, segments, keep)
-    if values.dtype != torch.float32 or segments.dtype != torch.int32:
-        raise TypeError("pool_cvm: needs float32 values, int32 segments")
+    extra = () if keep is None else (keep,)
+    _build.require_cuda("pool_cvm", values, segments, *extra)
+    if (values.dtype != torch.float32 or segments.dtype != torch.int32
+            or any(t.dtype != torch.float32 for t in extra)):
+        raise TypeError("pool_cvm: needs float32 values and keep, int32 "
+                        "segments")
     k, d = values.shape
     n = batch_size * num_slots
     d_out = cvm_out_width(d, cvm_mode, cvm_offset, ets)
     if d > 128:
         raise ValueError(f"pool_cvm: width {d} > 128")
-    # the kernel binary-searches each segment's run of keys: make the id
-    # stream nondecreasing by giving each dropped key (keep → 0) the id
-    # of the NEXT valid key, so the tail pads get n and join no segment
-    valid = (segments >= 0) & (segments < n)
-    seg = _suffix_min(torch.where(valid, segments, n), n).contiguous()
-    keep_v = torch.where(valid, keep.float(), 0.0).contiguous()
+    if segments.shape != (k,) or (keep is not None and keep.shape != (k,)):
+        raise ValueError("pool_cvm: values [K, D], segments and keep [K]")
     out = torch.empty((n, d_out), dtype=torch.float32, device=values.device)
     if n == 0:
         return out.reshape(batch_size, num_slots, d_out)
+    bounds = _bounds_scratch("pool_cvm", values, n)
     fn = _build.function("pool_cvm", "pbx_pool_cvm", _POOL_ARGS)
-    _build.check(fn(values.data_ptr(), seg.data_ptr(), keep_v.data_ptr(),
-                    out.data_ptr(), k, n, d, d_out, cvm_mode, cvm_offset,
-                    ets, float(pad_value), _build.stream(values)), "pool_cvm")
+    _build.check(fn(values.data_ptr(), segments.data_ptr(),
+                    None if keep is None else keep.data_ptr(),
+                    bounds.data_ptr(), out.data_ptr(), k, n, d, d_out,
+                    cvm_mode, cvm_offset, ets, float(pad_value),
+                    _build.stream(values)), "pool_cvm")
     pool_cvm.launches += 1
     return out.reshape(batch_size, num_slots, d_out)
 
@@ -376,13 +388,9 @@ def _segment_sum_forward(values: torch.Tensor, segments: torch.Tensor,
     out = torch.empty((n, d), dtype=torch.float32, device=values.device)
     if out.numel() == 0:
         return out.to(values.dtype)
-    # the kernel binary-searches each segment's run of keys in a
-    # nondecreasing copy of the id stream: a dropped key takes the id of
-    # the NEXT kept key, and the kernel skips it by its own id
-    valid = (segments >= 0) & (segments < n)
-    run = _suffix_min(torch.where(valid, segments, n), n).contiguous()
+    bounds = _bounds_scratch("segment_sum", v, n)
     fn = _build.function("segment_sum", "pbx_segment_sum", _SEG_SUM_ARGS)
-    _build.check(fn(v.data_ptr(), segments.data_ptr(), run.data_ptr(),
+    _build.check(fn(v.data_ptr(), segments.data_ptr(), bounds.data_ptr(),
                     out.data_ptr(), k, n, d, _build.stream(values)),
                  "segment_sum")
     segment_sum.launches += 1
@@ -410,8 +418,9 @@ class _SegmentSum(torch.autograd.Function):
 def segment_sum(values: torch.Tensor, segments: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """values [K, D] (any float type), segments [K] int32 →
-    [num_segments, D] in one kernel (``csrc/segment_sum.cu``): the f32
-    sum of each segment's values, cast back to ``values.dtype``. Ids
+    [num_segments, D] (``csrc/segment_sum.cu``: one C call enqueues the
+    segment bounds pass and the tile kernel): the f32 sum of each
+    segment's values, cast back to ``values.dtype``. Ids
     outside [0, num_segments) are dropped (−1 markers may sit anywhere);
     the others must be nondecreasing in key order; a segment with no
     keys is 0. Differentiable in ``values``; the backward is exact."""

@@ -631,3 +631,121 @@ def test_segment_gather_negative_head(cuda):
         assert torch.equal(got, want)
     assert torch.equal(got[0, :3], head[b - 1])
     assert torch.equal(got[6, :3], head[0]) and not got[:7, 3:].any()
+
+
+# ---------------------------------------------------------------------------
+# the pool kernels' tiles (pool_cvm, segment_sum) on adversarial streams
+# ---------------------------------------------------------------------------
+
+def _tile_stream(rng, d, n=3000):
+    """An id stream shaped against the tile kernels (csrc/segment_tile.cuh:
+    a warp's tile holds at most 32 segments, a chunk at most 256 keys):
+    two runs of 100 empty segments (whole tiles empty), a segment of 600
+    keys (several chunks) and 40 segments of 20-120 keys in a row (spans
+    that cross tile and chunk edges), −1 markers and ids past n inside the
+    runs and between them, and a tail of pads. Dropped keys carry inf and
+    NaN. Returns values [K, d] f32, ids [K] i32, n."""
+    counts = rng.poisson(2.0, size=n)
+    counts[200:300] = 0
+    counts[1500:1600] = 0
+    counts[700] = 600
+    counts[900:940] = rng.integers(20, 120, size=40)
+    ids = np.repeat(np.arange(n, dtype=np.int32), counts)
+    ids[rng.random(len(ids)) < 0.1] = -1
+    ids[rng.random(len(ids)) < 0.02] = n + 5
+    ids = np.concatenate([ids, np.full(37, n, np.int32)])    # tail pads
+    values = rng.normal(size=(len(ids), d)).astype(np.float32)
+    values[:, :min(d, 3)] = np.abs(values[:, :min(d, 3)]) * 4
+    bad = (ids < 0) | (ids >= n)
+    values[bad] = np.where(rng.random((int(bad.sum()), d)) < 0.5, np.inf,
+                           np.nan)
+    return values, ids, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["pool_cvm", "segment_sum"])
+def test_segment_bounds_pass_matches_plain(cuda, lib):
+    """Each library's bounds pass alone (memsets + key-parallel atomics)
+    gives exactly segment_bounds_plain, on the adversarial stream, with
+    no keys, and with every key dropped."""
+    from paddlebox_tpu_torch.ops import _build
+    rng = np.random.default_rng(21)
+    fn = _build.function(lib, f"pbx_{lib}_bounds", tk._BOUNDS_ARGS)
+    _, ids, n = _tile_stream(rng, 11)
+    for sg in (torch.from_numpy(ids), torch.zeros(0, dtype=torch.int32),
+               torch.full((50,), -1, dtype=torch.int32)):
+        sg = sg.to(cuda)
+        got = torch.empty((2, n), dtype=torch.int32, device=cuda)
+        _build.check(fn(sg.data_ptr(), sg.shape[0], n, got.data_ptr(),
+                        _build.stream(sg)), lib)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.segment_bounds_plain(sg, n))
+
+
+def _one_segment(rng, d, k=3000):
+    """n = 1: one segment holding every kept key (several chunks long),
+    −1 markers among them carrying NaN."""
+    ids = np.where(rng.random(k) < 0.3, -1, 0).astype(np.int32)
+    values = np.abs(rng.normal(size=(k, d))).astype(np.float32)
+    values[ids < 0] = np.nan
+    return values, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,mode,offset", [(1, tk.CVM_NONE, 0),
+                                           (11, tk.CVM_FULL, 2),
+                                           (11, tk.CVM_CONV, 3),
+                                           (128, tk.CVM_FULL, 2)])
+def test_pool_cvm_tiles_adversarial(cuda, d, mode, offset):
+    """pool_cvm against its plain version on the adversarial stream: with
+    a keep mask that drops more keys (their values NaN), with keep=None
+    (bit-equal to an all-ones keep), on a values view that is not 16-byte
+    aligned, and at n = 1. One launch a call; finite results although
+    dropped keys hold inf and NaN."""
+    rng = np.random.default_rng(d + mode)
+    values, ids, n = _tile_stream(rng, d)
+    keep = (rng.random(len(ids)) < 0.8).astype(np.float32)
+    masked = values.copy()
+    masked[keep == 0] = np.nan
+    dev = [torch.from_numpy(x).to(cuda) for x in (values, masked, ids, keep)]
+    v, vm, sg, kp = dev
+    one_v, one_ids = (torch.from_numpy(x).to(cuda)
+                      for x in _one_segment(rng, d))
+    cases = [(vm, sg, kp, n), (v, sg, None, n),
+             (torch.cat([vm[:1], vm])[1:], sg, kp, n),   # unaligned view
+             (one_v, one_ids, None, 1)]
+    for vals, ids_c, kp_c, n_c in cases:
+        before = tk.pool_cvm.launches
+        got = tk.pool_cvm(vals, ids_c, kp_c, n_c, 1, mode, offset, 0, 0.25)
+        assert tk.pool_cvm.launches == before + 1
+        want = tk.pool_cvm_plain(vals, ids_c, kp_c, n_c, 1, mode, offset, 0,
+                                 0.25)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        if kp_c is None:
+            ones = torch.ones(ids_c.shape[0], device=cuda)
+            assert torch.equal(got, tk.pool_cvm(vals, ids_c, ones, n_c, 1,
+                                                mode, offset, 0, 0.25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 11, 150, 300])   # 300: two column tiles
+def test_segment_sum_tiles_adversarial(cuda, d):
+    """segment_sum against its plain version on the adversarial stream,
+    on a values view that is not 16-byte aligned, and at n = 1: finite
+    although dropped keys hold inf and NaN, one launch a call."""
+    rng = np.random.default_rng(d)
+    values, ids, n = _tile_stream(rng, d)
+    v, sg = torch.from_numpy(values).to(cuda), torch.from_numpy(ids).to(cuda)
+    one_v, one_ids = (torch.from_numpy(x).to(cuda)
+                      for x in _one_segment(rng, d))
+    for vals, ids_c, n_c in ((v, sg, n), (torch.cat([v[:1], v])[1:], sg, n),
+                             (one_v, one_ids, 1)):
+        before = tk.segment_sum.launches
+        got = tk.segment_sum(vals, ids_c, n_c)
+        assert tk.segment_sum.launches == before + 1
+        want = tk.segment_sum_plain(vals, ids_c, n_c)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5)

@@ -109,23 +109,52 @@ def test_pool_cvm_matches_pallas_kernel(mode, cvm_offset, ets, pad_value):
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("k,row", [(1, 4), (37, 8), (64, 8), (3000, 1024)])
-def test_suffix_min_segment_stream(k, row):
-    """The pool kernel's id stream: a dropped key takes the next valid
-    key's id (n past the last), so the stream is nondecreasing and the
-    tail pads join no segment."""
-    rng = np.random.default_rng(k)
+def _bounds_case(name):
+    """Segment id streams of the pool kernels' contract: ids inside [0, n)
+    nondecreasing, anything else dropped. Returns (ids, n)."""
+    rng = np.random.default_rng(len(name))
     n = 30
-    segments = np.sort(rng.integers(0, n, size=k)).astype(np.int32)
-    segments[rng.random(k) < 0.1] = -1                # drop markers
-    segments[k - k // 5:] = n                         # tail pads
-    seg = torch.from_numpy(segments)
-    valid = (seg >= 0) & (seg < n)
-    got = tk._suffix_min(torch.where(valid, seg, n), n, row).numpy()
-    want = np.minimum.accumulate(
-        np.where(valid.numpy(), segments, n)[::-1])[::-1]
-    np.testing.assert_array_equal(got, want)
-    assert (np.diff(got) >= 0).all()
+    if name == "k0":
+        return np.zeros(0, np.int32), n
+    if name == "one_segment":                 # every key in segment 0
+        return np.zeros(500, np.int32), 1
+    if name == "all_dropped":
+        return rng.choice([-1, n, n + 9], size=40).astype(np.int32), n
+    ids = np.sort(rng.integers(0, n, size=200)).astype(np.int32)
+    if name == "drop_markers":                # −1 anywhere, leading too
+        ids[rng.random(200) < 0.2] = -1
+        ids[0] = -1
+    elif name == "tail_pads":                 # pads at n and past it
+        ids[150:] = n
+        ids[-5:] = n + 3
+    else:
+        assert name == "empty_segments"       # whole runs of ids missing
+        ids = ids[(ids % 7 != 3) & ((ids < 10) | (ids > 16))]
+    return ids, n
+
+
+@pytest.mark.parametrize("name", ["drop_markers", "tail_pads",
+                                  "empty_segments", "all_dropped", "k0",
+                                  "one_segment"])
+def test_segment_bounds_plain(name):
+    """segment_bounds_plain (what the pool kernels' bounds pass computes):
+    start = the first key of each segment, end = its last + 1, both −1
+    for a segment with no key."""
+    ids, n = _bounds_case(name)
+    start = np.full(n, -1, np.int64)
+    end = np.full(n, -1, np.int64)
+    for j, s in enumerate(ids):
+        if 0 <= s < n:
+            start[s] = j if start[s] < 0 else start[s]
+            end[s] = j + 1
+    got = tk.segment_bounds_plain(torch.from_numpy(ids), n)
+    assert got.dtype == torch.int32 and got.shape == (2, n)
+    np.testing.assert_array_equal(got[0].numpy(), start)
+    np.testing.assert_array_equal(got[1].numpy(), end)
+    # the keys inside a segment's [start, end) are its own or dropped
+    for s in range(n):
+        inner = ids[max(start[s], 0):max(end[s], 0)]
+        assert ((inner == s) | (inner < 0) | (inner >= n)).all()
 
 
 @pytest.mark.parametrize("flags", sorted(JAX_FLAGS))
