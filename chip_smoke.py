@@ -27,7 +27,12 @@ Phases, each of which fails the run:
    ``torch.segment_reduce`` are timed in 5 alternating repeats (median
    and spread); the two halves of its C call run alone as well: the
    segment bounds pass, which must equal ``segment_bounds_plain``, and
-   the tile kernel over those bounds, which must equal the wrapper;
+   the tile kernel over those bounds, which must equal the wrapper.
+   ``segment_gather``'s fused call is timed the same way against
+   ``index_select`` on the real keys and on batch 0's whole key bucket
+   (pads included), and its C entry alone, which must equal the
+   wrapper; each kernel-alone time is also taken after a read-only L2
+   flush, which leaves no dirty lines for the kernel to write back;
 4. serve ragged DeepFM batches end to end: a seeded ``save_base``-format
    table of 2.6M keyed rows loads into ``ServingModel(device="cuda")``
    with seeded random dense params, and ``predict`` answers ``--batches``
@@ -103,7 +108,10 @@ Phases, each of which fails the run:
    package: their counted run is a pull and write-back round trip of the
    batch's 2^19-padded unique rows on a copy of the table, which must
    restore it) against their plain versions (exact but the racy
-   sentinel row) and timed.
+   sentinel row) and timed: ``scatter_rows_dma`` and ``gather_rows_dma``
+   as phase 3 times ``segment_gather`` (against ``index_copy_`` and
+   ``index_select``), and their C entries alone, first checked against
+   the wrapper.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -182,10 +190,13 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
-            setup=None) -> float:
+            setup=None, clean: bool = False) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after an L2
     flush (the caller's inputs are not assumed cache-resident) and after
-    ``setup``, untimed (restores what ``fn`` changes in place)."""
+    ``setup``, untimed (restores what ``fn`` changes in place). The flush
+    writes 256 MB, so L2 is left full of dirty lines that ``fn``'s
+    traffic must write back; ``clean`` flushes by reading the buffer
+    instead, which leaves L2 clean (a probe of that write-back's cost)."""
     for _ in range(warmup):
         if setup is not None:
             setup()
@@ -194,7 +205,10 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
     for _ in range(iters):
         if setup is not None:
             setup()
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -246,6 +260,144 @@ def pool_parts_ms(torch, lib, ids, n, tiles_args, out, want, flush
     return {"bounds_only_ms": time_ms(torch, lambda: fb(*b_args), flush),
             "kernel_only_ms": time_ms(torch, lambda: ft(
                 *tiles_args(bounds), stream), flush)}
+
+
+def alone_ms(torch, call, check, flush) -> dict:
+    """A kernel's C entry called straight, without its wrapper: after one
+    ``call()``, ``check()`` must hold (exact against the wrapper's
+    result); then ``call`` timed after the usual flush and after a clean
+    one (:func:`time_ms`)."""
+    call()
+    torch.cuda.synchronize()
+    check()
+    return {"kernel_only_ms": time_ms(torch, call, flush),
+            "kernel_only_clean_l2_ms": time_ms(torch, call, flush,
+                                               clean=True)}
+
+
+def gather_timing(torch, src, ids, head, flush) -> dict:
+    """Row 6, the pool backward's fused call on one id stream: through its
+    wrapper against ``index_select`` of the same src rows (the gathered
+    columns only, a zero row for an id outside [0, N)) in alternating
+    repeats, and its C entry alone. Bound: the ids, the head, the
+    distinct src rows of the live keys read once, the [K, H + w] output
+    written once (a pad's zero row reads nothing)."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import kernels as K
+    (n, w), k = src.shape, ids.shape[0]
+    valid = (ids >= 0) & (ids < n)
+    live = torch.where(valid, ids.long(), n)
+    src_z = torch.cat([src, src.new_zeros((1, w))])
+    args = (src, ids, head, None, BATCH, NUM_SLOTS)
+    want = K.segment_gather(*args)
+    reps = alternating_ms(torch, {
+        "kernel": lambda: K.segment_gather(*args),
+        "library": lambda: torch.index_select(src_z, 0, live)}, flush)
+    fn = _build.function("segment_gather", "pbx_segment_gather",
+                         K._SEG_GATHER_ARGS)
+    out = torch.empty_like(want)
+    c_args = (src.data_ptr(), src.stride(0), ids.data_ptr(),
+              head.data_ptr(), None, out.data_ptr(), k, n, w, head.shape[1],
+              0, NUM_SLOTS, BATCH, torch.cuda.current_stream().cuda_stream)
+
+    def check():
+        if not torch.equal(out, want):
+            raise AssertionError("segment_gather: the C entry alone "
+                                 "differs from its wrapper")
+    n_src = int(torch.unique(ids[valid]).numel())
+    # what bounds it: the same call with every key a pad (the same
+    # output written, no src or head read)
+    pads = torch.full_like(ids, n)
+    c_pads = c_args[:2] + (pads.data_ptr(),) + c_args[3:]
+    pad_ms = alone_ms(
+        torch, lambda: _build.check(fn(*c_pads), "segment_gather"),
+        lambda: None, flush)
+    # the wrapper's host cost: 200 calls enqueued back to back
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        K.segment_gather(*args)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    return {"keys": k, "live": int(valid.sum()), "repeats": reps,
+            "wrapper_host_us": host_us,
+            "alone": {"kernel": alone_ms(
+                torch, lambda: _build.check(fn(*c_args), "segment_gather"),
+                check, flush)},
+            "probe": dict(pad_ms, what="every key a pad"),
+            # the same output written by PyTorch's fill, nothing read
+            "output_zero_ms": time_ms(torch, out.zero_, flush),
+            "bound_ms": (k * 4 + head.numel() * 4 + n_src * w * 4
+                         + k * (head.shape[1] + w) * 4) / PEAK_BYTES * 1e3}
+
+
+def row_dma_timing(torch, name, kern, lib, table, rows, vals, want_table,
+                   flush) -> dict:
+    """Rows 3 and 4 on the round trip's rows: the wrapper against its
+    library call in alternating repeats, and the C entry alone, first
+    checked exact against the wrapper's result (the racy sentinel row
+    aside). ``want_table`` is the table the scatter wrapper wrote."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import kernels as K
+    reps = alternating_ms(torch, {"kernel": kern, "library": lib}, flush)
+    cap, d = table.shape[0] - 1, table.shape[1]
+    k = rows.shape[0]
+    fn = _build.function("row_dma", f"pbx_{name}", K._ROW_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    scatter = name == "scatter_rows_dma"
+    if scatter:
+        dst = table.clone()
+        io, want = vals, want_table[:cap]
+    else:
+        dst = torch.empty((k, d), dtype=torch.float32, device=table.device)
+        dst.fill_(float("nan"))
+        io, want = dst, K.gather_rows_dma(table, rows)
+
+    def call(ids):
+        _build.check(fn((dst if scatter else table).data_ptr(),
+                        ids.data_ptr(), io.data_ptr(), k, cap, d,
+                        K._dma_vec(d, table, io), stream), name)
+
+    def check():
+        if not torch.equal(dst[:cap] if scatter else dst, want):
+            raise AssertionError(f"{name}: the C entry alone differs from "
+                                 f"its wrapper")
+    alone = alone_ms(torch, lambda: call(rows), check, flush)
+    # what bounds it: the same copy of rows 0..k-1 in order (the same
+    # bytes, the table side contiguous instead of scattered), and the
+    # same bytes moved by PyTorch's dense copy of the [k, d] block
+    seq = torch.arange(k, dtype=torch.int32, device=table.device)
+    probe = alone_ms(torch, lambda: call(seq), lambda: None, flush)
+    dense = torch.empty_like(vals)
+    return {"repeats": reps, "alone": {"kernel": alone},
+            "probe": dict(probe, what="rows 0..k-1 in order"),
+            "dense_copy_ms": time_ms(torch, lambda: dense.copy_(vals),
+                                     flush)}
+
+
+def log_copy_timing(name: str, t: dict, lib: str, card: str) -> None:
+    """One line for a copy kernel timed as rows 3, 4 and 6 are: wrapper
+    against its library call in alternating repeats, kernel alone."""
+    reps = t["repeats"]
+    alone = "; ".join(
+        f"{mode}: {a['kernel_only_ms']:.4f} ms "
+        f"({t['bound_ms'] / a['kernel_only_ms']:.1%} of the bound), clean "
+        f"L2 {a['kernel_only_clean_l2_ms']:.4f}"
+        for mode, a in t["alone"].items())
+    alone += (f"; probe, {t['probe']['what']}: "
+              f"{t['probe']['kernel_only_ms']:.4f} ms")
+    if "output_zero_ms" in t:
+        alone += f"; zero_ of the output {t['output_zero_ms']:.4f} ms"
+    if "dense_copy_ms" in t:
+        alone += f"; copy_ of the [k, d] block {t['dense_copy_ms']:.4f} ms"
+    log(f"  {name}: wrapper {reps['kernel']['median']:.4f} ms (spread "
+        f"{reps['kernel']['spread']:.4f}) vs {lib} "
+        f"{reps['library']['median']:.4f} (spread "
+        f"{reps['library']['spread']:.4f}), medians of "
+        f"{len(reps['kernel']['runs'])} alternating repeats; alone, "
+        f"{alone}; bound {t['bound_ms'] * 1e3:.2f} us"
+        + (f"; wrapper host {t['wrapper_host_us']:.1f} us a call"
+           if "wrapper_host_us" in t else "") + f" ({card})")
 
 
 def log_pool_timing(name: str, t: dict, card: str) -> None:
@@ -1387,7 +1539,7 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
     # padded row on the other
     row_bound = (u_pad * 4 + (u_pad + u_real + 1) * feat * 4) / PEAK_BYTES \
         * 1e3
-    rows_out = []
+    rows_out, dma_t = [], {}
     for name, src, line, kern, plain, lib in (
             ("scatter_rows", "scatter_rows.cu", 155,
              lambda: K.scatter_rows(copies["scatter_rows"][0], rows_u, vals),
@@ -1405,21 +1557,30 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
              lambda: K.gather_rows_dma(table, rows_u),
              lambda: K.gather_rows_dma_plain(table, rows_u),
              lambda: torch.index_select(table, 0, rows_c))):
-        rows_out.append({
-            "name": name, "route": "cuda",
-            "source": f"paddlebox_tpu_torch/csrc/{src}",
-            "replaces": f"paddlebox_tpu/ops/pallas_kernels.py:{line}",
-            "max_abs_err": 0.0, "ms": time_ms(torch, kern, flush),
-            "plain_ms": time_ms(torch, plain, flush),
-            "library_ms": time_ms(torch, lib, flush),
-            "bound_ms": row_bound, "bound_by": "bytes",
-            "launches": row_launches[name]})
+        r = {"name": name, "route": "cuda",
+             "source": f"paddlebox_tpu_torch/csrc/{src}",
+             "replaces": f"paddlebox_tpu/ops/pallas_kernels.py:{line}",
+             "max_abs_err": 0.0, "plain_ms": time_ms(torch, plain, flush),
+             "bound_ms": row_bound, "bound_by": "bytes",
+             "launches": row_launches[name]}
+        if name == "scatter_rows":
+            r.update(ms=time_ms(torch, kern, flush),
+                     library_ms=time_ms(torch, lib, flush))
+        else:
+            t = dma_t[name] = row_dma_timing(
+                torch, name, kern, lib, table, rows_u, vals,
+                copies["scatter_rows_dma"][0], flush)
+            t["bound_ms"] = row_bound
+            r.update(ms=t["repeats"]["kernel"]["median"],
+                     library_ms=t["repeats"]["library"]["median"])
+        rows_out.append(r)
     del copies
     details["seqpool"] = {
         "ops": op_ms, "segment_sum_launches_per_op": per_op,
         "main_path_launches": fam_launches, "row_launches": row_launches,
         "forward_max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
-        "segment_sum_streams": streams, "keys": int(values.shape[0]),
+        "segment_sum_streams": streams, "row_dma_timing": dma_t,
+        "keys": int(values.shape[0]),
         "segments": n, "unique_rows": u_real, "padded_rows": u_pad}
     log(f"seqpool family: {len(ops)} ops forward and backward at B {b}, "
         f"S {s}, K {values.shape[0]} through the kernels and the plain "
@@ -1439,6 +1600,9 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
         log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({card})")
+    for name, t in dma_t.items():
+        log_copy_timing(name, t, "index_copy_" if name.startswith("scatter")
+                        else "index_select", card)
     return [ss] + rows_out
 
 
@@ -1632,24 +1796,22 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"segment_gather ({mode} mode) differs "
                                  f"from its plain version")
-    w = src.shape[1]
-    n_src = int(torch.unique(segs[valid]).numel())
-    live_ids = torch.where(valid, segs.long(), n_seg)
-    src_z = torch.cat([src, src.new_zeros((1, w))])
+    # the real keys, which phase 5's steps pass (train/step.py
+    # _expand_pool drops the bucket's padded tail), and batch 0's whole
+    # key bucket, pads included, which the PV steps' shape resembles
+    sg_t = {what: gather_timing(torch, src, ids, head, flush)
+            for what, ids in (("real keys", segs),
+                              ("key bucket", dev.segments.contiguous()))}
+    real = sg_t["real keys"]
     sg = {"name": "segment_gather", "route": "cuda",
           "source": "paddlebox_tpu_torch/csrc/segment_gather.cu",
           "replaces": "paddlebox_tpu/ops/pallas_kernels.py:531",
-          "max_abs_err": 0.0,
-          "ms": time_ms(torch, lambda: K.segment_gather(
-              src, segs, head, None, BATCH, NUM_SLOTS), flush),
+          "max_abs_err": 0.0, "ms": real["repeats"]["kernel"]["median"],
           "plain_ms": time_ms(torch, lambda: K.segment_gather_plain(
               src, segs, head, None, BATCH, NUM_SLOTS), flush),
-          "library_ms": time_ms(
-              torch, lambda: torch.index_select(src_z, 0, live_ids), flush),
-          # ids + head + the distinct src rows read, [K, 2 + w] written
-          "bound_ms": (k_real * 4 + head.numel() * 4 + n_src * w * 4
-                       + k_real * (2 + w) * 4) / PEAK_BYTES * 1e3,
-          "bound_by": "bytes"}
+          "library_ms": real["repeats"]["library"]["median"],
+          "bound_ms": real["bound_ms"], "bound_by": "bytes"}
+    details["segment_gather_timing"] = sg_t
     details["segment_gather_gather_mode_ms"] = time_ms(
         torch, lambda: K.segment_gather(src, segs), flush)
 
@@ -1682,7 +1844,7 @@ def main() -> int:
           # the table row written
           "bound_ms": (u_pad * 4 + u_real * 3 * feat * 4) / PEAK_BYTES * 1e3,
           "bound_by": "bytes"}
-    del vals_k, vals_p, g_out, src_z
+    del vals_k, vals_p, g_out
     log(f"kernels vs plain: gather_rows, segment_gather (3 modes), "
         f"scatter_add_update exact; pool_cvm 4 modes max abs err "
         f"{pool_err:.3g}")
@@ -1691,6 +1853,9 @@ def main() -> int:
             f"ms, library {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({card})")
     log_pool_timing("pool_cvm", details["pool_cvm_timing"], card)
+    for what, t in sg_t.items():
+        log_copy_timing(f"segment_gather ({what}, K {t['keys']}, "
+                        f"{t['live']} live)", t, "index_select", card)
     ins, lk = index_phase(torch, batches, flush, card, details)
     ra, bfc, cn = ctr_phase(torch, pv_batches, flush, card, details, gen)
 

@@ -1,5 +1,5 @@
-// Row copies by one bulk asynchronous copy per row, between a table
-// [cap + 1, d] and a dense block [k, d]:
+// Row copies between a table [cap + 1, d] and a dense block [k, d], with
+// many rows in flight on every lane:
 //
 //   gather:  out[i, :]        = table[r(i), :]
 //   scatter: table[r(i), :]   = values[i, :]      (in place)
@@ -15,159 +15,206 @@
 // have no consumer there or in the port.
 //
 // Bound on this card: bytes. A row of 16 floats is 64 bytes, two 32-byte
-// sectors: each copy moves few bytes, so the limit is how many copies are
-// in flight. Design, the Hopper counterpart of "one DMA per row, 16 in
-// flight": each warp owns a ring of 16 row slots in shared memory with one
-// mbarrier each. One elected lane takes 16 consecutive rows at a time,
-// issues a cp.async.bulk global->shared copy per row (completion counted
-// in bytes on the slot's mbarrier), then, as each slot's barrier
-// completes, a cp.async.bulk shared->global copy of the slot to the row's
-// destination; before the ring is reused it waits until those stores have
-// read shared memory. The copy engine computes no addresses per element
-// and the threads spend no registers on the data. A bulk copy needs its
-// size and both addresses to be multiples of 16 bytes; rows that are not
-// (d % 4 != 0, a misaligned base) or wider than 512 bytes take the
-// ordinary-load branch of the same kernel: one warp per row, a float per
-// lane. The id is clamped before an address is formed. Exact: a copy.
+// sectors, and the rows of the table side land all over a table far
+// larger than L2, so the limit is how many row copies are in flight. A
+// bulk copy engine is built for tiles, not 64-byte rows (one elected lane
+// issuing one cp.async.bulk a row was 2.4-2.8x slower than 16-byte vector
+// loads); here every lane moves data. A row is v = d / 4 16-byte vectors;
+// a warp lays 32 / v rows side by side, one vector a lane, as a slot, and
+// a chunk is 4 slots. Each lane loads the chunk's ids with one coalesced
+// load a 32 rows, and takes its rows' ids from the owning lanes by
+// __shfl_sync; the id is clamped before an address is formed. The lane
+// copies its 4 vectors by 16-byte cp.async into its own slots of a
+// two-chunk shared-memory ring, committed as one group, and stores the
+// previous chunk once that chunk's group has landed (wait_group 1): two
+// chunks, 8 vectors, fly a lane. Each lane reads back only its own slots,
+// so no lane waits on another. (A register pipeline, 8 independent
+// 16-byte loads a lane then their 8 stores, ran ~9% slower on the path's
+// scatter and tied on its gather: PERF.md §6.)
+// Rows that are not 16-byte vectors (d % 4 != 0, a misaligned base) or
+// wider than a warp's slot (d > 128) take ordinary loads: one warp per
+// row, a float per lane. Every launch is a grid of the blocks the card
+// runs at once, walking the rows or chunks with the grid's stride. Exact:
+// a copy.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kRing = 16;   // row copies in flight per warp (_NSEM)
-constexpr int kWarps = 4;   // warps per block
+constexpr int kThreads = 128;  // measured a little faster than 256
+constexpr int kRingRows = 4;   // vectors a lane copies a chunk
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait for a slot's copy; a copy that never completes (a fault of this
-// kernel) ends the launch with an error after ~10 s instead of hanging.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - start > (1LL << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, unsigned src,
-                                           unsigned bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-          dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ long long row_of(const int* __restrict__ rows,
-                                            long long i, long long cap) {
-  long long r = __ldg(rows + i);
+__device__ __forceinline__ long long row_of(int r, long long cap) {
   return (r < 0 || r > cap) ? cap : r;
 }
 
-template <bool kScatter>
-__global__ void row_dma_kernel(float* table, const int* __restrict__ rows,
-                               float* io, long long k, long long cap, int d,
-                               int bulk) {
-  extern __shared__ __align__(128) unsigned char ring_all[];
-  __shared__ __align__(8) unsigned long long bars[kWarps][kRing];
-  const int warp = threadIdx.x >> 5;
+// The lane's R items of the chunk at `base` (R slots of rps rows each):
+// for slot r, row i[r] = base + r * rps + sub of the dense block and its
+// table row t[r] (-1 past k or on an idle lane).
+template <int R>
+__device__ __forceinline__ void chunk_items(const int* __restrict__ rows,
+                                            long long base, long long k,
+                                            long long cap, int rps, int sub,
+                                            bool active, long long (&i)[R],
+                                            long long (&t)[R]) {
   const int lane = threadIdx.x & 31;
-  const long long gwarp = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
-
-  if (!bulk) {  // ordinary loads and stores: one warp per row
-    for (long long i = gwarp; i < k; i += n_warps) {
-      const long long r = row_of(rows, i, cap);
-      const float* src = kScatter ? io + i * d : table + r * d;
-      float* dst = kScatter ? table + r * d : io + i * d;
-      for (int c = lane; c < d; c += 32) dst[c] = src[c];
-    }
-    return;
+  const int span = R * rps;   // rows of the chunk
+  int ids[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const long long at = base + 32 * j + lane;
+    ids[j] = 32 * j < span && at < k ? __ldg(rows + at) : 0;
   }
-  if (lane != 0) return;  // one elected lane drives the warp's ring
-  const unsigned bytes = static_cast<unsigned>(d) * 4u;
-  const unsigned ring = smem_addr(ring_all) + warp * kRing * bytes;
-  const unsigned bar0 = smem_addr(&bars[warp][0]);
-  for (int i = 0; i < kRing; ++i) mbar_init(bar0 + 8 * i, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  unsigned parity = 0;  // bit i: the phase slot i's barrier completes next
-  const long long n_chunks = (k + kRing - 1) / kRing;
-  for (long long chunk = gwarp; chunk < n_chunks; chunk += n_warps) {
-    const long long base = chunk * kRing;
-    const int m = static_cast<int>(k - base < kRing ? k - base : kRing);
-    for (int i = 0; i < m; ++i) {
-      const long long row = base + i;
-      const float* src =
-          kScatter ? io + row * d : table + row_of(rows, row, cap) * d;
-      mbar_expect_tx(bar0 + 8 * i, bytes);
-      bulk_load(ring + i * bytes, src, bytes, bar0 + 8 * i);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int q = r * rps + sub;
+    int id = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (32 * j < span) {   // the same on every lane
+        const int got = __shfl_sync(0xffffffffu, ids[j], q & 31);
+        if ((q >> 5) == j) id = got;
+      }
     }
-    for (int i = 0; i < m; ++i) {
-      const long long row = base + i;
-      mbar_wait(bar0 + 8 * i, (parity >> i) & 1u);
-      parity ^= 1u << i;
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      float* dst =
-          kScatter ? table + row_of(rows, row, cap) * d : io + row * d;
-      bulk_store(dst, ring + i * bytes, bytes);
-    }
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    // the stores must have read the ring before the next chunk refills it
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    i[r] = base + q;
+    t[r] = active && i[r] < k ? row_of(id, cap) : -1;
   }
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-int launch(bool scatter, float* table, const int* rows, float* io,
-           long long k, long long cap, int d, int bulk, void* stream) {
-  const long long n_chunks = (k + kRing - 1) / kRing;
-  long long blocks = bulk ? (n_chunks + kWarps - 1) / kWarps
-                          : (k + kWarps - 1) / kWarps;
-  if (blocks > 132 * 8) blocks = 132 * 8;  // a few waves; warps loop
-  const size_t smem = bulk ? static_cast<size_t>(kWarps) * kRing * d * 4 : 0;
+struct Lanes {   // a lane's place in a slot
+  int rps, sub, vec;
+  bool active;
+  __device__ explicit Lanes(int v) {
+    const int lane = threadIdx.x & 31;
+    rps = 32 / v;
+    sub = lane / v;
+    vec = lane - sub * v;
+    active = sub < rps;
+  }
+};
+
+template <bool kScatter>
+__global__ void __launch_bounds__(kThreads)
+rows_ordinary(float* table, const int* __restrict__ rows, float* io,
+              long long k, long long cap, int d) {
+  const int lane = threadIdx.x & 31;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kThreads / 32;
+  for (long long i = (static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x) / 32;
+       i < k; i += n_warps) {
+    const long long r = row_of(__ldg(rows + i), cap);
+    const float* src = kScatter ? io + i * d : table + r * d;
+    float* dst = kScatter ? table + r * d : io + i * d;
+    for (int c = lane; c < d; c += 32) dst[c] = src[c];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+template <bool kScatter>
+__global__ void __launch_bounds__(kThreads)
+rows_vec(float* table, const int* __restrict__ rows, float* io,
+         long long k, long long cap, int v) {
+  constexpr int R = kRingRows;
+  __shared__ __align__(16) float4 ring[2][R][kThreads];   // 16 KB
+  const Lanes ln(v);
+  const long long span = static_cast<long long>(R) * ln.rps;
+  const long long n_chunks = (k + span - 1) / span;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kThreads / 32;
+  float4* tab = reinterpret_cast<float4*>(table);
+  float4* blk = reinterpret_cast<float4*>(io);
+  long long pi[R], pt[R];   // the chunk in flight before this one
+  // the stores of that chunk, from ring buffer b, once it has landed
+  auto store = [&](int b) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (pt[r] >= 0) {
+        *(kScatter ? tab + pt[r] * v + ln.vec : blk + pi[r] * v + ln.vec) =
+            ring[b][r][threadIdx.x];
+      }
+    }
+  };
+  int s = 0;
+  bool have = false;
+  for (long long c = (static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x) / 32;
+       c < n_chunks; c += n_warps) {
+    long long i[R], t[R];
+    chunk_items<R>(rows, c * span, k, cap, ln.rps, ln.sub, ln.active, i, t);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (t[r] >= 0) {
+        cp_async16(&ring[s][r][threadIdx.x],
+                   kScatter ? blk + i[r] * v + ln.vec
+                            : tab + t[r] * v + ln.vec);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (have) {
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      store(s ^ 1);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      pi[r] = i[r];
+      pt[r] = t[r];
+    }
+    have = true;
+    s ^= 1;
+  }
+  if (have) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    store(s ^ 1);
+  }
+}
+
+// Blocks of `kernel` the card runs at once; 0 and the error in *rc when a
+// query fails.
+template <typename Kernel>
+long long resident_blocks(Kernel kernel, int* rc) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  }
+  *rc = static_cast<int>(e);
+  return e == cudaSuccess ? static_cast<long long>(sms) * per_sm : 0;
+}
+
+template <bool kScatter>
+int run(float* table, const int* rows, float* io, long long k,
+        long long cap, int d, int vec, void* stream) {
+  static int rc[2] = {0, 0};
+  static const long long resident[2] = {
+      resident_blocks(rows_ordinary<kScatter>, &rc[0]),
+      resident_blocks(rows_vec<kScatter>, &rc[1])};
+  vec = vec != 0;
+  if (rc[vec] != 0) return rc[vec];
+  const int warps = kThreads / 32;
+  // a warp a row, or a warp a chunk of kRingRows slots of 32 / v rows
+  const long long span = vec ? static_cast<long long>(kRingRows) *
+                                   (32 / (d / 4))
+                             : 1;
+  const long long need = ((k + span - 1) / span + warps - 1) / warps;
+  const unsigned g = static_cast<unsigned>(
+      need < resident[vec] ? need : resident[vec]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (scatter) {
-    row_dma_kernel<true><<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
-                           s>>>(table, rows, io, k, cap, d, bulk);
+  if (vec) {
+    rows_vec<kScatter><<<g, kThreads, 0, s>>>(table, rows, io, k, cap,
+                                               d / 4);
   } else {
-    row_dma_kernel<false><<<static_cast<unsigned>(blocks), 32 * kWarps, smem,
-                            s>>>(table, rows, io, k, cap, d, bulk);
+    rows_ordinary<kScatter><<<g, kThreads, 0, s>>>(table, rows, io, k, cap,
+                                                    d);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -175,22 +222,23 @@ int launch(bool scatter, float* table, const int* rows, float* io,
 }  // namespace
 
 // table [cap+1, d] f32, rows [k] i32, out [k, d] f32, all on the device;
-// k >= 1. bulk = 1 needs d % 4 == 0, d <= 128 and 16-byte aligned table
-// and out. Returns the cudaError_t of the launch.
+// k >= 1. vec = 0: ordinary loads, any d; vec = 1: 16-byte vectors, needs
+// d % 4 == 0, d <= 128 and 16-byte aligned table and out. Returns the
+// cudaError_t of the launch.
 extern "C" int pbx_gather_rows_dma(const float* table, const int* rows,
                                    float* out, long long k, long long cap,
-                                   int d, int bulk, void* stream) {
-  return launch(false, const_cast<float*>(table), rows, out, k, cap, d, bulk,
-                stream);
+                                   int d, int vec, void* stream) {
+  return run<false>(const_cast<float*>(table), rows, out, k, cap, d, vec,
+                    stream);
 }
 
 // table [cap+1, d] f32 written in place, rows [k] i32, values [k, d] f32,
-// all on the device; k >= 1; bulk as above. Returns the cudaError_t of the
-// launch.
+// all on the device; k >= 1; vec as above. Returns the cudaError_t of
+// the launch.
 extern "C" int pbx_scatter_rows_dma(float* table, const int* rows,
                                     const float* values, long long k,
-                                    long long cap, int d, int bulk,
+                                    long long cap, int d, int vec,
                                     void* stream) {
-  return launch(true, table, rows, const_cast<float*>(values), k, cap, d,
-                bulk, stream);
+  return run<true>(table, rows, const_cast<float*>(values), k, cap, d, vec,
+                   stream);
 }

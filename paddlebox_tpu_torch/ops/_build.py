@@ -114,8 +114,9 @@ def function(name: str, symbol: str, argtypes: Sequence):
 
 def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a handle for a C
-    entry."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    entry (the raw handle PyTorch's own generated kernels launch on,
+    without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

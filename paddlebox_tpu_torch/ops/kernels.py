@@ -291,24 +291,12 @@ def _head_index(ids: torch.Tensor, batch_size: int, num_slots: int
     return torch.where(ins < 0, ins + batch_size, ins).clamp_min(0)
 
 
-def segment_gather(src: torch.Tensor, ids: torch.Tensor,
-                   head: Optional[torch.Tensor] = None,
-                   mask: Optional[torch.Tensor] = None,
-                   batch_size: int = 0, num_slots: int = 0,
-                   ets: int = 0) -> torch.Tensor:
-    """src [N, w] f32 (rows may be strided, columns contiguous), ids [K]
-    int32 → out [K, w] = src[ids] with zero rows for ids outside [0, N)
-    (``csrc/segment_gather.cu``). Exact.
-
-    With ``head`` [batch_size, H] f32 it writes the fused seqpool grad
-    row instead, out [K, H + ets + w] = [head[min(ids // num_slots,
-    batch_size - 1)] | zeros(ets) | src[ids]], the reference's grad row:
-    ids >= N give zero rows, and a NEGATIVE id keeps its head row (the
-    index counts from the end, as in JAX) with zero embedx columns.
-    ``mask`` [K] f32 zeroes the rows where it is 0 (in both modes)."""
-    if src.device.type == "cpu" and ids.device.type == "cpu":
-        return segment_gather_plain(src, ids, head, mask, batch_size,
-                                    num_slots, ets)
+def _segment_gather_args(src: torch.Tensor, ids: torch.Tensor,
+                         head: Optional[torch.Tensor],
+                         mask: Optional[torch.Tensor], batch_size: int,
+                         num_slots: int, ets: int) -> None:
+    """Raise the error that :func:`segment_gather`'s one combined check
+    stands for (it runs only when that check fails)."""
     extra = [t for t in (head, mask) if t is not None]
     _build.require_cuda("segment_gather", ids, *extra)
     if src.device != ids.device:
@@ -322,28 +310,67 @@ def segment_gather(src: torch.Tensor, ids: torch.Tensor,
                                             and src.stride(1) != 1):
         raise ValueError("segment_gather: src [N, w] with contiguous "
                          "columns and ids [K]")
-    n, w = src.shape
-    k = ids.shape[0]
-    n_head = 0
     if head is not None:
         if head.dim() != 2 or head.shape[0] != batch_size \
                 or batch_size < 1 or num_slots < 1:
             raise ValueError("segment_gather: head [batch_size, H] needs "
                              "batch_size, num_slots >= 1")
-        n_head = head.shape[1]
     elif ets:
         raise ValueError("segment_gather: ets needs the head epilogue")
-    if mask is not None and mask.shape != (k,):
+    if mask is not None and mask.shape != (ids.shape[0],):
         raise ValueError("segment_gather: mask [K]")
+    raise AssertionError("segment_gather: the combined check and its "
+                         "errors disagree")
+
+
+def segment_gather(src: torch.Tensor, ids: torch.Tensor,
+                   head: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None,
+                   batch_size: int = 0, num_slots: int = 0,
+                   ets: int = 0) -> torch.Tensor:
+    """src [N, w] f32 (rows may be strided, columns contiguous), ids [K]
+    int32 → out [K, w] = src[ids] with zero rows for ids outside [0, N)
+    (``csrc/segment_gather.cu``: one allocation, one C call). Exact.
+
+    With ``head`` [batch_size, H] f32 it writes the fused seqpool grad
+    row instead, out [K, H + ets + w] = [head[min(ids // num_slots,
+    batch_size - 1)] | zeros(ets) | src[ids]], the reference's grad row:
+    ids >= N give zero rows, and a NEGATIVE id keeps its head row (the
+    index counts from the end, as in JAX) with zero embedx columns.
+    ``mask`` [K] f32 zeroes the rows where it is 0 (in both modes)."""
+    if src.device.type == "cpu" and ids.device.type == "cpu":
+        return segment_gather_plain(src, ids, head, mask, batch_size,
+                                    num_slots, ets)
+    dev = ids.device
+    k = ids.shape[0]
+    f32 = torch.float32
+    # every check of _segment_gather_args in one expression of cheap
+    # attribute reads (this call is on the step's host path); on failure
+    # that function raises the matching error
+    if not (ids.is_cuda and ids.dtype == torch.int32 and ids.ndim == 1
+            and ids.is_contiguous() and src.dtype == f32
+            and src.device == dev and src.ndim == 2
+            and (src.shape[1] < 2 or src.stride(1) == 1)
+            and (mask is None or (
+                mask.dtype == f32 and mask.device == dev
+                and mask.is_contiguous() and mask.shape == (k,)))
+            and (ets == 0 if head is None else (
+                head.dtype == f32 and head.device == dev
+                and head.is_contiguous() and head.ndim == 2
+                and head.shape[0] == batch_size and batch_size >= 1
+                and num_slots >= 1))):
+        _segment_gather_args(src, ids, head, mask, batch_size, num_slots,
+                             ets)
+    n, w = src.shape
+    n_head = 0 if head is None else head.shape[1]
     out = torch.empty((k, n_head + ets + w), dtype=torch.float32,
-                      device=src.device)
+                      device=dev)
     if out.numel() == 0:
         return out
-    ld = src.stride(0) if n else w
     fn = _build.function("segment_gather", "pbx_segment_gather",
                          _SEG_GATHER_ARGS)
-    _build.check(fn(src.data_ptr(), ld, ids.data_ptr(),
-                    None if head is None else head.data_ptr(),
+    _build.check(fn(src.data_ptr(), src.stride(0) if n else w,
+                    ids.data_ptr(), None if head is None else head.data_ptr(),
                     None if mask is None else mask.data_ptr(),
                     out.data_ptr(), k, n, w, n_head, ets, max(num_slots, 1),
                     max(batch_size, 1), _build.stream(ids)), "segment_gather")
@@ -538,9 +565,10 @@ def _dma_count(name: str, rows: torch.Tensor) -> None:
         raise ValueError(f"{name}: pad the {k} rows to a multiple of {tr}")
 
 
-def _dma_bulk(d: int, *tensors: torch.Tensor) -> int:
-    """Whether a row moves by one bulk copy: 16-byte multiples and
-    aligned bases, and at most 512 bytes (the ring's shared memory)."""
+def _dma_vec(d: int, *tensors: torch.Tensor) -> int:
+    """Whether the row copies move 16-byte vectors (``csrc/row_dma.cu``):
+    16-byte multiples on aligned bases, at most one vector a lane (d <=
+    128); any other row takes ordinary loads."""
     return int(d <= 128 and _vec4(d, *tensors))
 
 
@@ -556,7 +584,7 @@ def gather_rows_dma(table: torch.Tensor, rows: torch.Tensor
                     ) -> torch.Tensor:
     """table [C+1, D] f32, rows [K] int32 with K a multiple of min(2048,
     K) → out [K, D] = table[min(rows, C)] (ids outside [0, C] read the
-    sentinel row C), by one bulk asynchronous copy per row
+    sentinel row C), with several rows in flight on every lane
     (``csrc/row_dma.cu``). Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
         return gather_rows_dma_plain(table, rows)
@@ -568,7 +596,7 @@ def gather_rows_dma(table: torch.Tensor, rows: torch.Tensor
         return out
     fn = _build.function("row_dma", "pbx_gather_rows_dma", _ROW_ARGS)
     _build.check(fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(), k,
-                    table.shape[0] - 1, d, _dma_bulk(d, table, out),
+                    table.shape[0] - 1, d, _dma_vec(d, table, out),
                     _build.stream(table)), "gather_rows_dma")
     gather_rows_dma.launches += 1
     return out
@@ -590,7 +618,8 @@ def scatter_rows_dma(table: torch.Tensor, rows: torch.Tensor,
                      values: torch.Tensor) -> torch.Tensor:
     """table [C+1, D] f32, rows [K] int32 with K a multiple of min(2048,
     K), values [K, D] f32: ``table[min(rows[i], C)] = values[i]`` IN
-    PLACE by one bulk asynchronous copy per row (``csrc/row_dma.cu``).
+    PLACE, with several rows in flight on every lane
+    (``csrc/row_dma.cu``).
     In-bounds rows must be duplicate-free; rows outside [0, C] all write
     the sentinel row C, racily. Returns ``table``. Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
@@ -602,7 +631,7 @@ def scatter_rows_dma(table: torch.Tensor, rows: torch.Tensor,
         return table
     fn = _build.function("row_dma", "pbx_scatter_rows_dma", _ROW_ARGS)
     _build.check(fn(table.data_ptr(), rows.data_ptr(), values.data_ptr(), k,
-                    table.shape[0] - 1, d, _dma_bulk(d, table, values),
+                    table.shape[0] - 1, d, _dma_vec(d, table, values),
                     _build.stream(table)), "scatter_rows_dma")
     scatter_rows_dma.launches += 1
     return table

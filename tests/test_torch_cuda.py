@@ -117,8 +117,18 @@ def test_serving_on_card_matches_cpu(cuda):
                                atol=1e-6)
 
 
+def _gather_once(*args):
+    """segment_gather(*args), asserting one launch."""
+    before = tk.segment_gather.launches
+    got = tk.segment_gather(*args)
+    assert tk.segment_gather.launches == before + 1
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [9, 3])      # widths not divisible by 4
+# widths not divisible by 4, w = 1, and 150 (tiles of fewer keys than
+# lanes: csrc/segment_gather.cu stages at most 509 floats a warp)
+@pytest.mark.parametrize("w", [9, 3, 1, 150])
 def test_segment_gather_exact(cuda, w):
     rng = np.random.default_rng(w)
     n, k = 700, 5000
@@ -127,7 +137,7 @@ def test_segment_gather_exact(cuda, w):
     ids = torch.from_numpy(
         rng.integers(-3, n + 5, size=k).astype(np.int32)).to(cuda)
     for src in (block[:, :w], block[:, 2:].contiguous()):   # strided too
-        got = tk.segment_gather(src, ids)
+        got = _gather_once(src, ids)
         torch.cuda.synchronize()
         assert torch.equal(got, tk.segment_gather_plain(src, ids))
     # the fused seqpool-grad epilogue: head, ets zeros, mask
@@ -137,11 +147,127 @@ def test_segment_gather_exact(cuda, w):
     mask = torch.from_numpy(
         (rng.random(k) < 0.7).astype(np.float32)).to(cuda)
     for ets in (0, 1):
-        got = tk.segment_gather(block[:, :w], ids, head, mask, b, s, ets)
+        got = _gather_once(block[:, :w], ids, head, mask, b, s, ets)
         want = tk.segment_gather_plain(block[:, :w], ids, head, mask, b, s,
                                        ets)
         torch.cuda.synchronize()
         assert got.shape == (k, 2 + ets + w) and torch.equal(got, want)
+
+
+def _gather_into(out, src, ids, head=None, mask=None, b=1, s=1, ets=0):
+    """pbx_segment_gather called straight into ``out`` (any 4-byte
+    offset: the wrapper's own output is always 16-byte aligned)."""
+    from paddlebox_tpu_torch.ops import _build
+    fn = _build.function("segment_gather", "pbx_segment_gather",
+                         tk._SEG_GATHER_ARGS)
+    n, w = src.shape
+    _build.check(fn(src.data_ptr(), src.stride(0), ids.data_ptr(),
+                    None if head is None else head.data_ptr(),
+                    None if mask is None else mask.data_ptr(),
+                    out.data_ptr(), ids.shape[0], n, w,
+                    0 if head is None else head.shape[1], ets, s, b,
+                    _build.stream(ids)), "segment_gather")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [9, 3, 4100])   # 4100: past a tile's staging
+def test_segment_gather_layouts(cuda, w):
+    """Bit-equal to the plain version where the new tiles can slip: an
+    output base at each 4-byte offset mod 16 (K * d not a multiple of 4),
+    a src base that is not 16-byte aligned, an odd row stride, K = 1, all
+    pads, one segment's run longer than a tile, and ids >= N, -1 and
+    below -S with head and mask."""
+    rng = np.random.default_rng(w + 7)
+    b, s = 9, 5
+    n = b * s
+    k = 37 if w > 1000 else 3001
+    block = torch.from_numpy(
+        rng.normal(size=(n, w + 4)).astype(np.float32)).to(cuda)
+    head = torch.from_numpy(
+        rng.normal(size=(b, 3)).astype(np.float32)).to(cuda)
+    wild = np.array([-1, -2, -s, -s - 1, -n, -n - 1, -5 * n, n, 7 * n,
+                     -2 ** 31, 2 ** 31 - 1], np.int32)
+    ids_np = rng.integers(0, n, size=k).astype(np.int32)
+    odd = rng.random(k) < 0.3
+    ids_np[odd] = rng.choice(wild, size=int(odd.sum()))
+    mask = torch.from_numpy(
+        (rng.random(k) < 0.8).astype(np.float32)).to(cuda)
+    cases = {"mixed": ids_np, "one key": ids_np[:1],
+             "all pads": np.full(k, n, np.int32),
+             "one long run": np.full(k, 4, np.int32)}
+    for name, ids_c in cases.items():
+        ids = torch.from_numpy(ids_c).to(cuda)
+        m = mask[:ids.shape[0]]
+        for src in (block[:, :w], block[:, 1:1 + w]):   # odd ld; base + 4
+            for args in ((src, ids), (src, ids, head, m, b, s, 0),
+                         (src, ids, head, None, b, s, 2)):
+                want = tk.segment_gather_plain(*args)
+                got = _gather_once(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), name
+                flat = torch.full((want.numel() + 3,), float("nan"),
+                                  device=cuda)
+                for off in (1, 2, 3):
+                    out = flat[off:off + want.numel()].view(want.shape)
+                    _gather_into(out, *args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, want), (name, off)
+
+
+@pytest.mark.cuda
+def test_segment_gather_errors(cuda):
+    """The wrapper's one combined check raises each error the separate
+    checks raise, and launches nothing."""
+    src = torch.zeros((8, 5), device=cuda)
+    ids = torch.zeros(6, dtype=torch.int32, device=cuda)
+    head = torch.zeros((2, 2), device=cuda)
+    mask = torch.ones(6, device=cuda)
+    bad = [
+        ((src.cpu(), ids), ValueError, "tensors on"),
+        ((src, ids.long()), TypeError, "int32 ids"),
+        ((src.double(), ids), TypeError, "float32"),
+        ((src, ids, head, mask.double(), 2, 3), TypeError, "float32"),
+        ((src, ids[::2]), ValueError, "non-contiguous"),
+        ((src.t(), ids), ValueError, "contiguous columns"),
+        ((src[0], ids), ValueError, "contiguous columns"),
+        ((src, ids, head, None, 3, 3), ValueError, "head"),
+        ((src, ids, head, None, 2, 0), ValueError, "head"),
+        ((src, ids, None, None, 0, 0, 1), ValueError, "ets"),
+        ((src, ids, None, mask[:5]), ValueError, "mask"),
+        ((src, ids, head.t(), None, 2, 3), ValueError, "non-contiguous"),
+    ]
+    before = tk.segment_gather.launches
+    for args, exc, match in bad:
+        with pytest.raises(exc, match=match):
+            tk.segment_gather(*args)
+    assert tk.segment_gather.launches == before
+
+
+@pytest.mark.cuda
+def test_segment_gather_padded_bucket(cuda):
+    """The training path's shapes: a ragged batch's segment stream padded
+    to its key bucket with segment B*S, the strided src g[:, 2:] of the
+    pooled grad (ld 11, w 9) and the batch show/clk head: the pads are
+    zero rows, the real keys the grad rows."""
+    rng = np.random.default_rng(5)
+    _, segments, keep, b, s = _ragged(rng, b=512, s=26)
+    pad = 1 << int(np.ceil(np.log2(len(segments))))
+    ids = np.full(pad, b * s, np.int32)
+    ids[:len(segments)] = segments
+    ids = torch.from_numpy(ids).to(cuda)
+    g = torch.from_numpy(
+        rng.normal(size=(b * s, 11)).astype(np.float32)).to(cuda)
+    head = torch.from_numpy(
+        np.abs(rng.normal(size=(b, 2))).astype(np.float32)).to(cuda)
+    mask = torch.ones(pad, device=cuda)
+    mask[:len(keep)] = torch.from_numpy(keep).to(cuda)
+    for args in ((g[:, 2:], ids, head, None, b, s),
+                 (g[:, 2:], ids, head, mask, b, s), (g[:, 2:], ids)):
+        got = _gather_once(*args)
+        want = tk.segment_gather_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert not got[len(segments):].any()
 
 
 @pytest.mark.cuda
@@ -152,11 +278,14 @@ def test_segment_gather_empty_and_all_dropped(cuda):
                                                 device=cuda))
     assert empty.shape == (0, 9) and tk.segment_gather.launches == before
     ids = torch.tensor([-1, 5, 99, -7], dtype=torch.int32, device=cuda)
-    got = tk.segment_gather(src, ids)
-    no_src = tk.segment_gather(src[:0], ids)
+    got = _gather_once(src, ids)
+    no_src = _gather_once(src[:0], ids)
+    masked = _gather_once(src, ids.abs() % 5, None,
+                          torch.zeros(4, device=cuda))
     torch.cuda.synchronize()
     assert torch.equal(got, torch.zeros_like(got))
     assert torch.equal(no_src, torch.zeros_like(no_src))
+    assert torch.equal(masked, torch.zeros_like(masked))
 
 
 @pytest.mark.cuda
@@ -587,8 +716,9 @@ def test_scatter_rows_exact(cuda, feat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 13, 150])  # bulk copies; ordinary loads
-@pytest.mark.parametrize("k", [4096, 37])
+# d 4-128: 16-byte vectors, 1 to 32 a row; 13 and 150: ordinary loads
+@pytest.mark.parametrize("d", [4, 16, 13, 128, 150])
+@pytest.mark.parametrize("k", [4096, 37, 2048 * 3])
 def test_row_dma_exact(cuda, d, k):
     rng = np.random.default_rng(d + k)
     c = 9000
@@ -607,8 +737,50 @@ def test_row_dma_exact(cuda, d, k):
         before[0] + 1, before[1] + 1)
     assert torch.equal(got, want)
     assert torch.equal(t_k[:c], t_p[:c])        # the sentinel row is racy
+    # the pads all wrote the sentinel row: each of its floats is one of
+    # theirs (the rows may interleave)
+    pads = vals[(rows < 0) | (rows > c)]
+    assert (pads == t_k[c]).any(dim=0).all()
     with pytest.raises(ValueError, match="multiple of 2048"):
         tk.gather_rows_dma(table, rows.repeat(2049)[:2049 * 2 - 1])
+    # a table view at a 4-byte offset takes the ordinary loads
+    flat = torch.cat([table.new_zeros(1), table.flatten()])
+    view = flat[1:].view(c + 1, d)
+    assert torch.equal(tk.gather_rows_dma(view, rows), want)
+    t_v = torch.cat([table.new_zeros(1), table.clone().flatten()])[1:]
+    tk.scatter_rows_dma(t_v.view(c + 1, d), rows, vals)
+    torch.cuda.synchronize()
+    assert torch.equal(t_v.view(c + 1, d)[:c], t_p[:c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vec", [0, 1])     # ordinary loads; the ring
+@pytest.mark.parametrize("d", [4, 16, 128])
+def test_row_dma_paths_exact(cuda, vec, d):
+    """Both paths of csrc/row_dma.cu on rows of 16-byte vectors, called
+    straight (the wrapper takes the ring for them), at K = 37 and K =
+    2048 * 3."""
+    from paddlebox_tpu_torch.ops import _build
+    rng = np.random.default_rng(vec * 1000 + d)
+    c = 9000
+    table = torch.from_numpy(
+        rng.normal(size=(c + 1, d)).astype(np.float32)).to(cuda)
+    fg = _build.function("row_dma", "pbx_gather_rows_dma", tk._ROW_ARGS)
+    fs = _build.function("row_dma", "pbx_scatter_rows_dma", tk._ROW_ARGS)
+    for k in (37, 2048 * 3):
+        rows = _unique_rows(rng, c, k, k // 8).to(cuda)
+        vals = torch.from_numpy(
+            rng.normal(size=(k, d)).astype(np.float32)).to(cuda)
+        out = torch.full((k, d), float("nan"), device=cuda)
+        t_k = table.clone()
+        _build.check(fg(table.data_ptr(), rows.data_ptr(), out.data_ptr(), k,
+                        c, d, vec, _build.stream(table)), "gather")
+        _build.check(fs(t_k.data_ptr(), rows.data_ptr(), vals.data_ptr(), k,
+                        c, d, vec, _build.stream(table)), "scatter")
+        t_p = tk.scatter_rows_dma_plain(table.clone(), rows, vals)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tk.gather_rows_dma_plain(table, rows))
+        assert torch.equal(t_k[:c], t_p[:c])
 
 
 @pytest.mark.cuda
@@ -621,14 +793,17 @@ def test_segment_gather_negative_head(cuda):
     src = torch.randn((n, w), device=cuda)
     head = torch.randn((b, 3), device=cuda)
     ids = torch.tensor([-1, -2, -s, -s - 1, -n, -n - 1, -5 * n, 0, n - 1, n,
-                        7 * n, -3] * 3, dtype=torch.int32, device=cuda)
+                        7 * n, -3] * 3 + [-2 ** 31, 2 ** 31 - 1],
+                       dtype=torch.int32, device=cuda)
     mask = torch.ones(ids.shape[0], device=cuda)
-    mask[-1] = 0.0
+    mask[35] = 0.0
     for ets in (0, 2):
-        got = tk.segment_gather(src, ids, head, mask, b, s, ets)
-        want = tk.segment_gather_plain(src, ids, head, mask, b, s, ets)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+        for m in (mask, None):
+            got = _gather_once(src, ids, head, m, b, s, ets)
+            want = tk.segment_gather_plain(src, ids, head, m, b, s, ets)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+    assert torch.equal(got[-2, :3], head[0])     # int32 min: clamped to 0
     assert torch.equal(got[0, :3], head[b - 1])
     assert torch.equal(got[6, :3], head[0]) and not got[:7, 3:].any()
 
