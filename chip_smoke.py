@@ -23,11 +23,18 @@ Phases, each of which fails the run:
    the nearest single PyTorch call with CUDA events after an L2 flush
    (``torch.baddbmm`` for batch_fc; for rank_attention the einsum over
    the already grouped input, without the decode, gather and grouping;
-   none for cross_norm). ``pool_cvm`` through its wrapper and
-   ``torch.segment_reduce`` are timed in 5 alternating repeats (median
-   and spread); the two halves of its C call run alone as well: the
-   segment bounds pass, which must equal ``segment_bounds_plain``, and
-   the tile kernel over those bounds, which must equal the wrapper.
+   none for cross_norm); rank_attention and batch_fc through their
+   wrappers against those calls in 5 alternating repeats (median and
+   spread), rank_attention bit-equal across two calls and its C call's
+   halves alone: the bucket pass, which must equal
+   ``rank_buckets_plain``, and the tile kernel, which must equal the
+   wrapper; batch_fc's per-element kernel alone; and the launch floor,
+   a one-element ``zero_`` on the same timer. ``pool_cvm`` through its
+   wrapper and ``torch.segment_reduce`` are timed in 5 alternating
+   repeats (median and spread); the two halves of its C call run alone
+   as well: the segment bounds pass, which must equal
+   ``segment_bounds_plain``, and the tile kernel over those bounds,
+   which must equal the wrapper.
    ``segment_gather``'s fused call is timed the same way against
    ``index_select`` on the real keys and on batch 0's whole key bucket
    (pads included), and its C entry alone, which must equal the
@@ -273,6 +280,41 @@ def alone_ms(torch, call, check, flush) -> dict:
     return {"kernel_only_ms": time_ms(torch, call, flush),
             "kernel_only_clean_l2_ms": time_ms(torch, call, flush,
                                                clean=True)}
+
+
+def rank_parts_ms(torch, x, ro, param, mr, want, flush) -> dict:
+    """Row 8's C call in its two halves, checked and timed alone: the
+    bucket pass against ``rank_buckets_plain`` (exact), then the tile
+    kernel over that scratch, whose output must equal ``want`` (the
+    wrapper's result) bit for bit."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import ctr_kernels as C
+    (n, d), p = x.shape, param.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.empty(n + mr + 2, dtype=torch.int32, device="cuda")
+    fb = _build.function("rank_attention", "pbx_rank_buckets",
+                         C._RANK_BUCKETS_ARGS)
+    ft = _build.function("rank_attention", "pbx_rank_attention_tiles",
+                         C._RANK_TILES_ARGS)
+    b_args = (ro.data_ptr(), scratch.data_ptr(), n, mr, ro.shape[1], stream)
+    _build.check(fb(*b_args), "rank_attention buckets")
+    perm, bounds = C.rank_buckets_plain(ro, mr)
+    torch.cuda.synchronize()
+    if not (torch.equal(scratch[:n], perm) and torch.equal(scratch[n:],
+                                                           bounds)):
+        raise AssertionError("rank_attention: the bucket pass differs from "
+                             "rank_buckets_plain")
+    out = torch.full_like(want, float("nan"))
+    t_args = (x.data_ptr(), ro.data_ptr(), param.data_ptr(),
+              scratch.data_ptr(), out.data_ptr(), n, d, p, mr, ro.shape[1],
+              stream)
+    _build.check(ft(*t_args), "rank_attention tiles")
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("rank_attention: the tile kernel alone differs "
+                             "from its wrapper")
+    return {"buckets_only_ms": time_ms(torch, lambda: fb(*b_args), flush),
+            "tiles_only_ms": time_ms(torch, lambda: ft(*t_args), flush)}
 
 
 def gather_timing(torch, src, ids, head, flush) -> dict:
@@ -1016,18 +1058,24 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
     blk, idx, valid = C.decode_rank_offset(ro, mr, n)
     n_valid = int(valid.sum())
     gmat, _ = C._grouped_input(x, blk, idx, valid, mr * mr)
+    want_ra = C.rank_attention(x, ro, param, mr)
+    again = C.rank_attention(x, ro, param, mr)
+    torch.cuda.synchronize()
+    if not torch.equal(want_ra, again):
+        raise AssertionError("rank_attention: two calls differ")
+    # the wrapper against the product over the grouped input only (the
+    # library call leaves out the decode, the row gather and the grouping)
+    ra_reps = alternating_ms(torch, {
+        "kernel": lambda: C.rank_attention(x, ro, param, mr),
+        "library": lambda: torch.einsum("bnd,bdp->np", gmat, param)}, flush)
     ra = {"name": "rank_attention", "route": "cuda",
           "source": "paddlebox_tpu_torch/csrc/rank_attention.cu",
           "replaces": "paddlebox_tpu/ops/pallas_ctr.py:138",
-          "max_abs_err": ra_err,
-          "ms": time_ms(torch, lambda: C.rank_attention(x, ro, param, mr),
-                        flush),
+          "max_abs_err": ra_err, "ms": ra_reps["kernel"]["median"],
           "plain_ms": time_ms(torch, lambda: C.rank_attention_plain(
               x, ro, param, mr), flush),
-          # the product over the grouped input only: it leaves out the
-          # decode, the row gather and the grouping
-          "library_ms": time_ms(torch, lambda: torch.einsum(
-              "bnd,bdp->np", gmat, param), flush)}
+          "library_ms": ra_reps["library"]["median"]}
+    ra_parts = rank_parts_ms(torch, x, ro, param, mr, want_ra, flush)
     # x, rank_offset and the param blocks read, [N, P] written; 2·D·P
     # operations per valid (row, co-shown ad) entry of this batch
     ra["bound_ms"], ra["bound_by"] = _bound(
@@ -1053,16 +1101,32 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
         torch.cuda.synchronize()
         fc_err = max(fc_err, check_close(f"batch_fc ({what})", got, want,
                                          FC_RTOL, FC_ATOL))
+    fc_reps = alternating_ms(torch, {
+        "kernel": lambda: C.batch_fc(xs, w, bias, False),
+        "library": lambda: torch.baddbmm(bias[:, None, :], xs, w)}, flush)
     bfc = {"name": "batch_fc", "route": "cuda",
            "source": "paddlebox_tpu_torch/csrc/batch_fc.cu",
            "replaces": "paddlebox_tpu/ops/pallas_ctr.py:248",
-           "max_abs_err": fc_err,
-           "ms": time_ms(torch, lambda: C.batch_fc(xs, w, bias, False),
-                         flush),
+           "max_abs_err": fc_err, "ms": fc_reps["kernel"]["median"],
            "plain_ms": time_ms(torch, lambda: C.batch_fc_plain(
                xs, w, bias, False), flush),
-           "library_ms": time_ms(torch, lambda: torch.baddbmm(
-               bias[:, None, :], xs, w), flush)}
+           "library_ms": fc_reps["library"]["median"]}
+    # the per-element kernel (the path of weight blocks past the tile's
+    # shared memory) at the same shape, checked exact against the wrapper
+    from paddlebox_tpu_torch.ops import _build
+    f_path = _build.function("batch_fc", "pbx_batch_fc_path",
+                             C._BATCH_FC_PATH_ARGS)
+    want_fc = C.batch_fc(xs, w, bias, False)
+    out_fc = torch.empty_like(want_fc)
+    e_args = (xs.data_ptr(), *xs.stride(), w.data_ptr(), bias.data_ptr(),
+              out_fc.data_ptr(), s, n, dd, dd, 0, 2,
+              torch.cuda.current_stream().cuda_stream)
+    _build.check(f_path(*e_args), "batch_fc per-element")
+    torch.cuda.synchronize()
+    if not torch.equal(out_fc, want_fc):
+        raise AssertionError("batch_fc: the per-element kernel differs from "
+                             "the tile kernel")
+    fc_elem_ms = time_ms(torch, lambda: f_path(*e_args), flush)
     bfc["bound_ms"], bfc["bound_by"] = _bound(
         (2 * s * n * dd + w.numel() + bias.numel()) * 4,
         2.0 * s * n * dd * dd)
@@ -1092,17 +1156,39 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
           "library_ms": None}
     cn["bound_ms"], cn["bound_by"] = _bound(
         (h.numel() + 2 * w_out + n * w_out) * 4, 5.0 * n * w_out)
+    # the launch floor: the least a timed call can take on this timer
+    one = torch.zeros(1, device=cuda)
+    floor_ms = time_ms(torch, one.zero_, flush)
     details["ctr"] = {"rank_attention_valid_entries": n_valid,
-                      "pv_batch0_rows": int((ro[:, 0] != -1).sum())}
+                      "pv_batch0_rows": int((ro[:, 0] != -1).sum()),
+                      "rank_attention_repeats": ra_reps,
+                      "rank_attention_parts": ra_parts,
+                      "batch_fc_repeats": fc_reps,
+                      "batch_fc_elem_ms": fc_elem_ms,
+                      "launch_floor_ms": floor_ms}
     log(f"CTR kernels vs plain at the PV shapes: rank_attention max abs err "
-        f"{ra_err:.3g} ({n_valid} valid entries in batch 0), batch_fc 3 "
-        f"modes {fc_err:.3g}, cross_norm exact but the dot, dot {cn_err:.3g}")
+        f"{ra_err:.3g} ({n_valid} valid entries in batch 0), bit-equal "
+        f"across calls, batch_fc 3 modes {fc_err:.3g}, cross_norm exact but "
+        f"the dot, dot {cn_err:.3g}")
     for r in (ra, bfc, cn):
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, library {lib}, bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}) ({card})")
+    for r, reps, lib in ((ra, ra_reps, "einsum"), (bfc, fc_reps, "baddbmm")):
+        log(f"  {r['name']}: wrapper {reps['kernel']['median']:.4f} ms "
+            f"(spread {reps['kernel']['spread']:.4f}) vs {lib} "
+            f"{reps['library']['median']:.4f} (spread "
+            f"{reps['library']['spread']:.4f}), medians of "
+            f"{len(reps['kernel']['runs'])} alternating repeats ({card})")
+    log(f"  rank_attention alone: bucket pass "
+        f"{ra_parts['buckets_only_ms']:.4f} ms "
+        f"({ra['bound_ms'] / ra_parts['buckets_only_ms']:.1%} of the bound), "
+        f"tile kernel {ra_parts['tiles_only_ms']:.4f} ms "
+        f"({ra['bound_ms'] / ra_parts['tiles_only_ms']:.1%}) ({card})")
+    log(f"  batch_fc: per-element kernel at the same shape {fc_elem_ms:.4f} "
+        f"ms; launch floor (a one-element zero_) {floor_ms:.4f} ms ({card})")
     return ra, bfc, cn
 
 

@@ -36,9 +36,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 # C signatures of the kernel entries (csrc/*.cu)
-_RANK_ATTN_ARGS = [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]
+_RANK_ATTN_ARGS = [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]
+_RANK_BUCKETS_ARGS = [_P, _P, _I32, _I32, _I32, _P]
+_RANK_TILES_ARGS = [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]
 _BATCH_FC_ARGS = [_P, _I64, _I64, _I64, _P, _P, _P, _I32, _I64, _I32, _I32,
                   _I32, _P]
+# pbx_batch_fc_path: the same, then the kernel to take (0 by size, 1 the
+# tile kernel, 2 the per-element kernel) before the stream
+_BATCH_FC_PATH_ARGS = _BATCH_FC_ARGS[:-1] + [_I32, _P]
 _CROSS_NORM_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _P]
 #: rank_attention.cu stages at most this many co-shown ads per row
 MAX_RANK_LIMIT = 16
@@ -91,6 +96,21 @@ def _grouped_input(x: torch.Tensor, blk: torch.Tensor, idx: torch.Tensor,
     return torch.einsum("nkd,nkb->bnd", x_k, onehot), onehot
 
 
+def rank_buckets_plain(rank_offset: torch.Tensor, max_rank: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the CUDA rank_attention's bucket pass computes: (perm [N]
+    int32, bounds [max_rank + 2] int32). The rows sorted stably by
+    clipped own rank ``min(own, max_rank − 1)``, rows with own < 0 (own =
+    rank_offset[:, 0] − 1) last, in bucket ``max_rank``; bucket b holds
+    ``perm[bounds[b]:bounds[b + 1]]``."""
+    own = rank_offset[:, 0].long() - 1
+    bucket = torch.where(own < 0, max_rank, own.clamp(max=max_rank - 1))
+    perm = torch.sort(bucket, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(bucket, minlength=max_rank + 1)
+    bounds = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return perm, bounds.to(torch.int32)
+
+
 def rank_attention_plain(x: torch.Tensor, rank_offset: torch.Tensor,
                          param3: torch.Tensor, max_rank: int) -> torch.Tensor:
     """Plain version of :func:`rank_attention`: the block-grouped
@@ -104,7 +124,9 @@ def rank_attention_plain(x: torch.Tensor, rank_offset: torch.Tensor,
 def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
                    param3: torch.Tensor, max_rank: int) -> torch.Tensor:
     """x [N, D] f32, rank_offset int32 [N, ≥1+2·max_rank], param3
-    [max_rank², D, P] f32 → [N, P] f32 (``csrc/rank_attention.cu``)."""
+    [max_rank², D, P] f32 → [N, P] f32 (``csrc/rank_attention.cu``: one C
+    call enqueues the bucket pass, whose output goes to an int32 scratch
+    [N + max_rank + 2], and the tile kernel)."""
     if x.device.type == "cpu" and rank_offset.device.type == "cpu":
         return rank_attention_plain(x, rank_offset, param3, max_rank)
     _build.require_cuda("rank_attention", x, rank_offset, param3)
@@ -126,11 +148,13 @@ def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
     out = torch.empty((n, p), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    scratch = torch.empty(n + max_rank + 2, dtype=torch.int32,
+                          device=x.device)
     fn = _build.function("rank_attention", "pbx_rank_attention",
                          _RANK_ATTN_ARGS)
     _build.check(fn(x.data_ptr(), rank_offset.data_ptr(), param3.data_ptr(),
-                    out.data_ptr(), n, d, p, max_rank, rank_offset.shape[1],
-                    _build.stream(x)), "rank_attention")
+                    scratch.data_ptr(), out.data_ptr(), n, d, p, max_rank,
+                    rank_offset.shape[1], _build.stream(x)), "rank_attention")
     rank_attention.launches += 1
     return out
 

@@ -92,6 +92,23 @@ def test_decode_rank_offset_matches_reference(wild):
     np.testing.assert_array_equal(tv.numpy(), jv)
 
 
+@pytest.mark.parametrize("case", ["mixed", "all_invalid", "wild"])
+def test_rank_buckets_plain_matches_numpy(case):
+    """rank_buckets_plain (the CUDA bucket pass's plain version) is a
+    numpy stable sort of the rows by clipped own rank, own < 0 last."""
+    _, ro, _ = _rank_case(n=301, seed=5, all_invalid=case == "all_invalid",
+                          wild=case == "wild")
+    own = ro[:, 0].astype(np.int64) - 1
+    bucket = np.where(own < 0, MR, np.minimum(own, MR - 1))
+    want_perm = np.argsort(bucket, kind="stable")
+    want_bounds = np.concatenate(
+        [[0], np.cumsum(np.bincount(bucket, minlength=MR + 1))])
+    perm, bounds = tc.rank_buckets_plain(torch.from_numpy(ro), MR)
+    assert perm.dtype == bounds.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(), want_perm)
+    np.testing.assert_array_equal(bounds.numpy(), want_bounds)
+
+
 @pytest.mark.parametrize("flags", FLAGS)
 @pytest.mark.parametrize("param_2d", [False, True])
 @pytest.mark.parametrize("case", ["mixed", "all_invalid", "wild"])

@@ -545,44 +545,220 @@ def _rank_inputs(rng, n=300, d=40, p=33, mr=3, wild=True):
     return x, ro, param
 
 
+def _rank_case_inputs(rng, n, d, p, mr, case):
+    """_rank_inputs, or a rank_offset built for one edge of the bucketed
+    kernel: ``all_pad`` (every row −1), ``own_high`` (every own rank past
+    max_rank: all rows clip into the last bucket), ``shared`` (co-ranks
+    past max_rank and repeated, so entries of one row share a clipped
+    co-rank, some on the same X row), ``ragged`` (bucket sizes 33, 31, 65
+    and 1, none a multiple of a tile), ``extra_cols`` (3 columns past
+    1 + 2K, garbage), ``exact`` (the wild ranks over integer-valued x and
+    quarter-valued param: every partial sum is exact in float32, so any
+    summation order gives the same floats; at depth 3000 random floats
+    differ by more than the tolerance between two orders of a 9000-term
+    chain)."""
+    x, ro, param = _rank_inputs(rng, n, d, p, mr, wild=case != "shared")
+    if case == "exact":
+        x = rng.integers(-3, 4, size=x.shape).astype(np.float32)
+        param = (rng.integers(-2, 3, size=param.shape) * 0.25).astype(
+            np.float32)
+    elif case == "all_pad":
+        ro[:] = -1
+    elif case == "own_high":
+        ro[:, 0] = rng.integers(mr + 1, mr + 6, size=n)
+    elif case == "shared":
+        ro[:, 0] = rng.integers(1, mr + 1, size=n)
+        for k in range(mr):
+            ro[:, 1 + 2 * k] = rng.integers(mr - 1, mr + 3, size=n)
+        ro[:, 4] = ro[:, 2]                   # the same X row twice
+    elif case == "ragged":
+        own = np.full(n, -1, np.int32)
+        own[:130] = np.repeat([1, 2, 3, 4], [33, 31, 65, 1])[:130]
+        ro[:, 0] = rng.permutation(own)
+    elif case == "extra_cols":
+        ro = np.concatenate([ro, rng.integers(-5, n + 5, size=(n, 3)).astype(
+            np.int32)], axis=1)
+    return x, ro, param
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(300, 40, 33, 3), (64, 128, 128, 3),
-                                   (50, 7, 300, 2), (9, 3000, 5, 1)])
+@pytest.mark.parametrize("shape", [
+    (300, 40, 33, 3), (64, 128, 128, 3), (50, 7, 300, 2), (9, 3000, 5, 1),
+    (200, 8, 24, 16, "wild"),           # max_rank 16: 256 param blocks
+    (40, 3000, 64, 3, "exact"),         # depth 3000 in chunks
+    (120, 64, 300, 3, "wild"),          # p 300: a column tail
+    (1, 16, 16, 3, "wild"), (1, 16, 16, 3, "own_high"),      # n = 1
+    (257, 32, 64, 3, "all_pad"), (257, 32, 64, 3, "own_high"),
+    (257, 32, 64, 4, "shared"), (300, 64, 64, 4, "ragged"),
+    (300, 40, 33, 3, "extra_cols")])
 def test_rank_attention_matches_plain(cuda, shape):
     from paddlebox_tpu_torch.ops import ctr_kernels as tc
-    n, d, p, mr = shape
-    x, ro, param = (torch.from_numpy(a).to(cuda) for a in _rank_inputs(
-        np.random.default_rng(n), n, d, p, mr))
+    n, d, p, mr = shape[:4]
+    case = shape[4] if len(shape) > 4 else "wild"
+    x, ro, param = (torch.from_numpy(a).to(cuda) for a in _rank_case_inputs(
+        np.random.default_rng(n), n, d, p, mr, case))
     before = tc.rank_attention.launches
     got = tc.rank_attention(x, ro, param, mr)
     want = tc.rank_attention_plain(x, ro, param, mr)
     torch.cuda.synchronize()
     assert tc.rank_attention.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    pad = got[n - n // 5:]
-    assert torch.equal(pad, torch.zeros_like(pad))
+    if case in ("wild", "exact"):
+        pad = got[n - n // 5:]
+        assert torch.equal(pad, torch.zeros_like(pad))
+    _, _, valid = tc.decode_rank_offset(ro, mr, n)
+    none = got[~valid.any(dim=1)]
+    assert torch.equal(none, torch.zeros_like(none))
+
+
+@pytest.mark.cuda
+def test_rank_attention_deterministic(cuda):
+    """At the PV shapes two calls are bit-equal, and a call counts one
+    launch (its C call enqueues the bucket pass and the tile kernel)."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, ro, param = (torch.from_numpy(a).to(cuda) for a in _rank_case_inputs(
+        np.random.default_rng(4), 4096, 128, 128, 3, "shared"))
+    before = tc.rank_attention.launches
+    first = tc.rank_attention(x, ro, param, 3)
+    second = tc.rank_attention(x, ro, param, 3)
+    torch.cuda.synchronize()
+    assert tc.rank_attention.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mr,case", [
+    (300, 3, "wild"), (1, 3, "wild"), (257, 3, "all_pad"),
+    (257, 3, "own_high"), (300, 4, "ragged"), (5000, 3, "wild"),
+    (3000, 16, "wild"), (300, 3, "extra_cols"), (20000, 3, "wild")])
+def test_rank_buckets_exact(cuda, n, mr, case):
+    """The bucket pass alone gives exactly rank_buckets_plain's
+    permutation and bounds (several 1024-row rounds at n 5000; at n 20000
+    past its shared-memory copy of the buckets), and the tile kernel over
+    it gives the wrapper's result bit for bit."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, ro, param = (torch.from_numpy(a).to(cuda) for a in _rank_case_inputs(
+        np.random.default_rng(n + mr), n, 24, 40, mr, case))
+    scratch = torch.full((n + mr + 2,), -7, dtype=torch.int32, device=cuda)
+    fb = _build.function("rank_attention", "pbx_rank_buckets",
+                         tc._RANK_BUCKETS_ARGS)
+    _build.check(fb(ro.data_ptr(), scratch.data_ptr(), n, mr, ro.shape[1],
+                    _build.stream(ro)), "rank_buckets")
+    perm, bounds = tc.rank_buckets_plain(ro, mr)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch[:n], perm)
+    assert torch.equal(scratch[n:], bounds)
+    want = tc.rank_attention(x, ro, param, mr)
+    ft = _build.function("rank_attention", "pbx_rank_attention_tiles",
+                         tc._RANK_TILES_ARGS)
+    out = torch.full_like(want, float("nan"))
+    _build.check(ft(x.data_ptr(), ro.data_ptr(), param.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), n, 24, 40, mr,
+                    ro.shape[1], _build.stream(x)), "rank_attention tiles")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def _fc_inputs(rng, cuda, mode, case, s=8, n=1000, i_dim=11, o_dim=13):
+    """batch_fc inputs: x [S, N, I] (``strided``: the [N, S, I] block's
+    swapaxes view; case ``odd_strides``: every other column of a wider
+    block, strides odd and 4 bytes off; ``offset4``: x, w and bias views 4
+    bytes past a 16-byte boundary), w [S, I, O] or [S, O, I]."""
+    if case == "wide":
+        s, n, i_dim, o_dim = 3, 257, 200, 300   # past the tile's staging
+    elif case == "n1":
+        n = 1
+    elif case == "ragged":
+        n = 1001                                # not a multiple of 128
+
+    def dev(*shape, off=0):
+        flat = rng.normal(size=int(np.prod(shape)) + off).astype(np.float32)
+        return torch.from_numpy(flat).to(cuda)[off:].view(*shape)
+    off = 1 if case == "offset4" else 0
+    odd = case == "odd_strides"
+    lead = (n, s) if mode == "strided" else (s, n)
+    x = dev(*lead, 2 * i_dim + 1 if odd else i_dim, off=off)
+    if odd:
+        x = x[:, :, 1::2]
+    if mode == "strided":
+        x = x.transpose(0, 1)
+    w = (dev(s, o_dim, i_dim, off=off) if mode == "transpose"
+         else dev(s, i_dim, o_dim, off=off))
+    return x, w, dev(s, o_dim, off=off), mode == "transpose"
+
+
+_FC_CASES = ["wide", "n1", "ragged", "odd_strides", "offset4"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["default", "strided", "batchcount",
-                                  "transpose"])
+                                  "transpose"] + [
+    f"{case}/{m}" for case in _FC_CASES
+    for m in ("strided", "batchcount", "transpose")])
 def test_batch_fc_matches_plain(cuda, mode):
     from paddlebox_tpu_torch.ops import ctr_kernels as tc
-    rng = np.random.default_rng(3)
-    s, n, i_dim, o_dim = 8, 1000, 11, 13
-
-    def dev(*shape):
-        return torch.from_numpy(
-            rng.normal(size=shape).astype(np.float32)).to(cuda)
-    x = dev(n, s, i_dim).transpose(0, 1) if mode == "strided" \
-        else dev(s, n, i_dim)
-    w = dev(s, o_dim, i_dim) if mode == "transpose" else dev(s, i_dim, o_dim)
-    bias = dev(s, o_dim)
-    tr = mode == "transpose"
+    case, _, mode = mode.rpartition("/")
+    x, w, bias, tr = _fc_inputs(np.random.default_rng(3), cuda, mode, case)
+    before = tc.batch_fc.launches
     got = tc.batch_fc(x, w, bias, tr)
     want = tc.batch_fc_plain(x, w, bias, tr)
     torch.cuda.synchronize()
+    assert tc.batch_fc.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["strided", "transpose"])
+@pytest.mark.parametrize("case", ["", "ragged", "odd_strides", "offset4"])
+def test_batch_fc_paths_agree(cuda, mode, case):
+    """The tile kernel and the per-element kernel, each forced, give the
+    same floats (one FMA chain in i order, the bias last)."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, w, bias, tr = _fc_inputs(np.random.default_rng(9), cuda, mode, case)
+    fn = _build.function("batch_fc", "pbx_batch_fc_path",
+                         tc._BATCH_FC_PATH_ARGS)
+    outs = []
+    for path in (1, 2):
+        out = torch.full((x.shape[0], x.shape[1], bias.shape[1]),
+                         float("nan"), device=cuda)
+        _build.check(fn(x.data_ptr(), *x.stride(), w.data_ptr(),
+                        bias.data_ptr(), out.data_ptr(), x.shape[0],
+                        x.shape[1], x.shape[2], bias.shape[1], int(tr), path,
+                        _build.stream(x)), "batch_fc")
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0], tc.batch_fc_plain(x, w, bias, tr),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_ctr_wrapper_errors(cuda):
+    """Shapes the kernels do not take raise before any launch."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, ro, param = (torch.from_numpy(a).to(cuda) for a in _rank_inputs(
+        np.random.default_rng(2), 40, 8, 8, 3))
+    before = tc.rank_attention.launches, tc.batch_fc.launches
+    with pytest.raises(ValueError):
+        tc.rank_attention(x, ro[:, :6].contiguous(), param, 3)
+    with pytest.raises(ValueError):
+        tc.rank_attention(x, ro, param[:8].contiguous(), 3)
+    with pytest.raises(TypeError):
+        tc.rank_attention(x, ro.long(), param, 3)
+    big = torch.zeros((17 * 17, 8, 8), device=cuda)
+    wide = torch.full((40, 35), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tc.rank_attention(x, wide, big, 17)
+    xb = torch.zeros((2, 5, 3), device=cuda)
+    with pytest.raises(ValueError):
+        tc.batch_fc(xb, torch.zeros((2, 4, 4), device=cuda),
+                    torch.zeros((2, 4), device=cuda), False)
+    with pytest.raises(TypeError):
+        tc.batch_fc(xb.double(), torch.zeros((2, 3, 4), device=cuda),
+                    torch.zeros((2, 4), device=cuda), False)
+    assert (tc.rank_attention.launches, tc.batch_fc.launches) == before
 
 
 @pytest.mark.cuda
