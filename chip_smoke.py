@@ -14,7 +14,13 @@ Phases, each of which fails the run:
    in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
    four CVM modes within rtol 3e-5 / atol 1e-6; the key index's insert
    and lookup exact in rows and new-masks, with the pass's unique keys
-   going into a copy of an index seeded with the train base's keys;
+   going into a copy of an index seeded with the train base's keys, and
+   the seed's insert (the train base's keys, all new, into an empty
+   index) exact too, each timed beside its bound and the two-array
+   layout's bound, with probes of what bounds them (the insert of keys
+   already present, the lookup of keys at their home bucket, a random
+   ``index_select`` and ``index_fill_`` of the home buckets' rows, a
+   ``copy_`` of the insert's bound bytes);
    ``rank_attention`` on a real PV batch's rank_offset and on a
    hand-built one with zero, negative and out-of-range ranks and rows
    within rtol 1e-5 / atol 1e-6, ``batch_fc`` in its three modes within
@@ -568,12 +574,46 @@ def profile_step(torch, step, state, batch, gen):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def _probe_steps(torch, IX, keys, rows, of_rows=None):
+    """Probe chains of the keys in the index ``(keys, rows)`` views: a key
+    that sits d buckets from its home took d + 1 steps to claim or match
+    it in the insert, and takes d + 1 in the lookup. Returns (steps, the
+    longest offset, each key's home bucket, each key's offset) over every
+    occupied bucket, or over the buckets of the rows ``of_rows`` (in
+    their order) where given."""
+    nb = rows.shape[0]
+    occ = torch.nonzero(rows >= 0).squeeze(1)
+    home = IX._hash32(keys[occ]).long() & (nb - 1)
+    off = (occ - home) & (nb - 1)
+    if of_rows is not None:
+        at = torch.zeros(int(rows.max()) + 1, dtype=torch.int64,
+                         device=rows.device)
+        at[rows[occ].long()] = torch.arange(occ.shape[0],
+                                            device=rows.device)
+        pick = at[of_rows.long()]
+        home, off = home[pick], off[pick]
+    return int((off + 1).sum()), int(off.max()), home, off
+
+
+def _sectors(torch, home, off, nb):
+    """32-byte sectors (two 16-byte buckets each) that the probe chains
+    home .. home + off touch, each sector counted once however many
+    steps or chains touch it: the index bytes a probe must read."""
+    first = home >> 1
+    n = ((home + off) >> 1) - first + 1      # nb is even: wraps align
+    at = torch.repeat_interleave(first - (torch.cumsum(n, 0) - n), n)
+    idx = at + torch.arange(int(n.sum()), device=home.device)
+    return int(torch.unique(idx & (nb // 2 - 1)).shape[0])
+
+
 def index_phase(torch, batches, flush, card, details):
     """Phase 3, the key index: the pass's unique keys inserted into a copy
     of an index seeded with the train base's keys, through the insert
     kernel and through its plain version (rows and new-masks exact), then
-    looked up through both lookups in both indexes (rows exact). Returns
-    the two kernels' rows of the ``kernels`` line."""
+    looked up through both lookups in both indexes (rows exact); the
+    seed itself (the train base's keys, all new, into an empty index)
+    through both inserts (exact); each timed, with probes that split what
+    bounds them. Returns the two kernels' rows of the ``kernels`` line."""
     from paddlebox_tpu_torch.ops import index as IX
     from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
     cuda = torch.device("cuda")
@@ -592,8 +632,8 @@ def index_phase(torch, batches, flush, card, details):
         [b.keys[:b.num_keys] for b in batches]).view(np.int64)).to(cuda)
     uniq, _, _, u = dedup_keys_first_seen(keys)
     uniq = uniq[:u].contiguous()
-    work = (seeded.keys.clone(), seeded.rows.clone())
-    plain = (seeded.keys.clone(), seeded.rows.clone())
+    work_b, plain_b = seeded.buckets.clone(), seeded.buckets.clone()
+    work, plain = IX.bucket_views(work_b), IX.bucket_views(plain_b)
     rows, new, failed = IX.insert(*work, uniq, n_base, CAPACITY)
     rows_p, new_p, failed_p = IX.insert_plain(*plain, uniq, n_base, CAPACITY)
     torch.cuda.synchronize()
@@ -610,36 +650,61 @@ def index_phase(torch, batches, flush, card, details):
         if not torch.equal(got, rows):
             raise AssertionError(f"index_lookup ({what}) differs from the "
                                  f"inserted rows")
-    # probe steps of this run's keys in the kernel's index: a key that
-    # sits d buckets from its home took d + 1 steps to claim or match it
-    # in the insert, and takes d + 1 in the lookup
     nb = seeded.n_buckets
-    occ = torch.nonzero(work[1] >= 0).squeeze(1)
-    off = (occ - IX._hash32(work[0][occ])) & (nb - 1)
-    off_of_row = torch.zeros(CAPACITY, dtype=torch.int64, device=cuda)
-    off_of_row[work[1][occ].long()] = off
-    key_off = off_of_row[rows.long()]
-    steps = int((key_off + 1).sum())
+    steps, max_off, key_home, key_off = _probe_steps(torch, IX, *work,
+                                                     rows)
+    # the index bytes the inputs need: each sector of the chains read
+    # once, each sector of a claimed bucket written back once
+    sectors = _sectors(torch, key_home, key_off, nb)
+    last = ((key_home + key_off) & (nb - 1))[new.bool()]
+    claimed = _sectors(torch, last, torch.zeros_like(last), nb)
 
-    def restore(dst):
-        def fn():
-            dst[0].copy_(seeded.keys)
-            dst[1].copy_(seeded.rows)
-        return fn
+    # the other launch's shape: the seed, all new, into an empty index
+    base_t = torch.from_numpy(base.view(np.int64)).to(cuda)
+    empty = IX.new_buckets(nb, cuda)
+    seed_b, seed_pb = empty.clone(), empty.clone()
+    seed_idx = IX.bucket_views(seed_b)
+    srows, snew, sfail = IX.insert(*seed_idx, base_t, 0, CAPACITY)
+    prows, pnew, pfail = IX.insert_plain(*IX.bucket_views(seed_pb), base_t,
+                                         0, CAPACITY)
+    torch.cuda.synchronize()
+    if (bool(sfail) or bool(pfail) or not torch.equal(srows, prows)
+            or not torch.equal(snew, pnew) or not bool(snew.all())
+            or not torch.equal(srows, torch.arange(
+                n_base, dtype=torch.int32, device=cuda))):
+        raise AssertionError("index_insert (seed shape) differs from its "
+                             "plain version or from rows 0..n-1")
+    seed_steps, seed_max_off, seed_home, seed_off = _probe_steps(
+        torch, IX, *seed_idx)
+    seed_sectors = _sectors(torch, seed_home, seed_off, nb)
+    seed_last = (seed_home + seed_off) & (nb - 1)
+    seed_claimed = _sectors(torch, seed_last, torch.zeros_like(seed_last),
+                            nb)
+    del seed_home, seed_off, seed_last
+    del seed_pb, prows, pnew
+
+    def restore(dst, src):
+        return lambda: dst.copy_(src)
 
     src = "paddlebox_tpu_torch/csrc/key_index.cu"
+    # bounds: keys read, rows (and the insert's new-mask) written, each
+    # 32-byte sector of the probe chains read once, and the insert writes
+    # each sector of a claimed bucket back once; "old": the two-array
+    # layout's two sectors a probe step
+    ins_bytes = u * 16 + sectors * 32 + claimed * 32
+    seed_bytes = n_base * 16 + seed_sectors * 32 + seed_claimed * 32
+    lk_bytes = u * 12 + sectors * 32
     ins = {"name": "index_insert", "route": "cuda", "source": src,
            "replaces": "paddlebox_tpu/ops/pallas_index.py:233",
            "max_abs_err": 0.0,
            "ms": time_ms(torch, lambda: IX.insert(
-               *work, uniq, n_base, CAPACITY), flush, setup=restore(work)),
+               *work, uniq, n_base, CAPACITY), flush,
+               setup=restore(work_b, seeded.buckets)),
            "plain_ms": time_ms(torch, lambda: IX.insert_plain(
-               *plain, uniq, n_base, CAPACITY), flush, setup=restore(plain)),
+               *plain, uniq, n_base, CAPACITY), flush,
+               setup=restore(plain_b, seeded.buckets)),
            "library_ms": None,
-           # keys read, rows and new-mask written, one 32-byte sector of
-           # each bucket array per probe step
-           "bound_ms": (u * (8 + 4 + 4) + steps * 64) / PEAK_BYTES * 1e3,
-           "bound_by": "bytes"}
+           "bound_ms": ins_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
     lk = {"name": "index_lookup", "route": "cuda", "source": src,
           "replaces": "paddlebox_tpu/ops/pallas_index.py:344",
           "max_abs_err": 0.0,
@@ -647,19 +712,80 @@ def index_phase(torch, batches, flush, card, details):
           "plain_ms": time_ms(torch, lambda: IX.lookup_plain(*work, uniq),
                               flush),
           "library_ms": None,
-          "bound_ms": (u * (8 + 4) + steps * 64) / PEAK_BYTES * 1e3,
-          "bound_by": "bytes"}
+          "bound_ms": lk_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+    seed = {"ms": time_ms(torch, lambda: IX.insert(
+                *seed_idx, base_t, 0, CAPACITY), flush,
+                setup=restore(seed_b, empty)),
+            "bound_ms": seed_bytes / PEAK_BYTES * 1e3,
+            "old_bound_ms": (n_base * 16 + seed_steps * 64)
+            / PEAK_BYTES * 1e3}
+    ins["old_bound_ms"] = (u * 16 + steps * 64) / PEAK_BYTES * 1e3
+    lk["old_bound_ms"] = (u * 12 + steps * 64) / PEAK_BYTES * 1e3
+
+    # probes of what bounds them: the insert finding every key (no claim,
+    # no write-back), the lookup of keys that all sit at home (one step
+    # each), one random 4-byte read a key from its home bucket's sector
+    # (index_select) and one random 4-byte write (index_fill_, last: it
+    # spoils the kernel's index), and a streaming copy_ of the insert's
+    # bound bytes
+    again, again_new, again_fail = IX.insert(*work, uniq, n_base + n_new,
+                                             CAPACITY)
+    home = uniq[key_off == 0].contiguous()
+    home_rows = IX.lookup(*work, home)
+    torch.cuda.synchronize()
+    if (bool(again_fail) or bool(again_new.any())
+            or not torch.equal(again, rows)
+            or not torch.equal(home_rows, rows[key_off == 0])):
+        raise AssertionError("index probes: the insert of present keys or "
+                             "the lookup of home keys went wrong")
+    # the row word of each key's home bucket in the flat bucket tensor
+    home_word = ((IX._hash32(uniq) & (nb - 1)) * 4 + 2).contiguous()
+    flat = work_b.view(-1)
+    half = torch.empty(ins_bytes // 2 // 4, dtype=torch.int32, device=cuda)
+    dst = torch.empty_like(half)
+    probes = {
+        "insert_no_new_ms": time_ms(torch, lambda: IX.insert(
+            *work, uniq, n_base + n_new, CAPACITY), flush),
+        "lookup_home_keys": int(home.shape[0]),
+        "lookup_home_ms": time_ms(torch, lambda: IX.lookup(*work, home),
+                                  flush),
+        "index_select_home_ms": time_ms(
+            torch, lambda: flat.index_select(0, home_word), flush),
+        "copy_insert_bytes_ms": time_ms(torch, lambda: dst.copy_(half),
+                                        flush),
+        "index_fill_home_ms": time_ms(
+            torch, lambda: flat.index_fill_(0, home_word, -1), flush)}
+    del half, dst, empty, seed_b, work_b, plain_b
     details["index"] = {
         "seed_keys": n_base, "seed_s": seed_s, "pass_uniques": u,
         "new_keys": n_new, "probe_steps": steps,
-        "max_probe_offset": int(key_off.max()), "n_buckets": nb}
+        "probe_sectors": sectors, "claimed_sectors": claimed,
+        "max_probe_offset": max_off, "n_buckets": nb,
+        "insert_ms": ins["ms"], "insert_bound_ms": ins["bound_ms"],
+        "insert_old_bound_ms": ins["old_bound_ms"],
+        "lookup_ms": lk["ms"], "lookup_bound_ms": lk["bound_ms"],
+        "lookup_old_bound_ms": lk["old_bound_ms"],
+        "seed": {**seed, "keys": n_base, "probe_steps": seed_steps,
+                 "probe_sectors": seed_sectors,
+                 "claimed_sectors": seed_claimed,
+                 "max_probe_offset": seed_max_off},
+        "probes": probes}
     log(f"key index: {u} pass uniques ({n_new} new) into an index seeded "
         f"with {n_base} keys ({nb} buckets, seeded in {seed_s:.3f}s); "
-        f"insert and lookup equal their plain versions; {steps} probe "
-        f"steps, longest chain {int(key_off.max()) + 1}")
-    for r in (ins, lk):
-        log(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms, library -, bound {r['bound_ms'] * 1e3:.2f} us ({card})")
+        f"insert and lookup equal their plain versions, the seed-shape "
+        f"insert too; {steps} probe steps over {sectors} sectors, "
+        f"{claimed} sectors claimed, longest chain {max_off + 1} (seed "
+        f"{seed_steps} over {seed_sectors}, {seed_claimed} claimed, "
+        f"{seed_max_off + 1})")
+    for name, r in (("index_insert", ins), ("index_lookup", lk),
+                    ("index_insert (seed shape)", seed)):
+        plain_txt = f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r \
+            else ""
+        log(f"  {name}: {r['ms']:.4f} ms{plain_txt}, library -, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_ms'] / r['ms']:.1%}; "
+            f"two-array bound {r['old_bound_ms'] * 1e3:.2f} us) ({card})")
+    log(f"  probes: {json.dumps({k: round(v, 4) for k, v in probes.items()})}"
+        f" ({card})")
     return ins, lk
 
 

@@ -2,9 +2,14 @@
 ``paddlebox_tpu/ops/pallas_index.py`` (its ``scatter_add_update`` is
 ``ops/kernels.py``'s).
 
-A linear-probe hash table over two bucket arrays on the device: keys
-int64 [nb] (the uint64 feature id viewed signed; keys are compared for
-equality only) and rows int32 [nb], ``_EMPTY`` where unclaimed.
+A linear-probe hash table on the device in one int32 tensor [nb, 4] of
+16-byte buckets (``new_buckets``): key lo, key hi, row, pad. Every
+function takes it as two strided views (``bucket_views``): keys int64
+[nb] (the uint64 feature id viewed signed; keys are compared for
+equality only) and rows int32 [nb], ``_EMPTY`` where unclaimed. The plain
+versions take any two such arrays; the CUDA kernels take only the views
+of one bucket tensor (``_bucket_base``), so a probe step is one 16-byte
+load.
 
 - ``insert`` places a deduped, first-seen-ordered key stream: a key
   already present returns its row, a new key claims an empty bucket and
@@ -50,14 +55,16 @@ log = logging.getLogger(__name__)
 _EMPTY = -1        # row of an unclaimed bucket
 _CLAIMED = -2      # row of a bucket claimed by the running insert
 _MAX_PROBE = 64    # probe-chain bound; longer chains overflow to the host
-_BK = 256          # keys per CUDA thread block; the least index is 2 blocks
+_MIN_BUCKETS = 512
+_TILE = 1024       # keys per tile of the CUDA insert (one look-back state)
+_FLAG_WORDS = 8    # int32 flags ahead of the tile states; [3] = failed
 _M32 = 0xFFFFFFFF
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 # C signatures of csrc/key_index.cu
-_INSERT_ARGS = [_P, _P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P]
-_LOOKUP_ARGS = [_P, _P, _I64, _P, _I64, _P, _P]
+_INSERT_ARGS = [_P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P]
+_LOOKUP_ARGS = [_P, _I64, _P, _I64, _P, _P]
 
 #: index-seam dispatch decisions, {("index.<op>", impl): count}, impl
 #: "device" or "host" — the port's count of what the reference books as
@@ -69,6 +76,47 @@ def book_index_dispatch(op: str, impl: str) -> None:
     """Count one index-seam dispatch decision (op ∈ {assign, lookup})."""
     key = (f"index.{op}", impl)
     DISPATCH[key] = DISPATCH.get(key, 0) + 1
+
+
+# ---------------------------------------------------------------------------
+# buckets
+# ---------------------------------------------------------------------------
+
+def new_buckets(nb: int, device: Union[str, torch.device]) -> torch.Tensor:
+    """An empty index of ``nb`` 16-byte buckets: int32 [nb, 4] holding
+    key lo, key hi, row (``_EMPTY``) and pad."""
+    buckets = torch.zeros((nb, 4), dtype=torch.int32, device=device)
+    buckets[:, 2] = _EMPTY
+    return buckets
+
+
+def bucket_views(buckets: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (keys int64 [nb], rows int32 [nb]) views of a bucket tensor,
+    strides 2 and 4: what :func:`insert` and :func:`lookup` take."""
+    return buckets.view(torch.int64)[:, 0], buckets[:, 2]
+
+
+def _bucket_base(bkeys: torch.Tensor, brows: torch.Tensor) -> int:
+    """The address of the bucket tensor under ``bkeys``/``brows``, for a
+    kernel. Raises unless they are :func:`bucket_views` of one 16-byte
+    aligned [nb, 4] int32 tensor: there is no kernel for two separate
+    arrays."""
+    if bkeys.dtype != torch.int64 or brows.dtype != torch.int32:
+        raise TypeError("key index: needs int64 bucket keys and int32 "
+                        "bucket rows")
+    nb = brows.shape[0]
+    base = bkeys.data_ptr()
+    storage = bkeys.untyped_storage()
+    if (bkeys.dim() != 1 or brows.dim() != 1 or bkeys.shape[0] != nb
+            or bkeys.stride() != (2,) or brows.stride() != (4,)
+            or brows.data_ptr() != base + 8 or base % 16
+            or brows.untyped_storage().data_ptr() != storage.data_ptr()
+            or base - storage.data_ptr() + 16 * nb > storage.nbytes()):
+        raise ValueError("key index: bucket keys and rows must be the "
+                         "bucket_views of one [nb, 4] int32 tensor "
+                         "(new_buckets), 16-byte aligned")
+    return base
 
 
 # ---------------------------------------------------------------------------
@@ -155,40 +203,41 @@ def insert(bkeys: torch.Tensor, brows: torch.Tensor, keys: torch.Tensor,
            next_row: int, capacity: int
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Insert the deduped, first-seen-ordered key stream ``keys`` int64
-    [n] into the bucket arrays ``bkeys`` int64 [nb] / ``brows`` int32
-    [nb] (nb a power of two), IN PLACE (``csrc/key_index.cu``). Returns
-    ``(rows int32 [n], new int32 [n], failed)``: a key's row, whether it
-    was new, and a 0-dim bool tensor that is True when a probe overflowed
-    or ``next_row`` + the new keys exceeded ``capacity``; a failed call
+    [n] into the index ``bkeys`` int64 [nb] / ``brows`` int32 [nb] (nb a
+    power of two; on the card the :func:`bucket_views` of one bucket
+    tensor), IN PLACE (``csrc/key_index.cu``). Returns ``(rows int32 [n],
+    new int32 [n], failed)``: a key's row, whether it was new, and a
+    0-dim bool tensor that is True when a probe overflowed or
+    ``next_row`` + the new keys exceeded ``capacity``; a failed call
     leaves the index as it found it and its rows must be discarded."""
     if keys.device.type == "cpu" and brows.device.type == "cpu":
         return insert_plain(bkeys, brows, keys, next_row, capacity)
-    _build.require_cuda("index_insert", bkeys, brows, keys)
-    if (bkeys.dtype != torch.int64 or keys.dtype != torch.int64
-            or brows.dtype != torch.int32):
-        raise TypeError("index_insert: needs int64 keys and bucket keys, "
-                        "int32 bucket rows")
+    _build.require_cuda("index_insert", keys)
+    if keys.dtype != torch.int64:
+        raise TypeError("index_insert: needs int64 keys")
+    base = _bucket_base(bkeys, brows)
     nb = brows.shape[0]
-    if (bkeys.shape != (nb,) or keys.dim() != 1 or nb & (nb - 1)
+    if (brows.device != keys.device or keys.dim() != 1 or nb & (nb - 1)
             or nb > 1 << 31):
-        raise ValueError("index_insert: bucket arrays [nb] with nb a power "
-                         "of two up to 2^31, keys [n]")
+        raise ValueError("index_insert: buckets [nb] with nb a power of "
+                         "two up to 2^31 on the keys' device, keys [n]")
     n = keys.shape[0]
     dev = keys.device
-    rows = torch.empty(n, dtype=torch.int32, device=dev)
-    new = torch.empty(n, dtype=torch.int32, device=dev)
-    flags = torch.zeros(3, dtype=torch.int32, device=dev)
     if n == 0:
-        return rows, new, flags[2].bool()
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
-    block_count = torch.empty(-(-n // _BK), dtype=torch.int32, device=dev)
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
+    rows, new, slot = out
+    scratch = torch.empty(_FLAG_WORDS + 2 * -(-n // _TILE),
+                          dtype=torch.int32, device=dev)
     fn = _build.function("key_index", "pbx_index_insert", _INSERT_ARGS)
-    _build.check(fn(bkeys.data_ptr(), brows.data_ptr(), nb, keys.data_ptr(),
-                    n, int(next_row), int(capacity), rows.data_ptr(),
-                    new.data_ptr(), slot.data_ptr(), block_count.data_ptr(),
-                    flags.data_ptr(), _build.stream(keys)), "index_insert")
+    _build.check(fn(base, nb, keys.data_ptr(), n, int(next_row),
+                    int(capacity), rows.data_ptr(), new.data_ptr(),
+                    slot.data_ptr(), scratch.data_ptr(),
+                    _build.stream(keys)), "index_insert")
     insert.launches += 1
-    return rows, new, flags[2].bool()
+    return rows, new, scratch[3].bool()
 
 
 insert.launches = 0
@@ -226,27 +275,26 @@ def lookup_plain(bkeys: torch.Tensor, brows: torch.Tensor,
 
 def lookup(bkeys: torch.Tensor, brows: torch.Tensor,
            keys: torch.Tensor) -> torch.Tensor:
-    """Rows of ``keys`` int64 [k] in the bucket arrays (any order,
-    duplicates fine) → int32 [k], -1 for a miss (``csrc/key_index.cu``).
-    Exact."""
+    """Rows of ``keys`` int64 [k] in the index (any order, duplicates
+    fine; on the card the :func:`bucket_views` of one bucket tensor) →
+    int32 [k], -1 for a miss (``csrc/key_index.cu``). Exact."""
     if keys.device.type == "cpu" and brows.device.type == "cpu":
         return lookup_plain(bkeys, brows, keys)
-    _build.require_cuda("index_lookup", bkeys, brows, keys)
-    if (bkeys.dtype != torch.int64 or keys.dtype != torch.int64
-            or brows.dtype != torch.int32):
-        raise TypeError("index_lookup: needs int64 keys and bucket keys, "
-                        "int32 bucket rows")
+    _build.require_cuda("index_lookup", keys)
+    if keys.dtype != torch.int64:
+        raise TypeError("index_lookup: needs int64 keys")
+    base = _bucket_base(bkeys, brows)
     nb = brows.shape[0]
-    if bkeys.shape != (nb,) or keys.dim() != 1 or nb & (nb - 1):
-        raise ValueError("index_lookup: bucket arrays [nb] with nb a power "
-                         "of two, keys [k]")
+    if brows.device != keys.device or keys.dim() != 1 or nb & (nb - 1):
+        raise ValueError("index_lookup: buckets [nb] with nb a power of "
+                         "two on the keys' device, keys [k]")
     k = keys.shape[0]
     rows = torch.empty(k, dtype=torch.int32, device=keys.device)
     if k == 0:
         return rows
     fn = _build.function("key_index", "pbx_index_lookup", _LOOKUP_ARGS)
-    _build.check(fn(bkeys.data_ptr(), brows.data_ptr(), nb, keys.data_ptr(),
-                    k, rows.data_ptr(), _build.stream(keys)), "index_lookup")
+    _build.check(fn(base, nb, keys.data_ptr(), k, rows.data_ptr(),
+                    _build.stream(keys)), "index_lookup")
     lookup.launches += 1
     return rows
 
@@ -259,8 +307,9 @@ lookup.launches = 0
 # ---------------------------------------------------------------------------
 
 class DeviceKeyIndex:
-    """The device half of one table's id→row index: the bucket arrays on
-    the device plus the host-tracked next-row cursor. The host kv stays
+    """The device half of one table's id→row index: the bucket tensor
+    on the device (``buckets``, seen as ``keys``/``rows``) plus the
+    host-tracked next-row cursor. The host kv stays
     AUTHORITATIVE (save/load/items); this object mirrors it only while
     the kv's rows are dense (next_row == len(kv)). Any state it cannot
     mirror exactly flips ``degraded`` and the table falls back to the
@@ -272,7 +321,8 @@ class DeviceKeyIndex:
         """``ops`` selects the insert and lookup functions: the kernels,
         unless a check on the card passes ``kernels.PLAIN``."""
         if n_buckets is None:
-            n_buckets = max(_BK * 2, 1 << int(2 * capacity - 1).bit_length())
+            n_buckets = max(_MIN_BUCKETS,
+                            1 << int(2 * capacity - 1).bit_length())
         if n_buckets & (n_buckets - 1):
             raise ValueError(f"n_buckets must be a power of 2: {n_buckets}")
         self.capacity = int(capacity)
@@ -280,10 +330,8 @@ class DeviceKeyIndex:
         self.device = resolve_device(device)
         self._insert = insert if ops is None else ops.index_insert
         self._lookup = lookup if ops is None else ops.index_lookup
-        self.keys = torch.zeros(self.n_buckets, dtype=torch.int64,
-                                device=self.device)
-        self.rows = torch.full((self.n_buckets,), _EMPTY, dtype=torch.int32,
-                               device=self.device)
+        self.buckets = new_buckets(self.n_buckets, self.device)
+        self.keys, self.rows = bucket_views(self.buckets)
         self.next_row = 0
         self.degraded = False
         self.degrade_reason = ""

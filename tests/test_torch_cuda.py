@@ -385,9 +385,16 @@ def _index_keys(rng, n, pool):
     return torch.from_numpy(keys.view(np.int64))
 
 
-def _buckets(nb, device):
-    return (torch.zeros(nb, dtype=torch.int64, device=device),
-            torch.full((nb,), -1, dtype=torch.int32, device=device))
+def _index(nb, device):
+    """(keys, rows) views of an empty bucket tensor of ``nb`` buckets."""
+    from paddlebox_tpu_torch.ops import index as tix
+    return tix.bucket_views(tix.new_buckets(nb, device))
+
+
+def _uniq(raw):
+    from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
+    uniq, _, _, u = dedup_keys_first_seen(raw)
+    return uniq[:u].contiguous()
 
 
 @pytest.mark.cuda
@@ -399,7 +406,7 @@ def test_key_index_insert_and_lookup_match_plain(cuda):
     from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
     rng = np.random.default_rng(11)
     nb, cap = 1 << 16, 1 << 15
-    kern, plain = _buckets(nb, cuda), _buckets(nb, cuda)
+    kern, plain = _index(nb, cuda), _index(nb, cuda)
     next_row, seen = 0, []
     before = tix.insert.launches
     pool = _key_pool(rng, 30_000)           # calls share keys
@@ -430,7 +437,7 @@ def test_key_index_overflow_rolls_back(cuda, kind):
     from paddlebox_tpu_torch.ops import index as tix
     rng = np.random.default_rng(12)
     nb = 512
-    bkeys, brows = _buckets(nb, cuda)
+    bkeys, brows = _index(nb, cuda)
     first = torch.unique(_index_keys(rng, 200, 200)).to(cuda)
     _, new, failed = tix.insert(bkeys, brows, first, 0, 10_000)
     assert not bool(failed)
@@ -448,6 +455,165 @@ def test_key_index_overflow_rolls_back(cuda, kind):
     assert torch.equal(brows, rows0)
     assert torch.equal(torch.where(brows >= 0, bkeys, 0), keys0)
     assert (tix.lookup(bkeys, brows, first) >= 0).all()
+
+
+def _insert_both(tix, kern, plain, keys, next_row, cap):
+    """One insert through the kernel (one launch) and the plain version:
+    rows, new-masks and the failure flag identical."""
+    before = tix.insert.launches
+    r1, n1, f1 = tix.insert(*kern, keys, next_row, cap)
+    r2, n2, f2 = tix.insert_plain(*plain, keys, next_row, cap)
+    torch.cuda.synchronize()
+    assert tix.insert.launches == before + 1
+    assert bool(f1) == bool(f2)
+    if not bool(f1):
+        assert torch.equal(r1, r2) and torch.equal(n1, n2)
+    return r1, n1, bool(f1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nb,old", [
+    (1, 1 << 10, 0), (1023, 1 << 12, 0), (1025, 1 << 12, 0),
+    (5003, 1 << 14, 2000), (40_000, 1 << 17, 15_000),
+    (1 << 20, 1 << 23, 0)],
+    ids=["n1", "tile-1", "tile+1", "ragged", "lookback", "seed2e20"])
+def test_key_index_insert_cases(cuda, n, nb, old):
+    """Streams of n keys (``old`` of them already in the index, spread
+    through the stream) through one kernel launch against the plain
+    version: n = 1, n around the 1024-key tile, 40 tiles (look-back past
+    a 32-tile window), and a seed-shaped all-new insert of 2^20 keys at
+    the training path's load factor (rows 0..n-1)."""
+    from paddlebox_tpu_torch.ops import index as tix
+    rng = np.random.default_rng(n)
+    kern, plain = _index(nb, cuda), _index(nb, cuda)
+    pool = np.unique(_key_pool(rng, max(2 * n, 8)))
+    rng.shuffle(pool)
+    if old:
+        first = torch.from_numpy(pool[:old].view(np.int64)).to(cuda)
+        _, new0, _ = _insert_both(tix, kern, plain, first, 0, nb)
+        assert bool(new0.all())
+    keys = pool[:n].copy()
+    rng.shuffle(keys)
+    keys = torch.from_numpy(keys.view(np.int64)).to(cuda)
+    rows, new, failed = _insert_both(tix, kern, plain, keys, old, nb)
+    assert not failed and int(new.sum()) == n - old
+    if not old:
+        assert torch.equal(rows, torch.arange(n, dtype=torch.int32,
+                                              device=cuda))
+    assert int((kern[1] >= 0).sum()) == n
+    assert torch.equal(tix.lookup(*kern, keys), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("short", [0, 1], ids=["met", "short-by-one"])
+def test_key_index_capacity_edge(cuda, short):
+    """next_row + new keys == capacity succeeds; one row fewer fails and
+    leaves the index as it was (rows and live keys)."""
+    from paddlebox_tpu_torch.ops import index as tix
+    rng = np.random.default_rng(20 + short)
+    nb = 1 << 14
+    kern, plain = _index(nb, cuda), _index(nb, cuda)
+    pool = np.unique(_key_pool(rng, 7000))
+    first = torch.from_numpy(pool[:2000].view(np.int64)).to(cuda)
+    _insert_both(tix, kern, plain, first, 0, 2000)
+    rows0 = kern[1].clone()
+    keys0 = torch.where(kern[1] >= 0, kern[0], 0)
+    keys = torch.from_numpy(pool[1000:5000].view(np.int64)).to(cuda)
+    rows, new, failed = _insert_both(tix, kern, plain, keys, 2000,
+                                     5000 - short)
+    assert failed is bool(short)
+    if short:
+        assert torch.equal(kern[1], rows0)
+        assert torch.equal(torch.where(kern[1] >= 0, kern[0], 0), keys0)
+        assert (tix.lookup(*kern, keys[1000:]) == -1).all()
+    else:
+        assert int(new.sum()) == 3000 and int(rows.max()) == 4999
+    assert torch.equal(tix.lookup(*kern, first),
+                       torch.arange(2000, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_key_index_race_on_stale_keys(cuda):
+    """A failed insert leaves its keys' bytes under EMPTY rows; the next
+    insert claims those buckets again in the same launch that other
+    threads probe them. Its stream holds the stale keys, keys hashed
+    into the same home buckets, and key 0 (every fresh bucket's bytes).
+    A prober that trusted key bytes read beside a row landed in this
+    launch would match a stale key. 20 rounds, each exact against the
+    plain version, then every key looks up to its row."""
+    from paddlebox_tpu_torch.ops import index as tix
+    rng = np.random.default_rng(21)
+    nb = 1 << 17
+    mask = nb - 1
+    for _ in range(20):
+        kern, plain = _index(nb, cuda), _index(nb, cuda)
+        stale = np.unique(rng.integers(1, 2 ** 63, size=20_000,
+                                       dtype=np.uint64))
+        t = torch.from_numpy(stale.view(np.int64)).to(cuda)
+        *_, failed = _insert_both(tix, kern, plain, t, 0, len(stale) - 1)
+        assert failed
+        homes = (tix._hash32(t) & mask).cpu().numpy()
+        cand = rng.integers(1, 2 ** 63, size=150_000, dtype=np.uint64)
+        ch = (tix._hash32(torch.from_numpy(cand.view(np.int64)))
+              & mask).numpy()
+        coll = cand[np.isin(ch, homes)][:15_000]
+        keys = np.concatenate([stale, coll, np.zeros(1, np.uint64)])
+        rng.shuffle(keys)
+        keys = _uniq(torch.from_numpy(keys.view(np.int64)).to(cuda))
+        rows, new, failed = _insert_both(tix, kern, plain, keys, 0, nb)
+        assert not failed and bool(new.all())
+        assert torch.equal(tix.lookup(*kern, keys), rows)
+        assert torch.equal(tix.lookup_plain(*kern, keys), rows)
+
+
+@pytest.mark.cuda
+def test_key_index_lookup_duplicates_and_misses(cuda):
+    """A lookup of keys in any order with duplicates, misses (key 0 in a
+    fresh index, whose every bucket holds key bytes 0) and keys whose
+    probe chains run through full clusters: exact against the plain
+    lookup on both indexes, one launch."""
+    from paddlebox_tpu_torch.ops import index as tix
+    rng = np.random.default_rng(22)
+    nb = 1 << 14
+    kern, plain = _index(nb, cuda), _index(nb, cuda)
+    pool = np.unique(_key_pool(rng, 9000))[1:]       # without key 0
+    t = torch.from_numpy(pool[:6000].view(np.int64)).to(cuda)
+    _insert_both(tix, kern, plain, t, 0, nb)
+    probe = np.concatenate([pool[rng.integers(0, 6000, size=20_000)],
+                            pool[6000:], np.zeros(3, np.uint64)])
+    rng.shuffle(probe)
+    probe = torch.from_numpy(probe.view(np.int64)).to(cuda)
+    before = tix.lookup.launches
+    got = tix.lookup(*kern, probe)
+    torch.cuda.synchronize()
+    assert tix.lookup.launches == before + 1
+    assert torch.equal(got, tix.lookup_plain(*kern, probe))
+    assert torch.equal(got, tix.lookup_plain(*plain, probe))
+    miss = np.isin(probe.cpu().numpy().view(np.uint64), pool[:6000],
+                   invert=True)
+    assert np.array_equal(got.cpu().numpy() < 0, miss)
+
+
+@pytest.mark.cuda
+def test_key_index_rejects_other_layouts(cuda):
+    """The kernels take only the views of one bucket tensor: separate
+    arrays, or keys and rows of two bucket tensors, raise before any
+    launch."""
+    from paddlebox_tpu_torch.ops import index as tix
+    nb = 1 << 10
+    keys = torch.arange(5, dtype=torch.int64, device=cuda)
+    sep = (torch.zeros(nb, dtype=torch.int64, device=cuda),
+           torch.full((nb,), -1, dtype=torch.int32, device=cuda))
+    mixed = (_index(nb, cuda)[0], _index(nb, cuda)[1])
+    before = (tix.insert.launches, tix.lookup.launches)
+    for bad in (sep, mixed):
+        with pytest.raises(ValueError):
+            tix._bucket_base(*bad)
+        with pytest.raises(ValueError):
+            tix.insert(*bad, keys, 0, nb)
+        with pytest.raises(ValueError):
+            tix.lookup(*bad, keys)
+    assert (tix.insert.launches, tix.lookup.launches) == before
 
 
 @pytest.mark.cuda

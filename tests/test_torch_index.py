@@ -242,3 +242,112 @@ def test_device_key_index_plain_ops_and_overflow_returns_none():
     assert (dev.lookup_rows(more) == -1).all()
     np.testing.assert_array_equal(dev.lookup_rows(keys), rows)
 
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["xla", "pallas"])
+def test_plain_on_bucket_views_matches_separate_arrays(use_pallas):
+    """The plain insert and lookup on the views of one bucket tensor
+    (``new_buckets``, the layout the kernels take) give the rows of
+    separate arrays and of the reference, a failed call leaves both
+    layouts' live buckets as they were, and the pad word stays 0."""
+    if use_pallas and not hasattr(pl, "load"):
+        pytest.skip("the reference's Pallas index kernels need "
+                    "jax.experimental.pallas.load, which this JAX lacks")
+    rng = np.random.default_rng(9)
+    nb, cap = 2048, 900
+    ref = _JaxIndex(nb, use_pallas)
+    buckets = tix.new_buckets(nb, "cpu")
+    views = tix.bucket_views(buckets)
+    sep = _port_index(nb)
+    pool = _awkward_keys(rng, 1000, pool=1000)
+    next_row = 0
+    for call in range(4):
+        keys, _, _ = dedup_first_seen(pool[rng.integers(0, 1000, size=400)])
+        want_rows, want_new, _ = ref.insert(keys, next_row)
+        for index in (views, sep):
+            rows, new, failed = tix.insert(*index, _t(keys), next_row, cap)
+            assert not bool(failed)
+            np.testing.assert_array_equal(rows.numpy(), want_rows)
+            np.testing.assert_array_equal(new.numpy().astype(bool), want_new)
+        next_row += int(want_new.sum())
+    more = rng.integers(2 ** 63, 2 ** 64 - 1, size=50, dtype=np.uint64)
+    for index in (views, sep):
+        snap = _snapshot(*index)
+        *_, failed = tix.insert(*index, _t(more), next_row, next_row + 49)
+        assert bool(failed)
+        after = _snapshot(*index)
+        assert torch.equal(after[0], snap[0]) and torch.equal(after[1],
+                                                              snap[1])
+    probe = np.concatenate([pool, more, pool[:30]])
+    want = ref.lookup(probe)
+    for index in (views, sep):
+        np.testing.assert_array_equal(tix.lookup(*index, _t(probe)).numpy(),
+                                      want)
+    assert int((buckets[:, 2] >= 0).sum()) == next_row
+    assert not bool(buckets[:, 3].any())
+
+
+def test_device_key_index_views_share_one_buffer():
+    rng = np.random.default_rng(10)
+    dev = tix.DeviceKeyIndex(100, n_buckets=512, device="cpu")
+    b = dev.buckets
+    assert b.shape == (512, 4) and b.dtype == torch.int32
+    assert dev.keys.data_ptr() == b.data_ptr()
+    assert dev.rows.data_ptr() == b.data_ptr() + 8
+    assert dev.keys.untyped_storage().data_ptr() == \
+        dev.rows.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+    assert tix._bucket_base(dev.keys, dev.rows) == b.data_ptr()
+    keys = np.unique(rng.integers(0, 2 ** 64 - 1, size=80, dtype=np.uint64))
+    rows, new = dev.assign_unique(keys)
+    assert new.all()
+    live = b[:, 2] >= 0
+    np.testing.assert_array_equal(
+        np.sort(b[live].contiguous().view(torch.int64)[:, 0].numpy()
+                .view(np.uint64)), keys)
+    np.testing.assert_array_equal(np.sort(b[live, 2].numpy()),
+                                  np.arange(len(keys)))
+    assert not bool(b[:, 3].any())
+
+
+def _layout(kind: str, nb: int = 64):
+    """(bkeys, brows) in one of the layouts ``_bucket_base`` is held to."""
+    b = tix.new_buckets(nb, "cpu")
+    if kind == "views":
+        return tix.bucket_views(b)
+    if kind == "separate":
+        return _port_index(nb)
+    if kind == "two_tensors":
+        return (tix.bucket_views(b)[0],
+                tix.bucket_views(tix.new_buckets(nb, "cpu"))[1])
+    if kind == "int32_keys":
+        return b[:, 0], b[:, 2]
+    if kind == "int64_rows":
+        return tix.bucket_views(b)[0], b.view(torch.int64)[:, 1]
+    if kind == "stride_32_bytes":
+        wide = torch.zeros((nb, 8), dtype=torch.int32)
+        return wide.view(torch.int64)[:, 0], wide[:, 2]
+    if kind == "rows_offset":
+        return tix.bucket_views(b)[0], b[:, 3]
+    if kind == "misaligned":
+        flat = torch.zeros(4 * nb + 2, dtype=torch.int32)
+        return tix.bucket_views(flat[2:].view(nb, 4))
+    if kind == "no_pad":
+        flat = torch.zeros(4 * nb - 1, dtype=torch.int32)
+        keys = flat[:4 * nb - 2].view(torch.int64).as_strided((nb,), (2,))
+        return keys, flat.as_strided((nb,), (4,), 2)
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind,err", [
+    ("views", None), ("separate", ValueError), ("two_tensors", ValueError),
+    ("int32_keys", TypeError), ("int64_rows", TypeError),
+    ("stride_32_bytes", ValueError), ("rows_offset", ValueError),
+    ("misaligned", ValueError), ("no_pad", ValueError)])
+def test_bucket_base_accepts_only_one_bucket_tensor(kind, err):
+    bkeys, brows = _layout(kind)
+    if err is None:
+        assert tix._bucket_base(bkeys, brows) == bkeys.data_ptr()
+    else:
+        with pytest.raises(err):
+            tix._bucket_base(bkeys, brows)
