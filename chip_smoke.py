@@ -35,7 +35,14 @@ Phases, each of which fails the run:
    halves alone: the bucket pass, which must equal
    ``rank_buckets_plain``, and the tile kernel, which must equal the
    wrapper; batch_fc's per-element kernel alone; and the launch floor,
-   a one-element ``zero_`` on the same timer. ``pool_cvm`` through its
+   a one-element ``zero_`` on the same timer. ``cross_norm`` is also
+   bit-equal across two calls, and each kernel of its source (the tile
+   kernel, the rows kernel) forced through ``pbx_cross_norm_path``
+   equals the wrapper bit for bit; its wrapper is timed against a
+   ``copy_`` of the same bytes and the launch floor in 5 alternating
+   repeats, each kernel alone after both flushes, and the device
+   duration of each read from ``torch.profiler``, as is the device time
+   of its plain backward. ``pool_cvm`` through its
    wrapper and ``torch.segment_reduce`` are timed in 5 alternating
    repeats (median and spread); the two halves of its C call run alone
    as well: the segment bounds pass, which must equal
@@ -101,7 +108,9 @@ Phases, each of which fails the run:
    ``mf_initial_range`` 0, through the kernels and through the plain
    versions: table rows within rtol 2e-4 / atol 2e-5, dense params
    within rtol 2e-3 / atol 2e-4. Those two runs time each step
-   synchronized, split into prepare, h2d and step;
+   synchronized, split into prepare, h2d and step; one more f32 step
+   runs under ``torch.profiler``: its device time per kernel against the
+   synchronized step's p50;
 8. run the seqpool op family on phase 3's ragged batch 0 (B 4096, S 26,
    its real keys and segment stream; the pulled rows of width 11, seeded
    extra cvm columns where a variant needs them): the concat form (k 3,
@@ -549,22 +558,53 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return float(err.nan_to_num(0.0).max())
 
 
-def profile_step(torch, step, state, batch, gen):
-    """Device time per kernel (name, ms, launches) of one synchronized
-    training step under ``torch.profiler``, largest first. Only the
-    device-side kernel events count: the ops that launched them, and
-    annotated ranges on the device timeline (the optimizer's step),
-    carry the same time and would count it twice."""
+def _profiled(torch, step, state, batch, gen):
+    """One synchronized call of ``step`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(state, batch, gen)
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_event(e) -> bool:
+    """A device-side kernel, copy or fill event: the ops that launched
+    them, and annotated ranges on the device timeline (the optimizer's
+    step), carry the same time and would count it twice."""
+    return (str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False))
+
+
+def device_window(prof) -> dict:
+    """The profiled call's own device window: its span from the first
+    device event's start to the last one's end, the time inside it that
+    some device event covers (overlaps counted once), and their ratio,
+    the busy share of that one window."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if _device_event(e))
+    if not spans:
+        raise AssertionError("the profiler saw no device event")
+    busy, reach = 0.0, spans[0][0]
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    span = reach - spans[0][0]
+    return {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / span if span > 0 else 1.0}
+
+
+def profile_step(torch, step, state, batch, gen, prof=None):
+    """Device time per kernel (name, ms, launches) of one synchronized
+    training step under ``torch.profiler`` (or of the profile ``prof``
+    already taken), largest first. Only device-side events count
+    (:func:`_device_event`)."""
+    if prof is None:
+        prof = _profiled(torch, step, state, batch, gen)
     rows = []
     for e in prof.key_averages():
-        if (not str(e.device_type).endswith("CUDA")
-                or getattr(e, "is_user_annotation", False)):
+        if not _device_event(e):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -572,6 +612,79 @@ def profile_step(torch, step, state, batch, gen):
         if us > 0:
             rows.append((e.key, us / 1e3, e.count))
     return sorted(rows, key=lambda r: -r[1])
+
+
+def device_ms(torch, fn, flush, match, iters: int = 20,
+              clean: bool = False) -> dict:
+    """The device duration of the kernels (or copies) whose name holds
+    ``match`` (a string, or a tuple of them), per call of ``fn``, each
+    after an L2 flush as :func:`time_ms` makes it (none where ``flush`` is
+    None), from the device-side events :func:`profile_step` reads: no
+    launch overhead."""
+    def calls(*_):
+        for _ in range(iters):
+            if flush is not None and clean:
+                flush.sum()
+            elif flush is not None:
+                flush.zero_()
+            fn()
+    match = (match,) if isinstance(match, str) else match
+    rows = [r for r in profile_step(torch, calls, None, None, None)
+            if any(m in r[0] for m in match)]
+    if not rows:
+        raise AssertionError(f"the profiler saw no {match} kernel")
+    return {"device_ms": sum(r[1] for r in rows) / iters,
+            "launches_per_call": sum(r[2] for r in rows) / iters,
+            "kernels": [r[0] for r in rows]}
+
+
+def cross_norm_inputs(torch, gen):
+    """Row 10 at the PV shape: h = [proj, attention] [4096, 256] and the
+    mean/scale of a summary folded from it."""
+    from paddlebox_tpu_torch.ops.cross_norm import (cross_norm_update,
+                                                    init_cross_norm_summary)
+    from paddlebox_tpu_torch.ops.data_norm import data_norm_mean_scale
+    h = torch.randn((PV_BATCH, 2 * PV_DMODEL), generator=gen, device="cuda")
+    summ = cross_norm_update(init_cross_norm_summary(1, PV_DMODEL,
+                                                     device="cuda"),
+                             h, 1, PV_DMODEL, decay=0.5)
+    mean, scale = data_norm_mean_scale(summ, 1e-4)
+    return h, mean, scale
+
+
+def cross_norm_probe(torch, h, mean, scale, flush) -> dict:
+    """Row 10's wrapper in 5 alternating repeats beside its two
+    yardsticks, a ``copy_`` that moves the same bytes (half of them read,
+    half written: the practical floor) and a one-element ``zero_`` (the
+    launch floor); and the device duration of its kernels."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as C
+    dm = PV_DMODEL
+    moved = h.numel() + 2 * mean.numel() + h.shape[0] * (3 * dm + 1)
+    src = torch.zeros(moved // 2, device="cuda")
+    dst = torch.empty_like(src)
+    one = torch.zeros(1, device="cuda")
+    def kernel():
+        C.cross_norm(h, mean, scale, 1, dm)
+
+    def copy():
+        dst.copy_(src)
+
+    reps = alternating_ms(torch, {"kernel": kernel, "copy": copy,
+                                  "floor": one.zero_}, flush)
+    dev = device_ms(torch, kernel, flush, "cross_norm")
+    # the same after a read-only flush (no dirty lines to write back), and
+    # the copy_'s own device time (a DtoD memcpy or a copy kernel)
+    dev["device_clean_l2_ms"] = device_ms(torch, kernel, flush, "cross_norm",
+                                          clean=True)["device_ms"]
+    for clean in (False, True):
+        dev["copy_device_clean_l2_ms" if clean else "copy_device_ms"] = \
+            device_ms(torch, copy, flush, ("Memcpy", "copy"),
+                      clean=clean)["device_ms"]
+    # the least a kernel lasts on the device: the one-element zero_, with
+    # no flush (the flush is a zero_ too)
+    dev["floor_device_ms"] = device_ms(torch, one.zero_, None,
+                                       "Fill")["device_ms"]
+    return {"repeats": reps, "copy_bytes": 2 * src.numel() * 4, **dev}
 
 
 def _probe_steps(torch, IX, keys, rows, of_rows=None):
@@ -958,17 +1071,21 @@ def _train(torch, args, card, desc, records, batches, details, tmp,
         f"kernels vs plain max abs err rows {row_err:.3g}, params "
         f"{param_err:.3g} ({card})")
     # where one device step's time goes (kernel state, batch 0 again)
-    prof = profile_step(torch, TrainStep(fresh.cfg, BATCH, NUM_SLOTS), sk,
-                        make_device_batch(batches[0], idxs[0], cuda),
-                        seeded_generator(cuda, args.seed + 1, 0))
+    traced = _profiled(torch, TrainStep(fresh.cfg, BATCH, NUM_SLOTS), sk,
+                       make_device_batch(batches[0], idxs[0], cuda),
+                       seeded_generator(cuda, args.seed + 1, 0))
+    prof = profile_step(torch, None, None, None, None, prof=traced)
+    win = device_window(traced)
     busy = sum(r[1] for r in prof)
-    log(f"train step profile (f32 tower): device busy {busy:.3f} ms in "
-        f"{sum(r[2] for r in prof)} launches, {busy / split['step_ms']:.1%} "
-        f"of the step p50; top: "
+    log(f"train step profile (f32 tower): device time {busy:.3f} ms in "
+        f"{sum(r[2] for r in prof)} launches; the step's device window "
+        f"{win['span_ms']:.3f} ms (first to last device event), busy "
+        f"{win['busy_share']:.1%} of it; top: "
         + "; ".join(f"{name[:48]} {ms:.3f} ms x{n}"
                     for name, ms, n in prof[:8]) + f" ({card})")
     details["train"] = {
         "profile_device_ms": prof, "profile_busy_ms": busy,
+        "profile_window": win,
         "pass": res, "stage_ms": stages, "new_rows": n_new,
         "mf_created": created, "rows_changed": n_changed,
         "rows_touched": n_touched, "saved_rows": n_saved,
@@ -1158,9 +1275,6 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
     from one batch. Returns the three kernels' rows of the ``kernels``
     line."""
     from paddlebox_tpu_torch.ops import ctr_kernels as C
-    from paddlebox_tpu_torch.ops.cross_norm import (cross_norm_update,
-                                                    init_cross_norm_summary)
-    from paddlebox_tpu_torch.ops.data_norm import data_norm_mean_scale
     cuda = torch.device("cuda")
     n, dm, mr = PV_BATCH, PV_DMODEL, PV_MAX_RANK
 
@@ -1257,31 +1371,7 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
         (2 * s * n * dd + w.numel() + bias.numel()) * 4,
         2.0 * s * n * dd * dd)
 
-    # cross_norm: h = [proj, attention] [4096, 256] → [4096, 385]
-    h = torch.randn((n, 2 * dm), generator=gen, device=cuda)
-    summ = cross_norm_update(init_cross_norm_summary(1, dm, device=cuda),
-                             h, 1, dm, decay=0.5)
-    mean, scale = data_norm_mean_scale(summ, 1e-4)
-    got = C.cross_norm(h, mean, scale, 1, dm)
-    want = C.cross_norm_plain(h, mean, scale, 1, dm)
-    torch.cuda.synchronize()
-    w_out = 3 * dm + 1
-    if not torch.equal(got[:, :3 * dm], want[:, :3 * dm]):
-        raise AssertionError("cross_norm differs from its plain version "
-                             "outside the dot column")
-    cn_err = check_close("cross_norm (dot column)", got[:, 3 * dm:],
-                         want[:, 3 * dm:], DOT_RTOL, DOT_ATOL)
-    cn = {"name": "cross_norm", "route": "cuda",
-          "source": "paddlebox_tpu_torch/csrc/cross_norm.cu",
-          "replaces": "paddlebox_tpu/ops/pallas_ctr.py:363",
-          "max_abs_err": cn_err,
-          "ms": time_ms(torch, lambda: C.cross_norm(h, mean, scale, 1, dm),
-                        flush),
-          "plain_ms": time_ms(torch, lambda: C.cross_norm_plain(
-              h, mean, scale, 1, dm), flush),
-          "library_ms": None}
-    cn["bound_ms"], cn["bound_by"] = _bound(
-        (h.numel() + 2 * w_out + n * w_out) * 4, 5.0 * n * w_out)
+    cn, cn_details = cross_norm_check(torch, flush, card, gen)
     # the launch floor: the least a timed call can take on this timer
     one = torch.zeros(1, device=cuda)
     floor_ms = time_ms(torch, one.zero_, flush)
@@ -1291,11 +1381,12 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
                       "rank_attention_parts": ra_parts,
                       "batch_fc_repeats": fc_reps,
                       "batch_fc_elem_ms": fc_elem_ms,
-                      "launch_floor_ms": floor_ms}
+                      "launch_floor_ms": floor_ms, **cn_details}
     log(f"CTR kernels vs plain at the PV shapes: rank_attention max abs err "
         f"{ra_err:.3g} ({n_valid} valid entries in batch 0), bit-equal "
         f"across calls, batch_fc 3 modes {fc_err:.3g}, cross_norm exact but "
-        f"the dot, dot {cn_err:.3g}")
+        f"the dot, dot {cn['max_abs_err']:.3g}, bit-equal across calls and "
+        f"its two kernels")
     for r in (ra, bfc, cn):
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -1316,6 +1407,110 @@ def ctr_phase(torch, pv_batches, flush, card, details, gen):
     log(f"  batch_fc: per-element kernel at the same shape {fc_elem_ms:.4f} "
         f"ms; launch floor (a one-element zero_) {floor_ms:.4f} ms ({card})")
     return ra, bfc, cn
+
+
+def log_cross_norm_probe(probe: dict, bound_ms: float, card: str) -> None:
+    reps = probe["repeats"]
+    k, c, f = reps["kernel"], reps["copy"], reps["floor"]
+    log(f"  cross_norm: wrapper {k['median']:.4f} ms (spread "
+        f"{k['spread']:.4f}), copy_ of the same {probe['copy_bytes']} bytes "
+        f"{c['median']:.4f} (spread {c['spread']:.4f}), launch floor "
+        f"{f['median']:.4f}, medians of 5 alternating repeats; device "
+        f"duration {probe['device_ms']:.5f} ms in "
+        f"{probe['launches_per_call']:.0f} kernel a call: "
+        f"{bound_ms / probe['device_ms']:.1%} of the {bound_ms:.5f} ms bound "
+        f"({bound_ms / k['median']:.1%} through the wrapper); after a clean "
+        f"flush {probe['device_clean_l2_ms']:.5f}; the copy_ on the device "
+        f"{probe['copy_device_ms']:.5f} (clean "
+        f"{probe['copy_device_clean_l2_ms']:.5f}), the one-element zero_ "
+        f"{probe['floor_device_ms']:.5f} ({card})")
+
+
+def cross_norm_check(torch, flush, card, gen):
+    """Row 10 in phase 3 at the PV shape: the wrapper against its plain
+    version (exact but the dot column) and bit-equal across two calls;
+    each kernel of ``csrc/cross_norm.cu`` forced through its C entry and
+    equal to the wrapper, alone after both flushes with its device
+    duration; the wrapper's probe
+    (:func:`cross_norm_probe`); and the device time of the plain backward.
+    Returns the ``kernels`` row and the details."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops import ctr_kernels as C
+    from paddlebox_tpu_torch.ops import kernels as K
+    n, dm = PV_BATCH, PV_DMODEL
+    # cross_norm: h = [proj, attention] [4096, 256] → [4096, 385]
+    h, mean, scale = cross_norm_inputs(torch, gen)
+    got = C.cross_norm(h, mean, scale, 1, dm)
+    again = C.cross_norm(h, mean, scale, 1, dm)
+    want = C.cross_norm_plain(h, mean, scale, 1, dm)
+    torch.cuda.synchronize()
+    w_out = 3 * dm + 1
+    if not torch.equal(got[:, :3 * dm], want[:, :3 * dm]):
+        raise AssertionError("cross_norm differs from its plain version "
+                             "outside the dot column")
+    cn_err = check_close("cross_norm (dot column)", got[:, 3 * dm:],
+                         want[:, 3 * dm:], DOT_RTOL, DOT_ATOL)
+    if not torch.equal(got, again):
+        raise AssertionError("cross_norm: two calls differ")
+    if C.cross_norm_branch(h.data_ptr(), got.data_ptr(), n, 1, dm) != 1:
+        raise AssertionError("cross_norm: the PV shape misses the tile "
+                             "kernel")
+    cn_probe = cross_norm_probe(torch, h, mean, scale, flush)
+    cn = {"name": "cross_norm", "route": "cuda",
+          "source": "paddlebox_tpu_torch/csrc/cross_norm.cu",
+          "replaces": "paddlebox_tpu/ops/pallas_ctr.py:363",
+          "max_abs_err": cn_err,
+          "ms": cn_probe["repeats"]["kernel"]["median"],
+          "plain_ms": time_ms(torch, lambda: C.cross_norm_plain(
+              h, mean, scale, 1, dm), flush),
+          "library_ms": None}
+    cn["bound_ms"], cn["bound_by"] = _bound(
+        (h.numel() + 2 * w_out + n * w_out) * 4, 5.0 * n * w_out)
+    # each kernel of cross_norm.cu through its C entry, forced: the tile
+    # kernel (1) and the rows kernel (2), each equal to the wrapper bit for
+    # bit (one dot order in both), alone after both flushes
+    f_cn = _build.function("cross_norm", "pbx_cross_norm_path",
+                           C._CROSS_NORM_PATH_ARGS)
+    out_cn = torch.empty_like(got)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def cn_call(path):
+        return lambda: _build.check(f_cn(
+            h.data_ptr(), mean.data_ptr(), scale.data_ptr(),
+            out_cn.data_ptr(), n, 1, dm, path, stream),
+            f"cross_norm path {path}")
+
+    def cn_same(path):
+        def check():
+            if not torch.equal(out_cn, got):
+                raise AssertionError(f"cross_norm: kernel {path} alone "
+                                     f"differs from the wrapper")
+        return check
+
+    cn_alone = {}
+    for path, what in ((1, "tile"), (2, "rows")):
+        out_cn.fill_(float("nan"))
+        cn_alone[what] = alone_ms(torch, cn_call(path), cn_same(path), flush)
+        cn_alone[what].update(device_ms(torch, cn_call(path), flush,
+                                        "cross_norm"))
+    # the backward, plain PyTorch (the JAX package has no kernel for it):
+    # dx only, as the PV path's fixed summary asks for
+    hx = h.clone().requires_grad_(True)
+    y = C.CrossNormFn.apply(hx, mean, scale, 1, dm, K.KERNELS)
+    gy = torch.randn(y.shape, generator=gen, device="cuda")
+    cn_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        y, hx, gy, retain_graph=True), None, "", iters=5)
+    log_cross_norm_probe(cn_probe, cn["bound_ms"], card)
+    log("  cross_norm alone: " + ", ".join(
+        f"{what} {t['kernel_only_ms']:.4f} ms (clean L2 "
+        f"{t['kernel_only_clean_l2_ms']:.4f}, device {t['device_ms']:.5f}, "
+        f"{cn['bound_ms'] / t['device_ms']:.1%} of the bound)"
+        for what, t in cn_alone.items()) + f" ({card})")
+    log(f"  cross_norm backward (plain PyTorch, dx): "
+        f"{cn_bwd['launches_per_call']:.0f} kernels, device "
+        f"{cn_bwd['device_ms']:.4f} ms a call ({card})")
+    return cn, {"cross_norm_probe": cn_probe, "cross_norm_alone": cn_alone,
+                "cross_norm_backward": cn_bwd}
 
 
 class PvDeviceBatch:
@@ -1410,7 +1605,7 @@ def pv_phase(torch, args, card, pv_batches, details):
                 split[k].append((b - a) * 1e3)
             if not np.isfinite(losses[-1]):
                 raise AssertionError(f"PV: non-finite loss {losses}")
-        return losses, split
+        return losses, split, opt
 
     cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=1e-3)
     cfg0 = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
@@ -1433,7 +1628,7 @@ def pv_phase(torch, args, card, pv_batches, details):
         for fn in fns.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        losses, _ = run(table, model, K.KERNELS, timed=False)
+        losses, _, _ = run(table, model, K.KERNELS, timed=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in fns.items()}
@@ -1460,8 +1655,8 @@ def pv_phase(torch, args, card, pv_batches, details):
         # kernels vs plain from the same start: f32 tower, no mf draws
         tk, tp = fresh_table(path, cfg0), fresh_table(path, cfg0)
         mk, mp = fresh_model(torch.float32), fresh_model(torch.float32)
-        loss_k, split_k = run(tk, mk, K.KERNELS, timed=True)
-        loss_p, split_p = run(tp, mp, K.PLAIN, timed=True)
+        loss_k, split_k, opt_k = run(tk, mk, K.KERNELS, timed=True)
+        loss_p, split_p, _ = run(tp, mp, K.PLAIN, timed=True)
     rows_t = torch.from_numpy(np.nonzero(tk._touched | tp._touched)[0]).to(
         cuda)
     row_err = check_close("PV: touched table rows, kernels vs plain",
@@ -1472,6 +1667,21 @@ def pv_phase(torch, args, card, pv_batches, details):
                                 PARAM_RTOL, PARAM_ATOL) for k in pk)
     p50 = {k: float(np.median(v)) for k, v in split_k.items()}
     step_p50 = sum(p50.values())
+    # one more f32 step through the kernels, profiled: device time per
+    # kernel (and copy), and the busy share of the step's own device window
+    batch, ro = batches[0]
+    idx = tk.prepare(batch)
+    dv = PvDeviceBatch(torch, batch, ro, cuda)
+    traced = _profiled(torch, lambda *_: pv_step(
+        torch, tk, mk, opt_k, summary, idx, dv, K.KERNELS), None, None, None)
+    prof = profile_step(torch, None, None, None, None, prof=traced)
+    win = device_window(traced)
+    kern_ms = sum(r[1] for r in prof)
+    cn_fwd = sum(r[1] for r in prof if "cross_norm" in r[0])
+    pv_prof = {"kernel_ms": kern_ms, "launches": sum(r[2] for r in prof),
+               "window": win, "cross_norm_fwd_ms": cn_fwd,
+               "top": [{"kernel": k, "ms": ms, "launches": c}
+                       for k, ms, c in prof[:12]]}
     ads_per_batch = ads / nb
     log(f"PV train: {nb} steps of {PV_BATCH} rows ({ads} ads, "
         f"{len(batches[0][0].keys)} key slots a batch), "
@@ -1486,6 +1696,13 @@ def pv_phase(torch, args, card, pv_batches, details):
         f"{float(np.median(split_p['step_ms'])):.3f} ms through the plain "
         f"versions; kernels vs plain max abs err rows {row_err:.3g}, "
         f"params {param_err:.3g} ({card})")
+    log(f"PV profiled f32 step: {kern_ms:.3f} ms of device time (kernels "
+        f"and copies) in {pv_prof['launches']} launches; the step's device "
+        f"window {win['span_ms']:.3f} ms (first to last device event), busy "
+        f"{win['busy_share']:.1%} of it; cross_norm forward {cn_fwd:.4f} ms ({cn_fwd / kern_ms:.2%} of the "
+        f"device time); top: " + "; ".join(
+            f"{r['kernel'][:60]} {r['ms']:.4f} ms x{r['launches']}"
+            for r in pv_prof["top"][:6]) + f" ({card})")
     details["pv"] = {
         "batches": nb, "ads": ads, "wall_s": wall,
         "examples_per_sec": ads / wall, "losses": losses,
@@ -1494,7 +1711,7 @@ def pv_phase(torch, args, card, pv_batches, details):
         "plain_split_ms": split_p, "split_p50_ms": p50,
         "step_p50_ms": step_p50, "loss_kernels_f32": loss_k,
         "loss_plain_f32": loss_p, "row_max_abs_err": row_err,
-        "param_max_abs_err": param_err}
+        "param_max_abs_err": param_err, "profiled_step": pv_prof}
     return {k: launches[k] for k in ("rank_attention", "batch_fc",
                                      "cross_norm")}
 

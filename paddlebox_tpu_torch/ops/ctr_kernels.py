@@ -45,8 +45,16 @@ _BATCH_FC_ARGS = [_P, _I64, _I64, _I64, _P, _P, _P, _I32, _I64, _I32, _I32,
 # tile kernel, 2 the per-element kernel) before the stream
 _BATCH_FC_PATH_ARGS = _BATCH_FC_ARGS[:-1] + [_I32, _P]
 _CROSS_NORM_ARGS = [_P, _P, _P, _P, _I64, _I32, _I32, _P]
+# pbx_cross_norm_path: the same, then the kernel (0 as cross_norm_branch
+# picks, 1 the tile kernel, 2 the rows kernel) before the stream
+_CROSS_NORM_PATH_ARGS = _CROSS_NORM_ARGS[:-1] + [_I32, _P]
 #: rank_attention.cu stages at most this many co-shown ads per row
 MAX_RANK_LIMIT = 16
+#: rows a block of cross_norm.cu's tile kernel stages (its kTileRows)
+CROSS_NORM_ROWS = 8
+#: dynamic shared memory a cross_norm.cu block may take, in bytes (its
+#: kSmemBudget)
+CROSS_NORM_SMEM = 227 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +311,28 @@ def cross_norm_plain(x: torch.Tensor, mean: torch.Tensor,
     return (feats - mean[None, :]) * scale[None, :]
 
 
+def cross_norm_branch(x_addr: int, out_addr: int, b: int, n: int,
+                      d: int) -> int:
+    """The kernel of ``csrc/cross_norm.cu`` for these addresses and sizes:
+    0 none (an empty output), 1 the tile kernel (row tiles staged in
+    shared memory by 16-byte copies: x and out on 16 bytes, a tile of
+    ``CROSS_NORM_ROWS`` rows within ``CROSS_NORM_SMEM``), 2 the rows
+    kernel (everything else)."""
+    if b <= 0 or n <= 0:
+        return 0
+    w_out = n * (3 * d + 1)
+    tile = 4 * (CROSS_NORM_ROWS * (2 * n * d + w_out) + 2 * w_out)
+    if (x_addr | out_addr) % 16 == 0 and tile <= CROSS_NORM_SMEM:
+        return 1
+    return 2
+
+
 def cross_norm(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                fields_num: int, embed_dim: int) -> torch.Tensor:
     """x [B, 2·n·d] f32, mean/scale [n·(3d+1)] f32 → [B, n·(3d+1)] f32
-    (``csrc/cross_norm.cu``). Every column but the dot is exactly the
-    plain version's; the dot sums in another order."""
+    (``csrc/cross_norm.cu``, the kernel :func:`cross_norm_branch` picks).
+    Every column but the dot is exactly the plain version's; the dot sums
+    in another order."""
     if x.device.type == "cpu" and mean.device.type == "cpu":
         return cross_norm_plain(x, mean, scale, fields_num, embed_dim)
     _build.require_cuda("cross_norm", x, mean, scale)
@@ -321,11 +346,14 @@ def cross_norm(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                          f"[{w_out}]")
     b = x.shape[0]
     out = torch.empty((b, w_out), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    branch = cross_norm_branch(x.data_ptr(), out.data_ptr(), b, n, d)
+    if branch == 0:
         return out
-    fn = _build.function("cross_norm", "pbx_cross_norm", _CROSS_NORM_ARGS)
+    fn = _build.function("cross_norm", "pbx_cross_norm_path",
+                         _CROSS_NORM_PATH_ARGS)
     _build.check(fn(x.data_ptr(), mean.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), b, n, d, _build.stream(x)), "cross_norm")
+                    out.data_ptr(), b, n, d, branch, _build.stream(x)),
+                 "cross_norm")
     cross_norm.launches += 1
     return out
 

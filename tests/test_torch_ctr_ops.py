@@ -331,3 +331,36 @@ def test_cpu_wrappers_take_the_plain_versions():
                                atol=0)
     assert (tc.rank_attention.launches, tc.batch_fc.launches,
             tc.cross_norm.launches) == before
+
+
+@pytest.mark.parametrize("x_addr,out_addr,b,n,d,want", [
+    (0x1000, 0x2000, 4096, 1, 128, 1),   # the PV shape: the tile kernel
+    (0x1000, 0x2000, 257, 3, 5, 1),      # d odd: the spans still align
+    (0x1004, 0x2000, 4096, 1, 128, 2),   # x 4 bytes off 16
+    (0x1008, 0x2000, 4096, 1, 128, 2),
+    (0x1000, 0x200c, 4096, 1, 128, 2),   # out 12 bytes off 16
+    (0x1000, 0x2000, 6, 1, 20_000, 2),   # a tile past shared memory
+    (0x1000, 0x2000, 6, 1, 1_500, 2),
+    (0x1000, 0x2000, 6, 1, 1_000, 1),    # 8 rows of it fit
+    (0x1000, 0x2000, 0, 1, 128, 0),      # empty: nothing to launch
+    (0x1004, 0x2000, 0, 1, 128, 0),
+    (0x1000, 0x2000, 5, 0, 128, 0),
+    (0x1000, 0x2000, 5, 1, 0, 1)])       # d 0: the dot column only
+def test_cross_norm_branch(x_addr, out_addr, b, n, d, want):
+    """The cross_norm kernel the wrapper picks from the addresses and
+    sizes: the tile kernel where both bases sit on 16 bytes and a tile's
+    input, output, mean and scale fit CROSS_NORM_SMEM, else the rows
+    kernel; nothing for an empty output."""
+    assert tc.cross_norm_branch(x_addr, out_addr, b, n, d) == want
+
+
+def test_cross_norm_branch_smem_edge():
+    """The widest d whose tile fits CROSS_NORM_SMEM takes the tile kernel,
+    the next does not."""
+    r = tc.CROSS_NORM_ROWS
+    # 4 · (R · (2d + 3d + 1) + 2 · (3d + 1)) bytes at n = 1
+    d = next(d for d in range(1, 20_000)
+             if 4 * (r * (5 * d + 1) + 2 * (3 * d + 1))
+             > tc.CROSS_NORM_SMEM) - 1
+    assert tc.cross_norm_branch(0, 0, 9, 1, d) == 1
+    assert tc.cross_norm_branch(0, 0, 9, 1, d + 1) == 2

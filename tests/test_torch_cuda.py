@@ -927,24 +927,165 @@ def test_ctr_wrapper_errors(cuda):
     assert (tc.rank_attention.launches, tc.batch_fc.launches) == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(1, 128), (3, 5), (2, 70)])
-def test_cross_norm_matches_plain(cuda, n, d):
+def _cross_norm_inputs(b, n, d, device, offset=0, drawn=False):
+    """x [b, 2nd] (a contiguous view ``offset`` floats into its buffer),
+    mean and scale. ``drawn``: mean and scale at random (seeded by d);
+    else derived, as the PV path derives them, from a summary: here one
+    of 256 other rows of x's distribution alone (decay 0), so every
+    column comes out at about unit scale."""
+    from paddlebox_tpu_torch.ops.cross_norm import (cross_norm_update,
+                                                    init_cross_norm_summary)
+    from paddlebox_tpu_torch.ops.data_norm import data_norm_mean_scale
+    rng = np.random.default_rng(d if drawn else (b, n, d, offset))
+    w = n * (3 * d + 1)
+    if drawn:
+        x = torch.from_numpy(rng.normal(size=(b, 2 * n * d)).astype(
+            np.float32)).to(device)
+        mean = torch.from_numpy(rng.normal(size=w).astype(np.float32))
+        scale = torch.from_numpy(rng.random(w).astype(np.float32) + 0.5)
+        return x, mean.to(device), scale.to(device)
+    buf = torch.from_numpy(rng.normal(size=offset + b * 2 * n * d).astype(
+        np.float32)).to(device)
+    x = buf[offset:].view(b, 2 * n * d)
+    sample = torch.from_numpy(rng.normal(size=(256, 2 * n * d)).astype(
+        np.float32)).to(device)
+    summ = cross_norm_update(init_cross_norm_summary(n, d, device=device),
+                             sample, n, d, decay=0.0)
+    mean, scale = data_norm_mean_scale(summ, 1e-4)
+    return x, mean.contiguous(), scale.contiguous()
+
+
+def _cross_norm_forced(x, mean, scale, n, d, path, out_offset=0):
+    """``pbx_cross_norm_path`` with the kernel forced (1 the tile kernel, 2
+    the rows kernel) into a NaN-filled output ``out_offset`` floats into
+    its buffer: (its cudaError_t, the output)."""
+    from paddlebox_tpu_torch.ops import _build
     from paddlebox_tpu_torch.ops import ctr_kernels as tc
-    rng = np.random.default_rng(d)
-    b, w = 257, n * (3 * d + 1)
-    x = torch.from_numpy(rng.normal(size=(b, 2 * n * d)).astype(
-        np.float32)).to(cuda)
-    mean = torch.from_numpy(rng.normal(size=w).astype(np.float32)).to(cuda)
-    scale = torch.from_numpy(rng.random(w).astype(np.float32) + 0.5).to(cuda)
-    got = tc.cross_norm(x, mean, scale, n, d)
-    want = tc.cross_norm_plain(x, mean, scale, n, d)
+    fn = _build.function("cross_norm", "pbx_cross_norm_path",
+                         tc._CROSS_NORM_PATH_ARGS)
+    b, w = x.shape[0], n * (3 * d + 1)
+    buf = torch.full((out_offset + b * w,), float("nan"), device=x.device)
+    out = buf[out_offset:].view(b, w)
+    rc = fn(x.data_ptr(), mean.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            b, n, d, path, _build.stream(x))
     torch.cuda.synchronize()
-    dot = torch.zeros(w, dtype=torch.bool, device=cuda)
+    return rc, out
+
+
+def _assert_cross_norm(got, want, d):
+    """Exact outside the dot column, rtol 1e-5 / atol 1e-6 on it."""
+    w = got.shape[1]
+    dot = torch.zeros(w, dtype=torch.bool, device=got.device)
     dot[3 * d::3 * d + 1] = True
     assert torch.equal(got[:, ~dot], want[:, ~dot])
     torch.testing.assert_close(got[:, dot], want[:, dot], rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 128), (3, 5), (2, 70)])
+@pytest.mark.parametrize("b", [257, 0, 1, 5, 20_000])
+def test_cross_norm_matches_plain(cuda, n, d, b):
+    """The wrapper against the plain version, each kernel forced through
+    ``pbx_cross_norm_path`` bit-equal to the wrapper, and two calls
+    bit-equal. b: 257 a
+    ragged last tile, 5 and 1 fewer rows than a tile, 0 nothing to
+    launch, 20 000 more tiles than the card holds at once; (3, 5): n > 1
+    and d odd, so output rows start off 16 bytes. At 257 rows mean and
+    scale are drawn at random, as before; the other sizes derive them
+    from a summary of rows like x's, as the PV path does (a normalized
+    dot column has about unit scale; at a random scale near 1, a
+    128-term dot of magnitude ~11 moves by ~1e-6 between two summation
+    orders, the atol itself)."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, mean, scale = _cross_norm_inputs(b, n, d, cuda, drawn=b == 257)
+    before = tc.cross_norm.launches
+    got = tc.cross_norm(x, mean, scale, n, d)
+    again = tc.cross_norm(x, mean, scale, n, d)
+    want = tc.cross_norm_plain(x, mean, scale, n, d)
+    torch.cuda.synchronize()
+    assert tc.cross_norm.launches == before + 2 * (b > 0)
+    _assert_cross_norm(got, want, d)
+    assert torch.equal(got, again)
+    assert tc.cross_norm_branch(x.data_ptr(), got.data_ptr(), b, n, d) == (
+        1 if b else 0)
+    for path in (1, 2):
+        rc, out = _cross_norm_forced(x, mean, scale, n, d, path)
+        assert rc == 0
+        assert torch.equal(out, got), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,x_off,out_off", [
+    (1, 128, 257, 1, 0),        # x 4 bytes into its buffer
+    (3, 5, 37, 2, 0),
+    (1, 128, 33, 0, 3),         # out 12 bytes into its buffer
+    (1, 20_000, 6, 0, 0),       # a tile of 8 rows past shared memory
+    (2, 3_000, 9, 1, 1)])       # both, and mean/scale past 48 KB
+def test_cross_norm_rows_kernel(cuda, n, d, b, x_off, out_off):
+    """What the tile kernel cannot take goes to the rows kernel: the
+    wrapper's branch is 2 and holds against the plain version; the tile
+    kernel forced there refuses to launch; the rows kernel forced equals
+    the wrapper, and the default pick (path 0) takes it too."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, mean, scale = _cross_norm_inputs(b, n, d, cuda, offset=x_off)
+    rc, want_rows = _cross_norm_forced(x, mean, scale, n, d, 2,
+                                       out_offset=out_off)
+    assert rc == 0
+    _assert_cross_norm(want_rows, tc.cross_norm_plain(x, mean, scale, n, d),
+                       d)
+    rc, out = _cross_norm_forced(x, mean, scale, n, d, 1, out_offset=out_off)
+    assert rc != 0 and bool(out.isnan().all())
+    rc, out = _cross_norm_forced(x, mean, scale, n, d, 0, out_offset=out_off)
+    assert rc == 0 and torch.equal(out, want_rows)
+    if out_off == 0:
+        got = tc.cross_norm(x, mean, scale, n, d)
+        torch.cuda.synchronize()
+        assert tc.cross_norm_branch(x.data_ptr(), got.data_ptr(), b, n,
+                                    d) == 2
+        assert torch.equal(got, want_rows)
+
+
+@pytest.mark.cuda
+def test_cross_norm_wrapper_errors(cuda):
+    """Inputs the kernels do not take raise before any launch, and a path
+    past 0–2 is refused."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    x, mean, scale = _cross_norm_inputs(8, 1, 16, cuda)
+    before = tc.cross_norm.launches
+    with pytest.raises(TypeError):
+        tc.cross_norm(x.double(), mean, scale, 1, 16)
+    with pytest.raises(ValueError):
+        tc.cross_norm(torch.cat([x, x], 1)[:, ::2], mean, scale, 1, 16)
+    with pytest.raises(ValueError):
+        tc.cross_norm(x, mean, scale, 1, 15)
+    with pytest.raises(ValueError):
+        tc.cross_norm(x, mean[1:], scale, 1, 16)
+    assert tc.cross_norm.launches == before
+    for path in (-1, 3):
+        rc, out = _cross_norm_forced(x, mean, scale, 1, 16, path)
+        assert rc != 0 and bool(out.isnan().all())
+
+
+@pytest.mark.cuda
+def test_cross_norm_branch_edge_matches_kernel(cuda):
+    """The widest d whose tile ``cross_norm_branch`` sends to the tile
+    kernel is one that kernel takes, and the next is one it refuses: the
+    helper's CROSS_NORM_ROWS and CROSS_NORM_SMEM match the source's
+    kTileRows and kSmemBudget."""
+    from paddlebox_tpu_torch.ops import ctr_kernels as tc
+    d = next(d for d in range(1, 20_000)
+             if tc.cross_norm_branch(0, 0, 9, 1, d) == 2) - 1
+    for dd, want in ((d, 1), (d + 1, 2)):
+        x, mean, scale = _cross_norm_inputs(9, 1, dd, cuda, drawn=True)
+        assert tc.cross_norm_branch(0, 0, 9, 1, dd) == want
+        rc, out = _cross_norm_forced(x, mean, scale, 1, dd, 1)
+        if want == 1:
+            assert rc == 0
+            _assert_cross_norm(out, tc.cross_norm_plain(x, mean, scale, 1,
+                                                        dd), dd)
+        else:
+            assert rc != 0 and bool(out.isnan().all())
 
 
 @pytest.mark.cuda
