@@ -8,7 +8,9 @@ Phases, each of which fails the run:
 1. require a CUDA device; print the card's name and power limit;
 2. build every kernel of the serving, training, PV and seqpool paths
    (13 kernels) from the eleven sources of ``paddlebox_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print the build seconds;
+   (one ``nvcc`` per source, all at once) and the native host library
+   (``paddlebox_tpu_torch/native/kv_index.cpp``, g++, at the same time)
+   and print the build seconds;
 3. at the full-width shapes of those paths, hold each kernel against its
    plain PyTorch version on the card (``gather_rows``, ``segment_gather``
    in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
@@ -59,7 +61,12 @@ Phases, each of which fails the run:
    batches of 4096 records (26 slots, 1 + Poisson(4) keys per slot,
    13 dense). Predictions must be finite, in (0, 1), and match the same
    forward through the plain versions; both kernels' launch counters
-   must advance once per batch;
+   must advance once per batch. The host key index of the loader and of
+   the snapshot must take the native route (``kv_route``). Then the
+   batches' ``prepare_eval`` runs on twins of the snapshot's index on
+   each route in turns (native, python, python, native: the python
+   ``PyKV`` is a named comparison here, not a fallback): both routes
+   must give identical ``PullIndex`` arrays, and both medians print;
 5. train on the same batches: ``EmbeddingTable(device="cuda")`` loads a
    seeded ``save_base``-format file of the keys with id < 90 000 of each
    slot (so every step also assigns new rows, and a quarter of the
@@ -73,7 +80,10 @@ Phases, each of which fails the run:
    float32 tower and TF32 off, once through the kernels and once through
    the plain versions (passed in explicitly): touched table rows and
    dense params must agree within rtol 2e-4 / atol 2e-5. These two runs
-   time each step synchronized, split into prepare, h2d and step;
+   time each step synchronized, split into prepare, h2d and step; the
+   prepare they replay runs once on each route of the host key index in
+   turns from the same start, as phase 4's lookups do (the table's index
+   must be native);
 6. train the same batches through the resident pass with the device key
    index (``use_pallas_index``): a fresh table loads the same base file,
    its ``DeviceKeyIndex`` is seeded from the host kv (insert kernel), and
@@ -84,7 +94,9 @@ Phases, each of which fails the run:
    keys (lookup kernel) must give the kv's rows, the pass's pull indexes
    and host kv must equal those of the host route on a second table, the
    sentinel row must stay zero and untouched rows bit-identical, and the
-   loss finite. Then, with the float32 tower, TF32 off and no lazy-mf
+   loss finite. The host-route build runs on each route of the host key
+   index in turns from the same start (its dedup stage printed by
+   route). Then, with the float32 tower, TF32 off and no lazy-mf
    draws (``mf_initial_range`` 0: the two passes lay a batch's unique
    rows out differently, so their draws land on other rows), the
    resident pass and ``train_pass`` from the same start must agree
@@ -103,7 +115,9 @@ Phases, each of which fails the run:
    must be finite at every step; rank_attention, batch_fc, cross_norm,
    pool_cvm, segment_gather and scatter_add_update must launch once a
    step and gather_rows twice (pull and push); the sentinel row must
-   stay zero and untouched rows bit-identical. Then the same steps run
+   stay zero and untouched rows bit-identical; the batches' prepare runs
+   on each route of the host key index in turns from the same start.
+   Then the same steps run
    twice more from the same start with the float32 tower, TF32 off and
    ``mf_initial_range`` 0, through the kernels and through the plain
    versions: table rows within rtol 2e-4 / atol 2e-5, dense params
@@ -133,7 +147,25 @@ Phases, each of which fails the run:
    sentinel row) and timed: ``scatter_rows_dma`` and ``gather_rows_dma``
    as phase 3 times ``segment_gather`` (against ``index_copy_`` and
    ``index_select``), and their C entries alone, first checked against
-   the wrapper.
+   the wrapper;
+9. the table lifecycle on the ragged cell at full width, once with
+   ``SparseAdamConfig(shared=False)`` (row width 37) and once with
+   ``shared=True`` (23), each through the kernels and again through the
+   plain versions: a table (capacity 2^23) loads phase 5's base file,
+   trains batches 0-1 (f32 tower), ``save_base``, ``shrink`` (threshold
+   5.0, decay 0.98) must free a nonzero share of rows and zero them, a
+   flag-on ``bulk_assign_unique`` of batches 2-3's keys must degrade
+   (the kv has holes), ``merge_model`` of the save must bring every
+   saved key back, batches 2-3 train, and a flag-on
+   ``bulk_assign_unique`` of the other batches' keys must run on the
+   card (the merge refilled every hole), its index mirroring the kv.
+   The kernel run must launch the four step kernels once a step and the
+   key index's insert twice (seed, assign) and lookup once; kernels vs
+   plain: rows after 2 and 4 steps and dense params within rtol 2e-4 /
+   atol 2e-5, freed rows, ``feature_count`` and ``rows_digest`` equal.
+   Then row 13's scalar (vec = 1) branch at that width and the Adam
+   pull (row 1) at batch 0's shapes, each exact against its plain
+   version and timed.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -149,6 +181,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -558,6 +591,84 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return float(err.nan_to_num(0.0).max())
 
 
+def require_native(what: str, table) -> str:
+    """The host key index's route of ``table``; raises unless it is the
+    native one (phases 4-7 and 9 run on it)."""
+    route = table.index.kv_route
+    if route != "native":
+        raise AssertionError(f"{what}: the host key index took the "
+                             f"{route} route")
+    return route
+
+
+def kv_twin(kv, capacity: int, route: str):
+    """A copy of index ``kv`` on ``route`` ("native": ``make_kv``;
+    "python": ``PyKV``, the named comparison) holding the same key→row
+    map: its keys assigned in row order (the rows are dense), checked
+    row for row."""
+    from paddlebox_tpu_torch.ps.kv import PyKV, make_kv
+    keys, rows = kv.items()
+    order = np.argsort(rows, kind="stable")
+    twin = make_kv(capacity) if route == "native" else PyKV(capacity)
+    if twin.kv_route != route:
+        raise AssertionError(f"kv twin took the {twin.kv_route} route")
+    if not np.array_equal(twin.assign(keys[order]), rows[order]):
+        raise AssertionError("kv twin allocated other rows")
+    return twin
+
+
+def _same_outputs(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_outputs(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return a == b
+
+
+def timed_calls(fn, items):
+    """(outputs, host ms of each call) of ``fn`` over ``items``."""
+    outs, ms = [], []
+    for x in items:
+        t0 = time.perf_counter()
+        outs.append(fn(x))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def route_pair(table, run) -> tuple:
+    """``run(table)`` → (outputs, ms list), four times in turns (native,
+    python, python, native), each on a twin of the table's index as it
+    stands now (``kv_twin``): a within-run pair of the host key index's
+    two routes over the same work. Every turn must give the same
+    outputs. Returns ({route: median ms, route + "_ms": all ms}, the
+    outputs); the table keeps the last native turn's index."""
+    base = table.index
+    ms = {"native": [], "python": []}
+    first = None
+    for route in ("native", "python", "python", "native"):
+        table.index = kv_twin(base, table.capacity, route)
+        out, t = run(table)
+        ms[route] += t
+        if first is None:
+            first = out
+        elif not _same_outputs(out, first):
+            raise AssertionError(f"the {route} route's outputs differ "
+                                 f"from the native route's")
+    return ({"native": float(np.median(ms["native"])),
+             "python": float(np.median(ms["python"])),
+             "native_ms": ms["native"], "python_ms": ms["python"]}, first)
+
+
+def log_route_pair(what: str, pair: dict, card: str,
+                   outputs: str = "PullIndex arrays") -> None:
+    log(f"{what} by host index route (within-run pair native, python, "
+        f"python, native): native p50 {pair['native']:.3f} ms, python p50 "
+        f"{pair['python']:.3f} ms, {pair['python'] / pair['native']:.1f}x; "
+        f"identical {outputs} ({card})")
+
+
 def _profiled(torch, step, state, batch, gen):
     """One synchronized call of ``step`` under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
@@ -945,6 +1056,7 @@ def _train(torch, args, card, desc, records, batches, details, tmp,
 
     t0 = time.perf_counter()
     table = fresh_table()
+    kv_route = require_native("train", table)
     start = table.state.data.clone()
     torch.manual_seed(args.seed + 2)
     model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN)
@@ -992,8 +1104,8 @@ def _train(torch, args, card, desc, records, batches, details, tmp,
         f"{res['examples_per_sec']:.0f} examples/s (bf16 tower, prefetch "
         f"pipeline, loss read every step), auc {res['auc']:.4f}, last "
         f"loss {res['last_loss']:.4f}; {n_new} new rows, {created} mf "
-        f"created, {n_changed} of {n_touched} touched rows changed "
-        f"({card})")
+        f"created, {n_changed} of {n_touched} touched rows changed; host "
+        f"key index route {kv_route} ({card})")
 
     # the trained table's save_base serves
     path = os.path.join(tmp, "trained.npz")
@@ -1015,13 +1127,13 @@ def _train(torch, args, card, desc, records, batches, details, tmp,
     log(f"save_base: {n_saved} rows in {save_s:.2f}s, served batch 0")
 
     # kernel vs plain training, from the same start, f32 tower, TF32 off;
-    # the index work (prepare) runs once and both runs replay it
+    # the index work (prepare) runs once and both runs replay it. It runs
+    # on each route of the host key index in turns, from the same start
     fresh = fresh_table()
-    prep_ms, idxs = [], []
-    for b in batches:
-        t0 = time.perf_counter()
-        idxs.append(fresh.prepare(b))
-        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    pair, idxs = route_pair(fresh, lambda t: timed_calls(t.prepare,
+                                                         batches))
+    prep_ms = pair["native_ms"]
+    log_route_pair("train prepare", pair, card)
     rows_t = torch.from_numpy(np.nonzero(fresh._touched)[0]).to(cuda)
 
     def run(ops):
@@ -1089,7 +1201,8 @@ def _train(torch, args, card, desc, records, batches, details, tmp,
         "pass": res, "stage_ms": stages, "new_rows": n_new,
         "mf_created": created, "rows_changed": n_changed,
         "rows_touched": n_touched, "saved_rows": n_saved,
-        "save_base_s": save_s, "launches": launches,
+        "save_base_s": save_s, "launches": launches, "kv_route": kv_route,
+        "prepare_by_route": pair,
         "prepare_ms": prep_ms, "h2d_ms": h2d_k, "step_ms": step_k,
         "plain_h2d_ms": h2d_p, "plain_step_ms": step_p,
         "loss_kernels": loss_k, "loss_plain": loss_p,
@@ -1128,6 +1241,7 @@ def _resident(torch, args, card, desc, records, batches, details,
     ds = InMemoryDataset(desc)
     ds.records = records
     table = fresh_table()
+    kv_route = require_native("resident", table)
     start = table.state.data.clone()
     trainer = Trainer(model(), table, desc, seed=args.seed,
                       check_nan_inf=True, device="cuda")
@@ -1190,24 +1304,42 @@ def _resident(torch, args, card, desc, records, batches, details,
     del start, changed, touched
 
     # the host route on a second table gives the same pull indexes and
-    # kv; that table then trains the pass through train_pass (its kv
+    # kv, on each route of the host key index in turns from the same
+    # start; that table then trains the pass through train_pass (its kv
     # already holds the rows train_pass would assign)
     cfg0 = SparseSGDConfig(mf_initial_range=0.0)
     host = fresh_table(cfg0)
-    with flags_scope(use_pallas_index=False):
-        t0 = time.perf_counter()
-        rp_host = ResidentPass.build(ds, host)
-        host_s = time.perf_counter() - t0
-    host_stats = rp_host.build_stats
-    for a in ("uniq", "gidx", "meta", "segs"):
-        if not np.array_equal(getattr(rp, a), getattr(rp_host, a)):
+    host_stats = {}
+
+    def host_build(t):
+        with flags_scope(use_pallas_index=False):
+            t0 = time.perf_counter()
+            rp_h = ResidentPass.build(ds, t)
+            ms = (time.perf_counter() - t0) * 1e3
+        host_stats.setdefault(t.index.kv_route, []).append(rp_h.build_stats)
+        return [getattr(rp_h, a) for a in ("uniq", "gidx", "meta",
+                                           "segs")], [ms]
+
+    pair, arrays = route_pair(host, host_build)
+    host_s = pair["native"] / 1e3
+    log_route_pair("resident host-route build", pair, card,
+                   outputs="pass arrays")
+    log("  its dedup stage (of which the host index's assign), s: "
+        + json.dumps({r: [[round(st["dedup"], 4), round(st["index_host"], 4)]
+                          for st in v] for r, v in host_stats.items()})
+        + f" ({card})")
+    for a, got in zip(("uniq", "gidx", "meta", "segs"), arrays):
+        if not _same_outputs(getattr(rp, a), got):
             raise AssertionError(f"resident: {a} of the device route "
                                  f"differs from the host route's")
-    if (host.index._map != table.index._map
+    keys_h, rows_h = host.index.items()
+    if (not np.array_equal(table.index.lookup(keys_h), rows_h)
+            or len(host.index) != len(table.index)
             or not np.array_equal(host.slot_host, table.slot_host)):
         raise AssertionError("resident: the device route's kv differs "
                              "from the host route's")
-    del rp_host, table, trainer, dev
+    host_stats = host_stats["native"][-1]
+    del table, trainer, dev
 
     # resident vs train_pass from the same start: f32 tower, TF32 off
     stream = Trainer(model(torch.float32), host, desc, seed=args.seed,
@@ -1240,8 +1372,8 @@ def _resident(torch, args, card, desc, records, batches, details,
         f"phase 5 train_pass {phase5:.0f}); auc {res['auc']:.4f}, last "
         f"loss {res['last_loss']:.4f}; {n_new} new rows, {created} mf "
         f"created; host-route build {host_s:.3f}s "
-        f"{json.dumps({k: round(v, 4) for k, v in host_stats.items()})} "
-        f"({card})")
+        f"{json.dumps({k: round(v, 4) for k, v in host_stats.items()})}; "
+        f"host key index route {kv_route} ({card})")
     log(f"resident vs train_pass (f32 tower, no mf draws): max abs err "
         f"rows {row_err:.3g}, params {param_err:.3g}, auc {auc_diff:.3g} "
         f"({card})")
@@ -1249,6 +1381,7 @@ def _resident(torch, args, card, desc, records, batches, details,
         "pass": res, "seed_s": seed_s, "build_s": build_s,
         "pass_s": pass_s, "build_stats": rp.build_stats,
         "host_build_s": host_s, "host_build_stats": host_stats,
+        "host_build_by_route": pair, "kv_route": kv_route,
         "launches": launches, "new_rows": n_new,
         "mf_created": created, "rows_changed": n_changed,
         "examples_per_sec_with_build": n_rec / (build_s
@@ -1620,6 +1753,7 @@ def pv_phase(torch, args, card, pv_batches, details):
         n_base = len(base["keys"])
         del base
         table = fresh_table(path, cfg)
+        kv_route = require_native("PV", table)
         start = table.state.data.clone()
         model = fresh_model(torch.bfloat16)
         torch.cuda.synchronize()
@@ -1651,6 +1785,12 @@ def pv_phase(torch, args, card, pv_batches, details):
             raise AssertionError(f"PV: {n_new} new rows, {created} mf "
                                  f"created, {n_changed} rows changed")
         del table, start, changed, touched, model
+
+        # the batches' prepare on each route of the host key index, in
+        # turns from the same start
+        pair, _ = route_pair(fresh_table(path, cfg0), lambda t: timed_calls(
+            t.prepare, [b for b, _ in batches]))
+        log_route_pair("PV prepare", pair, card)
 
         # kernels vs plain from the same start: f32 tower, no mf draws
         tk, tp = fresh_table(path, cfg0), fresh_table(path, cfg0)
@@ -1688,7 +1828,7 @@ def pv_phase(torch, args, card, pv_batches, details):
         f"{ads / wall:.0f} examples/s (bf16 tower, loss read every step), "
         f"last loss {losses[-1]:.4f}; {n_new} new rows, {created} mf "
         f"created, {n_changed} rows changed; launches "
-        f"{json.dumps(launches)} ({card})")
+        f"{json.dumps(launches)}; host key index route {kv_route} ({card})")
     log(f"PV steps (f32 tower, synchronized): p50 {step_p50:.2f} ms = "
         f"{json.dumps({k: round(v, 3) for k, v in p50.items()})}, "
         f"{ads_per_batch / step_p50 * 1e3:.0f} examples/s; device step p50 "
@@ -1708,6 +1848,7 @@ def pv_phase(torch, args, card, pv_batches, details):
         "examples_per_sec": ads / wall, "losses": losses,
         "launches": launches, "new_rows": n_new, "mf_created": created,
         "rows_changed": n_changed, "split_ms": split_k,
+        "kv_route": kv_route, "prepare_by_route": pair,
         "plain_split_ms": split_p, "split_p50_ms": p50,
         "step_p50_ms": step_p50, "loss_kernels_f32": loss_k,
         "loss_plain_f32": loss_p, "row_max_abs_err": row_err,
@@ -2035,6 +2176,272 @@ def seqpool_phase(torch, values, segs, show_clk, table, rows_u, u_real,
     return [ss] + rows_out
 
 
+LIFE_THRESHOLD = 5.0            # phase 9: shrink's delete threshold
+
+
+def _batch_keys(batches):
+    """The real keys of ``batches`` and each key's slot."""
+    keys = np.concatenate([b.keys[:b.num_keys] for b in batches])
+    slots = np.concatenate([(b.segments[:b.num_keys] % b.num_slots)
+                            for b in batches]).astype(np.int16)
+    return keys, slots
+
+
+def _life_run(torch, args, cfg, ops, batches, base_path, save_path):
+    """One run of phase 9 with ``cfg`` through ``ops`` (KERNELS or
+    PLAIN): load the train base; train batches 0-1; save_base; shrink;
+    a flag-on bulk assignment (must degrade: the kv has holes);
+    merge_model of the save; train batches 2-3; a flag-on bulk
+    assignment of the other batches' keys (must run on the card: the
+    merge refilled every hole). Returns what the comparison reads."""
+    from paddlebox_tpu_torch import DeepFM, EmbeddingTable
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.device import seeded_generator
+    from paddlebox_tpu_torch.metrics import init_auc_state
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.train.step import (StepState, TrainStep,
+                                                default_tx,
+                                                make_device_batch)
+    cuda = torch.device("cuda")
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    t = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY, cfg=cfg,
+                       seed=args.seed, device="cuda")
+    timed("load_s", lambda: t.load(base_path))
+    require_native("lifecycle", t)
+    torch.manual_seed(args.seed + 2)
+    model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN,
+                   compute_dtype=torch.float32).to(cuda)
+    st = StepState(table=t.state, model=model,
+                   opt=default_tx(model.parameters()),
+                   auc=init_auc_state(device=cuda))
+    step = TrainStep(cfg, BATCH, NUM_SLOTS, ops=ops)
+    losses = []
+
+    def train(bs, first):
+        for i, b in enumerate(bs, start=first):
+            dv = make_device_batch(b, t.prepare(b), cuda)
+            stats = step(st, dv, seeded_generator(cuda, args.seed + 1, i))
+            losses.append(float(stats["loss"]))
+
+    def rows_t(rows):
+        return torch.from_numpy(rows.astype(np.int64)).to(cuda)
+
+    timed("train_2_s", lambda: train(batches[0:2], 1))
+    mid_rows = np.nonzero(t._touched)[0]
+    mid = t.state.data[rows_t(mid_rows)].clone()
+    n_saved = timed("save_base_s", lambda: t.save_base(save_path))
+    keys0, rows0 = t.index.items()
+    n_freed = timed("shrink_s", lambda: t.shrink(LIFE_THRESHOLD))
+    freed_rows = np.sort(rows0[t.index.lookup(keys0) < 0])
+    if n_freed != len(freed_rows) or not 0 < n_freed < len(keys0):
+        raise AssertionError(f"lifecycle: shrink freed {n_freed} of "
+                             f"{len(keys0)} rows ({len(freed_rows)} gone)")
+    if bool(t.state.data[rows_t(freed_rows)].any()):
+        raise AssertionError("lifecycle: a freed row is not zero")
+    after_shrink = t.feature_count
+
+    def flag_on_assign(bs):
+        keys, slots = _batch_keys(bs)
+        ticks0 = dict(IX.DISPATCH)
+        with flags_scope(use_pallas_index=True):
+            t.bulk_assign_unique(keys, slots)
+        return {k[1]: v - ticks0.get(k, 0) for k, v in IX.DISPATCH.items()
+                if k[0] == "index.assign" and v != ticks0.get(k, 0)}
+
+    ticks = timed("degraded_assign_s", lambda: flag_on_assign(batches[2:4]))
+    dev = t._dev_index
+    if not dev.degraded or ticks != {"host": 1}:
+        raise AssertionError(f"lifecycle: the bulk assignment after the "
+                             f"shrink did not degrade ({ticks})")
+    degrade_reason = dev.degrade_reason
+    n_merged = timed("merge_model_s", lambda: t.merge_model(save_path))
+    if n_merged != n_saved or not (t.index.lookup(keys0) >= 0).all():
+        raise AssertionError("lifecycle: merge_model did not bring every "
+                             "saved key back")
+    timed("train_2_more_s", lambda: train(batches[2:4], 3))
+    ticks = timed("device_assign_s", lambda: flag_on_assign(batches[4:]))
+    dev = t._dev_index
+    keys, rows = t.index.items()
+    if dev.degraded or ticks != {"device": 1} \
+            or not np.array_equal(dev.lookup_rows(keys), rows):
+        raise AssertionError(f"lifecycle: the bulk assignment after the "
+                             f"merge did not run on the card ({ticks}, "
+                             f"{dev.degrade_reason})")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lifecycle: non-finite loss {losses}")
+    return {"table": t, "model": model, "losses": losses,
+            "mid_rows": mid_rows, "mid": mid, "freed_rows": freed_rows,
+            "n_saved": n_saved, "n_freed": n_freed,
+            "after_shrink": after_shrink, "n_merged": n_merged,
+            "feature_count": t.feature_count, "digest": t.rows_digest(),
+            "degrade_reason": degrade_reason, "secs": secs}
+
+
+def _row13_vec1(torch, t, batch, flush, gen):
+    """Row 13's scalar (vec = 1) branch at an Adam row width, and the
+    Adam pull (row 1 at that width), on copies of the table at the push's
+    shapes (batch 0's unique rows): each exact against its plain version,
+    timed as phase 3 times them."""
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.train.step import make_device_batch
+    dv = make_device_batch(batch, t.prepare_eval(batch), torch.device(
+        "cuda"))
+    rows = dv.unique_rows.contiguous()
+    u_pad, width = rows.shape[0], t.state.feat
+    u_real = int(((rows >= 0) & (rows < CAPACITY)).sum())
+    if width % 4 == 0:
+        raise AssertionError(f"row width {width} takes the vec = 4 branch")
+    got = K.gather_rows(t.state.data, rows)
+    if not torch.equal(got, K.gather_rows_plain(t.state.data, rows)):
+        raise AssertionError(f"gather_rows at width {width} differs from "
+                             f"its plain version")
+    deltas = torch.randn((u_pad, width), generator=gen,
+                         device="cuda") * 1e-3
+    vals_k = t.state.data[:CAPACITY].clone()
+    vals_p = vals_k.clone()
+    K.scatter_add_update(vals_k, rows, deltas)
+    K.scatter_add_update_plain(vals_p, rows, deltas)
+    torch.cuda.synchronize()
+    if not torch.equal(vals_k, vals_p):
+        raise AssertionError(f"scatter_add_update (vec = 1, width "
+                             f"{width}) differs from its plain version")
+    kept = (rows >= 0) & (rows < CAPACITY)
+    rows_kept, deltas_kept = rows[kept].long(), deltas[kept]
+    out = {"width": width, "u_pad": u_pad, "u_real": u_real,
+           "scatter_add_update": {
+               "ms": time_ms(torch, lambda: K.scatter_add_update(
+                   vals_k, rows, deltas), flush),
+               "plain_ms": time_ms(torch, lambda: K.scatter_add_update_plain(
+                   vals_p, rows, deltas), flush),
+               "library_ms": time_ms(torch, lambda: vals_p.index_add_(
+                   0, rows_kept, deltas_kept), flush),
+               "bound_ms": (u_pad * 4 + u_real * 3 * width * 4)
+               / PEAK_BYTES * 1e3},
+           "gather_rows": {
+               "ms": time_ms(torch, lambda: K.gather_rows(t.state.data,
+                                                          rows), flush),
+               "plain_ms": time_ms(torch, lambda: K.gather_rows_plain(
+                   t.state.data, rows), flush),
+               "bound_ms": (2 * u_real * width * 4 + u_pad * 4)
+               / PEAK_BYTES * 1e3}}
+    del vals_k, vals_p
+    return out
+
+
+def lifecycle_phase(torch, args, card, batches, flush, details):
+    """Phase 9: the table lifecycle with each sparse Adam config on the
+    ragged cell at full width (see the module docstring). Returns each
+    path kernel's launches in the kernel runs."""
+    from paddlebox_tpu_torch import convert
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sgd import SparseAdamConfig
+    if len(batches) < 5:
+        raise AssertionError("phase 9 needs at least 5 batches")
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update,
+           "index_insert": IX.insert, "index_lookup": IX.lookup}
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 9)
+    out, total = {}, {name: 0 for name in fns}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "life_base.npz")
+        np.savez(path, **base)
+        del base
+        for shared in (False, True):
+            cfg = SparseAdamConfig(shared=shared)
+            name = "shared_adam" if shared else "adam"
+            for fn in fns.values():
+                fn.launches = 0
+            rk = _life_run(torch, args, cfg, K.KERNELS, batches, path,
+                           os.path.join(tmp, f"{name}_k.npz"))
+            launches = {n: fn.launches for n, fn in fns.items()}
+            # four steps; the insert: the device index's seed and assign
+            want = {n: 4 for n in fns}
+            want.update(index_insert=2, index_lookup=1)
+            if launches != want:
+                raise AssertionError(f"lifecycle {name}: launches "
+                                     f"{launches}, expected {want}")
+            for n, v in launches.items():
+                total[n] += v
+            rp = _life_run(torch, args, cfg, K.PLAIN, batches, path,
+                           os.path.join(tmp, f"{name}_p.npz"))
+            if not np.array_equal(rk["mid_rows"], rp["mid_rows"]):
+                raise AssertionError(f"lifecycle {name}: the runs touched "
+                                     f"other rows")
+            mid_err = check_close(f"lifecycle {name}: rows after 2 steps",
+                                  rk["mid"], rp["mid"], STATE_RTOL,
+                                  STATE_ATOL)
+            tk, tp = rk["table"], rp["table"]
+            keys, rows = tk.index.items()
+            rows_d = torch.from_numpy(rows.astype(np.int64)).to("cuda")
+            rows_p = torch.from_numpy(tp.index.lookup(keys).astype(
+                np.int64)).to("cuda")
+            row_err = check_close(f"lifecycle {name}: rows after 4 steps",
+                                  tk.state.data[rows_d],
+                                  tp.state.data[rows_p], STATE_RTOL,
+                                  STATE_ATOL)
+            pk, pp = rk["model"].state_dict(), rp["model"].state_dict()
+            param_err = max(check_close(f"lifecycle {name}: {k}", pk[k],
+                                        pp[k], STATE_RTOL, STATE_ATOL)
+                            for k in pk)
+            for what in ("n_freed", "feature_count", "digest"):
+                if rk[what] != rp[what]:
+                    raise AssertionError(f"lifecycle {name}: {what} "
+                                         f"{rk[what]} (kernels) vs "
+                                         f"{rp[what]} (plain)")
+            if not np.array_equal(rk["freed_rows"], rp["freed_rows"]):
+                raise AssertionError(f"lifecycle {name}: other rows freed")
+            r13 = _row13_vec1(torch, tk, batches[0], flush, gen)
+            sa, gr = r13["scatter_add_update"], r13["gather_rows"]
+            secs = {k: round(v, 3) for k, v in rk["secs"].items()}
+            log(f"lifecycle {name} (row width {r13['width']}): 4 steps, "
+                f"losses {[round(x, 4) for x in rk['losses']]}; "
+                f"save_base {rk['n_saved']} rows, shrink (threshold "
+                f"{LIFE_THRESHOLD}) freed {rk['n_freed']} "
+                f"({rk['n_freed'] / rk['n_saved']:.1%}), post-shrink "
+                f"flag-on assignment degraded ({rk['degrade_reason']}), "
+                f"merge_model {rk['n_merged']} rows, feature_count "
+                f"{rk['feature_count']}, post-merge flag-on assignment on "
+                f"the card; launches {json.dumps(launches)}; kernels vs "
+                f"plain: max abs err rows {mid_err:.3g} / {row_err:.3g}, "
+                f"params {param_err:.3g}, freed rows, feature_count and "
+                f"rows_digest equal; host s {json.dumps(secs)} ({card})")
+            log(f"  row 13 vec = 1 at width {r13['width']} (U {r13['u_pad']}"
+                f", {r13['u_real']} real) exact: {sa['ms']:.4f} ms, plain "
+                f"{sa['plain_ms']:.4f} ms, index_add_ {sa['library_ms']:.4f}"
+                f" ms, bound {sa['bound_ms'] * 1e3:.2f} us; row 1 at that "
+                f"width exact: {gr['ms']:.4f} ms, plain {gr['plain_ms']:.4f}"
+                f" ms, bound {gr['bound_ms'] * 1e3:.2f} us ({card})")
+            out[name] = {
+                "launches": launches, "losses_kernels": rk["losses"],
+                "losses_plain": rp["losses"], "n_saved": rk["n_saved"],
+                "n_freed": rk["n_freed"],
+                "after_shrink": rk["after_shrink"],
+                "n_merged": rk["n_merged"],
+                "feature_count": rk["feature_count"],
+                "digest": rk["digest"],
+                "degrade_reason": rk["degrade_reason"],
+                "mid_max_abs_err": mid_err, "row_max_abs_err": row_err,
+                "param_max_abs_err": param_err, "secs_kernels": rk["secs"],
+                "secs_plain": rp["secs"], "row13_vec1": r13}
+            del rk, rp, tk, tp, rows_d, rows_p
+            torch.cuda.empty_cache()
+    details["lifecycle"] = out
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -2068,8 +2475,13 @@ def main() -> int:
         "batches": args.batches, "seed": args.seed}}
 
     # ---- phase 2: build ----
+    from paddlebox_tpu_torch import native
     t0 = time.perf_counter()
-    secs = _build.build()
+    with ThreadPoolExecutor(1) as pool:      # g++ beside the nvcc builds
+        host_lib = pool.submit(lambda: (native.load(),
+                                        time.perf_counter() - t0)[1])
+        secs = _build.build()
+        secs["native kv_index (g++)"] = host_lib.result()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
     details["build_s"] = secs
@@ -2289,6 +2701,9 @@ def main() -> int:
     ra, bfc, cn = ctr_phase(torch, pv_batches, flush, card, details, gen)
 
     # ---- phase 4: the serving path end to end ----
+    kv_route = {"loader": require_native("serve", srv.table),
+                "snapshot": require_native("serve", snap.table)}
+    log(f"serve: host key index route {json.dumps(kv_route)}")
     K.gather_rows.launches = 0
     K.pool_cvm.launches = 0
     preds, lat = [], []
@@ -2347,8 +2762,13 @@ def main() -> int:
         f"ms, {BATCH / p50 * 1e3:.0f} examples/s; p50 split "
         f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
         f"max |pred - plain| {err:.3g} ({card})")
+    # the same lookups on each route of the host key index, in turns
+    pair, _ = route_pair(snap.table, lambda t: timed_calls(
+        t.prepare_eval, batches))
+    log_route_pair("serve prepare_eval", pair, card)
     details.update(predict_ms=lat, predict_p50_ms=p50, split_p50_ms=split,
-                   pred_max_abs_err=err, serve_launches=launches)
+                   pred_max_abs_err=err, serve_launches=launches,
+                   serve_kv_route=kv_route, serve_prepare_by_route=pair)
 
     # ---- phases 5 and 6: the training paths ----
     train_launches = train_phase(torch, args, card, desc, records, batches,
@@ -2364,6 +2784,12 @@ def main() -> int:
     kernels += seqpool_phase(torch, values, segs, dev.show_clk.contiguous(),
                              table, rows_u, u_real, flush, card, details,
                              gen)
+
+    # ---- phase 9: the table lifecycle with sparse Adam ----
+    life_launches = lifecycle_phase(torch, args, card, batches, flush,
+                                    details)
+    log(f"lifecycle launches (both Adam configs' kernel runs): "
+        f"{json.dumps(life_launches)}")
     details["kernels"] = kernels
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,6 +1,6 @@
-"""Process-wide flags of the port: the two that the resident training
-pass reads, with the names and defaults of ``paddlebox_tpu/config.py``.
-Tests change them with ``flags_scope``.
+"""Process-wide flags of the port: those that the resident training pass
+and the table's shrink read, with the names and defaults of
+``paddlebox_tpu/config.py``. Tests change them with ``flags_scope``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,10 @@ class Flags:
     # whole-pass bulk key assignment: one index round trip per pass
     # instead of one per batch (False = the serial per-batch path)
     bulk_pass_assign: bool = True
+    # EmbeddingTable.shrink: drop rows whose decayed show/clk score falls
+    # below this, after decaying show/clk/delta_score by this rate
+    shrink_delete_threshold: float = 0.0
+    show_click_decay_rate: float = 0.98
 
     def update(self, **kwargs: Any) -> None:
         for k, v in kwargs.items():

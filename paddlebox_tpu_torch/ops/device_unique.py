@@ -29,7 +29,7 @@ def dedup_keys_first_seen(keys: torch.Tensor,
     - inv int32 [K]: per position, the first-seen rank of its key
       (``uniq[inv[i]] == keys[i]``); padding positions hold num_unique.
 
-    Bit for bit the host ``ps/kv.dedup_first_seen``: a stable sort groups
+    Bit for bit the host ``ps/table.dedup_first_seen``: a stable sort groups
     equal keys with their positions ascending, so each run's head is its
     segment minimum, i.e. the key's first position; sorting the heads
     gives the first-seen order."""

@@ -1,15 +1,13 @@
 """Sparse in-table optimizers (from ``paddlebox_tpu/ps/sgd.py``): the
-configs, which also set the width of a table row, and the Adagrad row
-update as plain tensor functions over ``[U]`` / ``[U, mf_dim]`` rows.
+configs, which also set the width of a table row, and the Adagrad, Adam
+and shared-Adam row updates as plain tensor functions over ``[U]`` /
+``[U, mf_dim]`` rows.
 
 Lazy mf creation draws ``uniform[0, 1) × mf_initial_range``. The
 reference draws from jax's threefry; the port takes either an explicit
 ``init`` tensor of uniform draws (the tests hand both sides the same
 numbers) or a ``torch.Generator`` (Philox on the card), so the two agree
 bit for bit only through ``init`` or with ``mf_initial_range == 0``.
-
-The Adam and shared-Adam row optimizers are not ported yet:
-``sparse_update`` raises for a ``SparseAdamConfig``.
 """
 
 from __future__ import annotations
@@ -121,14 +119,7 @@ def adagrad_update(rows: RowState, g_show: torch.Tensor,
     # lazy creation: threshold on the post-update counters (:105-113)
     score = cfg.nonclk_coeff * (show - clk) + cfg.clk_coeff * clk
     create = (~has_mf) & (score >= cfg.mf_create_thresholds)
-    if init is None:
-        if generator is None:
-            raise ValueError("adagrad_update: pass init draws or a "
-                             "generator")
-        init = torch.rand(rows.embedx_w.shape, generator=generator,
-                          dtype=rows.embedx_w.dtype,
-                          device=rows.embedx_w.device)
-    init = init * cfg.mf_initial_range
+    init = _lazy_init(rows, cfg, init, generator)
     embedx_w = torch.where(create[:, None], init,
                            torch.where(has_mf[:, None], embedx_new,
                                        rows.embedx_w))
@@ -142,6 +133,21 @@ def adagrad_update(rows: RowState, g_show: torch.Tensor,
     return _mask_untouched(upd, rows, touched)
 
 
+def _lazy_init(rows: RowState, cfg: SparseSGDConfig,
+               init: Optional[torch.Tensor],
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The lazy-mf init values [U, mf_dim]: the uniform[0, 1) draws in
+    ``init`` (or drawn from ``generator``) times ``mf_initial_range``."""
+    if init is None:
+        if generator is None:
+            raise ValueError("sparse update: pass init draws or a "
+                             "generator")
+        init = torch.rand(rows.embedx_w.shape, generator=generator,
+                          dtype=rows.embedx_w.dtype,
+                          device=rows.embedx_w.device)
+    return init * cfg.mf_initial_range
+
+
 def _mask_untouched(upd: RowState, rows: RowState,
                     touched: torch.Tensor) -> RowState:
     return RowState(*[
@@ -150,15 +156,103 @@ def _mask_untouched(upd: RowState, rows: RowState,
         for new, old in zip(upd, rows)])
 
 
+def _adam_dir(w: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+              b1p: torch.Tensor, b2p: torch.Tensor, g: torch.Tensor,
+              scale: torch.Tensor, cfg: SparseAdamConfig
+              ) -> Tuple[torch.Tensor, ...]:
+    """One SparseAdam update_lr/update_mf (optimizer.cuh.h:159-236) over
+    [U] or [U, n] grads with per-row moments (shaped like ``g``, or
+    [U, 1] to broadcast) and per-row beta powers. Returns (new_w, new_m1,
+    new_m2, new_b1p, new_b2p). Both directions use ``learning_rate`` and
+    the mf bounds, as the reference does."""
+    b1, b2 = cfg.beta1_decay_rate, cfg.beta2_decay_rate
+    ratio = cfg.learning_rate * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    safe = torch.clamp_min(scale, 1e-20)
+    scaled = g / (safe[:, None] if g.dim() == 2 else safe)
+    new_m1 = b1 * m1 + (1.0 - b1) * scaled
+    new_m2 = b2 * m2 + (1.0 - b2) * scaled * scaled
+    step = new_m1 / (torch.sqrt(new_m2) + cfg.ada_epsilon)
+    r = ratio[:, None] if g.dim() == 2 else ratio
+    new_w = torch.clamp(w + r * step, cfg.mf_min_bound, cfg.mf_max_bound)
+    return new_w, new_m1, new_m2, b1p * b1, b2p * b2
+
+
+def adam_update(rows: RowState, g_show: torch.Tensor, g_clk: torch.Tensor,
+                g_embed: torch.Tensor, g_embedx: torch.Tensor,
+                touched: torch.Tensor, cfg: SparseAdamConfig,
+                init: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> RowState:
+    """Batched SparseAdam[Shared]Optimizer::dy_mf_update_value
+    (optimizer.cuh.h:244-273 / :395-446); untouched (padding) rows pass
+    through. ``opt_ext`` holds [embed m1, embed b1p, embed b2p, embedx
+    b1p, embedx b2p, embedx m1, embedx m2] (the embed m2 lives in
+    ``embed_g2sum``); the embedx moments are [U, mf] each, or [U, 1] when
+    ``cfg.shared`` (the mean of the new per-dim moments is kept). A beta
+    power of 0 with show == 0 marks a never-initialized row, whose
+    powers act as the creation value (beta itself). ``init`` /
+    ``generator`` feed lazy mf creation, as in ``adagrad_update``."""
+    b1, b2 = cfg.beta1_decay_rate, cfg.beta2_decay_rate
+    mf = rows.embedx_w.shape[1]
+    ext = rows.opt_ext
+    e_gsum, e_b1p, e_b2p = ext[:, 0], ext[:, 1], ext[:, 2]
+    x_b1p, x_b2p = ext[:, 3], ext[:, 4]
+    if cfg.shared:
+        x_m1, x_m2 = ext[:, 5:6], ext[:, 6:7]
+    else:
+        x_m1, x_m2 = ext[:, 5:5 + mf], ext[:, 5 + mf:5 + 2 * mf]
+
+    show = rows.show + g_show
+    clk = rows.clk + g_clk
+    delta = rows.delta_score + cfg.nonclk_coeff * (g_show - g_clk) \
+        + cfg.clk_coeff * g_clk
+
+    # embed (lr) direction
+    fresh = (rows.show == 0) & (e_b1p == 0)
+    eb1p = torch.where(fresh, torch.full_like(e_b1p, b1), e_b1p)
+    eb2p = torch.where(fresh, torch.full_like(e_b2p, b2), e_b2p)
+    embed_w, e_gsum_n, e_g2sum_n, eb1p_n, eb2p_n = _adam_dir(
+        rows.embed_w, e_gsum, rows.embed_g2sum, eb1p, eb2p, g_embed,
+        g_show, cfg)
+
+    # embedx (mf) direction: update existing, lazily create the rest
+    upd_w, m1_n, m2_n, xb1p_n, xb2p_n = _adam_dir(
+        rows.embedx_w, x_m1, x_m2, x_b1p, x_b2p, g_embedx, g_show, cfg)
+    if cfg.shared:
+        m1_n = torch.mean(m1_n, dim=1, keepdim=True)
+        m2_n = torch.mean(m2_n, dim=1, keepdim=True)
+    has_mf = rows.mf_size > 0
+    score = cfg.nonclk_coeff * (show - clk) + cfg.clk_coeff * clk
+    create = (~has_mf) & (score >= cfg.mf_create_thresholds)
+    init = _lazy_init(rows, cfg, init, generator)
+    embedx_w = torch.where(create[:, None], init,
+                           torch.where(has_mf[:, None], upd_w,
+                                       rows.embedx_w))
+    # on creation the beta powers become the decay rates
+    # (optimizer.cuh.h:285-289); the moments start at 0
+    x_m1_out = torch.where(has_mf[:, None], m1_n, x_m1)
+    x_m2_out = torch.where(has_mf[:, None], m2_n, x_m2)
+    xb1p_out = torch.where(create, torch.full_like(x_b1p, b1),
+                           torch.where(has_mf, xb1p_n, x_b1p))
+    xb2p_out = torch.where(create, torch.full_like(x_b2p, b2),
+                           torch.where(has_mf, xb2p_n, x_b2p))
+    mf_size = torch.where(create, torch.ones_like(rows.mf_size),
+                          rows.mf_size)
+
+    ext_new = torch.cat(
+        [e_gsum_n[:, None], eb1p_n[:, None], eb2p_n[:, None],
+         xb1p_out[:, None], xb2p_out[:, None], x_m1_out, x_m2_out], dim=1)
+    upd = RowState(show, clk, delta, embed_w, e_g2sum_n, embedx_w,
+                   rows.embedx_g2sum, mf_size, ext_new)
+    return _mask_untouched(upd, rows, touched)
+
+
 def sparse_update(rows: RowState, g_show, g_clk, g_embed, g_embedx,
                   touched, cfg: SparseSGDConfig,
                   init: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> RowState:
-    """Dispatch to the configured in-table optimizer. Only Adagrad is
-    ported; the Adam variants raise."""
-    if isinstance(cfg, SparseAdamConfig):
-        raise NotImplementedError(
-            "the sparse Adam / shared-Adam row optimizers are not ported "
-            "yet (ROADMAP queue 1)")
-    return adagrad_update(rows, g_show, g_clk, g_embed, g_embedx, touched,
-                          cfg, init=init, generator=generator)
+    """Dispatch to the configured in-table optimizer (adagrad / adam /
+    shared adam, the OptimizerType selection of heter_ps)."""
+    update = adam_update if isinstance(cfg, SparseAdamConfig) \
+        else adagrad_update
+    return update(rows, g_show, g_clk, g_embed, g_embedx, touched, cfg,
+                  init=init, generator=generator)

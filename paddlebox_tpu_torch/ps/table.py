@@ -31,7 +31,8 @@ from paddlebox_tpu_torch.device import resolve_device, seeded_generator
 from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.ops.index import DeviceKeyIndex, book_index_dispatch
 from paddlebox_tpu_torch.ops.kernels import KERNELS, KernelSet
-from paddlebox_tpu_torch.ps.kv import PyKV, dedup_first_seen
+from paddlebox_tpu_torch.ps.kv import (dedup_first_seen_native,
+                                       dedup_first_seen_py, make_kv)
 from paddlebox_tpu_torch.ps.sgd import (RowState, SparseSGDConfig,
                                         opt_ext_width, sparse_update)
 
@@ -64,6 +65,21 @@ def next_bucket_fine(minimum: int, need: int) -> int:
         return minimum
     step = max(512, 1 << max(need.bit_length() - 5, 0))
     return -(-need // step) * step
+
+
+def dedup_first_seen(keys: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dedup ``keys`` in FIRST-SEEN order → (uniq, first_idx, inv): the
+    bulk pass-assign front half (``EmbeddingTable.bulk_assign_unique``).
+    First-seen order makes the single bulk ``index.assign`` allocate new
+    rows in exactly the order a batch-by-batch walk of ``assign_unique``
+    would. Runs the native one-pass dedup; the three-pass
+    ``dedup_first_seen_py`` (the same outputs, bit for bit) where the
+    native library cannot build."""
+    out = dedup_first_seen_native(keys)
+    if out is not None:
+        return out
+    return dedup_first_seen_py(keys)
 
 
 def fill_oob_pads(unique_rows: np.ndarray, u: int, capacity: int) -> None:
@@ -278,7 +294,7 @@ class EmbeddingTable:
         self.capacity = capacity
         self.cfg = cfg or SparseSGDConfig()
         self.opt_ext = opt_ext_width(self.cfg, mf_dim)
-        self.index = PyKV(capacity)
+        self.index = make_kv(capacity)
         self.state = init_table_state(capacity, mf_dim, self.opt_ext,
                                       self.device)
         self.seed = seed
@@ -367,8 +383,9 @@ class EmbeddingTable:
         return dev
 
     def _reset_dev_index(self) -> None:
-        """Drop the device index after a host kv lifecycle change (load);
-        the next flag-on bulk assignment seeds a new one from the kv."""
+        """Drop the device index after a host kv lifecycle change (load,
+        merge_model, shrink); the next flag-on bulk assignment seeds a new
+        one from the kv, or degrades where the kv's rows are not dense."""
         self._dev_index = None
 
     def _bulk_assign_device(self, keys: np.ndarray, slot_of_key: np.ndarray,
@@ -478,7 +495,8 @@ class EmbeddingTable:
         """[n] keys → [n, 3+mf] pull values on the HOST; unknown keys →
         zeros. ``data`` lets callers pass a cached logical mirror."""
         keys = np.ascontiguousarray(keys, np.uint64)
-        rows, inv = self.index.lookup_unique(keys, self.capacity)
+        with self.host_lock:
+            rows, inv = self.index.lookup_unique(keys, self.capacity)
         if data is None:
             data = self.state.data.cpu().numpy()
         vals = data[np.minimum(rows, self.capacity)]
@@ -542,21 +560,23 @@ class EmbeddingTable:
 
     # ---- loading save files ----
     def _insert_file_rows(self, data: np.ndarray, rows: np.ndarray,
-                          blob) -> None:
+                          blob, sel=slice(None)) -> None:
         """Write a save file's field blocks (all but slot, which is host
-        metadata) into ``data`` at ``rows``."""
+        metadata) into ``data`` at ``rows``; ``sel`` picks the file's
+        rows to write (merge_model)."""
         mf_end = NUM_FIXED + self.mf_dim
         for f in FIELDS:
             if f == "slot":
                 continue
             if f == "embedx_w":
-                data[rows, NUM_FIXED:mf_end] = blob[f]
+                data[rows, NUM_FIXED:mf_end] = blob[f][sel]
             else:
-                data[rows, FIELD_COL[f]] = blob[f]
+                data[rows, FIELD_COL[f]] = blob[f][sel]
         if self.opt_ext:
             if "opt_ext" in blob \
                     and blob["opt_ext"].shape[1] == self.opt_ext:
-                data[rows, mf_end:mf_end + self.opt_ext] = blob["opt_ext"]
+                data[rows, mf_end:mf_end + self.opt_ext] = \
+                    blob["opt_ext"][sel]
             else:
                 log.warning("load: file has no matching opt_ext block; "
                             "optimizer state starts fresh for loaded rows")
@@ -568,18 +588,13 @@ class EmbeddingTable:
         keeps existing rows (delta apply), else the table starts empty.
         Sharded-format saves load too. Returns the rows in the file. The
         table gets a NEW state either way."""
-        if isinstance(path, Mapping):
-            blob = path
-        else:
-            with np.load(path) as f:
-                blob = dict(f)
-        blob = _flatten_sharded_blob(blob)
+        blob = _read_blob(path)
         keys = np.asarray(blob["keys"], np.uint64)
         with self.host_lock:
             if merge:
                 data = self.state.data.cpu().numpy().copy()
             else:
-                self.index = PyKV(self.capacity)
+                self.index = make_kv(self.capacity)
                 self._touched[:] = False
                 self.slot_host[:] = 0
                 data = np.zeros((self.capacity + 1, self.state.feat),
@@ -591,3 +606,112 @@ class EmbeddingTable:
                                                  self.device)
         self._reset_dev_index()
         return len(keys)
+
+    # ---- table lifecycle (box_wrapper.h:638, :801-815) ----
+    def _rows_tensor(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows.astype(np.int64)).to(self.device)
+
+    def merge_model(self, path: Union[str, Mapping[str, np.ndarray]]
+                    ) -> int:
+        """MergeModel (box_wrapper.h:801-803): fold another saved model's
+        rows into the live table. Unlike ``load(merge=True)``, which
+        overwrites rows from a delta file, this merges statistics: for
+        keys present in both, show/clk/delta_score accumulate and the
+        weights and optimizer state keep the live values; unseen keys
+        come in with every field of the file. The state is updated in
+        place. Returns the number of rows in the file."""
+        blob = _read_blob(path)
+        keys = np.asarray(blob["keys"], np.uint64)
+        if len(keys) == 0:
+            return 0
+        slots_b = np.asarray(blob["slot"]).astype(np.int16)
+        with self.host_lock:
+            existing = self.index.lookup(keys) >= 0
+            new = ~existing
+            rows_new = self.index.assign(keys[new])
+            self.slot_host[rows_new] = slots_b[new]
+            rows_all = self.index.lookup(keys)
+            # new rows: every field from the file (a freed or never used
+            # row is zero, so the block's zero slot column is what it had)
+            block = np.zeros((len(rows_new), self.state.feat), np.float32)
+            self._insert_file_rows(block, np.arange(len(rows_new)), blob,
+                                   sel=new)
+            data = self.state.data
+            data[self._rows_tensor(rows_new)] = torch.from_numpy(block).to(
+                self.device)
+            # rows in both: the statistics accumulate
+            stats = np.stack([np.asarray(blob[f])[existing] for f in
+                              ("show", "clk", "delta_score")], axis=1)
+            rows_old = self._rows_tensor(rows_all[existing])
+            data[rows_old, 0:3] += torch.from_numpy(
+                stats.astype(np.float32)).to(self.device)
+            self._touched[rows_all] = True
+            self._reset_dev_index()
+        log.info("merge_model: %d rows (%d new, %d stat-merged)",
+                 len(keys), len(rows_new), int(existing.sum()))
+        return len(keys)
+
+    def merge_models(self, paths, update_type: str = "stats") -> int:
+        """MergeMultiModels (box_wrapper.h:812-815): fold several saved
+        models into the live table in order. ``update_type`` "stats"
+        merges each file as ``merge_model`` does; "overwrite" applies
+        each as a delta (``load(merge=True)``: later files win). Returns
+        the rows of all files."""
+        if update_type not in ("stats", "overwrite"):
+            raise ValueError(f"unknown update_type {update_type!r}")
+        total = 0
+        for p in paths:
+            total += (self.merge_model(p) if update_type == "stats"
+                      else self.load(p, merge=True))
+        return total
+
+    def shrink(self, delete_threshold: Optional[float] = None,
+               decay: Optional[float] = None) -> int:
+        """Age the features (ShrinkTable, box_wrapper.h:638): decay
+        show/clk/delta_score of every row, then release the rows whose
+        decayed score falls below the threshold and zero them. Defaults
+        from ``FLAGS.shrink_delete_threshold`` and
+        ``FLAGS.show_click_decay_rate``. The state is updated in place;
+        the freed rows go to the kv's free list, so the kv's rows stop
+        being dense and the next flag-on bulk assignment degrades. Returns
+        the rows freed."""
+        thr = (FLAGS.shrink_delete_threshold if delete_threshold is None
+               else delete_threshold)
+        dk = FLAGS.show_click_decay_rate if decay is None else decay
+        fence = getattr(self, "fence", None)
+        if callable(fence):
+            # a table with an asynchronous end-of-pass write-back drains
+            # it first: aging pre-write-back counters would drop rows the
+            # write-back is about to refresh
+            fence()
+        with self.host_lock:
+            keys, rows = self.index.items()
+            if len(keys) == 0:
+                return 0
+            data = self.state.data
+            data[:, 0:3] *= dk
+            sc = data[self._rows_tensor(rows), 0:2].cpu().numpy()
+            show, clk = sc[:, 0], sc[:, 1]
+            score = (self.cfg.nonclk_coeff * (show - clk)
+                     + self.cfg.clk_coeff * clk)
+            freed = self.index.release(keys[score < thr])
+            data[self._rows_tensor(freed)] = 0.0
+            self._touched[freed] = False
+            self.slot_host[freed] = 0
+            self._reset_dev_index()
+        log.info("shrink: freed %d/%d rows", len(freed), len(keys))
+        return int(len(freed))
+
+    @property
+    def feature_count(self) -> int:
+        return len(self.index)
+
+
+def _read_blob(path: Union[str, Mapping[str, np.ndarray]]
+               ) -> Mapping[str, np.ndarray]:
+    """A save file's arrays (or the same mapping in memory), the sharded
+    format flattened."""
+    if isinstance(path, Mapping):
+        return _flatten_sharded_blob(path)
+    with np.load(path) as f:
+        return _flatten_sharded_blob(dict(f))

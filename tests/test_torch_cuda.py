@@ -49,7 +49,8 @@ def _ragged(rng, b=64, s=7, d=11, drop=0.05):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [16, 13])   # vector and scalar paths
+# vector and scalar paths; 37 and 23: the Adam and shared-Adam rows (mf 8)
+@pytest.mark.parametrize("feat", [16, 13, 37, 23])
 def test_gather_rows_exact(cuda, feat):
     rng = np.random.default_rng(feat)
     table = torch.from_numpy(
@@ -289,7 +290,8 @@ def test_segment_gather_empty_and_all_dropped(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feat", [16, 13])   # vector and scalar paths
+# vector and scalar paths; 37 and 23: the Adam and shared-Adam rows (mf 8)
+@pytest.mark.parametrize("feat", [16, 13, 37, 23])
 def test_scatter_add_update_exact(cuda, feat):
     rng = np.random.default_rng(feat)
     c, u = 6000, 4000
@@ -369,6 +371,65 @@ def test_training_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(out["cuda"][2][name], want, rtol=2e-4,
                                    atol=2e-5, err_msg=name)
     assert abs(out["cuda"][3] - out["cpu"][3]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+def test_lifecycle_on_card_matches_cpu(cuda, shared, tmp_path):
+    """A sparse Adam table on the card and on the CPU: the same training
+    pass, shrink, merge_model of the pre-shrink save and another pass.
+    Row ids, freed rows and feature counts match exactly (show/clk are
+    exact counts on both); the rows hold the ragged train-state class."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from paddlebox_tpu_torch.ps.sgd import SparseAdamConfig
+    rng = np.random.default_rng(5)
+    S, mf, bs = 4, 8, 64
+    slots = [SlotDef("label", "float", 1), SlotDef("d", "float", 3)] + [
+        SlotDef(f"S{i}", "uint64") for i in range(S)]
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=512)
+    recs = []
+    for i in range(3 * bs):
+        counts = np.minimum(rng.zipf(1.5, size=S), 8)
+        offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        recs.append(SlotRecord(
+            keys=rng.integers(0, 2000, size=offs[-1]).astype(np.uint64),
+            slot_offsets=offs, dense=rng.normal(size=3).astype(np.float32),
+            label=float(i % 2), show=1.0, clk=float(i % 2)))
+    cfg = SparseAdamConfig(shared=shared, mf_create_thresholds=0.0,
+                           mf_initial_range=0.0)
+    torch.manual_seed(0)
+    model = DeepFM(S, 3 + mf, 3, hidden=(16, 8), compute_dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        table = EmbeddingTable(mf_dim=mf, capacity=1 << 12, cfg=cfg,
+                               unique_bucket_min=512, device=dev)
+        assert table.state.feat == (23 if shared else 37)
+        m = DeepFM(S, 3 + mf, 3, hidden=(16, 8), compute_dtype=torch.float32)
+        m.load_state_dict(model.state_dict())
+        tr = Trainer(m, table, desc, seed=3, check_nan_inf=True, device=dev)
+        ds = InMemoryDataset(desc)
+        ds.records = recs
+        tr.train_pass(ds)
+        path = str(tmp_path / f"{dev}.npz")
+        n_saved = table.save_base(path)
+        keys0, rows0 = table.index.items()
+        freed = table.shrink(1.5)
+        gone = np.sort(rows0[table.index.lookup(keys0) < 0])
+        assert 0 < freed == len(gone) < n_saved
+        assert not table.state.data[torch.from_numpy(gone).long().to(
+            dev)].any()
+        assert table.merge_model(path) == n_saved
+        tr.train_pass(ds)
+        keys, rows = table.index.items()
+        order = np.argsort(keys)
+        out[dev] = (keys[order], rows[order], gone, table.feature_count,
+                    table.state.data.cpu().numpy()[rows[order]])
+        assert not table.state.data[-1].any()          # sentinel stays 0
+    for i in range(4):
+        np.testing.assert_array_equal(out["cuda"][i], out["cpu"][i])
+    np.testing.assert_allclose(out["cuda"][4], out["cpu"][4], rtol=2e-4,
+                               atol=2e-5)
 
 
 def _key_pool(rng, n):
@@ -619,10 +680,10 @@ def test_key_index_rejects_other_layouts(cuda):
 @pytest.mark.cuda
 def test_dedup_keys_first_seen_on_card_matches_host(cuda):
     from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
-    from paddlebox_tpu_torch.ps.kv import dedup_first_seen
+    from paddlebox_tpu_torch.ps.kv import dedup_first_seen_py
     keys = _index_keys(np.random.default_rng(13), 100_000, 40_000)
     uniq, first, inv, u = dedup_keys_first_seen(keys.to(cuda))
-    hu, hf, hi = dedup_first_seen(keys.numpy().view(np.uint64))
+    hu, hf, hi = dedup_first_seen_py(keys.numpy().view(np.uint64))
     assert u == len(hu)
     np.testing.assert_array_equal(uniq[:u].cpu().numpy().view(np.uint64), hu)
     np.testing.assert_array_equal(first[:u].cpu().numpy(), hf)

@@ -28,7 +28,8 @@ from paddlebox_tpu.ps.table import dedup_first_seen as j_host_dedup
 from paddlebox_tpu_torch.ops import index as tix
 from paddlebox_tpu_torch.ops import kernels as tk
 from paddlebox_tpu_torch.ops.device_unique import dedup_keys_first_seen
-from paddlebox_tpu_torch.ps.kv import PyKV, dedup_first_seen
+from paddlebox_tpu_torch.ps.kv import PyKV
+from paddlebox_tpu_torch.ps.kv import dedup_first_seen_py as dedup_first_seen
 
 
 def _t(keys: np.ndarray) -> torch.Tensor:

@@ -24,6 +24,18 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py"]
 
 
+def test_native_library_stands_alone():
+    """The native host library is the port's own: its loader is among the
+    checked files, and its C++ source includes only standard headers (no
+    file of the JAX package's ``native/``)."""
+    native = ROOT / "paddlebox_tpu_torch" / "native"
+    assert native / "__init__.py" in _port_files()
+    for src in native.glob("*.cpp"):
+        includes = [line for line in src.read_text().splitlines()
+                    if line.startswith("#include")]
+        assert includes and all("<" in line for line in includes), src
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, paddlebox_tpu_torch, paddlebox_tpu_torch.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

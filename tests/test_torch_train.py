@@ -255,16 +255,6 @@ def test_adagrad_update_matches_reference():
                                    atol=0, err_msg=f)
 
 
-def test_sparse_adam_not_ported():
-    rows = tsgd.RowState(*([torch.zeros(2)] * 5 + [torch.zeros((2, 1))]
-                           + [torch.zeros(2)] * 2 + [torch.zeros((2, 7))]))
-    z = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="Adam"):
-        tsgd.sparse_update(rows, z, z, z, torch.zeros((2, 1)),
-                           torch.ones(2, dtype=torch.bool),
-                           tsgd.SparseAdamConfig(), init=torch.zeros((2, 1)))
-
-
 @pytest.mark.parametrize("flags", sorted(JAX_FLAGS))
 def test_apply_push_matches_reference(flags):
     rng = np.random.default_rng(6)
