@@ -165,7 +165,26 @@ Phases, each of which fails the run:
    atol 2e-5, freed rows, ``feature_count`` and ``rows_digest`` equal.
    Then row 13's scalar (vec = 1) branch at that width and the Adam
    pull (row 1) at batch 0's shapes, each exact against its plain
-   version and timed.
+   version and timed;
+10. checkpoint, preemption resume and publishing, then adoption and hot
+   reload, at phase 5's width, with ``torch.use_deterministic_algorithms``
+   on (``CUBLAS_WORKSPACE_CONFIG`` is set before torch starts): run A
+   trains the batches from phase 5's base file through
+   ``Trainer.run_pass`` with a ``CheckpointManager`` publishing into an
+   ``ArtifactStore`` (a base at step 0, cursor checkpoints every 3
+   batches, a boundary delta at the end); run B starts from a copy of
+   A's step-0 checkpoint and is preempted at batch 5 by
+   ``preempt.signal:fail:nth=5`` (an emergency checkpoint at batch 5),
+   and new objects restore it and resume. The resumed ``state_digest``
+   must equal A's bit for bit. A ``ServingModel`` adopts the base,
+   predicts, ``hot_reload``s (which must apply only the delta) and
+   predicts again; a second one adopts the tip, and its predictions must
+   equal the hot-reloaded ones bit for bit and trainer A's own forward
+   within ``PRED_ATOL``; a ``ReloadLoop`` poll of the current store
+   adopts nothing. The four step kernels must launch; their counts join
+   the ``kernels`` line. Times: ``save_base`` against ``np.savez`` of
+   the same blob, each sparse save, ``verify``, ``restore``, the resume,
+   ``adopt`` and ``hot_reload``.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -2442,13 +2461,296 @@ def lifecycle_phase(torch, args, card, batches, flush, details):
     return total
 
 
+CKPT_EVERY = 3                   # phase 10: cursor checkpoint cadence
+CKPT_PREEMPT = 5                 # phase 10: run B stops at this batch
+CKPT_METRICS = (                 # phase 10: the registry the passes feed
+    ("auc", "auc", {}),
+    ("cmatch_rank", "cmatch_rank_auc", {"cmatch_rank_group": "222:1,223:2"}))
+CKPT_SERVE_BATCHES = 2           # phase 10: batches each model predicts
+
+
+def _timed(log_to: list, fn):
+    """``fn`` wrapped to append each call's wall seconds to ``log_to``."""
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            log_to.append(time.perf_counter() - t0)
+    return run
+
+
+def checkpoint_phase(torch, args, card, desc, records, batches, details,
+                     dev: str = "cuda") -> dict:
+    """Phase 10: checkpoint, preemption resume and publishing on the
+    training side, adoption and hot reload on the serving side, at
+    phase 5's width, under ``torch.use_deterministic_algorithms``. The
+    passes feed a metric registry (side channels drawn from the seed),
+    which rides the cursor checkpoints. Returns the four step kernels'
+    launches in the phase's main path."""
+    import dataclasses
+    import shutil
+
+    from paddlebox_tpu_torch import (ArtifactStore, CheckpointManager,
+                                     DeepFM, EmbeddingTable,
+                                     InMemoryDataset, ReloadLoop,
+                                     ServingModel, Trainer, convert)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.resilience import preemption
+    from paddlebox_tpu_torch.resilience.faults import FaultPlan, installed
+    from paddlebox_tpu_torch.resilience.preemption import PreemptedError
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+    from paddlebox_tpu_torch.train.step import ctr_forward, make_device_batch
+
+    if len(batches) <= CKPT_PREEMPT:
+        raise AssertionError(f"phase 10 needs more than {CKPT_PREEMPT} "
+                             "batches")
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    side = np.random.default_rng(args.seed + 3)
+    n_rec = len(records)
+    uid = side.integers(0, 1 << 20, n_rec)
+    rank = side.integers(1, 4, n_rec)
+    cmatch = side.choice([222, 223], n_rec)
+    records = [dataclasses.replace(r, uid=int(u), rank=int(k), cmatch=int(c))
+               for r, u, k, c in zip(records, uid, rank, cmatch)]
+    fns = (K.gather_rows, K.pool_cvm, K.segment_gather, K.scatter_add_update)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            base_path = os.path.join(tmp, "train_base.npz")
+            np.savez(base_path, **base)
+            n_base = len(base["keys"])
+            del base
+            saves: list = []
+
+            def trainer(load=True):
+                t = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY,
+                                   seed=args.seed, device=dev)
+                if load:          # a trainer about to restore needs none
+                    t.load(base_path)
+                t.save_base = _timed(saves, t.save_base)
+                t.save_delta = _timed(saves, t.save_delta)
+                torch.manual_seed(args.seed + 2)
+                model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                               hidden=HIDDEN)
+                tr = Trainer(model, t, desc, seed=args.seed, device=dev)
+                for name, method, kw in CKPT_METRICS:
+                    tr.metrics.init_metric(name, method, **kw)
+                return tr
+
+            def dataset():
+                ds = InMemoryDataset(desc)
+                ds.records = records
+                return ds
+
+            store = ArtifactStore(os.path.join(tmp, "store"))
+            root_a = os.path.join(tmp, "ckpt_a")
+            root_b = os.path.join(tmp, "ckpt_b")
+            t = {}
+            for fn in fns:
+                fn.launches = 0
+            # ---- run A: uninterrupted, publishing its boundaries ----
+            tr_a = trainer()
+            cm_a = CheckpointManager(root_a, artifacts=store)
+            t0 = time.perf_counter()
+            cm_a.save(tr_a)                          # step-0 base
+            t["base_save_s"] = time.perf_counter() - t0
+            t["save_base_s"] = saves[-1]
+            # the same rows through uncompressed np.savez, for comparison
+            keys, rows = tr_a.table.index.items()
+            blob = tr_a.table._gather_host(rows)
+            path = os.path.join(tmp, "plain.npz")
+            t0 = time.perf_counter()
+            np.savez(path, keys=keys, **blob)
+            t["savez_uncompressed_s"] = time.perf_counter() - t0
+            t["savez_uncompressed_mb"] = os.path.getsize(path) / 2**20
+            t["save_base_mb"] = os.path.getsize(os.path.join(
+                cm_a._dir(0), "sparse.npz")) / 2**20
+            rows_saved = len(keys)
+            os.unlink(path)
+            del blob, keys, rows
+            with flags_scope(ckpt_every_batches=CKPT_EVERY):
+                n_saves = len(saves)
+                t0 = time.perf_counter()
+                res_a = tr_a.run_pass(dataset(), checkpoint=cm_a)
+                sync()
+                t["run_a_s"] = time.perf_counter() - t0
+                t["run_a_saves_s"] = saves[n_saves:]
+            v_base, v_tip = store.versions()
+            # ---- run B: preempted at batch 5, resumed by new objects ----
+            # B is run A restarted from its step-3 cursor checkpoint (a
+            # copy of A's step-0 base and step-3 delta: the states B
+            # would have written), so it restores a chain, resumes, and
+            # is preempted at batch 5, its second batch boundary
+            os.makedirs(root_b)
+            for step in (0, CKPT_EVERY):
+                shutil.copytree(cm_a._dir(step), os.path.join(
+                    root_b, os.path.basename(cm_a._dir(step))))
+            with flags_scope(ckpt_every_batches=CKPT_EVERY):
+                tr_b = trainer(load=False)
+                cm_b = CheckpointManager(root_b)
+                t0 = time.perf_counter()
+                if cm_b.restore(tr_b) != CKPT_EVERY:
+                    raise AssertionError("run B did not restore step "
+                                         f"{CKPT_EVERY}")
+                sync()
+                t["restore_b_s"] = time.perf_counter() - t0
+                plan = FaultPlan.parse("preempt.signal:fail:nth="
+                                       f"{CKPT_PREEMPT - CKPT_EVERY}")
+                n_saves = len(saves)
+                try:
+                    with installed(plan):
+                        tr_b.run_pass(dataset(), checkpoint=cm_b)
+                    raise AssertionError("run B was not preempted")
+                except PreemptedError as e:
+                    if not e.checkpointed or e.batch_index != CKPT_PREEMPT:
+                        raise AssertionError(
+                            f"preemption: checkpointed {e.checkpointed}, "
+                            f"batch {e.batch_index}") from e
+                t["preempt_saves_s"] = saves[n_saves:]
+                preemption.clear_stop()
+                del tr_b, cm_b
+            # the resumed pass's cursor save would fall on its last batch,
+            # where the closing boundary save writes the same step again:
+            # the resume runs without the cadence and saves once
+            with flags_scope(ckpt_every_batches=0):
+                tr_r = trainer(load=False)
+                cm_r = CheckpointManager(root_b)
+                t0 = time.perf_counter()
+                cm_r.verify(CKPT_PREEMPT)
+                t["verify_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                restored = cm_r.restore(tr_r)
+                sync()
+                t["restore_s"] = time.perf_counter() - t0
+                if restored != CKPT_PREEMPT:
+                    raise AssertionError(f"restored step {restored}")
+                t0 = time.perf_counter()
+                res_r = tr_r.run_pass(dataset(), checkpoint=cm_r)
+                sync()
+                t["resume_s"] = time.perf_counter() - t0
+            if res_r["batches"] != len(batches) - CKPT_PREEMPT:
+                raise AssertionError(f"resume trained {res_r['batches']} "
+                                     "batches")
+            # ---- serving: adopt the base, hot-reload the delta ----
+            def serving():
+                return ServingModel(DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                           hidden=HIDDEN), desc,
+                                    mf_dim=MF_DIM, capacity=CAPACITY,
+                                    device=dev)
+
+            probe = batches[:CKPT_SERVE_BATCHES]
+            srv = serving()
+            t0 = time.perf_counter()
+            srv.adopt(store, version=v_base)
+            sync()
+            t["adopt_base_s"] = time.perf_counter() - t0
+            pred_base = [srv.predict(b) for b in probe]
+            t0 = time.perf_counter()
+            if srv.hot_reload(store) != v_tip:
+                raise AssertionError("hot_reload did not reach the tip")
+            sync()
+            t["hot_reload_s"] = time.perf_counter() - t0
+            if srv.last_load["applied"] != [v_tip] or \
+                    srv.last_load["start"] != 1:
+                raise AssertionError(f"hot_reload applied "
+                                     f"{srv.last_load}, not the delta")
+            pred_hot = [srv.predict(b) for b in probe]
+            fresh = serving()
+            t0 = time.perf_counter()
+            fresh.adopt(store)
+            sync()
+            t["adopt_tip_s"] = time.perf_counter() - t0
+            pred_fresh = [fresh.predict(b) for b in probe]
+            if ReloadLoop(srv, store).poll_once() is not None:
+                raise AssertionError("a poll of a current store adopted")
+            sync()
+            launches = {fn.__name__: fn.launches for fn in fns}
+            # ---- checks (outside the counted path) ----
+            for name, n in launches.items():
+                if n == 0:
+                    raise AssertionError(f"phase 10: {name} never launched")
+            d_a, d_r = state_digest(tr_a), state_digest(tr_r)
+            if d_a != d_r:
+                raise AssertionError(f"resumed digest {d_r[:16]} != "
+                                     f"uninterrupted {d_a[:16]}")
+            msgs = {}
+            for name, _, _ in CKPT_METRICS:
+                m_a = tr_a.metrics.get_metric_msg(name)
+                m_r = tr_r.metrics.get_metric_msg(name)
+                if m_a != m_r or not m_a["ins_num"] > 0:
+                    raise AssertionError(f"metric {name}: resumed {m_r} != "
+                                         f"uninterrupted {m_a}")
+                msgs[name] = m_a
+            for h, f in zip(pred_hot, pred_fresh):
+                if not np.array_equal(h, f):
+                    raise AssertionError("hot-reloaded predictions differ "
+                                         "from a fresh adoption's")
+            err = 0.0
+            with torch.inference_mode():
+                for b, h in zip(probe, pred_hot):
+                    ix = tr_a.table.prepare_eval(b)
+                    want, _ = ctr_forward(
+                        tr_a.state.table, tr_a.model,
+                        make_device_batch(b, ix, tr_a.device), BATCH,
+                        NUM_SLOTS)
+                    err = max(err, float(np.abs(
+                        h - want.cpu().numpy()).max()))
+            if err > PRED_ATOL:
+                raise AssertionError(f"served predictions differ from "
+                                     f"trainer A's by {err:.3g}")
+            moved = max(float(np.abs(a - b).max())
+                        for a, b in zip(pred_base, pred_hot))
+            if moved == 0.0:
+                raise AssertionError("the hot reload changed no prediction")
+            del srv, fresh
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t["phase_s"] = time.perf_counter() - t_phase
+    log(f"checkpoint: phase 10 took {t['phase_s']:.1f}s; {n_base} base rows; run A {res_a['batches']} steps "
+        f"with cursor saves every {CKPT_EVERY}; run B preempted at batch "
+        f"{CKPT_PREEMPT}, restored and resumed {res_r['batches']} steps by "
+        f"new objects: state_digest equal ({d_a[:16]}), deterministic "
+        f"algorithms on; metric messages equal (auc, ins_num) "
+        f"{json.dumps({k: (v['auc'], v['ins_num']) for k, v in msgs.items()})}"
+        f"; launches {json.dumps(launches)}")
+    log(f"checkpoint times: save_base {t['save_base_s']:.2f}s "
+        f"({rows_saved} rows, {t['save_base_mb']:.0f} MiB compressed) vs "
+        f"np.savez of the same blob {t['savez_uncompressed_s']:.2f}s "
+        f"({t['savez_uncompressed_mb']:.0f} MiB); step-0 checkpoint + "
+        f"publish {t['base_save_s']:.2f}s; run A {t['run_a_s']:.2f}s "
+        f"(sparse saves {[round(x, 2) for x in t['run_a_saves_s']]} s); "
+        f"run B: restore at step {CKPT_EVERY} {t['restore_b_s']:.2f}s, "
+        f"emergency save {[round(x, 2) for x in t['preempt_saves_s']]} s; "
+        f"verify "
+        f"{t['verify_s']:.2f}s, restore {t['restore_s']:.2f}s, resume "
+        f"{t['resume_s']:.2f}s ({card})")
+    log(f"serve reload: adopt base {t['adopt_base_s']:.2f}s, hot_reload "
+        f"(the delta only) {t['hot_reload_s']:.2f}s, adopt tip fresh "
+        f"{t['adopt_tip_s']:.2f}s; hot-reloaded == fresh adoption bit for "
+        f"bit, max |served - trainer A| {err:.3g} ({card})")
+    details["checkpoint"] = dict(t, digest=d_a, launches=launches,
+                                 metrics=msgs,
+                                 pred_max_abs_err=err, rows=rows_saved,
+                                 run_a=res_a, resumed=res_r)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
+    # phase 10 runs with deterministic algorithms: cuBLAS reads this when
+    # it creates its handle, before the first GEMM
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2790,7 +3092,15 @@ def main() -> int:
                                     details)
     log(f"lifecycle launches (both Adam configs' kernel runs): "
         f"{json.dumps(life_launches)}")
+
+    # ---- phase 10: checkpoint, resume, publish; adopt, hot reload ----
+    ckpt_launches = checkpoint_phase(torch, args, card, desc, records,
+                                     batches, details)
+    for r in kernels:
+        r["launches"] += ckpt_launches.get(r["name"], 0)
     details["kernels"] = kernels
+    details["wall_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out + ".json", "w") as fh:

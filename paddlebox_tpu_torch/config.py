@@ -1,5 +1,6 @@
-"""Process-wide flags of the port: those that the resident training pass
-and the table's shrink read, with the names and defaults of
+"""Process-wide flags of the port: those that the resident training pass,
+the table's shrink, the resilience layer, checkpointing and serving's
+reload loop read, with the names and defaults of
 ``paddlebox_tpu/config.py``. Tests change them with ``flags_scope``.
 """
 
@@ -26,6 +27,35 @@ class Flags:
     # below this, after decaying show/clk/delta_score by this rate
     shrink_delete_threshold: float = 0.0
     show_click_decay_rate: float = 0.98
+
+    # --- resilience (resilience/) ---
+    # RetryPolicy.from_flags defaults, applied at the IO seams
+    retry_max_attempts: int = 4
+    retry_base_delay_sec: float = 0.05
+    retry_max_delay_sec: float = 2.0
+    # wall-clock cap for one retried operation (<=0 = no deadline)
+    retry_deadline_sec: float = 30.0
+    # backoff jitter fraction in [0,1], seeded from the site name
+    retry_jitter: float = 0.25
+    # bounded retry-from-last-checkpoint attempts in Trainer.run_pass
+    # (0 = a failed pass raises at once)
+    pass_retry_limit: int = 0
+    # fault-injection plan (resilience/faults.py grammar); "" = none
+    fault_plan: str = ""
+    # install SIGTERM/SIGINT -> graceful-stop handlers at Trainer init
+    graceful_shutdown: bool = False
+    # >0: an in-pass checkpoint (delta + cursor.json) every N batches,
+    # so a preempted pass replays seconds, not the pass; needs
+    # run_pass(checkpoint=...) and a dataset whose order is fixed
+    ckpt_every_batches: int = 0
+
+    # --- serving (serving.py) ---
+    # ReloadLoop poll cadence while healthy (failed polls back off on the
+    # seeded RetryPolicy schedule, site serving.reload)
+    serving_reload_poll_sec: float = 2.0
+    # a newer adoptable version unadopted for longer than this marks the
+    # serving status stale
+    serving_staleness_max_sec: float = 60.0
 
     def update(self, **kwargs: Any) -> None:
         for k, v in kwargs.items():

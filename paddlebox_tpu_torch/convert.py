@@ -9,11 +9,18 @@
 - ``table_rows_from_logical``: keys and their logical table rows → the
   field mapping a save file holds, for a table handed over in memory
   rather than through ``.npz`` (``EmbeddingTable.load`` takes either).
+- ``adam_state_from_optax``: an optax Adam state (count, mu, nu) → the
+  ``state_dict`` of the port's ``torch.optim.Adam`` over the same params.
+- ``dense_from_jax_checkpoint``: the unpickled ``dense.pkl`` of a
+  reference checkpoint, ``(params, opt_state, auc)`` → the contents of
+  the port's ``dense.pt`` (``Trainer.dense_snapshot``), so a reference
+  checkpoint restores into the port. Unpickling the reference file needs
+  optax, so only a caller that has it (the tests) can produce the input.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -79,3 +86,65 @@ def table_rows_from_logical(keys: np.ndarray, logical_np: np.ndarray,
     if rows.shape[1] > mf_end:
         blob["opt_ext"] = rows[:, mf_end:].copy()
     return blob
+
+
+def _adam_leaf(opt_state: Any):
+    """The (count, mu, nu) node of an optax state: ``optax.adam`` is a
+    chain whose first element is ``ScaleByAdamState``."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_leaf(part)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state: Any, optimizer: torch.optim.Optimizer,
+                          param_names: Sequence[str],
+                          convert_tree: Callable[[Mapping], Dict[str,
+                                                                 torch.Tensor]]
+                          = deepfm_state_dict_from_flax
+                          ) -> Dict[str, Any]:
+    """An optax Adam state (as ``jax.device_get`` returns it) → the
+    ``state_dict`` of ``optimizer``, a ``torch.optim.Adam`` over the
+    params named ``param_names`` in its order (``[n for n, _ in
+    model.named_parameters()]``). ``convert_tree`` maps a flax param tree
+    to ``state_dict`` names, as for the params themselves: the moments
+    have the params' shapes. Both optimizers keep the same moments and
+    step count, so the next update is the same up to rounding."""
+    adam = _adam_leaf(opt_state)
+    if adam is None:
+        raise ValueError("no Adam (count, mu, nu) node in the optax state")
+    mu, nu = convert_tree(adam.mu), convert_tree(adam.nu)
+    step = float(np.asarray(adam.count))
+    sd = optimizer.state_dict()
+    sd["state"] = {
+        i: {"step": torch.tensor(step),
+            "exp_avg": mu[name].clone(), "exp_avg_sq": nu[name].clone()}
+        for i, name in enumerate(param_names)}
+    return sd
+
+
+def dense_from_jax_checkpoint(blob: Sequence, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer,
+                              convert_tree: Callable[[Mapping],
+                                                     Dict[str, torch.Tensor]]
+                              = deepfm_state_dict_from_flax
+                              ) -> Dict[str, Any]:
+    """A reference checkpoint's unpickled ``dense.pkl``, ``(params,
+    opt_state, auc)`` with ``auc`` the reference's ``AucState`` (pos,
+    neg, abs_err, sqr_err, pred_sum, label_sum, ins_num) → the port's
+    ``dense.pt`` contents for ``model`` and ``optimizer`` (the trainer's
+    own, which give the param order and the Adam hyperparameters)."""
+    params, opt_state, auc = blob
+    names = [n for n, _ in model.named_parameters()]
+    pos, neg, *sums = (np.asarray(x, np.float32) for x in auc)
+    return {
+        "model": convert_tree(params),
+        "opt": adam_state_from_optax(opt_state, optimizer, names,
+                                     convert_tree),
+        "auc": {"buckets": torch.from_numpy(np.stack([pos, neg])),
+                "sums": torch.from_numpy(np.array(
+                    [float(x) for x in sums], np.float32))}}

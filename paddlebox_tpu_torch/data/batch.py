@@ -1,5 +1,5 @@
 """Host batch layout + builder (copy of ``paddlebox_tpu/data/batch.py``
-without the metric side channels, which serving does not read).
+without the ads timestamp).
 
 One flattened key tensor for ALL slots with segment ids ``ins*S + slot``,
 padded to a static bucket capacity; padding keys carry segment ``B*S``.
@@ -8,7 +8,7 @@ padded to a static bucket capacity; padding keys carry segment ``B*S``.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -33,6 +33,12 @@ class SlotBatch:
     # True when segments[i] == i for every valid key (one key per slot per
     # record): the device side derives segments from the key position
     segments_trivial: bool = False
+    # metric side channels (WuAUC / cmatch_rank variants)
+    uid: Optional[np.ndarray] = None     # int64 [B]
+    rank: Optional[np.ndarray] = None    # int32 [B]
+    cmatch: Optional[np.ndarray] = None  # int32 [B]
+    # sample ids for the dump (None when no record carries one)
+    ins_ids: Optional[list] = None       # list[str], len == #real records
 
     @property
     def key_capacity(self) -> int:
@@ -80,15 +86,28 @@ class BatchBuilder:
         segs_p[:nk] = segs
 
         dense = np.zeros((bs, self.dense_dim), dtype=np.float32)
-        label = np.zeros(bs, dtype=np.float32)
-        show = np.zeros(bs, dtype=np.float32)
-        clk = np.zeros(bs, dtype=np.float32)
-        for i, r in enumerate(records):
-            if r.dense.size:
-                dense[i, :r.dense.size] = r.dense
-            label[i] = r.label
-            show[i] = r.show
-            clk[i] = r.clk
+        dense_rows = [r.dense for r in records]
+        if all(d.shape == (self.dense_dim,) for d in dense_rows):
+            dense[:n] = dense_rows
+        else:           # short or missing dense blocks: pad row by row
+            for i, d in enumerate(dense_rows):
+                if d.size:
+                    dense[i, :d.size] = d
+
+        def column(field: str, dtype) -> np.ndarray:
+            out = np.zeros(bs, dtype=dtype)
+            out[:n] = np.fromiter((getattr(r, field) for r in records),
+                                  dtype=dtype, count=n)
+            return out
+
+        label = column("label", np.float32)
+        show = column("show", np.float32)
+        clk = column("clk", np.float32)
+        uid = column("uid", np.int64)
+        rank = column("rank", np.int32)
+        cmatch = column("cmatch", np.int32)
+        ins_ids = ([r.ins_id for r in records]
+                   if any(r.ins_id for r in records) else None)
         # short batches: instances [n, bs) have show=0, so they contribute
         # nothing to pooled sums and are masked out of the predictions
         trivial = (nk == n * S
@@ -97,4 +116,5 @@ class BatchBuilder:
         return SlotBatch(
             keys=keys_p, segments=segs_p, num_keys=nk, dense=dense,
             label=label, show=show, clk=clk, batch_size=bs, num_slots=S,
-            segments_trivial=trivial)
+            segments_trivial=trivial, uid=uid, rank=rank, cmatch=cmatch,
+            ins_ids=ins_ids)

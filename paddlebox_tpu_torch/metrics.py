@@ -1,6 +1,6 @@
-"""Training metrics: bucketed AUC and error sums (counterpart of the AUC
-half of ``paddlebox_tpu/metrics.py``; ``MetricRegistry`` is not ported
-yet).
+"""Training metrics: bucketed AUC and error sums, and the named metric
+registry (counterpart of ``paddlebox_tpu/metrics.py``; the cross-worker
+``auc_compute_global`` waits for the multi-process port).
 
 ``BasicAucCalculator`` (metrics.h:46): pos/neg tables of ``nbins``
 buckets keyed by ``int(pred * nbins)``. The two tables are the two rows of
@@ -12,12 +12,15 @@ float64.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Union
+import logging
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 AUC_NUM_BUCKETS = 1_000_000
 
@@ -95,3 +98,124 @@ def auc_compute(state: AucState) -> AucResult:
                      predicted_ctr=pred_sum / ins_safe,
                      mae=abs_err / ins_safe,
                      rmse=float(np.sqrt(sqr_err / ins_safe)), ins_num=ins)
+
+
+def auc_merge(states: Sequence[AucState]) -> AucState:
+    """Cross-worker table reduce (metrics.cc:288-304): the host-side sum
+    of per-worker states, on the first state's device."""
+    dev = states[0].buckets.device
+    return AucState(
+        torch.stack([s.buckets.to(dev) for s in states]).sum(0),
+        torch.stack([s.sums.to(dev) for s in states]).sum(0))
+
+
+def as_tensor(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` (a tensor, numpy array or sequence) as a tensor, on
+    ``like``'s device when given: the registry takes device predictions
+    and host side channels in one call."""
+    t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    return t if like is None else t.to(like.device)
+
+
+class Metric:
+    """Named bucketed AUC with a phase filter (MetricMsg, metrics.h:198).
+    The tables live on the device of the first predictions fed (the
+    CPU until then)."""
+
+    def __init__(self, name: str, label: str = "label", pred: str = "pred",
+                 phase: int = -1, nbins: Optional[int] = None) -> None:
+        self.name = name
+        self.label_var = label
+        self.pred_var = pred
+        self.phase = phase  # -1: all phases (join/update)
+        self._nbins = nbins or AUC_NUM_BUCKETS
+        self.state: Optional[AucState] = None
+
+    def _state_on(self, like: torch.Tensor) -> AucState:
+        if self.state is None:
+            self.state = init_auc_state(self._nbins, like.device)
+        return self.state
+
+    def selection_weight(self, weight: torch.Tensor,
+                         **inputs) -> torch.Tensor:
+        """The instance weights this metric counts (the filtered variants
+        of ``metrics_ext`` zero the instances outside their filter)."""
+        return weight
+
+    def add(self, pred, label, weight=None, **inputs) -> None:
+        pred = as_tensor(pred)
+        w = (torch.ones_like(pred) if weight is None
+             else as_tensor(weight, pred))
+        auc_add_batch(self._state_on(pred), pred, as_tensor(label, pred),
+                      self.selection_weight(w, **inputs))
+
+    def compute(self) -> AucResult:
+        return auc_compute(self.state if self.state is not None
+                           else init_auc_state(self._nbins, "cpu"))
+
+    def reset(self) -> None:
+        if self.state is not None:
+            self.state = init_auc_state(self._nbins,
+                                        self.state.buckets.device)
+
+
+class MetricRegistry:
+    """init_metric/get_metric_msg surface (box_helper_py.cc:99-160).
+    ``method`` selects the variant (``metrics_ext.METRIC_METHODS``):
+    auc | cmatch_rank_auc | mask_auc | cmatch_rank_mask_auc |
+    multi_task_auc | continue_value | nan_inf | wuauc."""
+
+    def __init__(self) -> None:
+        self._metrics: Dict[str, object] = {}
+        self.phase = 1  # 1=join, 0=update (FlipPhase semantics)
+        self._warned_missing: set = set()
+
+    def init_metric(self, name: str, method: str = "auc", **kwargs):
+        from paddlebox_tpu_torch.metrics_ext import METRIC_METHODS
+        try:
+            cls = METRIC_METHODS[method]
+        except KeyError:
+            raise ValueError(
+                f"unknown metric method {method!r}; "
+                f"one of {sorted(METRIC_METHODS)}") from None
+        m = cls(name, **kwargs)
+        self._metrics[name] = m
+        return m
+
+    def get(self, name: str):
+        return self._metrics[name]
+
+    def get_metric_msg(self, name: str) -> Dict[str, float]:
+        out = self._metrics[name].compute()
+        return out.as_dict() if isinstance(out, AucResult) else out
+
+    def add_batch(self, pred, label, weight=None, **inputs) -> None:
+        """Feed every phase-active metric from one batch (the per-batch
+        AddAucMonitor hook, boxps_worker.cc:1267). ``inputs`` carries
+        the side channels (uid/rank/cmatch/mask); None values drop out,
+        and a metric whose REQUIRED side channels are absent is skipped
+        with a one-time warning instead of failing the pass."""
+        kw = {k: v for k, v in inputs.items() if v is not None}
+        for name, m in self.active().items():
+            missing = [r for r in getattr(m, "REQUIRED", ()) if r not in kw]
+            if missing:
+                if name not in self._warned_missing:
+                    self._warned_missing.add(name)
+                    log.warning("metric %r skipped: feed lacks required "
+                                "side channel(s) %s", name, missing)
+                continue
+            m.add(pred, label=label, weight=weight, **kw)
+
+    def flip_phase(self) -> None:
+        self.phase = 1 - self.phase
+
+    def __len__(self) -> int:
+        return len(self._metrics)
+
+    def active(self) -> Dict[str, object]:
+        return {k: m for k, m in self._metrics.items()
+                if m.phase in (-1, self.phase)}
+
+    def reset_all(self) -> None:
+        for m in self._metrics.values():
+            m.reset()

@@ -1,3 +1,7 @@
+from paddlebox_tpu_torch.train.checkpoint import (CheckpointCorruptError,
+                                                  CheckpointManager,
+                                                  adopt_artifact,
+                                                  state_digest)
 from paddlebox_tpu_torch.train.device_pass import (ResidentPass,
                                                    ResidentPassRunner)
 from paddlebox_tpu_torch.train.step import (DeviceBatch, StepState,
@@ -5,6 +9,7 @@ from paddlebox_tpu_torch.train.step import (DeviceBatch, StepState,
                                             make_device_batch)
 from paddlebox_tpu_torch.train.trainer import NanInfError, Trainer
 
-__all__ = ["DeviceBatch", "NanInfError", "ResidentPass",
-           "ResidentPassRunner", "StepState", "TrainStep", "Trainer",
-           "ctr_forward", "make_device_batch"]
+__all__ = ["CheckpointCorruptError", "CheckpointManager", "DeviceBatch",
+           "NanInfError", "ResidentPass", "ResidentPassRunner", "StepState", "TrainStep", "Trainer",
+           "adopt_artifact", "ctr_forward", "make_device_batch",
+           "state_digest"]

@@ -6,9 +6,12 @@ batch, dedup and row assignment (``EmbeddingTable.prepare``) and the
 host→device copy, so the main thread only runs the steps.
 ``train_pass_resident``: the whole pass is assigned rows in bulk, packed
 and staged on the device first (``train/device_pass.py``), then the
-steps run over the staged batches. Checkpointing, dumps, preemption,
-streaming, the preloaded multi-pass driver and the metric registry are
-not ported yet.
+steps run over the staged batches. ``run_pass`` wraps ``train_pass``
+with the checkpoint side (``train/checkpoint.py``): periodic and
+emergency cursor checkpoints, resume from a cursor, bounded retry from
+the last checkpoint, the NaN rollback to the last pass boundary and the
+graceful stop (``resilience/preemption.py``). Streaming and the preloaded
+multi-pass driver are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,23 +21,30 @@ import math
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterable, Iterator, List,
+                    Mapping, Optional, Tuple, Union)
 
+import numpy as np
 import torch
 from torch import nn
 
+from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.data.batch import SlotBatch
 from paddlebox_tpu_torch.data.dataset import InMemoryDataset
 from paddlebox_tpu_torch.data.schema import DataFeedDesc
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
-from paddlebox_tpu_torch.metrics import auc_compute, init_auc_state
+from paddlebox_tpu_torch.metrics import (AucState, MetricRegistry,
+                                         auc_compute, init_auc_state)
 from paddlebox_tpu_torch.ps.table import EmbeddingTable, PullIndex
+from paddlebox_tpu_torch.resilience import faults, preemption
+from paddlebox_tpu_torch.resilience.preemption import PreemptedError
+from paddlebox_tpu_torch.resilience.retry import is_retryable
 from paddlebox_tpu_torch.train.device_pass import (ResidentPass,
                                                    ResidentPassRunner)
 from paddlebox_tpu_torch.train.step import (DeviceBatch, OptimizerFactory,
                                             StepState, TrainStep, default_tx,
                                             make_device_batch)
+from paddlebox_tpu_torch.utils.dump import DumpConfig, DumpWriter, dump_param
 from paddlebox_tpu_torch.utils.prefetch import prefetch_iter
 
 log = logging.getLogger(__name__)
@@ -100,6 +110,16 @@ class Trainer:
         # resident pass runners by (key_capacity, trivial segments)
         self._resident_runners: Dict[Tuple[int, bool],
                                      ResidentPassRunner] = {}
+        # the metric variants fed every batch (AddAucMonitor)
+        self.metrics = MetricRegistry()
+        self._dump_cfg: Optional[DumpConfig] = None
+        self._pass_seq = 0
+        # the flag-selected fault plan (no-op without FLAGS.fault_plan)
+        faults.install_from_flags()
+        # SIGTERM/SIGINT become a stop flag the pass loop honours at
+        # batch boundaries
+        if FLAGS.graceful_shutdown:
+            preemption.install_signal_handlers()
 
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of global step ``step``, seeded from
@@ -133,29 +153,99 @@ class Trainer:
         if nb % LOG_PERIOD_STEPS == 0:
             log.info("pass step %d loss=%.5f", self.global_step, value)
 
-    def train_pass(self, dataset: InMemoryDataset,
-                   log_prefix: str = "") -> Dict[str, float]:
+    def set_dump(self, cfg: Optional[DumpConfig]) -> None:
+        """Per-sample prediction dump for later passes (dump_fields,
+        boxps_worker.cc:1595); None turns it off."""
+        self._dump_cfg = cfg
+
+    def dump_param(self, path: str) -> int:
+        """Named dense-parameter dump (DumpParam, boxps_worker.cc:1633)."""
+        return dump_param(self.model, path)
+
+    def train_pass(self, dataset: InMemoryDataset, log_prefix: str = "",
+                   checkpoint=None, start_cursor: Optional[dict] = None
+                   ) -> Dict[str, float]:
         """One pass over the dataset (train_from_dataset). Returns the
         AUC result of the accumulated tables (cumulative across passes
         until ``reset_metrics``), the pass's batches and examples, its
-        wall seconds and examples/s, and the last loss."""
+        wall seconds and examples/s, and the last loss.
+
+        With a ``checkpoint`` (CheckpointManager) and a dataset whose
+        batch order is fixed: a cursor checkpoint every
+        ``FLAGS.ckpt_every_batches`` batches, and on a stop request
+        (polled at every batch boundary) an emergency cursor checkpoint,
+        the resume marker and ``PreemptedError``. ``start_cursor`` (from
+        ``CheckpointManager.load_cursor``) skips the batches a preempted
+        pass already trained."""
         self.stage_timers.reset()
         t0 = time.perf_counter()
         nb = n_ex = 0
         stats = None
         st = self.stage_timers
-        for batch, dev in self._prefetch_iter(dataset.batches()):
+        dump_writer = (DumpWriter(self._dump_cfg)
+                       if self._dump_cfg is not None else None)
+        skip = 0
+        if start_cursor is not None:
+            skip = int(start_cursor.get("batch_index", 0))
+            log.info("%sresuming pass from cursor: skipping %d "
+                     "already-trained batches (step %d)", log_prefix,
+                     skip, self.global_step)
+        cursor_ok = (checkpoint is not None
+                     and getattr(dataset, "supports_cursor_resume", False))
+        every = FLAGS.ckpt_every_batches if cursor_ok else 0
+        last_save = (-1, None)  # (batch_index, path) of the newest save
+        for batch, dev in self._prefetch_iter(
+                dataset.batches(start_batch=skip) if skip
+                else dataset.batches()):
             n_ex += int((batch.show > 0).sum())
             self.global_step += 1
             gen = self.step_generator(self.global_step)
             with st.stage("step"):
                 stats = self.step_fn(self.state, dev, gen)
             nb += 1
+            if len(self.metrics):
+                with st.stage("metrics"):
+                    self.metrics.add_batch(
+                        stats["pred"], batch.label,
+                        (batch.show > 0).astype(np.float32),
+                        uid=batch.uid, rank=batch.rank,
+                        cmatch=batch.cmatch)
+            if dump_writer is not None and nb % self._dump_cfg.interval == 0:
+                dump_writer.add_batch(
+                    batch.ins_ids,
+                    {"pred": stats["pred"], "label": batch.label,
+                     "show": batch.show, "clk": batch.clk},
+                    int((batch.show > 0).sum()))
             self._check_loss(stats["loss"], nb)
+            # ---- batch boundary: periodic cursor checkpoint, stop poll
+            if every > 0 and nb % every == 0:
+                last_save = (skip + nb,
+                             self._save_inpass(checkpoint, dataset,
+                                               skip + nb))
+            if preemption.stop_requested():
+                if dump_writer is not None:
+                    dump_writer.close()
+                self._preempt(checkpoint if cursor_ok else None, dataset,
+                              skip + nb, last_save, log_prefix)
         last_loss = (float(stats["loss"]) if stats is not None
                      else float("nan"))
+        if dump_writer is not None:
+            dump_writer.close()
         elapsed = time.perf_counter() - t0
         self.sync_table()
+        if cursor_ok and (last_save[0] >= 0 or skip > 0):
+            # the pass finished after writing (or resuming from) a
+            # mid-pass cursor checkpoint: publish a pass-boundary one, so
+            # the newest restorable state does not resume into a pass
+            # that already finished
+            try:
+                checkpoint.save(self, delta=checkpoint.has_base())
+            except ValueError:
+                # the cadence hit the pass length and the save at this
+                # step is the first BASE: a delta re-save over it is
+                # refused, so supersede it with a fresh base
+                checkpoint.save(self, delta=False)
+        self._pass_seq += 1
         out = auc_compute(self.state.auc).as_dict()
         out.update(batches=nb, examples=n_ex, elapsed_sec=elapsed,
                    examples_per_sec=n_ex / max(elapsed, 1e-9),
@@ -163,6 +253,222 @@ class Trainer:
         log.info("%spass done: %d batches, %.0f ex/s, auc=%.4f",
                  log_prefix, nb, out["examples_per_sec"], out["auc"])
         return out
+
+    def _preempt(self, checkpoint, dataset, batch_index: int,
+                 last_save: Tuple[int, Optional[str]],
+                 log_prefix: str) -> None:
+        """The stop poll fired after the step of ``batch_index``: write
+        the emergency checkpoint (unless the periodic save just wrote
+        this boundary) and the resume marker, then raise
+        ``PreemptedError``."""
+        path = None
+        if checkpoint is not None:
+            path = (last_save[1] if last_save[0] == batch_index
+                    else self._save_inpass(checkpoint, dataset,
+                                           batch_index))
+            preemption.write_resume_marker(
+                checkpoint.root, step=int(self.global_step),
+                batch_index=batch_index, reason=preemption.stop_reason())
+        else:
+            log.warning("%sstop requested but no checkpoint manager / "
+                        "fixed-order dataset — exiting WITHOUT an "
+                        "emergency checkpoint (the pass will replay)",
+                        log_prefix)
+        raise PreemptedError(
+            f"preempted ({preemption.stop_reason()}) at batch "
+            f"{batch_index}, step {self.global_step}"
+            + ("" if path is None else f"; emergency checkpoint {path}"),
+            step=int(self.global_step), batch_index=batch_index,
+            checkpoint_path=path)
+
+    # ---- mid-pass resume cursor ----
+    def _pass_cursor(self, dataset, batch_index: int) -> dict:
+        """The resume cursor of an in-pass checkpoint (schema v2 without
+        the stream block): the file-list identity and quarantine pin the
+        data, ``global_step`` pins the trainer position and the per-step
+        generator (``step_generator``); the AUC and metric accumulators
+        ride the checkpoint itself."""
+        return {
+            "version": 2,
+            "pass_seq": int(self._pass_seq) + 1,
+            "fingerprint": dataset.filelist_fingerprint(),
+            "files_consumed": len(getattr(dataset, "filelist", [])),
+            "batch_index": int(batch_index),
+            "global_step": int(self.global_step),
+            "rng_fold": int(self.global_step),
+            "quarantined_files": sorted(
+                p for p, _ in getattr(dataset, "quarantined_files", [])),
+        }
+
+    def _save_inpass(self, checkpoint, dataset, batch_index: int) -> str:
+        """A mid-pass checkpoint (a delta once a base exists) with the
+        resume cursor and the metric snapshot."""
+        return checkpoint.save(
+            self, delta=checkpoint.has_base(),
+            cursor=self._pass_cursor(dataset, batch_index),
+            metrics=self.metrics if len(self.metrics) else None)
+
+    def _boundary_save(self, checkpoint) -> str:
+        """A pass-boundary checkpoint of the current state; a no-op when
+        this step is already on disk (a re-save would refuse as a delta
+        over a base)."""
+        if checkpoint.latest_step() == int(self.global_step):
+            return checkpoint._dir(int(self.global_step))
+        return checkpoint.save(self, delta=checkpoint.has_base())
+
+    def _adopt_cursor(self, checkpoint, dataset,
+                      step: Optional[int] = None) -> Optional[dict]:
+        """The cursor at the trainer's CURRENT position, validated
+        against this dataset: the cursor to resume from, or None for a
+        full pass. A cursor whose data identity does not match (another
+        file list or quarantine, a dataset whose order is not fixed, or
+        a windowed-stream cursor) would splice two batch streams, so the
+        trainer rolls BACK to the latest pass-boundary checkpoint
+        instead."""
+        cur = checkpoint.load_cursor(step)
+        if cur is None:
+            return None
+        if int(cur.get("global_step", -1)) != int(self.global_step):
+            return None  # the cursor belongs to another position
+        reason = None
+        if isinstance(cur.get("stream"), dict):
+            reason = ("cursor belongs to a windowed stream, which this "
+                      "dataset is not")
+        elif not getattr(dataset, "supports_cursor_resume", False):
+            reason = ("dataset batch order is not deterministic "
+                      "(supports_cursor_resume is False)")
+        elif (cur.get("fingerprint") != dataset.filelist_fingerprint()
+              or sorted(cur.get("quarantined_files", []))
+              != sorted(p for p, _ in dataset.quarantined_files)):
+            reason = "fingerprint/quarantine changed"
+        if reason is not None:
+            boundary = checkpoint.latest_boundary_step()
+            if boundary is None:
+                # replaying a "full" pass from mid-pass state would
+                # train the consumed prefix twice
+                raise RuntimeError(
+                    f"mid-pass cursor cannot be resumed ({reason}) and "
+                    "no pass-boundary checkpoint exists to roll back "
+                    "to — restart from scratch or restore the original "
+                    "file list / deterministic load settings")
+            log.warning("mid-pass cursor at step %s cannot be resumed "
+                        "(%s) — rolling back to pass-boundary step %s",
+                        self.global_step, reason, boundary)
+            checkpoint.restore(self, step=boundary)
+            return None
+        mr = checkpoint.load_metrics(step)
+        if mr is not None:
+            self.metrics = mr
+        preemption.clear_resume_marker(checkpoint.root)
+        return cur
+
+    def _reject_cursor_state(self, checkpoint) -> None:
+        """Resident-mode guard: a resident pass has no mid-pass entry,
+        so a trainer sitting on a MID-PASS cursor checkpoint rolls back
+        to the pass boundary, or refuses."""
+        cur = checkpoint.load_cursor()
+        if cur is None or int(cur.get("global_step", -1)) \
+                != int(self.global_step):
+            return
+        boundary = checkpoint.latest_boundary_step()
+        if boundary is None:
+            raise RuntimeError(
+                "trainer state is mid-pass (cursor checkpoint) but "
+                "resident passes cannot resume mid-pass, and no "
+                "pass-boundary checkpoint exists to roll back to — "
+                "finish the pass with train_pass first")
+        log.warning("mid-pass cursor at step %s cannot feed a resident "
+                    "pass — rolling back to pass-boundary step %s",
+                    self.global_step, boundary)
+        checkpoint.restore(self, step=boundary)
+
+    def run_pass(self, dataset: InMemoryDataset, checkpoint=None,
+                 log_prefix: str = "", resident: bool = False,
+                 max_retries: Optional[int] = None) -> Dict[str, float]:
+        """``train_pass`` with bounded retry from the last checkpoint and
+        cursor-aware recovery.
+
+        A pass that dies on a recoverable error (transient IO, an
+        injected fault) is retried up to ``FLAGS.pass_retry_limit``
+        (``max_retries``) times; with a ``checkpoint`` each retry first
+        rolls back to the last checkpoint and, when that one carries a
+        cursor matching this dataset, replays only the batches after it.
+        A freshly restored trainer sitting on a cursor checkpoint resumes
+        the interrupted pass the same way. A ``NanInfError`` is
+        recoverable only with a pass-boundary checkpoint to roll back to
+        (mid-pass snapshots may hold the poison). ``PreemptedError`` is
+        never retried. A resident pass has no batch boundary: the stop
+        flag is honoured before every attempt."""
+        limit = (FLAGS.pass_retry_limit if max_retries is None
+                 else max_retries)
+        attempt = 0
+        start_cursor = None
+        if checkpoint is not None:
+            if resident:
+                self._reject_cursor_state(checkpoint)
+            else:
+                start_cursor = self._adopt_cursor(checkpoint, dataset)
+        while True:
+            try:
+                if preemption.stop_pending():
+                    # graceful stop between passes: without an adopted
+                    # cursor the state sits at a pass boundary, so
+                    # snapshot it; with one, the mid-pass checkpoint on
+                    # disk already covers it
+                    path = None
+                    if checkpoint is not None:
+                        if start_cursor is None:
+                            path = self._boundary_save(checkpoint)
+                        preemption.write_resume_marker(
+                            checkpoint.root, step=int(self.global_step),
+                            reason=preemption.stop_reason())
+                    raise PreemptedError(
+                        f"preempted ({preemption.stop_reason()}) before "
+                        f"pass dispatch at step {self.global_step}",
+                        step=int(self.global_step), checkpoint_path=path)
+                faults.inject("trainer.pass", attempt=attempt)
+                if resident:
+                    return self.train_pass_resident(dataset, log_prefix)
+                return self.train_pass(dataset, log_prefix,
+                                       checkpoint=checkpoint,
+                                       start_cursor=start_cursor)
+            except PreemptedError:
+                raise
+            except Exception as e:
+                recoverable = (is_retryable(e)
+                               or (isinstance(e, NanInfError)
+                                   and checkpoint is not None
+                                   and checkpoint.latest_boundary_step()
+                                   is not None))
+                if attempt >= limit or not recoverable:
+                    raise
+                attempt += 1
+                if checkpoint is None:
+                    log.warning("%spass failed (%r) — no checkpoint "
+                                "manager, retrying from current state "
+                                "(%d/%d)", log_prefix, e, attempt, limit)
+                    continue
+                if isinstance(e, NanInfError):
+                    # mid-pass snapshots are suspect: roll all the way
+                    # back to the clean boundary
+                    restored = checkpoint.restore(
+                        self, step=checkpoint.latest_boundary_step())
+                    start_cursor = self._adopt_cursor(checkpoint, dataset,
+                                                      restored)
+                elif resident:
+                    restored = checkpoint.restore(self)
+                    self._reject_cursor_state(checkpoint)
+                    start_cursor = None
+                else:
+                    restored = checkpoint.restore(self)
+                    start_cursor = self._adopt_cursor(checkpoint, dataset,
+                                                      restored)
+                log.warning(
+                    "%spass failed (%r) — rolled back to step %s%s, "
+                    "retry %d/%d", log_prefix, e, restored,
+                    ("" if start_cursor is None else
+                     f" (cursor: batch {start_cursor.get('batch_index')})"),
+                    attempt, limit)
 
     def train_pass_resident(self, pass_or_dataset: Union[InMemoryDataset,
                                                          ResidentPass],
@@ -244,3 +550,58 @@ class Trainer:
 
     def reset_metrics(self) -> None:
         self.state.auc = init_auc_state(device=self.device)
+
+    # ---- checkpoint glue (dense + sparse) ----
+    def dense_snapshot(self) -> Dict[str, Any]:
+        """The dense state a checkpoint stores (``dense.pt``): the model
+        and optimizer ``state_dict``s and the AUC tables, as CPU copies
+        of plain tensors and numbers."""
+        auc = self.state.auc
+        return {"model": _to_cpu(self.model.state_dict()),
+                "opt": _to_cpu(self.state.opt.state_dict()),
+                "auc": {"buckets": auc.buckets.detach().cpu().clone(),
+                        "sums": auc.sums.detach().cpu().clone()}}
+
+    def restore_state(self, model_sd: Mapping[str, torch.Tensor],
+                      opt_sd: Mapping[str, Any],
+                      auc: Optional[Mapping[str, torch.Tensor]],
+                      step: int) -> None:
+        """Rebind the dense and metric state after a checkpoint restore
+        (the table was already loaded); CheckpointManager's hook.
+        ``auc`` None keeps the current tables."""
+        self.model.load_state_dict(model_sd)
+        self.state.opt.load_state_dict(opt_sd)
+        if auc is not None:
+            self.state.auc = AucState(auc["buckets"].to(self.device),
+                                      auc["sums"].to(self.device))
+        self.state.table = self.table.state
+        self.global_step = int(step)
+
+    def save(self, prefix: str) -> None:
+        """``prefix.sparse.npz`` (save_base) and ``prefix.dense.pt`` (the
+        model and optimizer state)."""
+        self.sync_table()
+        self.table.save_base(prefix + ".sparse.npz")
+        snap = self.dense_snapshot()
+        torch.save({"model": snap["model"], "opt": snap["opt"]},
+                   prefix + ".dense.pt")
+
+    def load(self, prefix: str) -> None:
+        """The inverse of ``save``; the AUC tables are kept."""
+        from paddlebox_tpu_torch.train.checkpoint import read_dense_file
+        self.table.load(prefix + ".sparse.npz")
+        dense = read_dense_file(prefix + ".dense.pt")
+        self.restore_state(dense["model"], dense["opt"], None,
+                           self.global_step)
+
+
+def _to_cpu(obj):
+    """A copy of a nest of dicts/lists/tuples with every tensor cloned to
+    the CPU."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj

@@ -1468,3 +1468,126 @@ def test_segment_sum_tiles_adversarial(cuda, d):
         torch.cuda.synchronize()
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=RTOL, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint, preemption resume and the serving hot reload on the card
+# ---------------------------------------------------------------------------
+
+def _ckpt_setup(cuda, n=384, s=4, mf=4, dense=3, bs=64):
+    rng = np.random.default_rng(21)
+    slots = ([SlotDef("label", "float", 1), SlotDef("d", "float", dense)]
+             + [SlotDef(f"S{i}", "uint64") for i in range(s)])
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=512)
+    recs = []
+    for i in range(n):
+        counts = np.minimum(rng.zipf(1.5, size=s), 8)
+        offs = np.zeros(s + 1, np.int32)
+        np.cumsum(counts, out=offs[1:])
+        keys = rng.integers(0, 3000, size=int(offs[-1])).astype(np.uint64)
+        recs.append(SlotRecord(keys, offs,
+                               rng.normal(size=dense).astype(np.float32),
+                               float(i % 2), 1.0, float(i % 2),
+                               uid=int(rng.integers(0, 40)),
+                               rank=int(rng.integers(1, 4)),
+                               cmatch=int(rng.choice([222, 223]))))
+
+    def trainer(seed=0):
+        torch.manual_seed(seed)
+        t = EmbeddingTable(mf_dim=mf, capacity=1 << 12, device=cuda)
+        tr = Trainer(DeepFM(s, 3 + mf, dense, hidden=(32, 16)), t, desc,
+                     seed=3, device=cuda)
+        tr.metrics.init_metric("auc")
+        tr.metrics.init_metric("cmatch_rank", "cmatch_rank_auc",
+                               cmatch_rank_group="222:1,223:2")
+        return tr
+
+    def dataset():
+        ds = InMemoryDataset(desc)
+        ds.records = recs
+        return ds
+
+    def serving():
+        return ServingModel(DeepFM(s, 3 + mf, dense, hidden=(32, 16)), desc,
+                            mf_dim=mf, capacity=1 << 12, device=cuda)
+
+    return trainer, dataset, serving
+
+
+@pytest.fixture()
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_resume_digest_equals_uninterrupted_run(cuda, deterministic,
+                                                tmp_path):
+    """A pass preempted at batch 3 (cursor checkpoints every 2) and
+    resumed by a new trainer from its checkpoint gives the uninterrupted
+    run's ``state_digest``, bit for bit, through the kernels; the metric
+    registry, fed on the card and carried by the cursor checkpoint, ends
+    with the uninterrupted run's messages exactly."""
+    from paddlebox_tpu_torch import CheckpointManager, state_digest
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.resilience import preemption
+    from paddlebox_tpu_torch.resilience.faults import FaultPlan, installed
+    from paddlebox_tpu_torch.resilience.preemption import PreemptedError
+    trainer, dataset, _ = _ckpt_setup(cuda)
+    base = trainer()
+    before = tk.scatter_add_update.launches
+    base.train_pass(dataset())
+    assert tk.scatter_add_update.launches == before + 6
+    want = state_digest(base)
+    root = str(tmp_path / "ckpt")
+    with flags_scope(ckpt_every_batches=2):
+        tr = trainer()
+        with installed(FaultPlan.parse("preempt.signal:fail:nth=3")):
+            with pytest.raises(PreemptedError) as ei:
+                tr.run_pass(dataset(), checkpoint=CheckpointManager(root))
+        preemption.clear_stop()
+        assert ei.value.checkpointed and ei.value.batch_index == 3
+        tr2 = trainer(seed=1)
+        cm = CheckpointManager(root)
+        assert cm.restore(tr2) == 3
+        out = tr2.run_pass(dataset(), checkpoint=cm)
+    assert out["batches"] == 3
+    assert state_digest(tr2) == want
+    for name in ("auc", "cmatch_rank"):
+        msg = base.metrics.get_metric_msg(name)
+        assert msg["ins_num"] > 0
+        assert tr2.metrics.get_metric_msg(name) == msg
+
+
+@pytest.mark.cuda
+def test_hot_reload_predictions_equal_fresh_adoption(cuda, deterministic,
+                                                     tmp_path):
+    """Boundary checkpoints published into a store: a model that adopted
+    the base and hot-reloaded the delta predicts bit for bit what a
+    fresh adoption of the tip predicts."""
+    from paddlebox_tpu_torch import ArtifactStore, CheckpointManager
+    trainer, dataset, serving = _ckpt_setup(cuda)
+    tr = trainer()
+    store = ArtifactStore(str(tmp_path / "store"))
+    cm = CheckpointManager(str(tmp_path / "ckpt"), artifacts=store)
+    cm.save(tr)
+    tr.train_pass(dataset())
+    cm.save(tr, delta=True)
+    v_base, v_tip = store.versions()
+    batch = next(dataset().batches())
+    srv = serving()
+    srv.adopt(store, v_base)
+    p0 = srv.predict(batch)
+    assert srv.hot_reload(store) == v_tip
+    assert srv.last_load["applied"] == [v_tip]
+    p1 = srv.predict(batch)
+    fresh = serving()
+    assert fresh.adopt(store) == v_tip
+    np.testing.assert_array_equal(fresh.predict(batch), p1)
+    assert not np.array_equal(p0, p1)
+    srv.release()
+    fresh.release()
