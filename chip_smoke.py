@@ -184,7 +184,33 @@ Phases, each of which fails the run:
    adopts nothing. The four step kernels must launch; their counts join
    the ``kernels`` line. Times: ``save_base`` against ``np.savez`` of
    the same blob, each sparse save, ``verify``, ``restore``, the resume,
-   ``adopt`` and ``hot_reload``.
+   ``adopt`` and ``hot_reload``;
+11. the pipelined resident passes at phase 5's width, under
+   ``torch.use_deterministic_algorithms``: the ``--batches`` batches cut
+   into 4 passes of whole batches, each dataset ``columnarize()``d, and
+   ``Trainer.train_passes_resident`` at depth 2 (``PassPreloader``: the
+   builds on a worker thread with its own CUDA stream, pinned
+   non-blocking copies, each pass ordered by its event) in three
+   configs, each from phase 5's base file: A, bench.py's resident lane
+   (``EmbeddingTable(arena_slots=26, unique_bucket_min=4096)``, q8
+   floats): every pass must ship the compact wire, no fallback; B, the
+   dedup wire with ``use_pallas_index`` on and f32 floats: the index must
+   not degrade, the insert kernel must launch once for the seed and once
+   a build, all from the preload worker, and ``lookup_rows`` of the kv's
+   keys (lookup kernel) must give the kv's rows; C, the dedup wire with
+   bf16 floats. Each config runs again at depth 0 from the same start and
+   its ``state_digest`` must equal the depth-2 run's bit for bit; B's
+   must also equal four sequential ``train_pass_resident`` calls. Config
+   A runs twice more with the f32 tower and no lazy-mf draws, through the
+   kernels and through the plain versions: touched rows and dense params
+   within rtol 2e-4 / atol 2e-5. In each depth-2 run the four step
+   kernels must launch once a step, the sentinel row stay zero and
+   untouched rows bit-identical. Printed: each wire's formats, staged
+   bytes against the host int32/f32 bytes, each pass's build stages and
+   preload wait, examples/s over the passes with their builds at depth 2
+   and 0, and the record front against the columnar front on pass 0 in
+   turns (outputs equal). The three depth-2 runs' launches join the
+   ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -199,6 +225,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2740,6 +2767,338 @@ def checkpoint_phase(torch, args, card, desc, records, batches, details,
     return launches
 
 
+PIPE_PASSES = 4                  # phase 11: passes of the --batches batches
+PIPE_ARENA_SLOTS = NUM_SLOTS     # phase 11 config A: bench.py's arena lane
+PIPE_UNIQUE_MIN = 4096           # phase 11: bench.py's unique_bucket_min
+
+
+def _same_front(a, b) -> bool:
+    """The record front and the columnar front agree: every batch's keys,
+    slots, pad segment and segments, the float block, the layout and the
+    record count (the key capacity is each front's own ladder)."""
+    if len(a[0]) != len(b[0]) or a[3:5] != b[3:5]:
+        return False
+    if not np.array_equal(a[1], b[1]):
+        return False
+    for x, y in zip(a[0], b[0]):
+        if not (np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+                and x[3] == y[3]
+                and (x[4] is None) == (y[4] is None)
+                and (x[4] is None or np.array_equal(x[4], y[4]))):
+            return False
+    return True
+
+
+def pipeline_phase(torch, args, card, desc, records, details,
+                   dev: str = "cuda") -> dict:
+    """Phase 11: the pipelined resident passes at phase 5's width
+    (``Trainer.train_passes_resident`` over ``PassPreloader``), three
+    configs, each again at depth 0 from the same start, under
+    deterministic algorithms. Returns the kernels' launches in the three
+    depth-2 runs (the phase's main path)."""
+    import logging
+
+    from paddlebox_tpu_torch import (DeepFM, EmbeddingTable,
+                                     InMemoryDataset, Trainer, convert)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+    from paddlebox_tpu_torch.train.device_pass import ResidentPass
+    from paddlebox_tpu_torch.train.step import TrainStep
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    per = len(records) // PIPE_PASSES
+    if per % BATCH or per == 0:
+        raise AssertionError("phase 11 cuts the batches into "
+                             f"{PIPE_PASSES} passes of whole batches")
+    recs = [records[i * per:(i + 1) * per] for i in range(PIPE_PASSES)]
+
+    def datasets():
+        out = []
+        for r in recs:
+            ds = InMemoryDataset(desc)
+            ds.records = r
+            ds.columnarize()
+            out.append(ds)
+        return out
+
+    passes = datasets()
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    step_fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+                "segment_gather": K.segment_gather,
+                "scatter_add_update": K.scatter_add_update,
+                "index_insert": IX.insert, "index_lookup": IX.lookup}
+    fallbacks = []
+
+    class _Fallbacks(logging.Handler):
+        def emit(self, record):
+            if "compact wire unavailable" in record.getMessage():
+                fallbacks.append(record.getMessage())
+
+    watch = _Fallbacks()
+    logging.getLogger("paddlebox_tpu_torch.train.device_pass").addHandler(
+        watch)
+    out = {}
+    launches = {k: 0 for k in step_fns}
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            base_path = os.path.join(tmp, "train_base.npz")
+            np.savez(base_path, **base)
+            del base
+
+            def trainer(arena: bool, f32: bool = False, ops=None):
+                cfg = (SparseSGDConfig(mf_initial_range=0.0) if f32
+                       else None)
+                t = EmbeddingTable(
+                    mf_dim=MF_DIM, capacity=CAPACITY, cfg=cfg,
+                    seed=args.seed, unique_bucket_min=PIPE_UNIQUE_MIN,
+                    device=dev,
+                    arena_slots=PIPE_ARENA_SLOTS if arena else None)
+                t.load(base_path)
+                torch.manual_seed(args.seed + 2)
+                kw = {"compute_dtype": torch.float32} if f32 else {}
+                model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                               hidden=HIDDEN, **kw)
+                tr = Trainer(model, t, desc, seed=args.seed,
+                             check_nan_inf=True, device=dev)
+                if ops is not None:
+                    tr.step_fn = TrainStep(t.cfg, BATCH, NUM_SLOTS, ops=ops)
+                return tr
+
+            def run(tr, depth, floats, main=False):
+                """One train_passes_resident run; each pass's wire, formats,
+                staged and host bytes and build stages are read from the
+                pass as it reaches train_pass_resident."""
+                seen = []
+                inner = tr.train_pass_resident
+
+                def spy(rp, **kw):
+                    host = (rp.uniq.nbytes + rp.gidx.nbytes
+                            + rp.floats.size * 4
+                            + (0 if rp.segs is None else rp.segs.nbytes))
+                    seen.append({"wire": rp.wire, "formats": rp.formats,
+                                 "staged_bytes": rp.nbytes(),
+                                 "host_bytes": host,
+                                 "build_stats": dict(rp.build_stats)})
+                    return inner(rp, **kw)
+
+                tr.train_pass_resident = spy
+                start = tr.table.state.data.clone() if main else None
+                sync()
+                if main:
+                    for fn in step_fns.values():
+                        fn.launches = 0
+                t0 = time.perf_counter()
+                res = tr.train_passes_resident(passes, depth=depth,
+                                               floats_dtype=floats)
+                sync()
+                wall = time.perf_counter() - t0
+                got = ({k: fn.launches for k, fn in step_fns.items()}
+                       if main else None)
+                del tr.train_pass_resident
+                steps = sum(r["batches"] for r in res)
+                n_ex = sum(r["examples"] for r in res)
+                if (len(res) != PIPE_PASSES
+                        or not all(np.isfinite(r["last_loss"]) for r in res)):
+                    raise AssertionError(f"pipeline run went wrong: {res}")
+                if main:
+                    for k in ("gather_rows", "pool_cvm", "segment_gather",
+                              "scatter_add_update"):
+                        if got[k] != steps:
+                            raise AssertionError(
+                                f"pipeline: {k} launched {got[k]} times for "
+                                f"{steps} steps")
+                    data = tr.table.state.data
+                    if bool(data[CAPACITY].any()):
+                        raise AssertionError("pipeline: the sentinel row "
+                                             "was written")
+                    touched = torch.from_numpy(tr.table._touched).to(
+                        data.device)
+                    changed = (data != start).any(dim=1)
+                    if bool((changed & ~touched).any()):
+                        raise AssertionError("pipeline: rows no pass "
+                                             "touched changed")
+                    del start, changed, touched
+                return {"res": res, "passes": seen, "wall_s": wall,
+                        "examples_per_sec": n_ex / wall, "launches": got,
+                        "digest": state_digest(tr)}
+
+            def free(*trs):
+                for tr in trs:
+                    del tr.table.state, tr.state
+                sync()
+                if dev == "cuda":
+                    torch.cuda.empty_cache()
+
+            # ---- config A: bench.py's resident lane (compact, q8) ----
+            tr = trainer(arena=True)
+            out["A"] = {"depth2": run(tr, 2, "q8", main=True)}
+            free(tr)
+            if fallbacks or any(p["wire"] != "compact" or
+                                p["formats"]["floats"] != "q8"
+                                for p in out["A"]["depth2"]["passes"]):
+                raise AssertionError(f"config A left the compact q8 wire: "
+                                     f"{fallbacks}")
+            tr = trainer(arena=True)
+            out["A"]["depth0"] = run(tr, 0, "q8")
+            free(tr)
+            # kernels against the plain versions: f32 tower, no mf draws
+            tk_, tp_ = (trainer(arena=True, f32=True),
+                        trainer(arena=True, f32=True, ops=K.PLAIN))
+            run(tk_, 2, "q8")
+            run(tp_, 2, "q8")
+            rows_t = torch.from_numpy(np.nonzero(
+                tk_.table._touched | tp_.table._touched)[0]).to(dev)
+            row_err = check_close("pipeline A: touched rows, kernels vs "
+                                  "plain", tk_.table.state.data[rows_t],
+                                  tp_.table.state.data[rows_t], STATE_RTOL,
+                                  STATE_ATOL)
+            pk, pp = tk_.model.state_dict(), tp_.model.state_dict()
+            param_err = max(check_close(f"pipeline A: dense param {k}",
+                                        pk[k], pp[k], STATE_RTOL, STATE_ATOL)
+                            for k in pk)
+            out["A"].update(row_max_abs_err=row_err,
+                            param_max_abs_err=param_err)
+            free(tk_, tp_)
+            del rows_t, pk, pp
+
+            # ---- config B: the dedup wire, device key index, f32 ----
+            # the thread of each index call that inserts (the seed's and
+            # each build's), recorded around the index's own methods
+            threads = []
+            calls = {n: getattr(IX.DeviceKeyIndex, n)
+                     for n in ("assign_unique", "assign_raw")}
+
+            def on_thread(fn):
+                def call(self, *a, **kw):
+                    threads.append(threading.current_thread().name)
+                    return fn(self, *a, **kw)
+                return call
+
+            with flags_scope(use_pallas_index=True):
+                for n, fn in calls.items():
+                    setattr(IX.DeviceKeyIndex, n, on_thread(fn))
+                try:
+                    tr = trainer(arena=False)
+                    out["B"] = {"depth2": run(tr, 2, np.float32, main=True)}
+                finally:
+                    for n, fn in calls.items():
+                        setattr(IX.DeviceKeyIndex, n, fn)
+                devi = tr.table._dev_index
+                keys, rows = tr.table.index.items()
+                IX.lookup.launches = 0
+                mirror = devi.lookup_rows(keys)
+                out["B"]["depth2"]["launches"]["index_lookup"] = \
+                    IX.lookup.launches
+                if devi.degraded:
+                    raise AssertionError(f"pipeline B: the device key index "
+                                         f"degraded: {devi.degrade_reason}")
+                if not np.array_equal(mirror, rows.astype(np.int64)):
+                    raise AssertionError("pipeline B: the device index does "
+                                         "not mirror the kv")
+                ins = out["B"]["depth2"]["launches"]["index_insert"]
+                if (ins != 1 + PIPE_PASSES or len(threads) != ins
+                        or any(t != "pbx-preload" for t in threads)):
+                    raise AssertionError(
+                        f"pipeline B: insert launched {ins} times from "
+                        f"threads {threads}, expected the seed and one per "
+                        f"build, all on the preload worker")
+                free(tr)
+                del keys, rows, mirror, devi
+                tr = trainer(arena=False)
+                out["B"]["depth0"] = run(tr, 0, np.float32)
+                free(tr)
+                tr = trainer(arena=False)
+                sync()
+                t0 = time.perf_counter()
+                for ds in passes:
+                    tr.train_pass_resident(ds)
+                sync()
+                out["B"]["sequential_s"] = time.perf_counter() - t0
+                out["B"]["sequential_digest"] = state_digest(tr)
+                free(tr)
+            if out["B"]["sequential_digest"] != out["B"]["depth2"]["digest"]:
+                raise AssertionError("pipeline B: depth 2 differs from four "
+                                     "sequential train_pass_resident calls")
+
+            # ---- config C: the dedup wire with bf16 floats ----
+            out["C"] = {}
+            for depth, name in ((2, "depth2"), (0, "depth0")):
+                tr = trainer(arena=False)
+                out["C"][name] = run(tr, depth, torch.bfloat16,
+                                     main=depth == 2)
+                free(tr)
+            for cfg in ("A", "B", "C"):
+                if out[cfg]["depth2"]["digest"] != \
+                        out[cfg]["depth0"]["digest"]:
+                    raise AssertionError(f"pipeline {cfg}: depth 2 differs "
+                                         f"from depth 0")
+                for k, n in out[cfg]["depth2"]["launches"].items():
+                    launches[k] += n
+            if out["C"]["depth2"]["passes"][0]["formats"]["floats"] != "bf16":
+                raise AssertionError("config C did not ship bf16 floats")
+
+            # ---- the record front against the columnar front ----
+            rec_ds = InMemoryDataset(desc)
+            rec_ds.records = recs[0]
+            fronts = {"record": [], "columnar": []}
+            outs = {}
+            for kind in ("record", "columnar", "columnar", "record"):
+                ds = rec_ds if kind == "record" else passes[0]
+                t0 = time.perf_counter()
+                outs[kind] = ResidentPass._front(ds, np.float32)
+                fronts[kind].append(time.perf_counter() - t0)
+            if not _same_front(outs["record"], outs["columnar"]):
+                raise AssertionError("the columnar front differs from the "
+                                     "record front")
+            del outs
+    finally:
+        torch.use_deterministic_algorithms(False)
+        logging.getLogger("paddlebox_tpu_torch.train.device_pass") \
+            .removeHandler(watch)
+    phase_s = time.perf_counter() - t_phase
+
+    for cfg, what in (("A", "compact wire, q8 floats, arena table"),
+                      ("B", "dedup wire, f32, device key index"),
+                      ("C", "dedup wire, bf16 floats")):
+        d2, d0 = out[cfg]["depth2"], out[cfg]["depth0"]
+        p0 = d2["passes"][0]
+        log(f"pipeline {cfg} ({what}): formats {json.dumps(p0['formats'])}; "
+            f"staged {[p['staged_bytes'] for p in d2['passes']]} B a pass "
+            f"against host int32/f32 "
+            f"{[p['host_bytes'] for p in d2['passes']]} B; depth 2 "
+            f"{d2['examples_per_sec']:.0f} examples/s over "
+            f"{PIPE_PASSES} passes with their builds ({d2['wall_s']:.3f} s), "
+            f"depth 0 {d0['examples_per_sec']:.0f} ({d0['wall_s']:.3f} s); "
+            f"state_digest depth 2 == depth 0 ({d2['digest'][:16]}) ({card})")
+        log(f"  {cfg} per pass at depth 2: wait s "
+            f"{[round(r['preload_wait_sec'], 4) for r in d2['res']]}, build "
+            f"stages s "
+            + json.dumps([{k: round(v, 4) for k, v in p["build_stats"].items()}
+                          for p in d2["passes"]])
+            + f"; at depth 0: wait s "
+            f"{[round(r['preload_wait_sec'], 4) for r in d0['res']]} "
+            f"({card})")
+    log(f"pipeline A kernels vs plain (f32 tower, no mf draws): max abs err "
+        f"rows {out['A']['row_max_abs_err']:.3g}, params "
+        f"{out['A']['param_max_abs_err']:.3g}; B depth 2 == 4 sequential "
+        f"train_pass_resident ({out['B']['sequential_s']:.3f} s); B's insert "
+        f"on the preload worker {out['B']['depth2']['launches']['index_insert']}"
+        f" times (seed + {PIPE_PASSES} builds), lookup mirror exact ({card})")
+    log(f"front: record {[round(x, 4) for x in fronts['record']]} s, "
+        f"columnar {[round(x, 4) for x in fronts['columnar']]} s for "
+        f"{per} records, outputs equal; phase 11 took {phase_s:.1f}s; "
+        f"launches {json.dumps(launches)} ({card})")
+    details["pipeline"] = dict(out, fronts_s=fronts, phase_s=phase_s,
+                               launches=launches)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -3098,6 +3457,11 @@ def main() -> int:
                                      batches, details)
     for r in kernels:
         r["launches"] += ckpt_launches.get(r["name"], 0)
+
+    # ---- phase 11: the pipelined resident passes ----
+    pipe_launches = pipeline_phase(torch, args, card, desc, records, details)
+    for r in kernels:
+        r["launches"] += pipe_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -23,6 +23,30 @@ class Flags:
     # whole-pass bulk key assignment: one index round trip per pass
     # instead of one per batch (False = the serial per-batch path)
     bulk_pass_assign: bool = True
+
+    # --- the pass preload pipeline (train/device_pass.PassPreloader) ---
+    # passes in flight (building or staged) ahead of training; 0 = one
+    # build per start_next() call. The effective depth clamps under the
+    # budget below.
+    preload_depth: int = 2
+    # staged-pass device memory budget: after each build the preloader
+    # clamps its depth to max(1, budget // staged bytes of the pass),
+    # loudly, and never raises it again (<= 0 disables the clamp)
+    preload_hbm_budget_mb: int = 4096
+    # build_streamed packs and copies the index blocks in chunks of this
+    # many batches, each chunk's copy issued while later chunks pack
+    # (<= 0 = the whole pass as one chunk)
+    preload_pack_chunk_batches: int = 8
+    # the q8 float wire on a non-columnar dataset that can be walked
+    # twice: per-column min/max batch by batch, then a second walk casts
+    # each batch to u8, without a whole-pass f32 block (and without
+    # quantize_floats' winsorized range). False = the whole-pass
+    # quantize_floats.
+    q8_streaming_front: bool = True
+    # > 0: a pipeline wait that sees no build complete for this long
+    # raises PipelineHangError (ps/epilogue.py) naming the stuck stage;
+    # 0 = wait indefinitely
+    pipeline_wait_timeout_sec: float = 0.0
     # EmbeddingTable.shrink: drop rows whose decayed show/clk score falls
     # below this, after decaying show/clk/delta_score by this rate
     shrink_delete_threshold: float = 0.0

@@ -1,6 +1,8 @@
 """In-memory dataset (the batching half of ``InMemoryDataset`` in
 ``paddlebox_tpu/data/dataset.py``): a list of ``SlotRecord`` cut into
-batches by the feed description, and the surface a resume cursor checks
+batches by the feed description, ``columnarize`` into the columnar
+store (``data/columnar.py``) that the resident pass's columnar front
+slices, and the surface a resume cursor checks
 (``filelist_fingerprint``, ``quarantined_files``,
 ``supports_cursor_resume``). File loading and the shuffles are not
 ported yet; callers fill ``records`` themselves, so ``filelist`` stays
@@ -14,6 +16,7 @@ import hashlib
 from typing import Iterator, List, Optional, Tuple
 
 from paddlebox_tpu_torch.data.batch import BatchBuilder, SlotBatch
+from paddlebox_tpu_torch.data.columnar import ColumnarRecords
 from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.data.schema import DataFeedDesc
 
@@ -22,12 +25,16 @@ class InMemoryDataset:
     #: the records' order is fixed once set, so a pass can resume from a
     #: batch index
     supports_cursor_resume = True
+    #: the loaded order is frozen in memory, so ``batches()`` replays the
+    #: same stream (the q8 streaming front walks a pass twice)
+    supports_reiteration = True
 
     def __init__(self, desc: Optional[DataFeedDesc] = None) -> None:
         self.desc = desc or DataFeedDesc()
         self.records: List[SlotRecord] = []
         self.filelist: List[str] = []
         self.quarantined_files: List[Tuple[str, str]] = []
+        self.columnar: Optional[ColumnarRecords] = None  # columnarize()
 
     def filelist_fingerprint(self) -> str:
         """Order-sensitive digest of the file list, the resume cursor's
@@ -39,13 +46,30 @@ class InMemoryDataset:
         return h.hexdigest()[:16]
 
     def __len__(self) -> int:
+        if self.columnar is not None and not self.records:
+            return self.columnar.num_records
         return len(self.records)
+
+    def columnarize(self, release_records: bool = True) -> None:
+        """Convert the records to the columnar store, once per pass; the
+        batches and the resident pass's front read it from then on."""
+        if self.columnar is not None and not self.records:
+            return  # already columnar
+        self.columnar = ColumnarRecords.from_records(self.records,
+                                                     self.desc.dense_dim)
+        if release_records:
+            self.records = []
 
     def batches(self, drop_last: bool = False,
                 start_batch: int = 0) -> Iterator[SlotBatch]:
         """Batches of ``desc.batch_size`` records in order; the last one
         may be short unless ``drop_last``. ``start_batch=k`` skips the
         first k batches without building them."""
+        if self.columnar is not None:
+            yield from self.columnar.batches(
+                self.desc, len(self.desc.sparse_slots), drop_last,
+                start_batch=start_batch)
+            return
         builder = BatchBuilder(self.desc)
         bs = self.desc.batch_size
         n = len(self.records)

@@ -1,5 +1,8 @@
-"""First-seen dedup of 64-bit feature ids on the device — counterpart of
-``dedup_keys_first_seen`` in ``paddlebox_tpu/ops/device_unique.py``.
+"""Key and row dedup on the device — counterpart of
+``paddlebox_tpu/ops/device_unique.py``: ``dedup_rows`` (the compact
+resident wire's per-batch dedup of row ids) and
+``dedup_keys_first_seen`` (first-seen dedup of 64-bit feature ids, the
+device key index's front door).
 
 The reference is XLA, not Pallas, so plain PyTorch ops are its port on
 both devices. Keys ride as int64 (the uint64 bits viewed signed): they are
@@ -12,6 +15,33 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+def dedup_rows(rows: torch.Tensor, capacity: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dedup per-key row ids int32 [K] into ``(unique_rows, gather_idx)``,
+    both int32 [K] (the ``PullIndex`` contract): the distinct rows
+    ascending, then DISTINCT out-of-bounds pads ``capacity + 1 + pos``
+    that no key points at (gathers read the zero sentinel, scatters drop
+    them); ``unique_rows[gather_idx[i]] == rows[i]``. Padding keys carry
+    the sentinel row ``capacity`` and dedup into one regular entry.
+
+    One stable sort carrying the positions, run-start marks, a cumsum of
+    the marks into dense unique ids; each key's id goes back through the
+    sort permutation, and every run writes its row into its id's slot
+    (duplicates write the same value)."""
+    k = rows.shape[0]
+    dev = rows.device
+    pos = torch.arange(k, dtype=torch.int32, device=dev)
+    sr, perm = torch.sort(rows.to(torch.int32), stable=True)
+    is_first = torch.ones(k, dtype=torch.bool, device=dev)
+    is_first[1:] = sr[1:] != sr[:-1]
+    uid = torch.cumsum(is_first, 0, dtype=torch.int32) - 1
+    gather_idx = torch.empty(k, dtype=torch.int32, device=dev)
+    gather_idx[perm] = uid
+    unique_rows = capacity + 1 + pos
+    unique_rows.index_put_((uid.long(),), sr)
+    return unique_rows, gather_idx
 
 
 def dedup_keys_first_seen(keys: torch.Tensor,

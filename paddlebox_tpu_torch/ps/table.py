@@ -288,13 +288,24 @@ class EmbeddingTable:
     def __init__(self, mf_dim: int = 8, capacity: int = 1 << 20,
                  cfg: Optional[SparseSGDConfig] = None, seed: int = 0,
                  unique_bucket_min: int = 1024,
-                 device: Union[str, torch.device] = "cuda") -> None:
+                 device: Union[str, torch.device] = "cuda",
+                 arena_slots: Optional[int] = None,
+                 arena_chunk_bits: int = 12) -> None:
+        """``arena_slots``: allocate rows from the kv's slot arena for that
+        many feature slots: each slot's rows cluster in chunks of
+        2^``arena_chunk_bits``, so the resident pass can ship the COMPACT
+        wire (per-key slot-local rows, ``train/device_pass.py``). Only an
+        allocation policy: every other path is unchanged. Keys that enter
+        through a slotless path make the compact wire fall back to the
+        dedup wire for the passes that touch them."""
         self.device = resolve_device(device)
         self.mf_dim = mf_dim
         self.capacity = capacity
         self.cfg = cfg or SparseSGDConfig()
         self.opt_ext = opt_ext_width(self.cfg, mf_dim)
-        self.index = make_kv(capacity)
+        self.arena_slots = arena_slots
+        self.arena_chunk_bits = arena_chunk_bits
+        self.index = self._new_kv()
         self.state = init_table_state(capacity, mf_dim, self.opt_ext,
                                       self.device)
         self.seed = seed
@@ -313,6 +324,13 @@ class EmbeddingTable:
         self._dev_index: Optional[DeviceKeyIndex] = None
         # seconds of the last bulk assignment: host kv vs device index
         self.last_assign_seconds = {"index_host": 0.0, "index_device": 0.0}
+
+    def _new_kv(self):
+        """An empty host index, its slot arena enabled for arena tables."""
+        kv = make_kv(self.capacity)
+        if self.arena_slots is not None:
+            kv.arena_enable(self.arena_chunk_bits, self.arena_slots)
+        return kv
 
     # ---- per-batch host prep (dedup + row assignment / lookup) ----
     def _build_index(self, batch: SlotBatch, rows: np.ndarray,
@@ -348,7 +366,11 @@ class EmbeddingTable:
         and row assignment happen there, and the host kv takes ONLY the
         new keys. A call the device route cannot serve exactly (probe or
         capacity overflow, kv divergence) is redone here, loudly, and
-        counted as ``index.assign/host``."""
+        counted as ``index.assign/host``.
+
+        Arena tables assign slotted, so a key seen here first lands in its
+        slot's arena (a slotless assignment would put it in the default
+        arena and keep the compact wire off for every pass with it)."""
         keys = np.ascontiguousarray(keys, np.uint64)
         if FLAGS.use_pallas_index:
             dev = self._device_index()
@@ -361,7 +383,11 @@ class EmbeddingTable:
         slots_first = slot_of_key[first_idx]
         t1 = time.perf_counter()
         with self.host_lock:
-            rows = self.index.assign(uniq)
+            if self.index.arena_enabled:
+                rows, _ = self.index.assign_slotted(
+                    uniq, slots_first.astype(np.uint16, copy=False))
+            else:
+                rows = self.index.assign(uniq)
             self.slot_host[rows] = slots_first.astype(np.int16, copy=False)
         self.last_assign_seconds = {
             "index_host": time.perf_counter() - t1, "index_device": 0.0}
@@ -370,13 +396,17 @@ class EmbeddingTable:
     # ---- device key index (FLAGS.use_pallas_index) ----
     def _device_index(self) -> DeviceKeyIndex:
         """The table's DeviceKeyIndex, built and seeded from the host kv on
-        first use; it degrades (sticky, loud) when the kv's rows are not
-        dense or the seed overflows."""
+        first use; it degrades (sticky, loud) when the kv allocates from a
+        slot arena (no dense mirror), when the kv's rows are not dense or
+        when the seed overflows."""
         dev = self._dev_index
         if dev is None:
             dev = DeviceKeyIndex(self.capacity, device=self.device)
             with self.host_lock:
-                if not dev.seed_from_kv(self.index):
+                if self.index.arena_enabled:
+                    dev.degrade("arena-slotted row allocation has no dense "
+                                "device mirror")
+                elif not dev.seed_from_kv(self.index):
                     dev.degrade("host kv rows are not dense or overflow "
                                 "the device index: cannot seed")
             self._dev_index = dev
@@ -559,6 +589,20 @@ class EmbeddingTable:
             self._touched[:] = False
 
     # ---- loading save files ----
+    def _assign_file_rows(self, keys: np.ndarray,
+                          slots: np.ndarray) -> np.ndarray:
+        """Rows for a save file's keys — slotted when the arena is on and
+        the file's slots fit it, so the compact wire stays available after
+        a restore — with their slots recorded. Caller holds host_lock."""
+        if (self.index.arena_enabled and (slots >= 0).all()
+                and (slots < self.arena_slots).all()):
+            rows, _ = self.index.assign_slotted(keys,
+                                                slots.astype(np.uint16))
+        else:
+            rows = self.index.assign(keys)
+        self.slot_host[rows] = slots
+        return rows
+
     def _insert_file_rows(self, data: np.ndarray, rows: np.ndarray,
                           blob, sel=slice(None)) -> None:
         """Write a save file's field blocks (all but slot, which is host
@@ -594,13 +638,13 @@ class EmbeddingTable:
             if merge:
                 data = self.state.data.cpu().numpy().copy()
             else:
-                self.index = make_kv(self.capacity)
+                self.index = self._new_kv()
                 self._touched[:] = False
                 self.slot_host[:] = 0
                 data = np.zeros((self.capacity + 1, self.state.feat),
                                 np.float32)
-            rows = self.index.assign(keys)
-            self.slot_host[rows] = np.asarray(blob["slot"]).astype(np.int16)
+            rows = self._assign_file_rows(
+                keys, np.asarray(blob["slot"]).astype(np.int16))
             self._insert_file_rows(data, rows, blob)
             self.state = TableState.from_logical(data, self.opt_ext,
                                                  self.device)
@@ -628,8 +672,7 @@ class EmbeddingTable:
         with self.host_lock:
             existing = self.index.lookup(keys) >= 0
             new = ~existing
-            rows_new = self.index.assign(keys[new])
-            self.slot_host[rows_new] = slots_b[new]
+            rows_new = self._assign_file_rows(keys[new], slots_b[new])
             rows_all = self.index.lookup(keys)
             # new rows: every field from the file (a freed or never used
             # row is zero, so the block's zero slot column is what it had)

@@ -2,7 +2,10 @@ from paddlebox_tpu_torch.train.checkpoint import (CheckpointCorruptError,
                                                   CheckpointManager,
                                                   adopt_artifact,
                                                   state_digest)
-from paddlebox_tpu_torch.train.device_pass import (ResidentPass,
+from paddlebox_tpu_torch.train.device_pass import (PassPipeline,
+                                                   PassPreloader,
+                                                   PreloadBuildAborted,
+                                                   ResidentPass,
                                                    ResidentPassRunner)
 from paddlebox_tpu_torch.train.step import (DeviceBatch, StepState,
                                             TrainStep, ctr_forward,
@@ -10,6 +13,7 @@ from paddlebox_tpu_torch.train.step import (DeviceBatch, StepState,
 from paddlebox_tpu_torch.train.trainer import NanInfError, Trainer
 
 __all__ = ["CheckpointCorruptError", "CheckpointManager", "DeviceBatch",
-           "NanInfError", "ResidentPass", "ResidentPassRunner", "StepState", "TrainStep", "Trainer",
-           "adopt_artifact", "ctr_forward", "make_device_batch",
-           "state_digest"]
+           "NanInfError", "PassPipeline", "PassPreloader",
+           "PreloadBuildAborted", "ResidentPass", "ResidentPassRunner",
+           "StepState", "TrainStep", "Trainer", "adopt_artifact",
+           "ctr_forward", "make_device_batch", "state_digest"]

@@ -40,19 +40,81 @@ def default_tx(params: Iterable[nn.Parameter]) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=1e-3, eps=1e-8)
 
 
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 → bfloat16, rounded to nearest even (as ``ml_dtypes``
+    rounds), returned as the int16 view of its bits: numpy has no
+    bfloat16, so a bf16 block lives on the host as the bytes the wire
+    carries (``torch.from_numpy(bits).view(torch.bfloat16)``)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy()
+
+
 def pack_floats(dense: np.ndarray, label: np.ndarray, show: np.ndarray,
-                clk: np.ndarray) -> np.ndarray:
-    """THE float-block layout, [B, Dd+3] = [dense | label, show, clk]."""
-    return np.concatenate(
+                clk: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """THE float-block layout, [B, Dd+3] = [dense | label, show, clk],
+    cast to ``dtype``; ``torch.bfloat16`` gives the block's bf16 bits as
+    int16 (``bf16_bits``)."""
+    block = np.concatenate(
         [dense.astype(np.float32, copy=False),
          np.stack([label, show, clk], axis=1)],
         axis=1).astype(np.float32, copy=False)
+    if dtype == torch.bfloat16:
+        return bf16_bits(block)
+    return block.astype(dtype, copy=False)
 
 
 def unpack_floats(floats: torch.Tensor):
-    """(dense, label, show, clk) views of a pack_floats block."""
+    """(dense, label, show, clk) views of a pack_floats block (float32 or
+    bfloat16, upcast)."""
     floats = floats.float()
     return floats[:, :-3], floats[:, -3], floats[:, -2], floats[:, -1]
+
+
+def quantize_floats(dense: np.ndarray, label: np.ndarray, show: np.ndarray,
+                    clk: np.ndarray, valid: Optional[np.ndarray] = None):
+    """The q8 float wire: dense features as per-column affine uint8
+    (q = round((x - zp) / scale)), label/show/clk as raw uint8.
+    ``valid`` (bool [B]) restricts the range stats to real rows, so
+    zero-filled batch padding (show == 0) does not widen the range; the
+    pads' codes clip, and ins_w masks them everywhere. Returns (block u8
+    [B, D+3], qmeta f32 [2, D] = [scale; zp]) or None when the data does
+    not fit the wire (non-finite dense, or label/show/clk outside the
+    exact-u8 range): callers fall back to the bf16 wire."""
+    d = dense.astype(np.float32, copy=False)
+    lsc = np.stack([label, show, clk], axis=1)
+    if not np.isfinite(d).all():
+        return None
+    if (lsc < 0).any() or (lsc > 255).any() or (lsc != np.rint(lsc)).any():
+        return None
+    stat = d if valid is None else d[valid]
+    if stat.size == 0:
+        stat = d[:1]
+    # winsorized range: one extreme value of a heavy-tailed count column
+    # must not collapse the column to one bucket for the pass, so an
+    # outlier-dominated range clips to the [0.1, 99.9] percentiles
+    # (values beyond it saturate)
+    lo = stat.min(axis=0)
+    hi = stat.max(axis=0)
+    if stat.shape[0] >= 1000:
+        p_lo, p_hi = np.percentile(stat, [0.1, 99.9], axis=0)
+        wild = (hi - lo) > 4.0 * np.maximum(p_hi - p_lo, 1e-30)
+        lo = np.where(wild, p_lo, lo)
+        hi = np.where(wild, p_hi, hi)
+    scale = (hi - lo) / 255.0
+    scale = np.where(scale > 0, scale, 1.0).astype(np.float32)
+    q = np.clip(np.rint((d - lo[None, :]) / scale[None, :]), 0, 255)
+    block = np.concatenate([q, lsc], axis=1).astype(np.uint8)
+    qmeta = np.stack([scale, lo.astype(np.float32)])
+    return block, qmeta
+
+
+def dequantize_floats(block: torch.Tensor, qmeta: torch.Tensor):
+    """(dense, label, show, clk) from a quantize_floats block: one float32
+    multiply and one add per dense value (two roundings, no fused
+    multiply-add)."""
+    f = block.float()
+    dense = f[:, :-3] * qmeta[0][None, :] + qmeta[1][None, :]
+    return dense, f[:, -3], f[:, -2], f[:, -1]
 
 
 class DeviceBatch(NamedTuple):

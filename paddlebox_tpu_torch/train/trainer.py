@@ -6,12 +6,13 @@ batch, dedup and row assignment (``EmbeddingTable.prepare``) and the
 host→device copy, so the main thread only runs the steps.
 ``train_pass_resident``: the whole pass is assigned rows in bulk, packed
 and staged on the device first (``train/device_pass.py``), then the
-steps run over the staged batches. ``run_pass`` wraps ``train_pass``
-with the checkpoint side (``train/checkpoint.py``): periodic and
-emergency cursor checkpoints, resume from a cursor, bounded retry from
-the last checkpoint, the NaN rollback to the last pass boundary and the
-graceful stop (``resilience/preemption.py``). Streaming and the preloaded
-multi-pass driver are not ported yet.
+steps run over the staged batches; ``train_passes_resident`` drives
+several through the depth-N ``PassPreloader``, building pass k+1 while
+pass k trains. ``run_pass`` wraps ``train_pass`` with the checkpoint
+side (``train/checkpoint.py``): periodic and emergency cursor
+checkpoints, resume from a cursor, bounded retry from the last
+checkpoint, the NaN rollback to the last pass boundary and the graceful
+stop (``resilience/preemption.py``). Streaming is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ from paddlebox_tpu_torch.ps.table import EmbeddingTable, PullIndex
 from paddlebox_tpu_torch.resilience import faults, preemption
 from paddlebox_tpu_torch.resilience.preemption import PreemptedError
 from paddlebox_tpu_torch.resilience.retry import is_retryable
-from paddlebox_tpu_torch.train.device_pass import (ResidentPass,
+from paddlebox_tpu_torch.train.device_pass import (PassPreloader,
+                                                   ResidentPass,
                                                    ResidentPassRunner)
 from paddlebox_tpu_torch.train.step import (DeviceBatch, OptimizerFactory,
                                             StepState, TrainStep, default_tx,
@@ -107,8 +109,9 @@ class Trainer:
         self.check_nan_inf = check_nan_inf
         self.global_step = 0
         self.stage_timers = StageTimers()
-        # resident pass runners by (key_capacity, trivial segments)
-        self._resident_runners: Dict[Tuple[int, bool],
+        # resident pass runners by (key_capacity, trivial segments, wire,
+        # arena chunk bits)
+        self._resident_runners: Dict[Tuple[int, bool, str, Optional[int]],
                                      ResidentPassRunner] = {}
         # the metric variants fed every batch (AddAucMonitor)
         self.metrics = MetricRegistry()
@@ -470,6 +473,27 @@ class Trainer:
                      f" (cursor: batch {start_cursor.get('batch_index')})"),
                     attempt, limit)
 
+    def _feed_registry_resident(self, rp: ResidentPass,
+                                preds: torch.Tensor) -> None:
+        """The post-pass metric registry feed: the per-batch
+        AddAucMonitor calls of ``train_pass``, replayed from the pass's
+        predictions (ONE device→host copy) and the columnar side
+        channels."""
+        sd = rp.side
+        bs = sd["batch_size"]
+        r = sd["num_records"]
+        preds_h = preds.cpu().numpy()
+        for i in range(rp.num_batches):
+            a, b = i * bs, min((i + 1) * bs, r)
+            m = b - a  # >= 1: nb is ceil(r / bs)
+            ins_w = (sd["show"][a:b] > 0).astype(np.float32)
+            self.metrics.add_batch(
+                preds_h[i, :m], sd["label"][a:b], ins_w,
+                uid=None if sd["uid"] is None else sd["uid"][a:b],
+                rank=None if sd["rank"] is None else sd["rank"][a:b],
+                cmatch=(None if sd["cmatch"] is None
+                        else sd["cmatch"][a:b]))
+
     def train_pass_resident(self, pass_or_dataset: Union[InMemoryDataset,
                                                          ResidentPass],
                             log_prefix: str = "") -> Dict[str, float]:
@@ -477,8 +501,26 @@ class Trainer:
         the pass's rows are assigned in bulk and its batches staged on
         the device before the first step, so the steps take no per-batch
         host work. Takes a dataset (built and uploaded here, timed as
-        the "build" stage) or a prebuilt ``ResidentPass``. Returns what
-        ``train_pass`` returns."""
+        the "build" stage) or a prebuilt ``ResidentPass`` (from
+        ``ResidentPass.build_streamed`` or a ``PassPreloader``). Returns
+        what ``train_pass`` returns.
+
+        The metric registry is fed after the pass from the predictions
+        and the dataset's columnar side channels (a pass from the record
+        front has none: the registry is skipped, with a warning). A dump
+        needs every batch on the host, which this mode gives up: with
+        one configured, a dataset falls back to ``train_pass`` and a
+        prebuilt pass raises ``ValueError``."""
+        if self._dump_cfg is not None:
+            if isinstance(pass_or_dataset, ResidentPass):
+                raise ValueError(
+                    "dump is configured (set_dump) but a prebuilt "
+                    "ResidentPass has no host-side batches to dump — pass "
+                    "the dataset, or set_dump(None)")
+            log.warning("dump configured: falling back to train_pass for "
+                        "this pass")
+            return self.train_pass(pass_or_dataset, log_prefix)
+        want_metrics = len(self.metrics) > 0
         self.stage_timers.reset()
         st = self.stage_timers
         t0 = time.perf_counter()
@@ -488,20 +530,31 @@ class Trainer:
             with st.stage("build"):
                 rp = ResidentPass.build(pass_or_dataset, self.table)
         trivial = rp.segs is None
-        key = (rp.key_capacity, trivial)
+        key = (rp.key_capacity, trivial, rp.wire, rp.chunk_bits)
         runner = self._resident_runners.get(key)
         if runner is None:
-            runner = ResidentPassRunner(self.step_fn, trivial)
+            runner = ResidentPassRunner(self.step_fn, trivial, wire=rp.wire,
+                                        chunk_bits=rp.chunk_bits)
             self._resident_runners[key] = runner
+        collect = want_metrics and rp.side is not None
         with st.stage("step"):
-            losses = runner.run_pass(self.state, rp, self.seed,
-                                     self.global_step)
+            out = runner.run_pass(self.state, rp, self.seed,
+                                  self.global_step, collect_preds=collect)
+            losses, preds = out if collect else (out, None)
             last_loss = float(losses[-1])
         if self.check_nan_inf and not bool(
                 torch.isfinite(torch.stack(losses)).all()):
             raise NanInfError(f"nan/inf loss in the resident pass after "
                               f"step {self.global_step}")
         rp.mark_trained_rows(self.table)
+        if want_metrics:
+            if rp.side is None:
+                log.warning("registry metrics need columnar side channels; "
+                            "this pass was built from a non-columnar "
+                            "dataset: use train_pass for metric variants")
+            else:
+                with st.stage("metrics"):
+                    self._feed_registry_resident(rp, preds)
         self.global_step += rp.num_batches
         elapsed = time.perf_counter() - t0
         self.sync_table()
@@ -510,10 +563,68 @@ class Trainer:
                    elapsed_sec=elapsed,
                    examples_per_sec=rp.num_records / max(elapsed, 1e-9),
                    last_loss=last_loss)
+        if self.check_nan_inf and math.isnan(out.get("auc", 0.0)):
+            raise NanInfError(f"nan metrics after the resident pass at "
+                              f"step {self.global_step}")
         log.info("%sresident pass done: %d batches, %.0f ex/s, auc=%.4f",
                  log_prefix, rp.num_batches, out["examples_per_sec"],
                  out["auc"])
         return out
+
+    def train_passes_resident(self, datasets: Iterable[InMemoryDataset],
+                              depth: Optional[int] = None,
+                              floats_dtype=np.float32, checkpoint=None,
+                              log_prefix: str = "") -> List[Dict[str, float]]:
+        """Train resident passes through the depth-N ``PassPreloader``
+        (``FLAGS.preload_depth`` unless ``depth``): the builds of passes
+        k+1..k+depth run on the pipeline's worker while pass k trains.
+        ``floats_dtype``: ``np.float32``, ``torch.bfloat16`` or "q8".
+        Returns the per-pass results, each with ``preload_wait_sec``: the
+        seconds the trainer blocked waiting for that pass to be staged
+        (the pipeline's prologue stall).
+
+        Preemption-safe at PASS granularity: the stop flag is checked
+        before every pass; on a stop the preloader drains first (no
+        preload copy in flight during the checkpoint), the popped pass's
+        copies are waited out, a boundary checkpoint and the resume
+        marker are written when a ``checkpoint`` manager is given, and
+        ``PreemptedError`` raises."""
+        pre = PassPreloader(iter(datasets), self.table,
+                            floats_dtype=floats_dtype, depth=depth)
+        pre.start_next()
+        results = []
+        try:
+            while True:
+                t0 = time.perf_counter()
+                rp = pre.wait()
+                waited = time.perf_counter() - t0
+                # a stop with an empty queue also lands here (the worker
+                # aborts its build and wait() returns None): it must
+                # still raise, not return as if complete
+                if rp is None and not preemption.stop_pending():
+                    break
+                if preemption.stop_pending():
+                    pre.drain()
+                    if rp is not None:
+                        rp.settle()  # popped before drain() could see it
+                    path = None
+                    if checkpoint is not None:
+                        path = self._boundary_save(checkpoint)
+                        preemption.write_resume_marker(
+                            checkpoint.root, step=int(self.global_step),
+                            reason=preemption.stop_reason())
+                    raise PreemptedError(
+                        f"preempted ({preemption.stop_reason()}) before "
+                        f"resident pass dispatch at step "
+                        f"{self.global_step}",
+                        step=int(self.global_step), checkpoint_path=path)
+                pre.start_next()
+                out = self.train_pass_resident(rp, log_prefix=log_prefix)
+                out["preload_wait_sec"] = waited
+                results.append(out)
+        finally:
+            pre.drain()
+        return results
 
     def eval_pass(self, dataset: InMemoryDataset,
                   log_prefix: str = "") -> Dict[str, float]:

@@ -1591,3 +1591,165 @@ def test_hot_reload_predictions_equal_fresh_adoption(cuda, deterministic,
     assert not np.array_equal(p0, p1)
     srv.release()
     fresh.release()
+
+
+# ---------------------------------------------------------------------------
+# the pipelined resident pass on the card
+# ---------------------------------------------------------------------------
+
+def _pipeline_setup(cuda, n_pass=3, s=4, mf=4, dense=3, bs=64):
+    """Seeded ragged passes (slot-qualified ids), a trainer factory on
+    the card (f32 tower, no lazy-mf draws) and a dataset factory."""
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    slots = ([SlotDef("label", "float", 1), SlotDef("d", "float", dense)]
+             + [SlotDef(f"S{i}", "uint64") for i in range(s)])
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=512)
+    passes = []
+    for p in range(n_pass):
+        rng = np.random.default_rng(30 + p)
+        recs = []
+        for i in range(3 * bs - 5):
+            counts = np.minimum(rng.zipf(1.5, size=s), 8)
+            offs = np.zeros(s + 1, np.int32)
+            np.cumsum(counts, out=offs[1:])
+            keys = (np.repeat(np.arange(s, dtype=np.uint64), counts)
+                    * np.uint64(10_000)
+                    + rng.integers(0, 600, size=offs[-1]).astype(np.uint64))
+            recs.append(SlotRecord(keys, offs,
+                                   rng.normal(size=dense).astype(np.float32),
+                                   float(i % 2), 1.0, float(i % 2)))
+        passes.append(recs)
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
+
+    def trainer(arena=False, dev=cuda):
+        torch.manual_seed(0)
+        t = EmbeddingTable(mf_dim=mf, capacity=1 << 13, cfg=cfg,
+                           unique_bucket_min=512, device=dev,
+                           arena_slots=s if arena else None,
+                           arena_chunk_bits=6)
+        return Trainer(DeepFM(s, 3 + mf, dense, hidden=(16, 8),
+                              compute_dtype=torch.float32), t, desc,
+                       seed=3, check_nan_inf=True, device=dev)
+
+    def datasets(columnar=False):
+        out = []
+        for recs in passes:
+            ds = InMemoryDataset(desc)
+            ds.records = list(recs)
+            if columnar:
+                ds.columnarize()
+            out.append(ds)
+        return out
+
+    return trainer, datasets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena,floats", [(False, "q8"), (False, "f32"),
+                                          (True, "q8")],
+                         ids=["dedup_q8", "dedup_f32", "compact_q8"])
+def test_build_streamed_on_card_stages_upload_bytes(cuda, arena, floats):
+    """``build_streamed`` on the card (pinned buffers, non-blocking copies
+    in 2-batch chunks, stitched on the device, its event waited on) stages
+    the same bytes as ``build`` + ``upload`` on the card and as the same
+    build on the CPU."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.train.device_pass import ResidentPass
+    trainer, datasets = _pipeline_setup(cuda)
+    fd = np.float32 if floats == "f32" else floats
+    with flags_scope(preload_pack_chunk_batches=2):
+        rp = ResidentPass.build_streamed(datasets()[0],
+                                         trainer(arena).table,
+                                         floats_dtype=fd, block=False)
+    cpu = ResidentPass.build_streamed(datasets()[0],
+                                      trainer(arena, "cpu").table,
+                                      floats_dtype=fd)
+    assert rp.ready is not None and rp.wire == cpu.wire
+    assert rp.wire == ("compact" if arena else "dedup")
+    rp.settle()
+    assert rp._pinned == []
+    leaves = rp._leaves()
+    assert all(t.is_cuda for t in leaves)
+    for a, b in zip(leaves, cpu._leaves()):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    if not arena:
+        plain = ResidentPass.build(datasets()[0], trainer().table,
+                                   floats_dtype=fd)
+        plain.upload(cuda)
+        torch.cuda.current_stream().wait_event(plain.ready)
+        for a, b in zip(plain._leaves(), leaves):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert rp.formats == cpu.formats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena,floats", [(False, "q8"),
+                                          (False, torch.bfloat16),
+                                          (True, "q8")],
+                         ids=["dedup_q8", "dedup_bf16", "compact_q8"])
+def test_pipeline_depth2_equals_depth0_on_card(cuda, deterministic, arena,
+                                               floats):
+    """Three passes through the depth-2 pipeline (builds on the worker's
+    stream, each pass ordered by its event) and through depth 0 give the
+    same ``state_digest`` under deterministic algorithms; the four step
+    kernels launch once a step."""
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+    trainer, datasets = _pipeline_setup(cuda)
+    names = ("gather_rows", "pool_cvm", "segment_gather",
+             "scatter_add_update")
+    digests = []
+    for depth in (2, 0):
+        tr = trainer(arena)
+        before = [getattr(tk, n).launches for n in names]
+        res = tr.train_passes_resident(datasets(columnar=True), depth=depth,
+                                       floats_dtype=floats)
+        after = [getattr(tk, n).launches for n in names]
+        steps = sum(r["batches"] for r in res)
+        assert [a - b for a, b in zip(after, before)] == [steps] * 4
+        assert not tr.table.state.data[-1].any()
+        digests.append(state_digest(tr))
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.cuda
+def test_worker_insert_equals_main_thread_build(cuda, deterministic):
+    """After a first pass on the host index, ``use_pallas_index`` on: the
+    preloader's worker seeds the device key index from the kv and inserts
+    every later pass's keys on its own stream; the index's entries, the
+    kv and the trained state equal a main-thread run of the same passes
+    (``build`` + ``train_pass_resident``)."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.ops import index as tix
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+    trainer, datasets = _pipeline_setup(cuda)
+    worker, main = trainer(), trainer()
+    for tr in (worker, main):          # a first pass on the host index
+        tr.train_pass_resident(datasets()[0])
+    with flags_scope(use_pallas_index=True):
+        before = tix.insert.launches
+        worker.train_passes_resident(datasets()[1:], depth=2)
+        assert tix.insert.launches - before == 1 + 2   # seed + 2 builds
+        for ds in datasets()[1:]:
+            main.train_pass_resident(ds)
+    dw, dm = worker.table._dev_index, main.table._dev_index
+    assert not dw.degraded and not dm.degraded
+    # the same (key, row) entries; which probe slot a colliding key won
+    # is decided by the insert kernel's race, so the layouts may differ
+    entries = []
+    for d in (dw, dm):
+        keys_b, rows_b = tix.bucket_views(d.buckets)
+        live = rows_b >= 0
+        k, r = keys_b[live].cpu().numpy(), rows_b[live].cpu().numpy()
+        order = np.argsort(k)
+        entries.append((k[order], r[order]))
+    np.testing.assert_array_equal(entries[0][0], entries[1][0])
+    np.testing.assert_array_equal(entries[0][1], entries[1][1])
+    assert dw.next_row == dm.next_row
+    kw, rw = worker.table.index.items()
+    km, rm = main.table.index.items()
+    assert dict(zip(kw.tolist(), rw.tolist())) == dict(zip(km.tolist(),
+                                                           rm.tolist()))
+    np.testing.assert_array_equal(dw.lookup_rows(kw), rw)
+    assert state_digest(worker) == state_digest(main)

@@ -215,7 +215,7 @@ def test_resident_equals_train_pass_bitwise(use_index, trivial):
                 for _ in range(2)]
     _assert_same_state(_state(stream), _state(resident))
     assert resident._resident_runners.keys() == {
-        (_key_capacity(arrs), trivial)}
+        (_key_capacity(arrs), trivial, "dedup", None)}
     for a, b in zip(sres, rres):
         assert a["auc"] == b["auc"] and a["last_loss"] == b["last_loss"]
         assert a["examples"] == b["examples"]
@@ -299,13 +299,43 @@ def test_bulk_assign_device_equals_host_and_serial():
 
 
 def test_upload_stages_four_arrays_once():
+    """``upload`` stages the reference's packed wire (the unpacked
+    four-array staging this test once pinned is gone; the name stays):
+    every staged block equals the JAX ``ResidentPass.upload`` leaf byte
+    for byte (uint16 blocks ride as their int16 view; the port keeps
+    ``meta`` on the host and stages no dummy for the trivial segments or
+    the absent qmeta), ``nbytes()`` is the staged blocks' sum and below
+    the host int32/f32 bytes, and a second ``upload`` is a no-op."""
+    from paddlebox_tpu.train.device_pass import ResidentPass as JPass
+    arrs = _arrays(seed=5)
     tr = _port_trainer(_params0())
-    rp = ResidentPass.build(_port_dataset(_arrays(seed=5)), tr.table)
+    rp = ResidentPass.build(_port_dataset(arrs), tr.table)
     host_bytes = rp.nbytes()
     rp.upload(torch.device("cpu"))
     staged = rp.dev
-    assert len(staged) == 4 and all(t is not None for t in staged)
-    assert rp.nbytes() == host_bytes and "h2d" in rp.build_stats
+    jdesc = JDesc(slots=_slots(JSlotDef), label_slot="label",
+                  batch_size=BS, key_bucket_min=512)
+    jds = JDataset(jdesc)
+    jds.records = [JRecord(k, o, d, l, 1.0, l) for k, o, d, l in arrs]
+    jrp = JPass.build(jds, JTable(mf_dim=MF, capacity=CAP, cfg=JCfg(**CFG),
+                                  unique_bucket_min=512))
+    jrp.upload()
+    juniq, jgidx, jfloats, jmeta, jsegs, _ = jrp.dev
+    np.testing.assert_array_equal(rp.meta, np.asarray(jmeta))
+    pairs = (list(zip(staged[0], juniq)) + list(zip(staged[1], jgidx))
+             + [(staged[2], jfloats)] + list(zip(staged[3], jsegs)))
+    assert len(pairs) == len(juniq) + len(jgidx) + 1 + len(jsegs)
+    for got, want in pairs:
+        want = np.asarray(want)
+        got = got.numpy()
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.view(want.dtype), want)
+    assert rp.formats == {"uniq": "d8", "gidx": "u18", "segs": "grid",
+                          "floats": "f32"}
+    assert rp.nbytes() == sum(t.numel() * t.element_size()
+                              for grp in (staged[0], staged[1], staged[3])
+                              for t in grp) + staged[2].nbytes
+    assert rp.nbytes() < host_bytes and "h2d" in rp.build_stats
     rp.upload(torch.device("cpu"))
     assert rp.dev is staged
     assert rp.unique_capacity % 512 == 0 and rp.key_capacity >= 512
