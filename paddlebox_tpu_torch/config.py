@@ -31,8 +31,9 @@ class Flags:
     preload_depth: int = 2
     # staged-pass device memory budget: after each build the preloader
     # clamps its depth to max(1, budget // staged bytes of the pass),
-    # loudly, and never raises it again (<= 0 disables the clamp)
-    preload_hbm_budget_mb: int = 4096
+    # loudly, and never raises it again (<= 0 disables the clamp; a
+    # fraction of a MB is allowed)
+    preload_hbm_budget_mb: float = 4096
     # build_streamed packs and copies the index blocks in chunks of this
     # many batches, each chunk's copy issued while later chunks pack
     # (<= 0 = the whole pass as one chunk)
@@ -40,8 +41,9 @@ class Flags:
     # the q8 float wire on a non-columnar dataset that can be walked
     # twice: per-column min/max batch by batch, then a second walk casts
     # each batch to u8, without a whole-pass f32 block (and without
-    # quantize_floats' winsorized range). False = the whole-pass
-    # quantize_floats.
+    # quantize_floats' winsorized range, so the two ship different bytes
+    # for heavy-tailed columns). False = the whole-pass quantize_floats.
+    # Kept for parity with the reference, which has the same switch.
     q8_streaming_front: bool = True
     # > 0: a pipeline wait that sees no build complete for this long
     # raises PipelineHangError (ps/epilogue.py) naming the stuck stage;

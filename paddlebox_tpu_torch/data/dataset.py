@@ -50,15 +50,15 @@ class InMemoryDataset:
             return self.columnar.num_records
         return len(self.records)
 
-    def columnarize(self, release_records: bool = True) -> None:
-        """Convert the records to the columnar store, once per pass; the
-        batches and the resident pass's front read it from then on."""
+    def columnarize(self) -> None:
+        """Convert the records to the columnar store, once per pass, and
+        release them; the batches and the resident pass's front read the
+        store from then on."""
         if self.columnar is not None and not self.records:
             return  # already columnar
         self.columnar = ColumnarRecords.from_records(self.records,
                                                      self.desc.dense_dim)
-        if release_records:
-            self.records = []
+        self.records = []
 
     def batches(self, drop_last: bool = False,
                 start_batch: int = 0) -> Iterator[SlotBatch]:

@@ -55,11 +55,11 @@ from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.data.dataset import InMemoryDataset
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
 from paddlebox_tpu_torch.ops.bitpack import (as_wire, pack_delta,
-                                             pack_delta_auto, pack_u12,
-                                             pack_u16m, pack_u18, pack_u24,
-                                             unpack_delta16, unpack_u12,
-                                             unpack_u16m, unpack_u18,
-                                             unpack_u24, widen_u16)
+                                             pack_u12, pack_u16m, pack_u18,
+                                             pack_u24, unpack_delta16,
+                                             unpack_u12, unpack_u16m,
+                                             unpack_u18, unpack_u24,
+                                             widen_u16)
 from paddlebox_tpu_torch.ops.device_unique import dedup_rows
 from paddlebox_tpu_torch.ps.epilogue import hang_timeout, wait_with_deadline
 from paddlebox_tpu_torch.ps.table import (fill_oob_pads, next_bucket,
@@ -113,12 +113,6 @@ def _floats_format(floats: np.ndarray) -> str:
     """The float wire of a host float block (bf16 rides as int16 bits)."""
     return {np.dtype(np.uint8): "q8", np.dtype(np.int16): "bf16",
             np.dtype(np.float32): "f32"}[floats.dtype]
-
-
-def _uniq_format(enc) -> str:
-    if len(enc) == 3:
-        return "d8" if enc[0].dtype == np.uint8 else "d16"
-    return "u24" if len(enc) == 2 else "raw"
 
 
 def _segs_format(enc) -> str:
@@ -326,10 +320,19 @@ class ResidentPass:
                              - stats.get("index_host", 0.0)
                              - stats.get("index_dev", 0.0))
         poll_preload_abort()
-        # formats decided ONCE for the whole pass, so the chunks encode
-        # alike and the bytes equal upload()'s
-        ufmt = cls._choose_uniq_fmt(dedup, u_pad, table.capacity)
-        gfmt = cls._choose_gidx_fmt(per_batch, dedup, k_max)
+        # formats decided ONCE for the whole pass, from the dedup results
+        # before packing, so the chunks encode alike and the bytes equal
+        # upload()'s: the largest uniq value is a real row or the last
+        # fill_oob_pads id (cap + pads); a batch's largest position is u
+        # (the pad value) when it has key pads, else u - 1
+        cap = table.capacity
+        vmax = max(max(int(u[-1]) if len(u) else 0,
+                       cap + (u_pad - len(u)) if len(u) < u_pad else 0)
+                   for u, _ in dedup)
+        gmax = max(len(u) if len(keys) < k_max else len(u) - 1
+                   for (keys, *_), (u, _) in zip(per_batch, dedup))
+        ufmt = cls._choose_uniq_fmt([u for u, _ in dedup], vmax)
+        gfmt = cls._choose_gidx_fmt(gmax, k_max)
         nb = len(per_batch)
         step = FLAGS.preload_pack_chunk_batches
         step = nb if step <= 0 else min(step, nb)
@@ -428,50 +431,42 @@ class ResidentPass:
         out = list(uniq_t) + list(gidx_t) + [floats_t] + list(segs_t or ())
         return out + ([] if qm is None else [qm])
 
-    # ---- whole-pass format choices (build_streamed's chunked encode) ----
-    @classmethod
-    def _encode_segs_or_fallback(cls, segs, meta, floats):
-        enc = cls._encode_segs_slotwire(segs, meta, floats.shape[1])
-        return enc if enc is not None else cls._encode_gidx(segs)
+    # ---- wire formats, chosen once per pass ----
+    _EXC = 32    # per-batch budget of >= 2^16 delta gaps in the u16 wire
+    _EXC8 = 64   # per-batch budget of >= 2^8 gaps in the u8 wire
 
     @classmethod
-    def _choose_uniq_fmt(cls, dedup, u_pad: int, cap: int) -> str:
-        """The whole-pass uniq wire, from the dedup results BEFORE packing:
-        ``_encode_uniq``'s order (u8 deltas, u16 deltas, 16+8-bit halves,
-        raw int32). Exception counts equal ``pack_delta``'s (per-row gaps
-        over the real ascending prefix); the u24 bound covers the
-        ``fill_oob_pads`` tail (largest pad id cap + (u_pad - u))."""
+    def _choose_uniq_fmt(cls, reals, vmax: int, delta: bool = True) -> str:
+        """The uniq wire, narrowest first: u8 DELTAS + sparse gap
+        exceptions, u16 deltas, 16+8-bit halves, raw int32. ``reals`` are
+        each batch's real unique rows; the exception counts are
+        ``pack_delta``'s (gaps over the real prefix). ``vmax`` is the
+        largest value shipped, pads included. A batch whose rows do not
+        ascend, or ``delta=False`` (a hand-built pass without the base
+        column), leaves the order-agnostic u24 / raw."""
         exc8 = exc16 = 0
-        vmax = 0
-        for uniq_s, _ in dedup:
-            u = len(uniq_s)
-            d = np.diff(uniq_s.astype(np.int64, copy=False))
+        for r in reals if delta else ():
+            d = np.diff(r.astype(np.int64, copy=False))
+            if (d < 0).any():
+                delta = False
+                break
             exc8 = max(exc8, int((d >= (1 << 8)).sum()))
             exc16 = max(exc16, int((d >= (1 << 16)).sum()))
-            if u:
-                vmax = max(vmax, int(uniq_s[-1]))
-            if u < u_pad:
-                vmax = max(vmax, cap + (u_pad - u))
-        if exc8 <= cls._EXC8:
+        if delta and exc8 <= cls._EXC8:
             return "d8"
-        if exc16 <= cls._EXC:
+        if delta and exc16 <= cls._EXC:
             return "d16"
         return "u24" if vmax < (1 << 24) else "raw"
 
     @staticmethod
-    def _choose_gidx_fmt(per_batch, dedup, k_max: int) -> str:
-        """``_encode_gidx``'s choice from the dedup results: a batch's
-        largest position is u (the pad value) when it has key pads, else
-        u - 1."""
-        gmax = 0
-        for (keys, *_), (uniq_s, _) in zip(per_batch, dedup):
-            u = len(uniq_s)
-            gmax = max(gmax, u if len(keys) < k_max else u - 1)
-        return "u18" if gmax < (1 << 18) and k_max % 4 == 0 else "raw"
+    def _choose_gidx_fmt(gmax: int, k: int) -> str:
+        """The position wire: 16+2 bits while every value is below 2^18
+        and the key capacity ``k`` packs whole bytes, else raw int32."""
+        return "u18" if gmax < (1 << 18) and k % 4 == 0 else "raw"
 
     @classmethod
     def _encode_uniq_fmt(cls, fmt: str, uniq: np.ndarray, meta: np.ndarray):
-        """Encode a chunk in the pre-chosen whole-pass format."""
+        """Encode unique rows (a chunk or the pass) in a chosen format."""
         if fmt == "d8":
             out = pack_delta(uniq, meta[:, 2], cls._EXC8, bits=8)
         elif fmt == "d16":
@@ -481,12 +476,21 @@ class ResidentPass:
         else:
             return (uniq,)
         if out is None:
-            raise AssertionError("the pre-chosen delta wire must fit")
+            raise AssertionError("the chosen delta wire must fit")
         return out
 
     @staticmethod
     def _encode_gidx_fmt(fmt: str, gidx: np.ndarray):
         return pack_u18(gidx) if fmt == "u18" else (gidx,)
+
+    @classmethod
+    def _encode_segs_or_fallback(cls, segs, meta, floats):
+        """The GRID / SLOT segment wire, else the position wire."""
+        enc = cls._encode_segs_slotwire(segs, meta, floats.shape[1])
+        if enc is not None:
+            return enc
+        fmt = cls._choose_gidx_fmt(int(segs.max(initial=0)), segs.shape[1])
+        return cls._encode_gidx_fmt(fmt, segs)
 
     # ---- the compact wire (slot-arena tables) ----
     @classmethod
@@ -875,63 +879,43 @@ class ResidentPass:
         return uniq, gidx, meta, segs
 
     # ---- staging ----
-    def upload(self, device: torch.device, materialize: bool = False
-               ) -> None:
-        """Stage the pass on ``device``, bit-packed for the wire: the
-        whole-pass encoders (``_encode_uniq``, ``_encode_gidx``,
-        ``_encode_segs_slotwire``) choose each block's narrowest format.
-        The copies are issued on the current stream and not waited for
-        (``materialize`` waits on the host). The per-batch key counts stay
-        on the host (``meta``). A no-op once staged."""
-        if self.dev is None:
-            t0 = time.perf_counter()
-            stager = _Stager(device)
-            ue = self._encode_uniq(self.uniq, self.meta)
-            ge = self._encode_gidx(self.gidx)
-            se = (None if self.segs is None else
-                  self._encode_segs_or_fallback(self.segs, self.meta,
-                                                self.floats))
-            self.dev = (tuple(stager.put(a) for a in ue),
-                        tuple(stager.put(a) for a in ge),
-                        stager.floats(self.floats),
-                        None if se is None
-                        else tuple(stager.put(a) for a in se),
-                        None if self.qmeta is None
-                        else stager.put(self.qmeta))
-            self.formats = {"uniq": _uniq_format(ue),
-                            "gidx": "u18" if len(ge) == 2 else "raw",
-                            "segs": _segs_format(se),
-                            "floats": _floats_format(self.floats)}
-            self._staged(stager, block=False)
-            self.build_stats["h2d"] = time.perf_counter() - t0
-        if materialize:
-            self.settle()
-
-    _EXC = 32    # per-batch budget of >= 2^16 delta gaps in the u16 wire
-    _EXC8 = 64   # per-batch budget of >= 2^8 gaps in the u8 wire
-
-    @classmethod
-    def _encode_uniq(cls, uniq: np.ndarray, meta: np.ndarray):
-        """Wire of the (ascending) per-batch unique rows, in preference
-        order: u8 DELTAS + sparse gap exceptions, u16 deltas, 16+8-bit
-        halves, raw int32. The device rebuilds them with one cumsum.
-        Hand-built passes that break the delta wire's preconditions
-        (unsorted rows, no base column) fall through to the
-        order-agnostic encodings."""
-        if meta.shape[1] >= 4 and bool((meta[:, 3] == uniq[:, 0]).all()):
-            delta = pack_delta_auto(uniq, meta[:, 2], cls._EXC8, cls._EXC)
-            if delta is not None:
-                return delta
-        if int(uniq.max()) < (1 << 24):
-            return pack_u24(uniq)
-        return (uniq,)
-
-    @staticmethod
-    def _encode_gidx(gidx: np.ndarray):
-        if (int(gidx.max(initial=0)) < (1 << 18)
-                and gidx.shape[1] % 4 == 0):
-            return pack_u18(gidx)
-        return (gidx,)
+    def upload(self, device: torch.device) -> None:
+        """Stage the pass on ``device``, bit-packed for the wire: each
+        block in the narrowest format the choosers that ``build_streamed``
+        applies find for the whole pass. The copies are issued on the
+        current stream and not waited for (``ready``; ``settle`` waits on
+        the host). The per-batch key counts stay on the host (``meta``).
+        Encoding adds to ``build_stats["pack"]``, the copies' issue is
+        ``build_stats["h2d"]``. A no-op once staged."""
+        if self.dev is not None:
+            return
+        t0 = time.perf_counter()
+        uniq, meta = self.uniq, self.meta
+        # the delta wire's base column is each batch's first row
+        ufmt = self._choose_uniq_fmt(
+            [uniq[i, :n] for i, n in enumerate(meta[:, 2])],
+            int(uniq.max(initial=0)),
+            delta=bool((meta[:, 3] == uniq[:, 0]).all()))
+        gfmt = self._choose_gidx_fmt(int(self.gidx.max(initial=0)),
+                                     self.key_capacity)
+        ue = self._encode_uniq_fmt(ufmt, uniq, meta)
+        ge = self._encode_gidx_fmt(gfmt, self.gidx)
+        se = (None if self.segs is None else
+              self._encode_segs_or_fallback(self.segs, meta, self.floats))
+        t1 = time.perf_counter()
+        stager = _Stager(device)
+        self.dev = (tuple(stager.put(a) for a in ue),
+                    tuple(stager.put(a) for a in ge),
+                    stager.floats(self.floats),
+                    None if se is None else tuple(stager.put(a) for a in se),
+                    None if self.qmeta is None else stager.put(self.qmeta))
+        self.formats = {"uniq": ufmt, "gidx": gfmt,
+                        "segs": _segs_format(se),
+                        "floats": _floats_format(self.floats)}
+        self._staged(stager, block=False)
+        self.build_stats["pack"] = (self.build_stats.get("pack", 0.0)
+                                    + t1 - t0)
+        self.build_stats["h2d"] = time.perf_counter() - t1
 
     @staticmethod
     def _encode_segs_slotwire(segs: np.ndarray, meta: np.ndarray,
@@ -1192,30 +1176,24 @@ class PassPreloader:
 
     def __init__(self, datasets: Iterator[InMemoryDataset], table=None,
                  floats_dtype=np.float32, build_fn=None,
-                 block_transfers: bool = False,
-                 depth: Optional[int] = None,
-                 hbm_budget_bytes: Optional[int] = None,
-                 device=None) -> None:
+                 depth: Optional[int] = None, device=None) -> None:
         """``build_fn(dataset) -> pass`` replaces the default
         ``ResidentPass.build_streamed`` on ``table``. ``depth`` overrides
-        ``FLAGS.preload_depth``, ``hbm_budget_bytes``
-        ``FLAGS.preload_hbm_budget_mb``. ``device`` (default: the table's,
-        else the card) is where the passes are staged."""
+        ``FLAGS.preload_depth``. ``device`` (default: the table's, else
+        the card) is where the passes are staged."""
         if table is None and build_fn is None:
             raise ValueError("need a table or a build_fn")
         self._it = iter(datasets)
         self._table = table
         self._floats_dtype = floats_dtype
         self._build_fn = build_fn
-        self._block = block_transfers
         self._device = (table.device if table is not None and device is None
                         else resolve_device(device or "cuda"))
         depth = FLAGS.preload_depth if depth is None else depth
         self._manual = depth == 0
         self._credits = 0
         self.depth = max(1, depth)
-        self._budget = (FLAGS.preload_hbm_budget_mb * (1 << 20)
-                        if hbm_budget_bytes is None else hbm_budget_bytes)
+        self._budget = FLAGS.preload_hbm_budget_mb * (1 << 20)
         self._cv = threading.Condition()
         self._q: collections.deque = collections.deque()
         self._building = False
@@ -1238,11 +1216,10 @@ class PassPreloader:
     def _build(self, ds):
         if self._build_fn is not None:
             rp = self._build_fn(ds)
-            rp.upload(self._device, materialize=True)
+            rp.upload(self._device)  # a no-op if the build staged it
             return rp
         return ResidentPass.build_streamed(
-            ds, self._table, floats_dtype=self._floats_dtype,
-            block=self._block)
+            ds, self._table, floats_dtype=self._floats_dtype, block=False)
 
     def _run(self) -> None:
         # the builds' stage polls see THIS preloader's stop()
@@ -1390,8 +1367,6 @@ class PassPreloader:
         self.wait_sec_total += waited
         if err is not None:
             raise err
-        if rp is not None:
-            rp.upload(self._device)  # a no-op unless a build_fn skipped it
         return rp
 
     # ---- shutdown ----

@@ -1647,18 +1647,26 @@ def _pipeline_setup(cuda, n_pass=3, s=4, mf=4, dense=3, bs=64):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arena,floats", [(False, "q8"), (False, "f32"),
-                                          (True, "q8")],
-                         ids=["dedup_q8", "dedup_f32", "compact_q8"])
+@pytest.mark.parametrize("arena,floats", [(False, "q8"), (False, "q8_whole"),
+                                          (False, "f32"), (True, "q8")],
+                         ids=["dedup_q8", "dedup_q8_whole", "dedup_f32",
+                              "compact_q8"])
 def test_build_streamed_on_card_stages_upload_bytes(cuda, arena, floats):
     """``build_streamed`` on the card (pinned buffers, non-blocking copies
     in 2-batch chunks, stitched on the device, its event waited on) stages
     the same bytes as ``build`` + ``upload`` on the card and as the same
-    build on the CPU."""
+    build on the CPU. The record datasets take the q8 streaming front,
+    or with ``q8_whole`` the whole-pass ``quantize_floats``."""
+    from paddlebox_tpu_torch.config import flags_scope
+    trainer, datasets = _pipeline_setup(cuda)
+    fd = {"f32": np.float32, "q8_whole": "q8"}.get(floats, floats)
+    with flags_scope(q8_streaming_front=floats != "q8_whole"):
+        _check_build_streamed_on_card(cuda, trainer, datasets, arena, fd)
+
+
+def _check_build_streamed_on_card(cuda, trainer, datasets, arena, fd):
     from paddlebox_tpu_torch.config import flags_scope
     from paddlebox_tpu_torch.train.device_pass import ResidentPass
-    trainer, datasets = _pipeline_setup(cuda)
-    fd = np.float32 if floats == "f32" else floats
     with flags_scope(preload_pack_chunk_batches=2):
         rp = ResidentPass.build_streamed(datasets()[0],
                                          trainer(arena).table,

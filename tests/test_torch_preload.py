@@ -138,16 +138,19 @@ def _fake_pass(nbytes):
 def test_hbm_budget_clamp_is_monotone_and_warns(caplog):
     """A pass bigger than the budget allows clamps the depth, loudly; a
     smaller pass after it never raises the depth again."""
-    sizes = iter([100, 400, 50, 50])
-    pre = PassPreloader(iter(range(4)), build_fn=lambda ds: _fake_pass(
-        next(sizes)), depth=3, hbm_budget_bytes=800, device="cpu")
+    mb = 1 << 20
+    want = [mb // 8, mb // 2, mb // 16, mb // 16]
+    sizes = iter(want)
+    with flags_scope(preload_hbm_budget_mb=1):
+        pre = PassPreloader(iter(range(4)), build_fn=lambda ds: _fake_pass(
+            next(sizes)), depth=3, device="cpu")
     with caplog.at_level(logging.WARNING):
         pre.start_next()
         got = []
         while (rp := pre.wait()) is not None:
             got.append(rp.nbytes())
     pre.drain()
-    assert got == [100, 400, 50, 50]
+    assert got == want
     assert pre.depth_clamped and pre._effective_depth == 2
     assert sum("clamping preload depth 3 -> 2" in r.getMessage()
                for r in caplog.records) == 1
@@ -155,8 +158,8 @@ def test_hbm_budget_clamp_is_monotone_and_warns(caplog):
 
 def test_hbm_budget_clamps_real_passes_to_depth_one():
     tr = port_trainer(params0())
-    pre = PassPreloader(iter(_passes(3)), tr.table, depth=3,
-                        hbm_budget_bytes=1)
+    with flags_scope(preload_hbm_budget_mb=1 / (1 << 20)):  # one byte
+        pre = PassPreloader(iter(_passes(3)), tr.table, depth=3)
     pre.start_next()
     results = []
     while (rp := pre.wait()) is not None:

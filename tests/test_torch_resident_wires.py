@@ -135,12 +135,14 @@ def test_delta_refuses_unsorted_rows():
     assert jbp.pack_delta(rows, nreal, 64) is None
 
 
-@pytest.mark.parametrize("k", [510, 512], ids=["k_mod4_ne0", "k_mod4_eq0"])
-def test_gidx_alignment_fallback(k):
-    gidx = _rng_values(18, (2, k))
-    got = ResidentPass._encode_gidx(gidx)
+@pytest.mark.parametrize("bits,k", [(18, 510), (18, 512), (19, 512)],
+                         ids=["k_mod4_ne0", "k_mod4_eq0", "over_18_bits"])
+def test_gidx_alignment_fallback(bits, k):
+    gidx = _rng_values(bits, (2, k))
+    fmt = ResidentPass._choose_gidx_fmt(int(gidx.max()), k)
+    got = ResidentPass._encode_gidx_fmt(fmt, gidx)
     want = JPass._encode_gidx(gidx)
-    assert len(got) == len(want) == (2 if k % 4 == 0 else 1)
+    assert len(got) == len(want) == (2 if k % 4 == 0 and bits <= 18 else 1)
     for a, b in zip(got, want):
         assert a.tobytes() == b.tobytes()
 
@@ -514,6 +516,28 @@ def test_upload_segment_wires_match_reference(kind):
                                     k_pad=rp.key_capacity)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         np.testing.assert_array_equal(got.numpy(), arrays_[4][i])
+
+
+@pytest.mark.parametrize("case,fmt", [("ascending", "d8"),
+                                      ("unsorted", "u24"),
+                                      ("no_base", "u24")])
+def test_upload_handbuilt_uniq_fallback(case, fmt):
+    """``upload`` applies ``build_streamed``'s uniq chooser; a hand-built
+    pass whose real rows do not ascend, or whose base column is not the
+    first row, takes the order-agnostic u24 wire, as the JAX upload does,
+    byte for byte."""
+    uniq, gidx, floats, meta, segs = _handbuilt("slot")
+    if case == "unsorted":
+        uniq[1, [1, 3]] = uniq[1, [3, 1]]
+    elif case == "no_base":
+        meta[:, 3] = 1
+    rp = ResidentPass(uniq, gidx, floats, meta, segs, num_records=48)
+    jrp = JPass(uniq, gidx, floats, meta, segs, num_records=48)
+    rp.upload(CPU)
+    jrp.upload()
+    assert rp.formats["uniq"] == fmt
+    for got, want in _staged_pairs(rp, jrp):
+        _same_bytes(got, want)
 
 
 @pytest.mark.parametrize("bits,fmt", [
