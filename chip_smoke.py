@@ -9,8 +9,8 @@ Phases, each of which fails the run:
 2. build every kernel of the serving, training, PV and seqpool paths
    (13 kernels) from the eleven sources of ``paddlebox_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and the native host library
-   (``paddlebox_tpu_torch/native/kv_index.cpp``, g++, at the same time)
-   and print the build seconds;
+   (``paddlebox_tpu_torch/native/kv_index.cpp`` and ``slot_parser.cpp``,
+   one g++ call, at the same time) and print the build seconds;
 3. at the full-width shapes of those paths, hold each kernel against its
    plain PyTorch version on the card (``gather_rows``, ``segment_gather``
    in both modes and ``scatter_add_update`` exact, ``pool_cvm`` in all
@@ -211,6 +211,39 @@ Phases, each of which fails the run:
    and 0, and the record front against the columnar front on pass 0 in
    turns (outputs equal). The three depth-2 runs' launches join the
    ``kernels`` line.
+12. the data pipeline and streaming ingest at phase 5's width, under
+   ``torch.use_deterministic_algorithms``: the ``--batches`` x 4096
+   records written to one slot_text file a batch (dense with 9
+   significant digits); an ``InMemoryDataset`` loaded natively
+   (``native/slot_parser.cpp``, 8 pool threads) and per line
+   (``native_parse`` off, 1 reader thread), timed in turns (native,
+   python, python, native): each load must take its route
+   (``parse_route``; no fallback), its columnar arrays must equal the
+   records' and its batches phase 5's, array for array. ``train_pass``
+   from the file-loaded dataset and from the records, from the same
+   params and a seeded base file (the ids < 9 000 of each slot), must
+   give the same ``state_digest``; the first step from files runs again
+   through the kernels and the plain versions (f32 tower, no lazy-mf
+   draws): touched rows and dense params within rtol 2e-4 / atol 2e-5.
+   Then the stream scenario (a windowed ``QueueDataset``, windows of 2
+   files, 1 reader thread): the oracle ``train_stream`` with a boundary
+   checkpoint every window must end at ``train_pass``'s digest; the same
+   stream under ``preempt.signal:fail:nth=5`` raises ``PreemptedError``
+   inside window 3; new objects restore and stream again, replaying
+   exactly window 3's two files; the killed run's step-4 checkpoint must
+   hold the oracle's step-4 digest; every batch trains once but window
+   3's first, which trains twice (``on_batch_trained``). Last, the
+   Criteo walkthrough (``paddlebox_tpu_torch.examples.train_criteo``,
+   32 768 rows, batch 4096, 2 resident passes, vocabulary 100 000 a
+   slot, capacity 2^23, DeepFM (512, 256, 128)): native load, last pass
+   and eval AUC above 0.5, finite served predictions; the native criteo
+   parse of its files must equal the per-line parse (dense within the
+   reference's own rtol 1e-6: the native parser's log1p is float32).
+   Printed: records/s and MB/s by route, the stream's examples/s
+   against ``train_pass``'s, the share of the stream's wall time spent
+   in the per-line parse. The train_pass from files, the three streams
+   and the walkthrough are the phase's main path: their step kernel
+   launches join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -222,6 +255,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3099,6 +3133,433 @@ def pipeline_phase(torch, args, card, desc, records, details,
     return launches
 
 
+DATA_FILES = 8                   # phase 12: files of BATCH records each
+DATA_WINDOW = 2                  # phase 12: files a stream window
+DATA_PREEMPT = 5                 # phase 12: the killed stream stops here
+DATA_BASE_VOCAB = 9_000          # phase 12: ids of each slot in its base
+DATA_THREADS = 8                 # phase 12: the native load's pool
+
+
+def write_slot_text(path: str, recs) -> int:
+    """``recs`` as slot_text lines (label, the dense group with 9
+    significant digits — ``strtof`` and ``float`` give back the same
+    float32 — then each slot's count and keys); returns the bytes."""
+    lines = []
+    for r in recs:
+        parts = ["1", "%.9g" % r.label, str(len(r.dense)),
+                 " ".join("%.9g" % v for v in r.dense.tolist())]
+        offs = r.slot_offsets.tolist()
+        ks = r.keys.tolist()
+        for j in range(len(offs) - 1):
+            parts.append(str(offs[j + 1] - offs[j]))
+            parts.extend(map(str, ks[offs[j]:offs[j + 1]]))
+        lines.append(" ".join(parts))
+    text = ("\n".join(lines) + "\n").encode()
+    with open(path, "wb") as fh:
+        fh.write(text)
+    return len(text)
+
+
+def _same_arrays(what: str, a, b, fields) -> None:
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+class _OneBatch:
+    """A dataset of one prebuilt batch (the first step, run through the
+    kernels and through the plain versions)."""
+
+    def __init__(self, batch) -> None:
+        self.batch = batch
+
+    def batches(self, **kw):
+        return iter([self.batch])
+
+
+def data_phase(torch, args, card, desc, records, batches, details,
+               dev: str = "cuda") -> dict:
+    """Phase 12: the data pipeline and streaming ingest at phase 5's
+    width, under ``torch.use_deterministic_algorithms``: phase 5's
+    records written to ``DATA_FILES`` slot_text files, loaded natively and
+    per line (timed in turns), ``train_pass`` from files against the
+    records, the stream scenario (oracle, killed at batch
+    ``DATA_PREEMPT``, resumed) and the Criteo walkthrough. Returns the
+    step kernels' launches in the phase's main path (the train_pass from
+    files, the three streams, the walkthrough)."""
+    import hashlib
+
+    from paddlebox_tpu_torch import (CheckpointManager, DeepFM,
+                                     EmbeddingTable, InMemoryDataset,
+                                     Trainer, convert)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.data import DataFeedDesc, QueueDataset
+    from paddlebox_tpu_torch.data.columnar import ColumnarRecords
+    from paddlebox_tpu_torch.data.parser import CriteoParser, SlotTextParser
+    from paddlebox_tpu_torch.examples import train_criteo
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.resilience import faults, preemption
+    from paddlebox_tpu_torch.resilience.faults import FaultPlan, installed
+    from paddlebox_tpu_torch.resilience.preemption import PreemptedError
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+    from paddlebox_tpu_torch.train.step import TrainStep
+
+    if len(records) != DATA_FILES * BATCH:
+        raise AssertionError(f"phase 12 writes {DATA_FILES} files of "
+                             f"{BATCH} records")
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    step_fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+                "segment_gather": K.segment_gather,
+                "scatter_add_update": K.scatter_add_update}
+    launches = {k: 0 for k in step_fns}
+
+    def counted(fn, *a, **kw):
+        """``fn`` on the phase's main path: the step kernels' launches
+        are zeroed before and added up after."""
+        for f in step_fns.values():
+            f.launches = 0
+        try:
+            return fn(*a, **kw)
+        finally:
+            sync()
+            for k, f in step_fns.items():
+                launches[k] += f.launches
+
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=DATA_BASE_VOCAB, no_mf=0.25)
+    rec_cols = ("keys", "key_slot", "offsets", "dense", "label", "show",
+                "clk")
+    batch_cols = ("keys", "segments", "dense", "label", "show", "clk")
+    t = {}
+    preemption.clear_stop()
+    faults.clear_plan()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            base_path = os.path.join(tmp, "data_base.npz")
+            np.savez(base_path, **base)
+            n_base = len(base["keys"])
+            del base
+
+            def trainer(load=True, f32=False, ops=None):
+                cfg = SparseSGDConfig(mf_initial_range=0.0) if f32 else None
+                tb = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY,
+                                    cfg=cfg, seed=args.seed, device=dev)
+                if load:
+                    tb.load(base_path)
+                torch.manual_seed(args.seed + 2)
+                kw = {"compute_dtype": torch.float32} if f32 else {}
+                tr = Trainer(DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                    hidden=HIDDEN, **kw), tb, desc,
+                             seed=args.seed, check_nan_inf=True, device=dev)
+                if ops is not None:
+                    tr.step_fn = TrainStep(tb.cfg, BATCH, NUM_SLOTS, ops=ops)
+                return tr
+
+            def free(*trs):
+                for tr in trs:
+                    del tr.table.state, tr.state
+                sync()
+                if dev == "cuda":
+                    torch.cuda.empty_cache()
+
+            # ---- 1. the files ----
+            data_dir = os.path.join(tmp, "data")
+            os.makedirs(data_dir)
+            files = [os.path.join(data_dir, f"part-{i:03d}.txt")
+                     for i in range(DATA_FILES)]
+            t0 = time.perf_counter()
+            nbytes = sum(write_slot_text(f, records[i * BATCH:
+                                                    (i + 1) * BATCH])
+                         for i, f in enumerate(files))
+            t["write_s"] = time.perf_counter() - t0
+
+            # ---- 2, 3. native and per-line loads, in turns ----
+            loads = {"native": [], "python": []}
+            loaded = {}
+            for route in ("native", "python", "python", "native"):
+                native = route == "native"
+                with flags_scope(native_parse=native):
+                    ds = InMemoryDataset(desc)
+                    ds.set_filelist(files)
+                    ds.set_thread(DATA_THREADS if native else 1)
+                    t0 = time.perf_counter()
+                    ds.load_into_memory()
+                    ds.columnarize()
+                    loads[route].append(time.perf_counter() - t0)
+                if ds.parse_route != route:
+                    raise AssertionError(
+                        f"the {route} load took the {ds.parse_route} route "
+                        f"({ds.parse_route_reason})")
+                loaded.setdefault(route, ds)
+            want = ColumnarRecords.from_records(records, DENSE_DIM)
+            _same_arrays("native load vs the records", loaded["native"]
+                         .columnar, want, rec_cols)
+            _same_arrays("per-line load vs the native load",
+                         loaded["python"].columnar,
+                         loaded["native"].columnar, rec_cols)
+            del want
+            n_b = 0
+            for got, ref in zip(loaded["native"].batches(), batches):
+                _same_arrays(f"native batch {n_b} vs phase 5's", got, ref,
+                             batch_cols)
+                n_b += 1
+            if n_b != len(batches):
+                raise AssertionError(f"native load gave {n_b} batches")
+            file_ds = loaded["native"]
+            del loaded
+
+            # ---- 4. train once from files, against the records ----
+            rec_ds = InMemoryDataset(desc)
+            rec_ds.records = records
+            tr_f = trainer()
+            sync()
+            t0 = time.perf_counter()
+            res_f = counted(tr_f.train_pass, file_ds)
+            t["train_files_s"] = time.perf_counter() - t0
+            d_files = state_digest(tr_f)
+            free(tr_f)
+            tr_r = trainer()
+            tr_r.train_pass(rec_ds)
+            d_recs = state_digest(tr_r)
+            free(tr_r)
+            if d_files != d_recs:
+                raise AssertionError("train_pass from files differs from "
+                                     "train_pass from the records")
+            # the step kernels against their plain versions on the first
+            # step from files (f32 tower, no lazy-mf draws)
+            first = _OneBatch(next(iter(file_ds.batches())))
+            tk_, tp_ = trainer(f32=True), trainer(f32=True, ops=K.PLAIN)
+            tk_.train_pass(first)
+            tp_.train_pass(first)
+            rows_t = torch.from_numpy(np.nonzero(
+                tk_.table._touched | tp_.table._touched)[0]).to(dev)
+            row_err = check_close("data: first step's touched rows, "
+                                  "kernels vs plain",
+                                  tk_.table.state.data[rows_t],
+                                  tp_.table.state.data[rows_t], STATE_RTOL,
+                                  STATE_ATOL)
+            pk, pp = tk_.model.state_dict(), tp_.model.state_dict()
+            param_err = max(check_close(f"data: dense param {k}", pk[k],
+                                        pp[k], STATE_RTOL, STATE_ATOL)
+                            for k in pk)
+            free(tk_, tp_)
+            del rows_t, pk, pp, first, file_ds, rec_ds
+
+            # ---- 5. the stream scenario ----
+            sig = {hashlib.sha1(b.keys.tobytes()).hexdigest(): i
+                   for i, b in enumerate(batches)}
+            trained = [0] * DATA_FILES
+
+            def on_batch(b):
+                i = sig[hashlib.sha1(b.keys.tobytes()).hexdigest()]
+                if not np.array_equal(b.dense, batches[i].dense):
+                    raise AssertionError("a streamed batch differs from "
+                                         f"phase 5's batch {i}")
+                trained[i] += 1
+
+            def stream_ds():
+                ds = QueueDataset(desc)
+                ds.set_filelist(files)
+                return ds
+
+            parse_s = []
+            inner_parse = SlotTextParser.parse
+
+            def timed_parse(self, line):
+                t0 = time.perf_counter()
+                try:
+                    return inner_parse(self, line)
+                finally:
+                    parse_s.append(time.perf_counter() - t0)
+
+            with flags_scope(stream_window_files=DATA_WINDOW,
+                             read_thread_num=1,
+                             stream_ckpt_every_windows=1):
+                # (a) the oracle, uninterrupted
+                oracle = trainer()
+                at_boundary = {}
+
+                def boundary(widx, ds):
+                    # the last boundary the killed run also reaches
+                    if oracle.global_step == DATA_PREEMPT - 1:
+                        at_boundary[oracle.global_step] = \
+                            state_digest(oracle)
+                oracle.on_window_complete = boundary
+                oracle.on_batch_trained = on_batch
+                root_o = os.path.join(tmp, "ckpt_oracle")
+                SlotTextParser.parse = timed_parse
+                try:
+                    sync()
+                    t0 = time.perf_counter()
+                    out_o = counted(oracle.train_stream, stream_ds(),
+                                    CheckpointManager(root_o))
+                    t["stream_oracle_s"] = time.perf_counter() - t0
+                finally:
+                    SlotTextParser.parse = inner_parse
+                d_oracle = state_digest(oracle)
+                free(oracle)
+                shutil.rmtree(root_o)
+                if d_oracle != d_files:
+                    raise AssertionError("the oracle stream's final digest "
+                                         "differs from train_pass's")
+                if trained != [1] * DATA_FILES:
+                    raise AssertionError(f"oracle trained {trained}")
+                trained[:] = [0] * DATA_FILES
+                # (b) killed inside window 3
+                root = os.path.join(tmp, "ckpt_stream")
+                killed = trainer()
+                killed.on_batch_trained = on_batch
+                plan = FaultPlan.parse(
+                    f"preempt.signal:fail:nth={DATA_PREEMPT}")
+                t0 = time.perf_counter()
+                try:
+                    with installed(plan):
+                        counted(killed.train_stream, stream_ds(),
+                                CheckpointManager(root))
+                    raise AssertionError("the stream was not preempted")
+                except PreemptedError as e:
+                    if not e.checkpointed or \
+                            killed.global_step != DATA_PREEMPT:
+                        raise AssertionError(
+                            f"stream preempted at step {killed.global_step}"
+                            f", checkpointed {e.checkpointed}") from e
+                t["stream_killed_s"] = time.perf_counter() - t0
+                preemption.clear_stop()
+                free(killed)
+                cur = CheckpointManager(root).load_cursor()["stream"]
+                window = files[2 * DATA_WINDOW:3 * DATA_WINDOW]
+                if cur["window_files"] != window:
+                    raise AssertionError(f"the emergency cursor's open "
+                                         f"window is {cur['window_files']}")
+                # (c) new objects restore and stream again
+                resumed = trainer(load=False)
+                resumed.on_batch_trained = on_batch
+                cm = CheckpointManager(root)
+                t0 = time.perf_counter()
+                if cm.restore(resumed) != DATA_PREEMPT:
+                    raise AssertionError("the resume did not restore the "
+                                         "emergency checkpoint")
+                out_r = counted(resumed.train_stream, stream_ds(), cm)
+                sync()
+                t["stream_resumed_s"] = time.perf_counter() - t0
+                free(resumed)
+                if out_r["replayed_files"] != DATA_WINDOW:
+                    raise AssertionError(f"the resume replayed "
+                                         f"{out_r['replayed_files']} files")
+                # the killed run's last common boundary
+                at4 = trainer(load=False)
+                step4 = DATA_PREEMPT - 1
+                if CheckpointManager(root).restore(at4, step=step4) != step4:
+                    raise AssertionError(f"no step-{step4} checkpoint")
+                d_killed4 = state_digest(at4)
+                free(at4)
+                if d_killed4 != at_boundary.get(step4):
+                    raise AssertionError(f"the killed run's step-{step4} "
+                                         "checkpoint differs from the "
+                                         "oracle's state there")
+            again = [c - 1 for c in trained]
+            want_again = [int(i == DATA_PREEMPT - 1)
+                          for i in range(DATA_FILES)]
+            if again != want_again:
+                raise AssertionError(f"records trained {again} extra times "
+                                     f"per file, want {want_again}")
+
+            # ---- 6. the Criteo walkthrough at full width ----
+            demo = os.path.join(tmp, "demo")
+            t0 = time.perf_counter()
+            walk = counted(train_criteo.main, [
+                "--rows", str(DATA_FILES * BATCH), "--batch-size",
+                str(BATCH), "--passes", "2", "--workdir", demo,
+                "--device", dev, "--vocab-per-slot", str(VOCAB_PER_SLOT),
+                "--capacity", str(CAPACITY),
+                "--hidden", ",".join(map(str, HIDDEN))])
+            t["walkthrough_s"] = time.perf_counter() - t0
+            # the trained model's AUCs: the last pass's and the eval's
+            aucs = [walk["passes"][-1]["auc"], walk["eval"]["auc"]]
+            if walk["parse_route"] != "native" or not all(
+                    np.isfinite(a) and a > 0.5 for a in aucs) \
+                    or not walk["preds_finite"] or walk["served"] <= 0:
+                raise AssertionError(f"walkthrough went wrong: {walk}")
+            cdesc = DataFeedDesc.criteo(batch_size=BATCH)
+            cparser = CriteoParser(cdesc)
+            dense_err = 0.0
+            t0 = time.perf_counter()
+            for f in sorted(os.listdir(os.path.join(demo, "data"))):
+                path = os.path.join(demo, "data", f)
+                nat = cparser.parse_file_columnar(path)
+                with open(path) as fh:
+                    ref = ColumnarRecords.from_records(
+                        [cparser.parse(line) for line in fh], 13)
+                for k in ("keys", "key_slot", "offsets", "label", "show",
+                          "clk"):
+                    if not np.array_equal(nat[k], getattr(ref, k)):
+                        raise AssertionError(f"criteo {f}: native {k} "
+                                             "differs from per line")
+                dense_err = max(dense_err, check_close(
+                    f"criteo {f} dense", torch.from_numpy(nat["dense"]),
+                    torch.from_numpy(ref.dense), 1e-6, 0.0))
+            t["criteo_check_s"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        preemption.clear_stop()
+        faults.clear_plan()
+    phase_s = time.perf_counter() - t_phase
+    n_rec = len(records)
+    rates = {route: {"records_per_s": n_rec / float(np.median(s)),
+                     "mb_per_s": nbytes / 2**20 / float(np.median(s)),
+                     "s": s} for route, s in loads.items()}
+    ex_stream = out_o["examples"] / t["stream_oracle_s"]
+    ex_pass = res_f["examples"] / t["train_files_s"]
+    share = sum(parse_s) / t["stream_oracle_s"]
+    for k in step_fns:
+        if launches[k] == 0:
+            raise AssertionError(f"phase 12: {k} never launched")
+    log(f"data: {DATA_FILES} slot_text files, {n_rec} records, "
+        f"{nbytes / 2**20:.1f} MiB written in {t['write_s']:.2f}s; load by "
+        f"route (in turns native, python, python, native): native "
+        f"{rates['native']['records_per_s']:.0f} records/s "
+        f"{rates['native']['mb_per_s']:.1f} MB/s ({DATA_THREADS} threads), "
+        f"python {rates['python']['records_per_s']:.0f} records/s "
+        f"{rates['python']['mb_per_s']:.1f} MB/s (1 thread); columnar "
+        f"arrays equal to the records', {len(batches)} batches equal to "
+        f"phase 5's, per-line == native ({card})")
+    log(f"data: train_pass from files == from records (state_digest "
+        f"{d_files[:16]}), {ex_pass:.0f} examples/s; first step kernels vs "
+        f"plain max abs err rows {row_err:.3g} params {param_err:.3g}; "
+        f"{n_base} base rows ({card})")
+    log(f"stream: oracle {out_o['windows']} windows of {DATA_WINDOW} files, "
+        f"{ex_stream:.0f} examples/s ({t['stream_oracle_s']:.2f}s, 4 "
+        f"boundary checkpoints) against train_pass {ex_pass:.0f}; per-line "
+        f"parse {sum(parse_s):.2f}s = {share:.1%} of the stream's wall; "
+        f"final digest == train_pass's; killed at batch {DATA_PREEMPT} "
+        f"({t['stream_killed_s']:.2f}s), resumed by new objects "
+        f"({t['stream_resumed_s']:.2f}s) replaying {out_r['replayed_files']}"
+        f" files (window 3); step-{DATA_PREEMPT - 1} checkpoint == oracle; "
+        f"extra trainings per file {again} ({card})")
+    log(f"walkthrough: {json.dumps({'pass_auc': [p['auc'] for p in walk['passes']], 'eval_auc': walk['eval']['auc'], 'served': walk['served'], 'mean_ctr': walk['mean_ctr'], 'adopted': walk['adopted']})}"
+        f" in {t['walkthrough_s']:.2f}s; native criteo parse == per line "
+        f"(dense max abs err {dense_err:.3g}, rtol 1e-6) checked in "
+        f"{t['criteo_check_s']:.2f}s; phase 12 took {phase_s:.1f}s; "
+        f"launches {json.dumps(launches)} ({card})")
+    details["data"] = dict(t, load_by_route=rates, bytes=nbytes,
+                           digest=d_files, stream_examples_per_sec=ex_stream,
+                           train_pass_examples_per_sec=ex_pass,
+                           parse_share=share, parse_s=sum(parse_s),
+                           row_max_abs_err=row_err,
+                           param_max_abs_err=param_err,
+                           walkthrough={k: walk[k] for k in
+                                        ("passes", "eval", "served",
+                                         "mean_ctr", "adopted")},
+                           criteo_dense_max_abs_err=dense_err,
+                           extra_trainings=again, phase_s=phase_s,
+                           launches=launches)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -3142,7 +3603,7 @@ def main() -> int:
         host_lib = pool.submit(lambda: (native.load(),
                                         time.perf_counter() - t0)[1])
         secs = _build.build()
-        secs["native kv_index (g++)"] = host_lib.result()
+        secs["native kv_index + slot_parser (g++)"] = host_lib.result()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
     details["build_s"] = secs
@@ -3462,6 +3923,12 @@ def main() -> int:
     pipe_launches = pipeline_phase(torch, args, card, desc, records, details)
     for r in kernels:
         r["launches"] += pipe_launches.get(r["name"], 0)
+
+    # ---- phase 12: the data pipeline and streaming ingest ----
+    data_launches = data_phase(torch, args, card, desc, records, batches,
+                               details)
+    for r in kernels:
+        r["launches"] += data_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -13,7 +13,9 @@ from paddlebox_tpu_torch.artifacts import (ArtifactCorruptError,
                                            ArtifactLineageError,
                                            ArtifactStore, Lease,
                                            LeaseRegistry)
-from paddlebox_tpu_torch.data.dataset import InMemoryDataset
+from paddlebox_tpu_torch.data.dataset import (DatasetFactory,
+                                              InMemoryDataset,
+                                              PaddleBoxDataset, QueueDataset)
 from paddlebox_tpu_torch.metrics import MetricRegistry
 from paddlebox_tpu_torch.models.ads_rank import AdsRank
 from paddlebox_tpu_torch.models.deepfm import DeepFM
@@ -27,7 +29,8 @@ from paddlebox_tpu_torch.train.trainer import Trainer
 
 __all__ = ["AdsRank", "ArtifactCorruptError", "ArtifactHandle",
            "ArtifactLeaseLostError", "ArtifactLineageError",
-           "ArtifactStore", "CheckpointManager", "DeepFM", "EmbeddingTable",
-           "InMemoryDataset", "Lease", "LeaseRegistry", "MetricRegistry",
+           "ArtifactStore", "CheckpointManager", "DatasetFactory", "DeepFM",
+           "EmbeddingTable", "InMemoryDataset", "Lease", "LeaseRegistry",
+           "MetricRegistry", "PaddleBoxDataset", "QueueDataset",
            "ReloadLoop", "ServingModel", "TrainStep", "Trainer",
            "adopt_artifact", "state_digest"]

@@ -1,6 +1,7 @@
-"""Process-wide flags of the port: those that the resident training pass,
-the table's shrink, the resilience layer, checkpointing and serving's
-reload loop read, with the names and defaults of
+"""Process-wide flags of the port: those that the data pipeline, the
+resident training pass, the table's shrink, the resilience layer,
+checkpointing, streaming and serving's reload loop read, with the names
+and defaults of
 ``paddlebox_tpu/config.py``. Tests change them with ``flags_scope``.
 """
 
@@ -13,6 +14,35 @@ from typing import Any, Iterator
 
 @dataclasses.dataclass
 class Flags:
+    # --- data pipeline (data/dataset.py) ---
+    record_pool_max_size: int = 2_000_000
+    read_thread_num: int = 8
+    channel_capacity: int = 65536
+    # native C++ file→columnar parse fast path (data/parser.py,
+    # native/slot_parser.cpp); falls back to per-line python parsing
+    native_parse: bool = True
+    # max dataset files quarantined per load before the load fails
+    # (0 = quarantine disabled: first bad file aborts, the seed behavior)
+    poison_budget_files: int = 0
+    # max dropped/corrupt records tolerated per FILE before the file is
+    # declared poisoned and quarantined (-1 = unlimited silent drops,
+    # the seed behavior)
+    poison_budget_records: int = -1
+
+    # --- streaming ingest (data/dataset.QueueDataset windowed mode +
+    # Trainer.train_stream) ---
+    # >0: QueueDataset consumes its filelist in bounded WINDOWS of N
+    # files — no record crosses a window boundary, completed windows are
+    # tracked per file, and the v2 stream cursor (cursor.json) records
+    # fully-consumed files + the open window so a preempted streaming
+    # job resumes by skipping completed files and replaying the open
+    # window AT-LEAST-ONCE. 0 = legacy unwindowed streaming (no cursor
+    # resume; start_batch != 0 keeps refusing).
+    stream_window_files: int = 0
+    # Trainer.train_stream publishes a stream-boundary checkpoint every
+    # N completed windows (bounds replay after a hard kill)
+    stream_ckpt_every_windows: int = 1
+
     # route the resident pass's bulk row assignment
     # (``EmbeddingTable.bulk_assign_unique``) through the device key
     # index (``ops/index.py``): first-seen dedup and a linear-probe hash
@@ -82,6 +112,10 @@ class Flags:
     # a newer adoptable version unadopted for longer than this marks the
     # serving status stale
     serving_staleness_max_sec: float = 60.0
+
+    # --- runtime ---
+    # seeds the shuffles, slots_shuffle's donors and the retry jitter
+    seed: int = 0
 
     def update(self, **kwargs: Any) -> None:
         for k, v in kwargs.items():

@@ -1,10 +1,12 @@
-"""One training or serving instance (copy of ``SlotRecord`` from
+"""One training or serving instance and the record pool (copy of
 ``paddlebox_tpu/data/record.py``): numpy-columnar, so batch building is
 array concatenation."""
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -36,3 +38,51 @@ class SlotRecord:
     @property
     def num_keys(self) -> int:
         return int(self.keys.shape[0])
+
+
+class SlotRecordPool:
+    """Free-list recycler for parsed record batches.
+
+    Reference: ``SlotObjPool``/``SlotRecordPool()`` (data_feed.h:246-433)
+    bounds allocator churn when passes load hundreds of millions of
+    records; the API (get/put/clear, capacity from
+    ``FLAGS.record_pool_max_size``) is kept so the pipeline code reads the
+    same."""
+
+    def __init__(self, max_size: Optional[int] = None) -> None:
+        from paddlebox_tpu_torch.config import FLAGS
+        self._max = (max_size if max_size is not None
+                     else FLAGS.record_pool_max_size)
+        self._free: List[SlotRecord] = []
+        self._lock = threading.Lock()
+
+    def get(self, n: int) -> List[SlotRecord]:
+        with self._lock:
+            take = min(n, len(self._free))
+            out = self._free[len(self._free) - take:]
+            del self._free[len(self._free) - take:]
+        return out
+
+    def put(self, recs: Sequence[SlotRecord]) -> None:
+        with self._lock:
+            room = self._max - len(self._free)
+            if room > 0:
+                self._free.extend(recs[:room])
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
+
+
+_GLOBAL_POOL: Optional[SlotRecordPool] = None
+
+
+def global_record_pool() -> SlotRecordPool:
+    global _GLOBAL_POOL
+    if _GLOBAL_POOL is None:
+        _GLOBAL_POOL = SlotRecordPool()
+    return _GLOBAL_POOL

@@ -24,6 +24,14 @@ means the same thing to both packages:
 ``artifact.read``           every registry read on the consumer side
                             (``corrupt`` mangles the bytes)
 ``serving.reload``          start of every ``ReloadLoop.poll_once``
+``dataset.open``            every dataset file open, inside the retried
+                            call (a transient fault exercises the retry
+                            before it can count against the quarantine)
+``reader.file``             each file a reader thread starts on
+``parser.record``           every line of the per-line parse
+                            (``corrupt`` mangles the line)
+``stream.window``           each window a windowed ``QueueDataset``
+                            dispatches
 ==========================  =============================================
 
 Kinds: ``fail`` (raise; ``exc=transient|crash|os`` picks the type),

@@ -93,7 +93,8 @@ class RetryPolicy:
                   max_delay=FLAGS.retry_max_delay_sec,
                   deadline=(FLAGS.retry_deadline_sec
                             if FLAGS.retry_deadline_sec > 0 else None),
-                  jitter=FLAGS.retry_jitter)
+                  jitter=FLAGS.retry_jitter,
+                  seed=FLAGS.seed)
         kw.update(overrides)
         return cls(**kw)
 

@@ -221,18 +221,26 @@ class CheckpointManager:
     # ---- save ----
     def save(self, trainer, step: Optional[int] = None,
              delta: bool = False, cursor: Optional[dict] = None,
-             metrics=None) -> str:
+             metrics=None, clear_touched: Optional[bool] = None) -> str:
         """Snapshot the trainer. ``delta=True`` = save_delta (rows touched
         since the previous save) referencing the most recent base.
 
         ``cursor`` marks a MID-PASS checkpoint: the dict (pass position —
-        ``Trainer._pass_cursor``, schema v2: the batch position) lands in
-        ``cursor.json`` so a restart resumes the pass from this position
-        instead of replaying it; ``metrics`` (a MetricRegistry) snapshots
-        the metric accumulators alongside (``metrics.pkl``). Checkpoints
-        without a cursor are pass-boundary checkpoints: they clear the
-        table's touched rows, cursor saves keep them (mid-pass deltas
-        must stay cumulative — see below)."""
+        ``Trainer._pass_cursor``, schema v2: batch position + optional
+        ``stream`` block for windowed streaming) lands in ``cursor.json``
+        so a restart resumes the pass from this position instead of
+        replaying it; ``metrics`` (a MetricRegistry) snapshots the metric
+        accumulators alongside (``metrics.pkl``). Checkpoints without a
+        cursor are pass-boundary checkpoints — as are STREAM-BOUNDARY
+        checkpoints, whose cursor's ``stream`` block has an empty open
+        window (``latest_boundary_step`` treats both as safe rollback
+        targets).
+
+        ``clear_touched`` overrides the touched-row bookkeeping: the
+        default (None) clears on cursor-free saves and keeps on cursor
+        saves (mid-pass deltas must stay cumulative — see below); stream
+        BOUNDARY saves pass ``clear_touched=True`` explicitly, since
+        their cursor records stream position, not a mid-pass state."""
         step = trainer.global_step if step is None else step
         base_step = None
         # chain link: the state we descend from — the last step this
@@ -273,7 +281,10 @@ class CheckpointManager:
         # clear drops assigned-but-not-yet-pushed rows from every later
         # delta. A table type without the kwarg fails loudly here —
         # silently clearing would corrupt the chain.
-        kw = {} if cursor is None else {"clear_touched": False}
+        if clear_touched is None:
+            kw = {} if cursor is None else {"clear_touched": False}
+        else:
+            kw = {"clear_touched": clear_touched}
         if delta:
             n = trainer.table.save_delta(
                 os.path.join(tmp, "sparse_delta.npz"), **kw)

@@ -12,7 +12,16 @@ pass k trains. ``run_pass`` wraps ``train_pass`` with the checkpoint
 side (``train/checkpoint.py``): periodic and emergency cursor
 checkpoints, resume from a cursor, bounded retry from the last
 checkpoint, the NaN rollback to the last pass boundary and the graceful
-stop (``resilience/preemption.py``). Streaming is not ported yet.
+stop (``resilience/preemption.py``). ``train_stream`` is the always-on
+mode: a windowed ``QueueDataset`` (``FLAGS.stream_window_files``) trained
+one window per ``run_pass``, with stream-boundary checkpoints whose v2
+cursor (completed files, open window) lets a restarted process skip the
+completed files and replay the open window.
+
+The reference's hub counters and events of the stream loop
+(``pbox_stream_*``, ``stream_window``, ``stream_idle``,
+``cursor_resume``) are not ported yet (ROADMAP queue 1 item 13); their
+call sites say so.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import time
 from collections import defaultdict
 from contextlib import contextmanager
 from typing import (Any, Callable, Dict, Iterable, Iterator, List,
-                    Mapping, Optional, Tuple, Union)
+                    Mapping, Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -31,7 +40,8 @@ from torch import nn
 
 from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.data.batch import SlotBatch
-from paddlebox_tpu_torch.data.dataset import InMemoryDataset
+from paddlebox_tpu_torch.data.dataset import (Dataset, InMemoryDataset,
+                                              chain_digest)
 from paddlebox_tpu_torch.data.schema import DataFeedDesc
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
 from paddlebox_tpu_torch.metrics import (AucState, MetricRegistry,
@@ -39,7 +49,7 @@ from paddlebox_tpu_torch.metrics import (AucState, MetricRegistry,
 from paddlebox_tpu_torch.ps.table import EmbeddingTable, PullIndex
 from paddlebox_tpu_torch.resilience import faults, preemption
 from paddlebox_tpu_torch.resilience.preemption import PreemptedError
-from paddlebox_tpu_torch.resilience.retry import is_retryable
+from paddlebox_tpu_torch.resilience.retry import RetryPolicy, is_retryable
 from paddlebox_tpu_torch.train.device_pass import (PassPreloader,
                                                    ResidentPass,
                                                    ResidentPassRunner)
@@ -123,6 +133,29 @@ class Trainer:
         # batch boundaries
         if FLAGS.graceful_shutdown:
             preemption.install_signal_handlers()
+        # optional per-batch hook, called AFTER the step's state update
+        # with the host SlotBatch — streaming record accounting and the
+        # at-least-once checks key off it
+        self.on_batch_trained: Optional[Callable[[SlotBatch], None]] = None
+        # per-window hook of train_stream: called AFTER a window's
+        # accounting and BEFORE the boundary-save decision, with the
+        # completed window index and the dataset — never mid-pass
+        self.on_window_complete: Optional[Callable[[int, object],
+                                                   None]] = None
+        # set (by the hook) to publish a boundary checkpoint at THIS
+        # window boundary regardless of the stream_ckpt_every_windows
+        # cadence
+        self.stream_save_now = False
+        # set to force the next stream-boundary save to a BASE (a shrink
+        # decays EVERY row without marking it touched, so a delta would
+        # miss it). Cleared only after a save actually lands.
+        self.stream_force_base = False
+        # elastic membership poll: called at every completed window
+        # boundary, AFTER on_window_complete and BEFORE the save
+        # decision. A truthy decision publishes a boundary checkpoint and
+        # returns from train_stream (a coordinated stop at a completed
+        # boundary, never mid-pass)
+        self.stream_membership: Optional[Callable[[], object]] = None
 
     def step_generator(self, step: int) -> torch.Generator:
         """The generator of global step ``step``, seeded from
@@ -165,7 +198,7 @@ class Trainer:
         """Named dense-parameter dump (DumpParam, boxps_worker.cc:1633)."""
         return dump_param(self.model, path)
 
-    def train_pass(self, dataset: InMemoryDataset, log_prefix: str = "",
+    def train_pass(self, dataset: Dataset, log_prefix: str = "",
                    checkpoint=None, start_cursor: Optional[dict] = None
                    ) -> Dict[str, float]:
         """One pass over the dataset (train_from_dataset). Returns the
@@ -179,7 +212,9 @@ class Trainer:
         (polled at every batch boundary) an emergency cursor checkpoint,
         the resume marker and ``PreemptedError``. ``start_cursor`` (from
         ``CheckpointManager.load_cursor``) skips the batches a preempted
-        pass already trained."""
+        pass already trained. A windowed stream's dataset is told after
+        every trained batch (``note_batches_consumed``), so a window only
+        completes once its last batch trained."""
         self.stage_timers.reset()
         t0 = time.perf_counter()
         nb = n_ex = 0
@@ -195,6 +230,10 @@ class Trainer:
                      skip, self.global_step)
         cursor_ok = (checkpoint is not None
                      and getattr(dataset, "supports_cursor_resume", False))
+        # consumption feedback for windowed streams: fold a window into
+        # the completed set only once its last batch has TRAINED (the
+        # reader group runs ahead of training)
+        note_consumed = getattr(dataset, "note_batches_consumed", None)
         every = FLAGS.ckpt_every_batches if cursor_ok else 0
         last_save = (-1, None)  # (batch_index, path) of the newest save
         for batch, dev in self._prefetch_iter(
@@ -206,6 +245,10 @@ class Trainer:
             with st.stage("step"):
                 stats = self.step_fn(self.state, dev, gen)
             nb += 1
+            if note_consumed is not None:
+                note_consumed(nb)
+            if self.on_batch_trained is not None:
+                self.on_batch_trained(batch)
             if len(self.metrics):
                 with st.stage("metrics"):
                     self.metrics.add_batch(
@@ -236,18 +279,36 @@ class Trainer:
             dump_writer.close()
         elapsed = time.perf_counter() - t0
         self.sync_table()
-        if cursor_ok and (last_save[0] >= 0 or skip > 0):
+        if note_consumed is not None:
+            # the loop has fully drained the generator, so every window
+            # mark is set by now — fold the tail window the in-loop note
+            # may have raced (its mark lands when the producer thread
+            # resumes past the final yield)
+            note_consumed(nb)
+        streaming = (getattr(dataset, "stream_cursor_state", None)
+                     is not None and getattr(dataset, "windowed", False))
+        if cursor_ok and (last_save[0] >= 0 or skip > 0
+                          or (streaming and start_cursor is not None)):
             # the pass finished after writing (or resuming from) a
             # mid-pass cursor checkpoint: publish a pass-boundary one, so
             # the newest restorable state does not resume into a pass
-            # that already finished
+            # that already finished. For a windowed stream the boundary
+            # checkpoint still carries the STREAM cursor (completed
+            # files, empty open window) — losing the completed-file set
+            # here would retrain the whole stream on the next restart.
+            kw = {}
+            if streaming:
+                kw = dict(cursor=self._boundary_cursor(dataset),
+                          clear_touched=True,
+                          metrics=(self.metrics if len(self.metrics)
+                                   else None))
             try:
-                checkpoint.save(self, delta=checkpoint.has_base())
+                checkpoint.save(self, delta=checkpoint.has_base(), **kw)
             except ValueError:
                 # the cadence hit the pass length and the save at this
                 # step is the first BASE: a delta re-save over it is
                 # refused, so supersede it with a fresh base
-                checkpoint.save(self, delta=False)
+                checkpoint.save(self, delta=False, **kw)
         self._pass_seq += 1
         out = auc_compute(self.state.auc).as_dict()
         out.update(batches=nb, examples=n_ex, elapsed_sec=elapsed,
@@ -286,12 +347,17 @@ class Trainer:
 
     # ---- mid-pass resume cursor ----
     def _pass_cursor(self, dataset, batch_index: int) -> dict:
-        """The resume cursor of an in-pass checkpoint (schema v2 without
-        the stream block): the file-list identity and quarantine pin the
-        data, ``global_step`` pins the trainer position and the per-step
-        generator (``step_generator``); the AUC and metric accumulators
-        ride the checkpoint itself."""
-        return {
+        """The resume cursor of an in-pass checkpoint (schema v2): the
+        file-list identity and quarantine pin the data, ``global_step``
+        pins the trainer position and the per-step generator
+        (``step_generator``); the AUC and metric accumulators ride the
+        checkpoint itself. A windowed streaming dataset adds a ``stream``
+        block (completed files + open window,
+        ``QueueDataset.stream_cursor_state``): resume then skips
+        completed files and replays the open window at-least-once
+        instead of splicing by batch index. The keys are the
+        reference's, so either package resumes the other's cursor."""
+        cur = {
             "version": 2,
             "pass_seq": int(self._pass_seq) + 1,
             "fingerprint": dataset.filelist_fingerprint(),
@@ -302,6 +368,22 @@ class Trainer:
             "quarantined_files": sorted(
                 p for p, _ in getattr(dataset, "quarantined_files", [])),
         }
+        state_fn = getattr(dataset, "stream_cursor_state", None)
+        if state_fn is not None:
+            st = state_fn(int(batch_index))
+            if st is not None:
+                cur["stream"] = st
+        return cur
+
+    def _boundary_cursor(self, dataset) -> Optional[dict]:
+        """The cursor a BETWEEN-PASS checkpoint of a windowed streaming
+        dataset must carry (completed files, empty open window) so a
+        restart skips every consumed file; None for other datasets
+        (their boundary checkpoints stay cursor-free)."""
+        state_fn = getattr(dataset, "stream_cursor_state", None)
+        if state_fn is None or not getattr(dataset, "windowed", False):
+            return None
+        return self._pass_cursor(dataset, 0)
 
     def _save_inpass(self, checkpoint, dataset, batch_index: int) -> str:
         """A mid-pass checkpoint (a delta once a base exists) with the
@@ -311,32 +393,53 @@ class Trainer:
             cursor=self._pass_cursor(dataset, batch_index),
             metrics=self.metrics if len(self.metrics) else None)
 
-    def _boundary_save(self, checkpoint) -> str:
-        """A pass-boundary checkpoint of the current state; a no-op when
-        this step is already on disk (a re-save would refuse as a delta
-        over a base)."""
-        if checkpoint.latest_step() == int(self.global_step):
-            return checkpoint._dir(int(self.global_step))
-        return checkpoint.save(self, delta=checkpoint.has_base())
-
     def _adopt_cursor(self, checkpoint, dataset,
                       step: Optional[int] = None) -> Optional[dict]:
         """The cursor at the trainer's CURRENT position, validated
         against this dataset: the cursor to resume from, or None for a
         full pass. A cursor whose data identity does not match (another
-        file list or quarantine, a dataset whose order is not fixed, or
-        a windowed-stream cursor) would splice two batch streams, so the
-        trainer rolls BACK to the latest pass-boundary checkpoint
-        instead."""
+        file list or quarantine, a dataset whose order is not fixed, a
+        stream cursor on a dataset that is not a windowed stream or whose
+        filelist no longer extends the cursor's consumption order) would
+        splice two batch streams, so the trainer rolls BACK to the latest
+        pass-boundary checkpoint instead."""
         cur = checkpoint.load_cursor(step)
         if cur is None:
             return None
         if int(cur.get("global_step", -1)) != int(self.global_step):
             return None  # the cursor belongs to another position
         reason = None
-        if isinstance(cur.get("stream"), dict):
-            reason = ("cursor belongs to a windowed stream, which this "
-                      "dataset is not")
+        stream = cur.get("stream")
+        stream = stream if isinstance(stream, dict) else None
+        if stream is not None:
+            # v2 STREAM cursor: resume is by file window, not batch
+            # index — validate that the current filelist still extends
+            # the cursor's consumption order (completed files then the
+            # open window, quarantined files excluded on both sides)
+            if (getattr(dataset, "adopt_stream_cursor", None) is None
+                    or not getattr(dataset, "windowed", False)):
+                reason = ("cursor belongs to a windowed stream but this "
+                          "dataset is not a windowed QueueDataset "
+                          "(FLAGS.stream_window_files)")
+            else:
+                quar = set(cur.get("quarantined_files", []))
+                fold = stream.get("files_folded") or {}
+                nfold = int(fold.get("count", 0) or 0)
+                expect = [str(f) for f in
+                          list(stream.get("files_completed", []))
+                          + list(stream.get("window_files", []))
+                          if str(f) not in quar]
+                avail = [f for f in dataset.filelist if f not in quar]
+                if nfold and (len(avail) < nfold or chain_digest(
+                        "", avail[:nfold]) != fold.get("sha256")):
+                    reason = ("stream folded-history fingerprint "
+                              "mismatch — the filelist's leading files "
+                              "no longer reproduce the cursor's "
+                              "compacted consumption prefix")
+                elif avail[nfold:nfold + len(expect)] != expect:
+                    reason = ("stream file prefix changed — the "
+                              "filelist no longer extends the cursor's "
+                              "consumption order")
         elif not getattr(dataset, "supports_cursor_resume", False):
             reason = ("dataset batch order is not deterministic "
                       "(supports_cursor_resume is False)")
@@ -359,10 +462,39 @@ class Trainer:
                         self.global_step, reason, boundary)
             checkpoint.restore(self, step=boundary)
             return None
+        if stream is not None:
+            fold = stream.get("files_folded") or {}
+            nfold = int(fold.get("count", 0) or 0)
+            completed = [str(f) for f in stream.get("files_completed", [])]
+            dsc = getattr(dataset, "files_completed", None)
+            # with a folded history the cursor names only the tail — the
+            # folded prefix was fingerprint-checked above, so the dataset
+            # sits at the cursor iff lengths line up and the named tail
+            # matches
+            if (not stream.get("window_files") and dsc is not None
+                    and len(dsc) == nfold + len(completed)
+                    and dsc[nfold:] == completed):
+                # in-process continuation at a stream BOUNDARY: the
+                # dataset already sits exactly where the cursor points
+                # (the previous window's boundary save) — nothing to
+                # adopt. Still consume a leftover resume marker (a
+                # restart whose kill landed before anything trained
+                # matches this branch too).
+                preemption.clear_resume_marker(checkpoint.root)
+                return None
+            # skip completed files, replay the open window from its
+            # start (at-least-once), and carry the quarantine decisions
+            # forward; batch_index is forced to 0 — there is no batch
+            # splice in a thread-interleaved stream
+            dataset.adopt_stream_cursor(
+                stream, quarantined=cur.get("quarantined_files", []))
+            cur = dict(cur, batch_index=0)
         mr = checkpoint.load_metrics(step)
         if mr is not None:
             self.metrics = mr
         preemption.clear_resume_marker(checkpoint.root)
+        # telemetry (ROADMAP queue 1 item 13): pbox_cursor_resumes_total
+        # and the cursor_resume event
         return cur
 
     def _reject_cursor_state(self, checkpoint) -> None:
@@ -385,7 +517,7 @@ class Trainer:
                     self.global_step, boundary)
         checkpoint.restore(self, step=boundary)
 
-    def run_pass(self, dataset: InMemoryDataset, checkpoint=None,
+    def run_pass(self, dataset: Dataset, checkpoint=None,
                  log_prefix: str = "", resident: bool = False,
                  max_retries: Optional[int] = None) -> Dict[str, float]:
         """``train_pass`` with bounded retry from the last checkpoint and
@@ -416,12 +548,15 @@ class Trainer:
                 if preemption.stop_pending():
                     # graceful stop between passes: without an adopted
                     # cursor the state sits at a pass boundary, so
-                    # snapshot it; with one, the mid-pass checkpoint on
-                    # disk already covers it
+                    # snapshot it (a windowed stream's carries its
+                    # boundary cursor, so the restart skips every
+                    # consumed file); with one, the mid-pass checkpoint
+                    # on disk already covers it
                     path = None
                     if checkpoint is not None:
                         if start_cursor is None:
-                            path = self._boundary_save(checkpoint)
+                            path = self._stream_boundary_save(dataset,
+                                                              checkpoint)
                         preemption.write_resume_marker(
                             checkpoint.root, step=int(self.global_step),
                             reason=preemption.stop_reason())
@@ -453,7 +588,11 @@ class Trainer:
                     continue
                 if isinstance(e, NanInfError):
                     # mid-pass snapshots are suspect: roll all the way
-                    # back to the clean boundary
+                    # back to the clean boundary. A STREAM boundary still
+                    # carries its stream cursor — adopt it so the
+                    # dataset's completed-file view matches the restored
+                    # state (a no-op for batch cursors: boundary
+                    # checkpoints have none)
                     restored = checkpoint.restore(
                         self, step=checkpoint.latest_boundary_step())
                     start_cursor = self._adopt_cursor(checkpoint, dataset,
@@ -472,6 +611,242 @@ class Trainer:
                     ("" if start_cursor is None else
                      f" (cursor: batch {start_cursor.get('batch_index')})"),
                     attempt, limit)
+
+    # ---- continuous streaming ingest ----
+    def train_stream(self, dataset, checkpoint=None, *,
+                     filelist_fn: Optional[Callable[[], Sequence]] = None,
+                     max_windows: Optional[int] = None,
+                     max_idle_polls: Optional[int] = None,
+                     log_prefix: str = "") -> Dict[str, float]:
+        """Always-on streaming loop: train arriving files through a
+        windowed ``QueueDataset`` (``FLAGS.stream_window_files``), one
+        window per pass, until the source dries up or a bound is hit.
+
+        - **Arrivals**: ``filelist_fn()`` is polled for the current file
+          list each iteration (new files append in poll order); with no
+          ``filelist_fn`` the dataset's static filelist is drained and
+          the loop ends. Empty polls back off on the seeded
+          ``RetryPolicy`` schedule (site ``stream.poll`` — deterministic
+          per ``FLAGS.seed``); arrivals reset the backoff.
+          ``max_idle_polls`` bounds consecutive empty polls (None = poll
+          forever).
+        - **Checkpoints**: a stream-boundary checkpoint (v2 cursor:
+          completed files, empty open window) publishes every
+          ``FLAGS.stream_ckpt_every_windows`` completed windows, so a
+          hard kill replays at most that many windows.
+        - **Preemption** honours the full ``run_pass`` contract: a stop
+          mid-window raises ``PreemptedError`` after an emergency
+          checkpoint whose stream cursor marks the open window; a
+          restarted process (``CheckpointManager.restore`` then
+          ``train_stream`` again) skips completed files and replays the
+          open window AT-LEAST-ONCE — identical to the uninterrupted run
+          at the last common window boundary. Stops during the idle
+          loop snapshot a boundary cursor the same way.
+
+        Returns the totals: windows, files, batches, examples,
+        replayed_files, idle_polls (and the last window's auc and
+        last_loss)."""
+        if not getattr(dataset, "windowed", False):
+            raise ValueError(
+                "train_stream needs a windowed QueueDataset — set "
+                "FLAGS.stream_window_files > 0 (the unbounded "
+                "unwindowed stream cannot checkpoint/resume)")
+        known: List[str] = [str(f) for f in dataset.filelist]
+        # resume: seed the dataset's stream position and the known-file
+        # order from the newest stream cursor, so the first window pass
+        # reconstructs the cursor's consumption order exactly
+        if checkpoint is not None and not dataset.files_completed:
+            cur = checkpoint.load_cursor()
+            stream = (cur or {}).get("stream")
+            if isinstance(stream, dict):
+                if int(cur.get("global_step", -1)) != int(self.global_step):
+                    raise RuntimeError(
+                        f"stream cursor at step {cur.get('global_step')} "
+                        f"does not match trainer step {self.global_step}"
+                        " — restore the checkpoint first "
+                        "(CheckpointManager.restore) or point at a fresh "
+                        "checkpoint root")
+                dataset.adopt_stream_cursor(
+                    stream, quarantined=cur.get("quarantined_files", []))
+                # the dataset expanded any folded (compacted) history
+                # back to names from its filelist — read the prefix from
+                # it, not from the cursor's (tail-only) block
+                prefix = (list(dataset.files_completed)
+                          + [str(f) for f in stream.get("window_files",
+                                                        [])])
+                seen = set(prefix)
+                known = prefix + [f for f in known if f not in seen]
+                # telemetry (ROADMAP queue 1 item 13): a boundary resume
+                # counts in pbox_cursor_resumes_total here
+        totals: Dict[str, float] = {"windows": 0, "files": 0, "batches": 0,
+                                    "examples": 0, "replayed_files": 0,
+                                    "idle_polls": 0}
+        try:
+            self._stream_loop(dataset, checkpoint, filelist_fn,
+                              max_windows, max_idle_polls, log_prefix,
+                              known, totals)
+        finally:
+            # each window pass narrowed the filelist to its consumption
+            # order — restore the full known list on EVERY exit
+            # (preemption included) so a later train_stream call or
+            # pending_files() probe still sees the whole stream
+            dataset.set_filelist(known)
+        log.info("%sstream done: %d windows, %d files (%d replayed), "
+                 "%d batches", log_prefix, totals["windows"],
+                 totals["files"], totals["replayed_files"],
+                 totals["batches"])
+        return totals
+
+    def _stream_loop(self, dataset, checkpoint, filelist_fn,
+                     max_windows: Optional[int],
+                     max_idle_polls: Optional[int], log_prefix: str,
+                     known: List[str], totals: Dict[str, float]) -> None:
+        wsize = FLAGS.stream_window_files
+        since_ckpt = 0
+        idle_run = 0
+        backoff: Iterator[float] = iter(())  # armed lazily
+        while True:
+            if max_windows is not None and totals["windows"] >= max_windows:
+                break
+            if preemption.stop_pending():
+                # idle/between-window stop: the poll loop must honour it
+                # without pending work, and the snapshot must carry the
+                # stream boundary cursor
+                self._stream_stop(dataset, checkpoint)
+            if filelist_fn is not None:
+                have = set(known)
+                known.extend(str(f) for f in filelist_fn()
+                             if str(f) not in have)
+            dataset.set_filelist(known)
+            pending = dataset.pending_files()
+            # telemetry (ROADMAP queue 1 item 13): the
+            # pbox_stream_lag_files gauge, max(0, len(pending) - wsize)
+            if not pending:
+                if filelist_fn is None:
+                    break
+                idle_run += 1
+                totals["idle_polls"] += 1
+                if max_idle_polls is not None and idle_run > max_idle_polls:
+                    break
+                delay = next(backoff, None)
+                if delay is None:
+                    # (re)arm the seeded schedule; cap attempts high —
+                    # the schedule plateaus at retry_max_delay_sec
+                    backoff = RetryPolicy.from_flags(
+                        site="stream.poll", max_attempts=1 << 20).delays()
+                    delay = next(backoff)
+                # telemetry (ROADMAP queue 1 item 13):
+                # pbox_stream_idle_polls_total and the stream_idle event
+                self._stream_sleep(delay)
+                continue
+            idle_run = 0
+            backoff = iter(())
+            window = pending[:wsize]
+            # the pass's filelist is exactly the consumption order the
+            # cursor records: completed files then this window (files
+            # quarantined earlier are excluded from both)
+            dataset.set_filelist(dataset.files_completed + window)
+            widx = totals["windows"]
+            rep0 = int(getattr(dataset, "files_replayed", 0))
+            out = self.run_pass(dataset, checkpoint=checkpoint,
+                                log_prefix=f"{log_prefix}stream w{widx}: ")
+            # files_replayed is cumulative on the dataset — book the
+            # per-window delta
+            replayed = int(getattr(dataset, "files_replayed", 0)) - rep0
+            # files CONSUMED, not dispatched: a window file quarantined
+            # during this pass never trained
+            quarantined = {p for p, _ in
+                           getattr(dataset, "quarantined_files", [])}
+            consumed = [f for f in window if f not in quarantined]
+            totals["windows"] += 1
+            totals["files"] += len(consumed)
+            totals["batches"] += int(out.get("batches", 0))
+            totals["examples"] += int(out.get("examples", 0))
+            totals["replayed_files"] += replayed
+            totals.update({k: out[k] for k in ("auc", "last_loss")
+                           if k in out})
+            since_ckpt += 1
+            # telemetry (ROADMAP queue 1 item 13):
+            # pbox_stream_windows_total, pbox_stream_files_total and the
+            # stream_window event
+            if self.on_window_complete is not None:
+                # boundary work (shrink scheduling, health bookkeeping) —
+                # between passes by construction, and BEFORE the save
+                # decision so its stream_save_now/stream_force_base
+                # requests take effect at THIS boundary
+                self.on_window_complete(int(widx), dataset)
+            if self.stream_membership is not None:
+                decision = self.stream_membership()
+                if decision:
+                    # scale event at a COMPLETED boundary: persist the
+                    # boundary and hand control back to the launcher
+                    if checkpoint is not None:
+                        self._stream_boundary_save(dataset, checkpoint)
+                    totals["membership"] = decision
+                    log.warning("stream stop at window %d boundary for "
+                                "membership change: %s", widx, decision)
+                    return
+            if checkpoint is not None and (
+                    since_ckpt >= max(1, FLAGS.stream_ckpt_every_windows)
+                    or self.stream_save_now):
+                self._stream_boundary_save(dataset, checkpoint)
+                since_ckpt = 0
+                self.stream_save_now = False
+
+    def _stream_boundary_save(self, dataset, checkpoint) -> str:
+        """Publish a boundary checkpoint: for a windowed stream it
+        carries the stream cursor (completed files, empty open window);
+        for any other dataset (or None) ``_boundary_cursor`` is None and
+        this is a plain cursor-free boundary save. A no-op when this step
+        is already on disk (e.g. the window pass published a boundary
+        after a mid-pass save or a cursor resume — a re-save would refuse
+        as a delta over a base)."""
+        if checkpoint.latest_step() == int(self.global_step):
+            # a pending stream_force_base stays pending through this
+            # dedup: the next boundary that saves captures it
+            return checkpoint._dir(int(self.global_step))
+        cursor = self._boundary_cursor(dataset)
+        path = checkpoint.save(
+            self,
+            delta=checkpoint.has_base() and not self.stream_force_base,
+            cursor=cursor,
+            clear_touched=True if cursor is not None else None,
+            metrics=self.metrics if len(self.metrics) else None)
+        self.stream_force_base = False
+        if cursor is not None:
+            # this boundary checkpoint now records every completed file
+            # BY NAME — fold them into the compact count+fingerprint
+            # form so later cursors stay O(files since this boundary)
+            dataset.fold_completed_history()
+        return path
+
+    def _stream_stop(self, dataset, checkpoint) -> None:
+        """Graceful stop from the stream loop (idle poll / between
+        windows): snapshot a stream-boundary checkpoint, write the
+        resume marker, raise — the run_pass preemption contract."""
+        path = None
+        if checkpoint is not None:
+            path = self._stream_boundary_save(dataset, checkpoint)
+            preemption.write_resume_marker(
+                checkpoint.root, step=int(self.global_step),
+                reason=preemption.stop_reason())
+        raise PreemptedError(
+            f"preempted ({preemption.stop_reason()}) in the stream loop at "
+            f"step {self.global_step}",
+            step=int(self.global_step), checkpoint_path=path)
+
+    @staticmethod
+    def _stream_sleep(sec: float) -> None:
+        """Stop-aware sleep: wakes early when a graceful stop arrives so
+        the grace window is not burned idling."""
+        deadline = time.monotonic() + sec
+        while True:
+            if preemption.stop_pending():
+                return
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return
+            time.sleep(min(0.05, left))
 
     def _feed_registry_resident(self, rp: ResidentPass,
                                 preds: torch.Tensor) -> None:
@@ -609,7 +984,7 @@ class Trainer:
                         rp.settle()  # popped before drain() could see it
                     path = None
                     if checkpoint is not None:
-                        path = self._boundary_save(checkpoint)
+                        path = self._stream_boundary_save(None, checkpoint)
                         preemption.write_resume_marker(
                             checkpoint.root, step=int(self.global_step),
                             reason=preemption.stop_reason())
@@ -626,21 +1001,30 @@ class Trainer:
             pre.drain()
         return results
 
-    def eval_pass(self, dataset: InMemoryDataset,
+    def eval_pass(self, dataset: Dataset,
                   log_prefix: str = "") -> Dict[str, float]:
         """Forward-only pass: AUC on the current params and table, no
-        updates, no index growth."""
+        updates, no index growth. The registered metric variants are fed
+        every batch, as ``train_pass`` feeds them (the test-phase
+        metrics)."""
         auc = init_auc_state(device=self.device)
         self.stage_timers.reset()
         t0 = time.perf_counter()
         nb = 0
         self.model.eval()
         try:
-            for _, dev in self._prefetch_iter(
+            for batch, dev in self._prefetch_iter(
                     dataset.batches(), prepare=self.table.prepare_eval):
                 with self.stage_timers.stage("step"):
-                    self.step_fn.eval(self.state.table, self.model, auc,
-                                      dev)
+                    pred = self.step_fn.eval(self.state.table, self.model,
+                                             auc, dev)
+                if len(self.metrics):
+                    with self.stage_timers.stage("metrics"):
+                        self.metrics.add_batch(
+                            pred, batch.label,
+                            (batch.show > 0).astype(np.float32),
+                            uid=batch.uid, rank=batch.rank,
+                            cmatch=batch.cmatch)
                 nb += 1
         finally:
             self.model.train()

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from paddlebox_tpu_torch.utils.prefetch import ChannelClosed, _Channel
+from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
 
 log = logging.getLogger(__name__)
 
@@ -47,7 +47,7 @@ class DumpWriter:
         self.cfg = cfg
         os.makedirs(os.path.dirname(cfg.path) or ".", exist_ok=True)
         self._file = open(f"{cfg.path}.part-{cfg.rank:05d}", "w")
-        self._ch = _Channel(capacity=64)
+        self._ch: Channel = Channel(capacity=64)
         self._exc: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()

@@ -1,62 +1,16 @@
 """Producer-thread prefetch over a bounded channel (copy of
-``paddlebox_tpu/utils/prefetch.py``, with the channel reduced to what it
-uses): trainers overlap host batch prep with device compute through it."""
+``paddlebox_tpu/utils/prefetch.py``): trainers overlap host batch prep
+with device compute through it."""
 
 from __future__ import annotations
 
-import collections
 import threading
-from typing import Callable, Deque, Iterable, Iterator, TypeVar
+from typing import Callable, Iterable, Iterator, TypeVar
+
+from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
 
 T = TypeVar("T")
 U = TypeVar("U")
-
-
-class ChannelClosed(Exception):
-    pass
-
-
-class _Channel:
-    """Bounded FIFO with close (readers drain, then stop) and cancel
-    (a blocked writer raises ``ChannelClosed``)."""
-
-    def __init__(self, capacity: int) -> None:
-        self._capacity = max(1, capacity)
-        self._q: Deque = collections.deque()
-        self._cv = threading.Condition()
-        self._closed = False
-        self._cancelled = False
-
-    def put(self, item) -> None:
-        with self._cv:
-            while len(self._q) >= self._capacity and not self._cancelled:
-                self._cv.wait()
-            if self._cancelled or self._closed:
-                raise ChannelClosed("put on closed channel")
-            self._q.append(item)
-            self._cv.notify_all()
-
-    def close(self) -> None:
-        with self._cv:
-            self._closed = True
-            self._cv.notify_all()
-
-    def cancel(self) -> None:
-        with self._cv:
-            self._closed = self._cancelled = True
-            self._q.clear()
-            self._cv.notify_all()
-
-    def __iter__(self):
-        while True:
-            with self._cv:
-                while not self._q and not self._closed:
-                    self._cv.wait()
-                if not self._q:
-                    return
-                item = self._q.popleft()
-                self._cv.notify_all()
-            yield item
 
 
 def prefetch_iter(items: Iterable[T], prepare: Callable[[T], U],
@@ -70,7 +24,7 @@ def prefetch_iter(items: Iterable[T], prepare: Callable[[T], U],
     blocked on ``put`` unblocks, and ``items`` is closed when it is
     itself a generator — so chained prefetch stages unwind transitively
     instead of leaking blocked threads."""
-    ch = _Channel(capacity)
+    ch: Channel = Channel(capacity=capacity)
     err: list = []
 
     def producer() -> None:

@@ -1761,3 +1761,49 @@ def test_worker_insert_equals_main_thread_build(cuda, deterministic):
                                                            rm.tolist()))
     np.testing.assert_array_equal(dw.lookup_rows(kw), rw)
     assert state_digest(worker) == state_digest(main)
+
+
+@pytest.mark.cuda
+def test_native_loaded_dataset_trains_like_records(cuda, deterministic,
+                                                   tmp_path):
+    """The records of the checkpoint setup written to slot_text files
+    (dense with 9 significant digits: exact float32) and loaded by the
+    native parser give the records' batches, and ``train_pass`` over that
+    dataset on the card reaches the records path's ``state_digest`` bit
+    for bit under deterministic algorithms; the load's route is
+    "native"."""
+    from paddlebox_tpu_torch import state_digest
+    trainer, dataset, _ = _ckpt_setup(cuda)
+    recs = dataset().records
+    s = len(recs[0].slot_offsets) - 1
+    files = []
+    for fi in range(3):
+        path = str(tmp_path / f"part-{fi}.txt")
+        with open(path, "w") as fh:
+            for r in recs[fi::3]:
+                toks = ["1", "%.9g" % r.label, str(len(r.dense))]
+                toks += ["%.9g" % v for v in r.dense]
+                for j in range(s):
+                    keys = r.slot_keys(j)
+                    toks += [str(len(keys))] + [str(int(k)) for k in keys]
+                fh.write(" ".join(toks) + "\n")
+        files.append(path)
+    ordered = [r for fi in range(3) for r in recs[fi::3]]
+    ds = InMemoryDataset(dataset().desc)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    assert ds.parse_route == "native"
+    ref = InMemoryDataset(dataset().desc)
+    # the text format carries no ins_id/uid/rank/cmatch: the records
+    # path trains the same records without them
+    ref.records = [SlotRecord(r.keys, r.slot_offsets, r.dense, r.label,
+                              r.show, r.clk) for r in ordered]
+    for a, b in zip(ds.batches(), ref.batches()):
+        for f in ("keys", "segments", "dense", "label", "show", "clk"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    tr_files, tr_recs = trainer(), trainer()
+    before = tk.pool_cvm.launches
+    tr_files.train_pass(ds)
+    assert tk.pool_cvm.launches > before
+    tr_recs.train_pass(ref)
+    assert state_digest(tr_files) == state_digest(tr_recs)

@@ -342,7 +342,8 @@ def test_library_builds_under_build_dir():
     src_dir = ROOT / "paddlebox_tpu_torch" / "native"
     assert sorted(p.name for p in src_dir.iterdir()
                   if p.name != "__pycache__") == ["__init__.py",
-                                                   "kv_index.cpp"]
+                                                   "kv_index.cpp",
+                                                   "slot_parser.cpp"]
 
 
 def test_two_processes_build_at_once(tmp_path):
