@@ -244,6 +244,27 @@ Phases, each of which fails the run:
    in the per-line parse. The train_pass from files, the three streams
    and the walkthrough are the phase's main path: their step kernel
    launches join the ``kernels`` line.
+13. the sharded table and the multi-shard trainer at phase 5's width:
+   ``ShardedEmbeddingTable`` with 4 shards of 2^20 rows on the card,
+   loaded from phase 5's base file (split by key % 4), over 16 batches
+   of the phase's own seeded records (4 global steps of 4 x 4096): the
+   sharded pull of the first global batch must equal one
+   ``EmbeddingTable``'s pull of the same keys exactly; the first global
+   step through the kernels against the plain versions (f32 tower,
+   TF32 off): each owner's pushed grads and the show/clk/delta_score/
+   slot columns exact, rows and dense params within rtol 2e-4 / atol
+   2e-5; the synchronized split of a global step into
+   ``prepare_global``, staging and the device step. Then, under
+   ``torch.use_deterministic_algorithms``, the main path: the 4-shard
+   ``train_pass`` (bf16 tower) with the host index, and ``train_pass``
+   and ``eval_pass`` with ``use_pallas_index`` (every shard's device
+   index must stay undegraded); the two must be equal by
+   ``elastic_state_digest`` and eval AUC; ``a2a_chunks=4`` must equal
+   the monolithic run by ``sharded_state_digest``; the trained table's
+   ``save_base`` loaded into a new table under a trainer restored from
+   ``dense_snapshot`` must equal it by ``elastic_state_digest``.
+   Printed: examples/s beside phase 5's ``train_pass``. The main path's
+   launches (rows 1, 6, 7, 11, 12, 13) join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -3560,6 +3581,274 @@ def data_phase(torch, args, card, desc, records, batches, details,
     return launches
 
 
+SHARD_N = 4                      # phase 13: shards, all on the one card
+SHARD_CAPACITY = 1 << 20         # phase 13: rows a shard (the reference's
+                                 # FLAGS.table_capacity_per_shard)
+SHARD_BATCHES = 16               # phase 13: local batches, 4 global steps
+SHARD_CHUNKS = 4                 # phase 13: a2a_chunks of the chunked run
+
+
+def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
+                  ) -> dict:
+    """Phase 13: the sharded streaming path at phase 5's width, N =
+    ``SHARD_N`` shards on the one card, each of ``SHARD_CAPACITY`` rows,
+    loaded from phase 5's base file (split by key % N), over
+    ``SHARD_BATCHES`` local batches from the phase's own seeded records:
+    the sharded pull against one ``EmbeddingTable``'s (exact); the first
+    global step through the kernels against the plain versions (counters,
+    slots and pushed grads exact, rows and params in the ragged
+    train-state class) and the synchronized split of a global step; then,
+    under deterministic algorithms, the main path (``train_pass``
+    monolithic with the host index; ``train_pass`` and ``eval_pass`` with
+    ``use_pallas_index``), the chunked run against it by
+    ``sharded_state_digest``, flag on against off by
+    ``elastic_state_digest`` and eval AUC, and a ``save_base`` → ``load``
+    → ``restore_state`` round trip by ``elastic_state_digest``. Returns
+    the kernels' launches in the main path."""
+    import copy
+
+    from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, InMemoryDataset,
+                                     convert)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.data import BatchBuilder, SlotRecord
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.train import sharded as SH
+    from paddlebox_tpu_torch.train.checkpoint import (elastic_state_digest,
+                                                      sharded_state_digest)
+    from paddlebox_tpu_torch.train.step import default_tx
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    t = {}
+    t0 = time.perf_counter()
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    n_base = len(base["keys"])
+    records = make_records(np.random.default_rng(args.seed + 13),
+                           BATCH * SHARD_BATCHES, SlotRecord)
+    builder = BatchBuilder(desc)
+    batches = [builder.build(records[i:i + BATCH])
+               for i in range(0, len(records), BATCH)]
+    groups = list(SH.group_batches(batches, SHARD_N))
+    t["data_s"] = time.perf_counter() - t0
+
+    def fresh():
+        tab = ShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                    capacity_per_shard=SHARD_CAPACITY,
+                                    devices=dev)
+        tab.load(base)
+        for kv in tab.indexes:
+            if kv.kv_route != "native":
+                raise AssertionError("sharded: a shard's host key index "
+                                     f"took the {kv.kv_route} route")
+        return tab
+
+    def model(dtype=None):
+        torch.manual_seed(args.seed + 2)      # phase 5's initial params
+        kw = {} if dtype is None else {"compute_dtype": dtype}
+        return DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN, **kw)
+
+    def dataset():
+        ds = InMemoryDataset(desc)
+        ds.records = records
+        return ds
+
+    t0 = time.perf_counter()
+    table = fresh()
+    sync()
+    t["load_s"] = time.perf_counter() - t0
+    per_shard = [len(kv) for kv in table.indexes]
+    table_mb = sum(st.data.numel() * 4 for st in table.states) / 2**20
+
+    # ---- the sharded pull against one table's, exactly ----
+    single = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY, device=dev)
+    single.load(base)
+    plan = table.prepare_global_eval(groups[0])
+    gb = SH.make_global_batch(groups[0], plan, table.devices)
+    step_k = SH.ShardedTrainStep(default_tx, table.cfg, table.devices,
+                                 BATCH, NUM_SLOTS, ops=K.KERNELS)
+    pulled = step_k.pull(table.states, gb)
+    for d, b in enumerate(groups[0]):
+        want = single.pull(single.prepare_eval(b))[:b.num_keys]
+        if not torch.equal(pulled[d], want):
+            raise AssertionError(f"sharded pull of destination {d} differs "
+                                 "from the single table's")
+    del single, pulled, want, gb
+
+    # ---- the first global step, kernels against plain; the split ----
+    prep_ms, stage_ms, plans, staged = [], [], [], []
+    for g in groups:
+        t0 = time.perf_counter()
+        plans.append(table.prepare_global(g))
+        t1 = time.perf_counter()
+        staged.append(SH.make_global_batch(g, plans[-1], table.devices))
+        sync()
+        prep_ms.append((t1 - t0) * 1e3)
+        stage_ms.append((time.perf_counter() - t1) * 1e3)
+    start = [st.data.clone() for st in table.states]
+
+    def stepper(ops):
+        tab = copy.copy(table)
+        tab.states = [TableState(x.clone(), table.opt_ext) for x in start]
+        step = SH.ShardedTrainStep(default_tx, table.cfg, table.devices,
+                                   BATCH, NUM_SLOTS, ops=ops)
+        return step, step.init_state(tab, model(torch.float32))
+
+    runs = {}
+    step_ms = []
+    for name, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+        step, st = stepper(ops)
+        n_steps = len(groups) if name == "kernels" else 1
+        for i in range(n_steps):
+            sync()
+            t0 = time.perf_counter()
+            out = step(st, staged[i], SH.push_generators(
+                table.devices, args.seed, i + 1))
+            sync()
+            if name == "kernels":
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(float(out["loss"])):
+                raise AssertionError(f"sharded {name} step {i}: "
+                                     "non-finite loss")
+            if i == 0:
+                runs[name] = (out, [x.data.clone() for x in st.tables],
+                              {k: v.clone() for k, v in
+                               st.model.state_dict().items()})
+        del step, st
+    (ok, tk_, pk), (op, tp, pp) = runs["kernels"], runs["plain"]
+    for s in range(SHARD_N):
+        if not torch.equal(ok["pushed"][s], op["pushed"][s]):
+            raise AssertionError(f"sharded: shard {s}'s pushed grads, "
+                                 "kernels vs plain, differ")
+        if not torch.equal(tk_[s][:, :4], tp[s][:, :4]):
+            raise AssertionError(f"sharded: shard {s}'s show/clk/"
+                                 "delta_score/slot, kernels vs plain, differ")
+    row_err = max(check_close(f"sharded: shard {s} rows, kernels vs plain",
+                              tk_[s], tp[s], STATE_RTOL, STATE_ATOL)
+                  for s in range(SHARD_N))
+    param_err = max(check_close(f"sharded: dense param {k}", pk[k], pp[k],
+                                STATE_RTOL, STATE_ATOL) for k in pk)
+    del runs, ok, op, tk_, tp, pk, pp, start, staged, table
+    split = {"prepare_global_ms": float(np.median(prep_ms)),
+             "stage_ms": float(np.median(stage_ms)),
+             "step_ms": float(np.median(step_ms))}
+    step_p50 = sum(split.values())
+    a_need = [p.req_need for p in plans]
+    a2_need = [p.serve_need for p in plans]
+    wire_mb = (SHARD_N * SHARD_N * plans[0].req_capacity * (3 + MF_DIM) * 4
+               / 2**20)
+    del plans
+
+    # ---- the main path, deterministic: monolithic, then flag on ----
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update,
+           "index_insert": IX.insert, "index_lookup": IX.lookup}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for f in fns.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        mono = SH.ShardedTrainer(model(), fresh(), desc, seed=args.seed)
+        res = mono.train_pass(dataset())
+        sync()
+        t["mono_s"] = time.perf_counter() - t0
+        stages = {k: [x * 1e3 for x in v]
+                  for k, v in mono.stage_timers.seconds.items()}
+        with flags_scope(use_pallas_index=True):
+            on = SH.ShardedTrainer(model(), fresh(), desc, seed=args.seed)
+            res_on = on.train_pass(dataset())
+            ev_on = on.eval_pass(dataset())
+        sync()
+        launches = {k: f.launches for k, f in fns.items()}
+        for k, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"phase 13: {k} never launched")
+        if any(d is None or d.degraded for d in on.table._dev_indexes):
+            raise AssertionError("phase 13: a shard's device index "
+                                 "degraded")
+        ev = mono.eval_pass(dataset())
+        for name, r in (("mono", res), ("flag on", res_on)):
+            if r["batches"] != len(groups) or not np.isfinite(
+                    r["last_loss"]):
+                raise AssertionError(f"sharded {name} pass: {r}")
+        if ev_on["auc"] != ev["auc"] or not 0.0 < ev["auc"] < 1.0:
+            raise AssertionError(f"sharded eval auc: flag on "
+                                 f"{ev_on['auc']} vs off {ev['auc']}")
+        d_mono = sharded_state_digest(mono)
+        e_mono = elastic_state_digest(mono)
+        if elastic_state_digest(on) != e_mono:
+            raise AssertionError("sharded: use_pallas_index on != off by "
+                                 "elastic_state_digest")
+        del on
+        with flags_scope(a2a_chunks=SHARD_CHUNKS):
+            chunked = SH.ShardedTrainer(model(), fresh(), desc,
+                                        seed=args.seed)
+            chunked.train_pass(dataset())
+        if sharded_state_digest(chunked) != d_mono:
+            raise AssertionError(f"sharded: a2a_chunks={SHARD_CHUNKS} != 1 "
+                                 "by sharded_state_digest")
+        del chunked
+        # save_base → load → restore_state gives the same logical state
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sharded.npz")
+            t0 = time.perf_counter()
+            n_saved = mono.table.save_base(path)
+            t["save_base_s"] = time.perf_counter() - t0
+            back = ShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                         capacity_per_shard=SHARD_CAPACITY,
+                                         devices=dev)
+            if back.load(path) != n_saved:
+                raise AssertionError("sharded save_base rows did not load")
+        again = SH.ShardedTrainer(model(), back, desc, seed=args.seed)
+        snap = mono.dense_snapshot()
+        again.restore_state(snap["model"], snap["opt"], snap["auc"],
+                            mono.global_step)
+        if elastic_state_digest(again) != e_mono:
+            raise AssertionError("sharded: save_base → load round trip "
+                                 "changed elastic_state_digest")
+        new_rows = mono.table.feature_count() - n_base
+        del again, back, mono, base
+    finally:
+        torch.use_deterministic_algorithms(False)
+    phase_s = time.perf_counter() - t_phase
+    phase5 = details.get("train", {}).get("pass", {}).get(
+        "examples_per_sec", float("nan"))
+    log(f"sharded: {SHARD_N} shards of {SHARD_CAPACITY} rows on one card "
+        f"({table_mb:.0f} MiB of tables), phase 5's base {n_base} rows "
+        f"split {per_shard} in {t['load_s']:.2f}s; {len(groups)} global "
+        f"steps of {SHARD_N} x {BATCH}; pull == single table's, exact; "
+        f"first step kernels vs plain: pushed grads and show/clk/slot "
+        f"exact, max abs err rows {row_err:.3g} params {param_err:.3g} "
+        f"({card})")
+    log(f"sharded plan: A need {a_need}, A2 need {a2_need}, pull wire "
+        f"{wire_mb:.1f} MiB a step; synchronized step p50 {step_p50:.2f} ms "
+        f"= {json.dumps({k: round(v, 3) for k, v in split.items()})}, "
+        f"{SHARD_N * BATCH / step_p50 * 1e3:.0f} examples/s (f32 tower) "
+        f"({card})")
+    log(f"sharded train_pass (bf16 tower, prefetch, deterministic "
+        f"algorithms): {res['examples_per_sec']:.0f} examples/s beside "
+        f"phase 5's train_pass {phase5:.0f}, auc {res['auc']:.4f}, last "
+        f"loss {res['last_loss']:.4f}, {new_rows} new rows; eval auc "
+        f"{ev['auc']:.6f} flag on == off; a2a_chunks={SHARD_CHUNKS} == 1 by "
+        f"sharded_state_digest; index on == off and save_base ({n_saved} "
+        f"rows, {t['save_base_s']:.2f}s) → load == trained by "
+        f"elastic_state_digest; phase 13 took {phase_s:.1f}s; launches "
+        f"{json.dumps(launches)} ({card})")
+    details["sharded"] = dict(
+        t, pass_=res, pass_flag_on=res_on, eval=ev, stage_ms=stages,
+        split_p50_ms=split, step_p50_ms=step_p50, prepare_ms=prep_ms,
+        stage_sync_ms=stage_ms, step_ms=step_ms, req_need=a_need,
+        serve_need=a2_need, wire_mb=wire_mb, per_shard_rows=per_shard,
+        row_max_abs_err=row_err, param_max_abs_err=param_err,
+        new_rows=new_rows, saved_rows=n_saved, phase_s=phase_s,
+        launches=launches)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -3929,6 +4218,11 @@ def main() -> int:
                                details)
     for r in kernels:
         r["launches"] += data_launches.get(r["name"], 0)
+
+    # ---- phase 13: the sharded table and the multi-shard trainer ----
+    shard_launches = sharded_phase(torch, args, card, desc, details)
+    for r in kernels:
+        r["launches"] += shard_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

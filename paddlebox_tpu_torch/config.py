@@ -1,7 +1,7 @@
 """Process-wide flags of the port: those that the data pipeline, the
-resident training pass, the table's shrink, the resilience layer,
-checkpointing, streaming and serving's reload loop read, with the names
-and defaults of
+resident training pass, the table's shrink, the sharded table and step,
+the resilience layer, checkpointing, streaming and serving's reload loop
+read, with the names and defaults of
 ``paddlebox_tpu/config.py``. Tests change them with ``flags_scope``.
 """
 
@@ -43,12 +43,26 @@ class Flags:
     # N completed windows (bounds replay after a hard kill)
     stream_ckpt_every_windows: int = 1
 
+    # --- embedding store ---
+    # default per-shard row capacity of ps/sharded.ShardedEmbeddingTable
+    table_capacity_per_shard: int = 1 << 20
+
+    # --- the sharded step (train/sharded.py) ---
+    # slot-group chunks of the sharded step's pull exchange: chunk g's
+    # exchange, then its expand → pool. 1 = the monolithic schedule. >1
+    # needs slot-qualified keys (each key in one slot group of its
+    # batch); a plan that finds a key spanning groups falls back to the
+    # monolithic layout for that batch, loudly. Both schedules give the
+    # same bits.
+    a2a_chunks: int = 1
+
     # route the resident pass's bulk row assignment
     # (``EmbeddingTable.bulk_assign_unique``) through the device key
     # index (``ops/index.py``): first-seen dedup and a linear-probe hash
     # insert on the card, the host kv mirrored with the NEW keys only.
     # Any state the device index cannot mirror exactly degrades, loudly
-    # and for good, to the host index. Off = the host index.
+    # and for good, to the host index. Off = the host index. The sharded
+    # table's per-shard row resolution (ps/sharded.py) rides it too.
     use_pallas_index: bool = False
     # whole-pass bulk key assignment: one index round trip per pass
     # instead of one per batch (False = the serial per-batch path)

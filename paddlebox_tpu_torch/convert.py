@@ -9,6 +9,13 @@
 - ``table_rows_from_logical``: keys and their logical table rows → the
   field mapping a save file holds, for a table handed over in memory
   rather than through ``.npz`` (``EmbeddingTable.load`` takes either).
+- ``sharded_table_from_packed``: a JAX
+  ``ShardedEmbeddingTable``'s stacked 128-lane state ``[N, L, 128]`` (as
+  ``jax.device_get(table.state.packed)`` returns it) and each shard's
+  ``(keys, rows)`` → the sharded save mapping (``n``, ``keys_{s}``,
+  ``{field}_{s}``) the port's ``ShardedEmbeddingTable.load`` takes, each
+  shard's keys in row order, so a fresh port table assigns the same
+  rows where the reference's are dense.
 - ``adam_state_from_optax``: an optax Adam state (count, mu, nu) → the
   ``state_dict`` of the port's ``torch.optim.Adam`` over the same params.
 - ``dense_from_jax_checkpoint``: the unpickled ``dense.pkl`` of a
@@ -20,7 +27,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +92,39 @@ def table_rows_from_logical(keys: np.ndarray, logical_np: np.ndarray,
     blob["embedx_w"] = rows[:, NUM_FIXED:mf_end].copy()
     if rows.shape[1] > mf_end:
         blob["opt_ext"] = rows[:, mf_end:].copy()
+    return blob
+
+
+def _unpack_rows(packed: np.ndarray, capacity: int, feat: int
+                 ) -> np.ndarray:
+    """The reference's packed table ``[..., L, 128]`` (``128 // f_pad``
+    logical rows a line, f_pad = ``feat`` rounded up to a power of two)
+    → its logical rows ``[..., C+1, feat]`` (a view)."""
+    fp = next(d for d in (1, 2, 4, 8, 16, 32, 64, 128) if d >= feat)
+    rpl = 128 // fp
+    n_lines = (capacity + 1 + rpl - 1) // rpl
+    lead = packed.shape[:-2]
+    return packed.reshape(*lead, n_lines * rpl, fp)[..., :capacity + 1,
+                                                    :feat]
+
+
+def sharded_table_from_packed(packed: np.ndarray,
+                              shard_items: Sequence[Tuple[np.ndarray,
+                                                          np.ndarray]],
+                              capacity: int, mf_dim: int, ext: int = 0
+                              ) -> Dict[str, np.ndarray]:
+    """A reference sharded table (its stacked packed state and each
+    shard's ``index.items()``) → the sharded save mapping."""
+    logical = _unpack_rows(np.asarray(packed), capacity,
+                           NUM_FIXED + mf_dim + ext)
+    blob: Dict[str, np.ndarray] = {"n": np.asarray(len(shard_items))}
+    for s, (keys, rows) in enumerate(shard_items):
+        order = np.argsort(rows, kind="stable")
+        part = table_rows_from_logical(keys[order],
+                                       logical[s][rows[order]], mf_dim)
+        blob[f"keys_{s}"] = part.pop("keys")
+        for f, v in part.items():
+            blob[f"{f}_{s}"] = v
     return blob
 
 

@@ -1,6 +1,5 @@
 """Training metrics: bucketed AUC and error sums, and the named metric
-registry (counterpart of ``paddlebox_tpu/metrics.py``; the cross-worker
-``auc_compute_global`` waits for the multi-process port).
+registry (counterpart of ``paddlebox_tpu/metrics.py``).
 
 ``BasicAucCalculator`` (metrics.h:46): pos/neg tables of ``nbins``
 buckets keyed by ``int(pred * nbins)``. The two tables are the two rows of
@@ -98,6 +97,21 @@ def auc_compute(state: AucState) -> AucResult:
                      predicted_ctr=pred_sum / ins_safe,
                      mae=abs_err / ins_safe,
                      rmse=float(np.sqrt(sqr_err / ins_safe)), ins_num=ins)
+
+
+def auc_compute_global(state: AucState, collective) -> AucResult:
+    """Cross-worker AUC (BasicAucCalculator's MPI reduce,
+    metrics.cc:288-304): this worker's tables go through
+    ``collective.allreduce_sum`` (any object whose ``allreduce_sum``
+    takes a list of numpy arrays and returns their element-wise sums
+    over the workers) and ONE global AUC is computed from the sums, the
+    same on every worker."""
+    host = [state.buckets.detach().cpu().numpy(),
+            state.sums.detach().cpu().numpy()]
+    buckets, sums = collective.allreduce_sum(host)
+    return auc_compute(AucState(
+        torch.from_numpy(np.asarray(buckets, np.float32)),
+        torch.from_numpy(np.asarray(sums, np.float32))))
 
 
 def auc_merge(states: Sequence[AucState]) -> AucState:

@@ -128,9 +128,10 @@ class TableState:
     embedx_g2sum, mf_size; then embedx_w [mf_dim]; then the optimizer
     extension [ext]. Row C is the zero sentinel.
 
-    Training writes ``data`` IN PLACE (``apply_push``); the slot column
-    is not maintained there (slot is host metadata,
-    ``EmbeddingTable.slot_host``). A load always builds a new state, so
+    Training writes ``data`` IN PLACE (``apply_push``); the single table
+    does not maintain the slot column there (slot is host metadata,
+    ``EmbeddingTable.slot_host``), the sharded table's push writes it
+    (``ps/sharded.py``). A load always builds a new state, so
     a serving snapshot, which holds the state of a table that only ever
     loads, never shares a tensor that training writes."""
 
@@ -233,12 +234,28 @@ def push_stats(gather_idx: torch.Tensor, key_valid: torch.Tensor,
     return touched, slot_val
 
 
+def merge_rows(values: torch.Tensor, idx: torch.Tensor,
+               num_segments: int) -> torch.Tensor:
+    """Segment sum of ``values`` [M, D] by ``idx`` [M] into
+    [num_segments, D] (the sharded push's merge of the grads every
+    requester sent back for one served row). An accumulating
+    ``index_put_``: each segment's terms add in position order on the
+    CPU and, under ``torch.use_deterministic_algorithms(True)``, on the
+    card too, so a run repeats bit for bit. The reference packs rows into
+    128-lane lines for the TPU's scatter; the port's rows are row-major
+    and need no packing."""
+    out = values.new_zeros((num_segments, values.shape[1]))
+    return out.index_put_((idx.long(),), values, accumulate=True)
+
+
 def apply_push(state: TableState, unique_rows: torch.Tensor,
                unique_grads: torch.Tensor, cfg: SparseSGDConfig,
                generator: Optional[torch.Generator] = None,
                rows_full: Optional[torch.Tensor] = None,
                init: Optional[torch.Tensor] = None,
-               ops: KernelSet = KERNELS) -> TableState:
+               ops: KernelSet = KERNELS,
+               touched: Optional[torch.Tensor] = None,
+               slot_val: Optional[torch.Tensor] = None) -> TableState:
     """In-table optimizer on merged grads (dy_mf_update_value,
     optimizer.cuh.h:80) and its write-back, IN PLACE.
 
@@ -248,11 +265,17 @@ def apply_push(state: TableState, unique_rows: torch.Tensor,
     writes ``old + (new − old)`` too, which can differ from ``new`` by
     one ulp) into rows [0, C): the pads' out-of-bounds ids drop and the
     sentinel row C stays zero. ``init`` / ``generator`` feed lazy mf
-    creation (see ``sgd.adagrad_update``). Returns ``state``."""
+    creation (see ``sgd.adagrad_update``). ``touched`` (bool [U_pad])
+    picks the rows the optimizer runs on, by default every row below the
+    sentinel; ``slot_val`` (f32 [U_pad]) writes the touched rows' slot
+    column, which by default keeps its value (the single table keeps
+    slots on the host, the sharded table in the column). Returns
+    ``state``."""
     g = unique_grads
     cap = state.capacity
-    # strictly < capacity: real rows are always below the sentinel
-    touched = unique_rows < cap
+    if touched is None:
+        # strictly < capacity: real rows are always below the sentinel
+        touched = unique_rows < cap
     if rows_full is None:
         rows_full = gather_full_rows(state, unique_rows, ops)
     mf_end = NUM_FIXED + state.mf_dim
@@ -267,9 +290,11 @@ def apply_push(state: TableState, unique_rows: torch.Tensor,
     new = sparse_update(rows, g[:, 0], g[:, 1], g[:, 2],
                         g[:, 3:3 + state.mf_dim], touched, cfg, init=init,
                         generator=generator)
+    slot_new = (rows_full[:, 3:4] if slot_val is None else
+                torch.where(touched, slot_val, rows_full[:, 3])[:, None])
     new_mat = torch.cat([
         new.show[:, None], new.clk[:, None], new.delta_score[:, None],
-        rows_full[:, 3:4], new.embed_w[:, None], new.embed_g2sum[:, None],
+        slot_new, new.embed_w[:, None], new.embed_g2sum[:, None],
         new.embedx_g2sum[:, None], new.mf_size[:, None], new.embedx_w,
         new.opt_ext], dim=1)
     # where, not multiply: an untouched row holding NaN would otherwise

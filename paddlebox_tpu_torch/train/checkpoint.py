@@ -943,6 +943,47 @@ def state_digest(trainer) -> str:
     return h.hexdigest()
 
 
+def elastic_state_digest(trainer) -> str:
+    """sha256 over a ``ShardedTrainer``'s LOGICAL state, the same for any
+    shard count: every shard's rows keyed by feasign and sorted as one
+    list (the ``key % N`` owner and the row order cancel out), then every
+    tensor of ``dense_snapshot`` (model, optimizer, the destinations' AUC
+    states summed into one), as ``state_digest`` hashes them."""
+    trainer.sync_table()
+    table = trainer.table
+    with table.host_lock:
+        per_shard = [table.indexes[s].items() for s in range(table.n)]
+    keys = np.concatenate([np.ascontiguousarray(k, np.uint64)
+                           for k, _ in per_shard])
+    rows = np.concatenate([table._rows_host(s, r)
+                           for s, (_, r) in enumerate(per_shard)])
+    order = np.argsort(keys, kind="stable")
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(keys[order]).tobytes())
+    h.update(np.ascontiguousarray(rows[order]).tobytes())
+    for name, t in _tensor_leaves(trainer.dense_snapshot()):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(t.numpy()).tobytes())
+    return h.hexdigest()
+
+
+def sharded_state_digest(trainer) -> str:
+    """sha256 over a ``ShardedTrainer``'s RAW state: the dense params,
+    each shard's whole table state and each destination's AUC state.
+    Stricter than ``elastic_state_digest``: the row each key sits in
+    counts too, so two schedules over the same batches (``a2a_chunks``)
+    must also assign the same rows to digest alike."""
+    h = hashlib.sha256()
+    for t in trainer.model.state_dict().values():
+        h.update(np.ascontiguousarray(t.detach().cpu().numpy()).tobytes())
+    for st in trainer.state.tables:
+        h.update(st.data.detach().cpu().numpy().tobytes())
+    for auc in trainer.state.auc:
+        for t in auc:
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _tensor_leaves(obj, prefix: str = ""):
     """(path, tensor) of every tensor in a nest of dicts, lists and
     tuples, dict keys in sorted order."""

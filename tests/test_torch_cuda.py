@@ -1807,3 +1807,135 @@ def test_native_loaded_dataset_trains_like_records(cuda, deterministic,
     assert tk.pool_cvm.launches > before
     tr_recs.train_pass(ref)
     assert state_digest(tr_files) == state_digest(tr_recs)
+
+
+# ---------------------------------------------------------------------------
+# the sharded path (ps/sharded.py, train/sharded.py)
+# ---------------------------------------------------------------------------
+
+def _sharded_setup(dev, n=4, s=5, mf=4, dense=3, bs=64, n_rec=64 * 11):
+    """A 4-shard table on ``dev`` loaded from a seeded single-table base of
+    slot-qualified keys (a third without mf yet), and a dataset of ragged
+    records over those keys and new ones."""
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
+    rng = np.random.default_rng(15)
+    slots = ([SlotDef("label", "float", 1), SlotDef("d", "float", dense)]
+             + [SlotDef(f"S{i}", "uint64") for i in range(s)])
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=512)
+    recs = []
+    for i in range(n_rec):
+        counts = 1 + rng.poisson(2.0, size=s)
+        offs = np.zeros(s + 1, np.int32)
+        np.cumsum(counts, out=offs[1:])
+        slot = np.repeat(np.arange(s), counts)
+        keys = (slot * 10_000 + rng.integers(0, 900, size=int(offs[-1]))
+                ).astype(np.uint64)
+        recs.append(SlotRecord(keys, offs,
+                               rng.normal(size=dense).astype(np.float32),
+                               float(i % 3 == 0), 1.0, float(i % 3 == 0)))
+    ids = np.arange(600)
+    base_keys = np.concatenate([k * 10_000 + ids for k in range(s)]
+                               ).astype(np.uint64)
+    rows = np.zeros((len(base_keys), 8 + mf), np.float32)
+    rows[:, 0] = rng.integers(1, 40, size=len(rows))
+    rows[:, 3] = (base_keys // np.uint64(10_000)).astype(np.float32)
+    rows[:, 4] = rng.normal(0, 0.05, size=len(rows))
+    rows[:, 5:7] = 3.0
+    rows[:, 7] = (rng.random(len(rows)) < 0.66).astype(np.float32)
+    rows[:, 8:] = rng.normal(0, 0.05, size=(len(rows), mf)) * rows[:, 7:8]
+    base = table_rows_from_logical(base_keys, rows, mf)
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0)
+
+    def table():
+        t = ShardedEmbeddingTable(n, mf_dim=mf, capacity_per_shard=1 << 12,
+                                  cfg=cfg, req_bucket_min=128,
+                                  serve_bucket_min=256, devices=dev)
+        t.load(base)
+        return t
+
+    def dataset():
+        ds = InMemoryDataset(desc)
+        ds.records = recs
+        return ds
+
+    def model():
+        torch.manual_seed(4)
+        return DeepFM(s, 3 + mf, dense, hidden=(32, 16),
+                      compute_dtype=torch.float32)
+
+    return desc, table, dataset, model
+
+
+@pytest.mark.cuda
+def test_sharded_step_kernels_match_plain(cuda):
+    """One global step through the kernels against the same step through
+    the plain versions, on the card, from the same state: show/clk
+    counters, the slot column and the pushed grads exact, rows and dense
+    params in the ragged train-state class."""
+    import copy
+
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.train import sharded as tsh
+    from paddlebox_tpu_torch.train.step import default_tx
+    desc, table, dataset, model = _sharded_setup(cuda)
+    t = table()
+    group = next(tsh.group_batches(dataset().batches(), t.n))
+    gb = tsh.make_global_batch(group, t.prepare_global(group), t.devices)
+    runs = []
+    for ops in (tk.KERNELS, tk.PLAIN):
+        step = tsh.ShardedTrainStep(default_tx, t.cfg, t.devices,
+                                    desc.batch_size, len(desc.sparse_slots),
+                                    ops=ops)
+        tab = copy.copy(t)
+        tab.states = [TableState(st.data.clone(), st.ext)
+                      for st in t.states]
+        state = step.init_state(tab, model())
+        before = tk.gather_rows.launches
+        stats = step(state, gb, tsh.push_generators(t.devices, 0, 1))
+        torch.cuda.synchronize()
+        if ops is tk.KERNELS:
+            assert tk.gather_rows.launches == before + t.n
+        runs.append((state, stats))
+    (sk, k), (sp, p) = runs
+    for a, b in zip(k["pushed"], p["pushed"]):
+        assert torch.equal(a, b)
+    for a, b in zip(sk.tables, sp.tables):
+        assert torch.equal(a.data[:, :4], b.data[:, :4])
+        np.testing.assert_allclose(a.data.cpu().numpy(),
+                                   b.data.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-5)
+    for (name, a), b in zip(sk.model.state_dict().items(),
+                            sp.model.state_dict().values()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_sharded_trainer_chunks_and_index_route(cuda, deterministic):
+    """train_pass on the card: a2a_chunks 2 and 4 and the device key index
+    give the monolithic run's digests bit for bit under deterministic
+    algorithms, and the eval AUC with the device index is the host
+    index's."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.train.checkpoint import (elastic_state_digest,
+                                                      sharded_state_digest)
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+
+    def run(dev, chunks=1, flag=False):
+        desc, table, dataset, model = _sharded_setup(dev)
+        with flags_scope(a2a_chunks=chunks, use_pallas_index=flag):
+            tr = ShardedTrainer(model(), table(), desc, seed=2)
+            res = tr.train_pass(dataset())
+            ev = tr.eval_pass(dataset())
+        return tr, res, ev
+
+    mono, res, ev = run(cuda)
+    assert res["batches"] == 3 and np.isfinite(res["last_loss"])
+    want = sharded_state_digest(mono)
+    for chunks in (2, 4):
+        assert sharded_state_digest(run(cuda, chunks)[0]) == want
+    on = run(cuda, flag=True)
+    assert elastic_state_digest(on[0]) == elastic_state_digest(mono)
+    assert on[2]["auc"] == ev["auc"]
