@@ -3603,9 +3603,15 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
     ``use_pallas_index``), the chunked run against it by
     ``sharded_state_digest``, flag on against off by
     ``elastic_state_digest`` and eval AUC, and a ``save_base`` → ``load``
-    → ``restore_state`` round trip by ``elastic_state_digest``. Returns
-    the kernels' launches in the main path."""
+    → ``restore_state`` round trip by ``elastic_state_digest``. Before the
+    main path, a ZeRO-1 SGD step with the shards on the card and the CPU
+    in turns (copies between devices in both exchanges, a CPU replica of
+    the model, ZeRO-1 chunks on both) against the same step on the card
+    alone: the card's destinations' predictions and the refreshed
+    replica exact, the rest in the ragged train-state class. Returns the kernels' launches
+    in the main path."""
     import copy
+    import dataclasses
 
     from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, InMemoryDataset,
                                      convert)
@@ -3690,11 +3696,13 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         stage_ms.append((time.perf_counter() - t1) * 1e3)
     start = [st.data.clone() for st in table.states]
 
-    def stepper(ops):
+    def stepper(ops, devs=None, cfg=None, tx=default_tx, zero1=False):
+        devs = devs or table.devices
         tab = copy.copy(table)
-        tab.states = [TableState(x.clone(), table.opt_ext) for x in start]
-        step = SH.ShardedTrainStep(default_tx, table.cfg, table.devices,
-                                   BATCH, NUM_SLOTS, ops=ops)
+        tab.states = [TableState(x.to(d, copy=True), table.opt_ext)
+                      for x, d in zip(start, devs)]
+        step = SH.ShardedTrainStep(tx, cfg or table.cfg, devs,
+                                   BATCH, NUM_SLOTS, zero1=zero1, ops=ops)
         return step, step.init_state(tab, model(torch.float32))
 
     runs = {}
@@ -3731,7 +3739,68 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
                   for s in range(SHARD_N))
     param_err = max(check_close(f"sharded: dense param {k}", pk[k], pp[k],
                                 STATE_RTOL, STATE_ATOL) for k in pk)
-    del runs, ok, op, tk_, tp, pk, pp, start, staged, table
+    del runs, ok, op, tk_, tp, pk, pp, staged
+
+    # ---- shards on two devices against one device: a ZeRO-1 step ----
+    # lazy mf draws nothing (mf_initial_range 0): the CPU's generator is
+    # not the card's. One SGD step: Adam's m / sqrt(v) turns the last-bit
+    # differences of a near-zero grad, summed in another order on the
+    # CPU, into steps of up to lr, and a second step amplifies the CPU's
+    # other sums past the train-state class (PERF.md §7) whether the
+    # shards are mixed or all on the CPU.
+    cfg0 = dataclasses.replace(table.cfg, mf_initial_range=0.0)
+    mixed_devs = [torch.device(dev), torch.device("cpu")] * (SHARD_N // 2)
+    t0 = time.perf_counter()
+    one_step = {}
+    for name, devs in (("one", table.devices), ("mixed", mixed_devs)):
+        step, st = stepper(K.KERNELS, devs, cfg0, zero1=True,
+                           tx=lambda p: torch.optim.SGD(p, lr=0.05))
+        out = step(st, SH.make_global_batch(groups[0], plans[0], devs),
+                   SH.push_generators(devs, args.seed, 1))
+        sync()
+        kinds = [d.type for d in mixed_devs]
+        if name == "mixed" and (
+                [x.data.device.type for x in st.tables] != kinds
+                or [c.device.type for c in st.opt.chunks] != kinds
+                or list(step._replicas) != [d for d in mixed_devs[1:2]
+                                            if d != mixed_devs[0]]):
+            raise AssertionError("sharded mixed devices: a shard, a ZeRO-1 "
+                                 "chunk or a replica is not where it should "
+                                 "be")
+        for rep in step._replicas.values():
+            # the replica refreshed after the dense update
+            for q, p in zip(rep.parameters(), st.model.parameters()):
+                if not torch.equal(q.to(p.device), p):
+                    raise AssertionError("sharded mixed devices: a model "
+                                         "replica was not refreshed")
+        one_step[name] = dict(
+            tables=[x.data.to(dev) for x in st.tables],
+            params={k: v.to(dev) for k, v in st.model.state_dict().items()},
+            pred=[x.to(dev) for x in out["pred"]],
+            pushed=[x.to(dev) for x in out["pushed"]])
+        del step, st, out
+    t["mixed_s"] = time.perf_counter() - t0
+    one, mixed = one_step["one"], one_step["mixed"]
+    for d, dv in enumerate(mixed_devs):
+        # a destination on the card pools values pulled from both
+        # devices: the exchange's copies are exact
+        if dv == mixed_devs[0] and not torch.equal(mixed["pred"][d],
+                                                   one["pred"][d]):
+            raise AssertionError(f"sharded mixed devices: destination {d} "
+                                 "on the card predicts other values")
+    for s in range(SHARD_N):
+        if not torch.equal(one["tables"][s][:, [0, 1, 3]],
+                           mixed["tables"][s][:, [0, 1, 3]]):
+            raise AssertionError(f"sharded mixed devices: shard {s}'s "
+                                 "show/clk/slot differ from one device's")
+    mixed_err = max(
+        [check_close(f"sharded mixed devices: shard {s} {what}",
+                     mixed[what][s], one[what][s], STATE_RTOL, STATE_ATOL)
+         for s in range(SHARD_N) for what in ("tables", "pushed", "pred")]
+        + [check_close(f"sharded mixed devices: dense param {k}",
+                       mixed["params"][k], v, STATE_RTOL, STATE_ATOL)
+           for k, v in one["params"].items()])
+    del one_step, one, mixed, start, table
     split = {"prepare_global_ms": float(np.median(prep_ms)),
              "stage_ms": float(np.median(stage_ms)),
              "step_ms": float(np.median(step_ms))}
@@ -3787,7 +3856,12 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         with flags_scope(a2a_chunks=SHARD_CHUNKS):
             chunked = SH.ShardedTrainer(model(), fresh(), desc,
                                         seed=args.seed)
-            chunked.train_pass(dataset())
+            res_chunked = chunked.train_pass(dataset())
+        if res_chunked["chunked_batches"] != len(groups):
+            raise AssertionError(
+                f"sharded: {res_chunked['chunked_batches']} of "
+                f"{len(groups)} global batches ran the chunked schedule "
+                "(the grouped plan fell back to the monolithic one)")
         if sharded_state_digest(chunked) != d_mono:
             raise AssertionError(f"sharded: a2a_chunks={SHARD_CHUNKS} != 1 "
                                  "by sharded_state_digest")
@@ -3822,8 +3896,11 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         f"split {per_shard} in {t['load_s']:.2f}s; {len(groups)} global "
         f"steps of {SHARD_N} x {BATCH}; pull == single table's, exact; "
         f"first step kernels vs plain: pushed grads and show/clk/slot "
-        f"exact, max abs err rows {row_err:.3g} params {param_err:.3g} "
-        f"({card})")
+        f"exact, max abs err rows {row_err:.3g} params {param_err:.3g}; "
+        f"a ZeRO-1 SGD step with shards on {dev}/cpu/{dev}/cpu vs all on "
+        f"{dev}: card destinations' preds, show/clk/slot and the "
+        f"replica exact, max abs err {mixed_err:.3g} "
+        f"({t['mixed_s']:.1f}s) ({card})")
     log(f"sharded plan: A need {a_need}, A2 need {a2_need}, pull wire "
         f"{wire_mb:.1f} MiB a step; synchronized step p50 {step_p50:.2f} ms "
         f"= {json.dumps({k: round(v, 3) for k, v in split.items()})}, "
@@ -3844,6 +3921,7 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         stage_sync_ms=stage_ms, step_ms=step_ms, req_need=a_need,
         serve_need=a2_need, wire_mb=wire_mb, per_shard_rows=per_shard,
         row_max_abs_err=row_err, param_max_abs_err=param_err,
+        mixed_max_abs_err=mixed_err,
         new_rows=new_rows, saved_rows=n_saved, phase_s=phase_s,
         launches=launches)
     return launches

@@ -255,39 +255,27 @@ class ShardedEmbeddingTable:
         return rows_s
 
     # ------------------------------------------------------------------
-    def prepare_global_eval(self, batches: List[SlotBatch],
-                            req_capacity: Optional[int] = None,
-                            serve_capacity: Optional[int] = None
+    def prepare_global_eval(self, batches: List[SlotBatch]
                             ) -> ShardedPullIndex:
         """Read-only routing plan: unknown keys serve the zero sentinel
         row instead of allocating (no index mutation). Only for pull-only
         steps: serve_rows may repeat the sentinel."""
-        return self.prepare_global(batches, req_capacity, serve_capacity,
-                                   assign=False)
+        return self.prepare_global(batches, assign=False)
 
     def prepare_global(self, batches: List[SlotBatch],
-                       req_capacity: Optional[int] = None,
-                       serve_capacity: Optional[int] = None,
                        assign: bool = True,
-                       groups: int = 1,
-                       req_sections: Optional[Tuple[int, ...]] = None,
-                       key_sections: Optional[Tuple[int, ...]] = None
-                       ) -> ShardedPullIndex:
+                       groups: int = 1) -> ShardedPullIndex:
         """The routing plan of N local batches (one global batch), which
-        share batch_size and num_slots. ``req_capacity`` /
-        ``serve_capacity`` force the A/A2 buckets.
+        share batch_size and num_slots.
 
         ``groups > 1`` builds the chunked exchange layout
         (FLAGS.a2a_chunks): the A axis split into contiguous per-slot-
         group sections. It needs slot-qualified keys (every key's
         occurrences in one slot group of its batch); a batch that breaks
-        this gets the monolithic plan, with a warning.
-        ``req_sections`` / ``key_sections`` force the section widths."""
+        this gets the monolithic plan, with a warning."""
         if groups > 1:
-            return self._prepare_global_grouped(
-                batches, groups, serve_capacity=serve_capacity,
-                assign=assign, req_sections=req_sections,
-                key_sections=key_sections)
+            return self._prepare_global_grouped(batches, groups,
+                                                assign=assign)
         n = self.n
         self._check_group(batches)
         k_pad = max(b.keys.shape[0] for b in batches)
@@ -326,11 +314,6 @@ class ShardedEmbeddingTable:
                 a_max = max(a_max, len(sel))
             req_pos_of_uniq.append(pos)
         A = _bucket(a_max, self.req_bucket_min)
-        if req_capacity is not None:
-            if req_capacity < a_max:
-                raise ValueError(
-                    f"forced req_capacity {req_capacity} < needed {a_max}")
-            A = req_capacity
 
         # owner-side dedup: all (dst, j) requests to owner s → serve slots
         resp_idx = np.zeros((n, n, A), dtype=np.int32)
@@ -346,7 +329,7 @@ class ShardedEmbeddingTable:
                 # pads point at the sentinel serve slot (last)
                 resp_idx[s, d, cnt:] = len(serve_rows_l[s])
                 off += cnt
-        A2 = self._serve_capacity(a2_max, serve_capacity)
+        A2 = _bucket(a2_max, self.serve_bucket_min)
         serve_rows, serve_valid, serve_slot = self._serve_arrays(
             serve_rows_l, serve_slot_l, resp_idx, A2)
 
@@ -391,15 +374,6 @@ class ShardedEmbeddingTable:
             sinv_l.append(sinv)
         return serve_rows_l, serve_slot_l, sinv_l
 
-    def _serve_capacity(self, a2_max: int,
-                        serve_capacity: Optional[int]) -> int:
-        if serve_capacity is None:
-            return _bucket(a2_max, self.serve_bucket_min)
-        if serve_capacity < a2_max:
-            raise ValueError(
-                f"forced serve_capacity {serve_capacity} < {a2_max}")
-        return serve_capacity
-
     def _serve_arrays(self, serve_rows_l, serve_slot_l,
                       resp_idx: np.ndarray, A2: int):
         """serve_rows / serve_valid / serve_slot [N, A2]; pad requests
@@ -419,10 +393,7 @@ class ShardedEmbeddingTable:
 
     def _prepare_global_grouped(
             self, batches: List[SlotBatch], groups: int,
-            serve_capacity: Optional[int] = None, assign: bool = True,
-            req_sections: Optional[Tuple[int, ...]] = None,
-            key_sections: Optional[Tuple[int, ...]] = None
-            ) -> ShardedPullIndex:
+            assign: bool = True) -> ShardedPullIndex:
         """Chunked-exchange plan (see prepare_global). Layout contract:
 
         - Rows are assigned in the monolithic order (sorted unique per
@@ -448,8 +419,7 @@ class ShardedEmbeddingTable:
         bounds = slot_group_bounds(S, groups)
         c = len(bounds)
         if c <= 1:
-            return self.prepare_global(batches, assign=assign,
-                                       serve_capacity=serve_capacity)
+            return self.prepare_global(batches, assign=assign)
         grp_of_slot = np.zeros(S, np.int64)
         for g, (lo, hi) in enumerate(bounds):
             grp_of_slot[lo:hi] = g
@@ -473,8 +443,7 @@ class ShardedEmbeddingTable:
                     "a2a_chunks=%d: a key's occurrences span slot groups "
                     "(keys are not slot-qualified): the monolithic "
                     "exchange for this batch", c)
-                return self.prepare_global(batches, assign=assign,
-                                           serve_capacity=serve_capacity)
+                return self.prepare_global(batches, assign=assign)
             dev_uniq.append(uniq)
             dev_inv.append(inv)
             dev_uniq_slot.append(occ_slot[first].astype(np.float32))
@@ -510,17 +479,8 @@ class ShardedEmbeddingTable:
                 pos[sel, 1] = grp_s
                 pos[sel, 2] = ranks
             req_pos_of_uniq.append(pos)
-        if req_sections is not None:
-            a_secs = tuple(int(x) for x in req_sections)
-            for g in range(c):
-                if a_secs[g] < int(need_g[g]) + 1:
-                    raise ValueError(
-                        f"forced req_sections[{g}]={a_secs[g]} < needed "
-                        f"{int(need_g[g]) + 1}")
-        else:
-            bmin = max(1, self.req_bucket_min // c)
-            a_secs = tuple(_bucket(int(need_g[g]) + 1, bmin)
-                           for g in range(c))
+        bmin = max(1, self.req_bucket_min // c)
+        a_secs = tuple(_bucket(int(need_g[g]) + 1, bmin) for g in range(c))
         a_lo = np.concatenate([[0], np.cumsum(a_secs)]).astype(np.int64)
         A = int(a_lo[-1])
 
@@ -542,7 +502,7 @@ class ShardedEmbeddingTable:
                     row[jpos] = sinv[off:off + cnt]
                 resp_idx[s, d] = row
                 off += cnt
-        A2 = self._serve_capacity(a2_max, serve_capacity)
+        A2 = _bucket(a2_max, self.serve_bucket_min)
         serve_rows, serve_valid, serve_slot = self._serve_arrays(
             serve_rows_l, serve_slot_l, resp_idx, A2)
 
@@ -554,18 +514,9 @@ class ShardedEmbeddingTable:
             occ_grp_dev.append(og)
             for g in range(c):
                 k_need[g] = max(k_need[g], int((og == g).sum()))
-        if key_sections is not None:
-            k_secs = tuple(int(x) for x in key_sections)
-            for g in range(c):
-                if k_secs[g] < int(k_need[g]):
-                    raise ValueError(
-                        f"forced key_sections[{g}]={k_secs[g]} < needed "
-                        f"{int(k_need[g])}")
-        else:
-            # power-of-two ladder from a fixed minimum, never from the
-            # batch's k_pad, whose wobble would mint distinct layouts
-            k_secs = tuple(_bucket(max(1, int(k_need[g])), 8)
-                           for g in range(c))
+        # power-of-two ladder from a fixed minimum, never from the
+        # batch's k_pad, whose wobble would mint distinct layouts
+        k_secs = tuple(_bucket(max(1, int(k_need[g])), 8) for g in range(c))
         k_lo = np.concatenate([[0], np.cumsum(k_secs)]).astype(np.int64)
         kp = int(k_lo[-1])
         gather_idx = np.empty((n, kp), dtype=np.int32)

@@ -7,9 +7,9 @@ boxps_worker.cc:1191-1258), HeterComm P2P copies for the sparse pull and
 push. The JAX package runs all of it as one program over a device mesh.
 The port drives the N shards of a ``ShardedEmbeddingTable`` from one
 process, each shard on a device of the table's ``devices`` list, and
-makes both exchanges explicit copies between those devices; with all
-shards on one device an exchange is one ``stack`` of the [N, N, A, D]
-wire. One global step:
+makes both exchanges explicit copies between those devices (on one
+device the copies are the ``stack`` of each destination's blocks). One
+global step:
 
     for each owner s: gather_full_rows → pull_values → expand by resp_idx
     exchange: recv[d] = stack_s resp[s][d]
@@ -171,10 +171,8 @@ def exchange(blocks: Sequence[torch.Tensor],
              devices: Sequence[torch.device]) -> List[torch.Tensor]:
     """The all-to-all: ``blocks[s]`` [N, ...] holds what shard s sends
     each shard; returns ``out[d]`` = stack over s of ``blocks[s][d]``, on
-    ``devices[d]``. On one device that is one ``stack`` of the wire."""
+    ``devices[d]``."""
     n = len(blocks)
-    if all(dev == devices[0] for dev in devices):
-        return list(torch.stack(list(blocks), dim=1).unbind(0))
     return [torch.stack([blocks[s][d].to(devices[d]) for s in range(n)])
             for d in range(n)]
 
@@ -534,7 +532,7 @@ class ShardedTrainer:
                  desc, tx: Optional[OptimizerFactory] = None,
                  use_cvm: bool = True, prefetch: int = PREFETCH_DEPTH,
                  seed: int = 0, zero1: bool = False,
-                 lr_map: Optional[dict] = None, lr_map_base: float = 1.0,
+                 lr_map: Optional[dict] = None,
                  ops: KernelSet = KERNELS) -> None:
         """``model`` (params already set) moves to the table's first
         device. ``tx`` builds the dense optimizer (default: Adam, lr
@@ -621,11 +619,13 @@ class ShardedTrainer:
     def train_pass(self, dataset, log_prefix: str = "") -> Dict[str, float]:
         """One pass over the dataset in global batches of N. Returns the
         AUC result of the accumulated tables (cumulative until
-        ``reset_metrics``), the pass's global batches and examples, its
-        wall seconds and examples/s, and the last loss."""
+        ``reset_metrics``), the pass's global batches (and how many ran
+        the chunked schedule: a grouped plan falls back to the
+        monolithic one per batch) and examples, its wall seconds and
+        examples/s, and the last loss."""
         self.stage_timers.reset()
         t0 = time.perf_counter()
-        nb = n_ex = 0
+        nb = n_ex = n_chunked = 0
         stats = None
         writers: Dict[int, DumpWriter] = {}
 
@@ -648,6 +648,7 @@ class ShardedTrainer:
                 with self.stage_timers.stage("step"):
                     stats = self.step_fn(self.state, gb, gens, secs)
                 nb += 1
+                n_chunked += bool(secs)
                 n_ex += sum(int((bt.show > 0).sum()) for bt in group)
                 want_dump = (self._dump_cfg is not None
                              and nb % self._dump_cfg.interval == 0)
@@ -660,7 +661,8 @@ class ShardedTrainer:
         elapsed = time.perf_counter() - t0
         self.sync_table()
         out = auc_compute(self._finalize_auc(self.state.auc)).as_dict()
-        out.update(batches=nb, examples=n_ex, elapsed_sec=elapsed,
+        out.update(batches=nb, chunked_batches=n_chunked, examples=n_ex,
+                   elapsed_sec=elapsed,
                    examples_per_sec=n_ex / max(elapsed, 1e-9),
                    last_loss=(float(stats["loss"]) if stats is not None
                               else float("nan")))

@@ -1813,10 +1813,14 @@ def test_native_loaded_dataset_trains_like_records(cuda, deterministic,
 # the sharded path (ps/sharded.py, train/sharded.py)
 # ---------------------------------------------------------------------------
 
-def _sharded_setup(dev, n=4, s=5, mf=4, dense=3, bs=64, n_rec=64 * 11):
-    """A 4-shard table on ``dev`` loaded from a seeded single-table base of
-    slot-qualified keys (a third without mf yet), and a dataset of ragged
-    records over those keys and new ones."""
+def _sharded_setup(dev, n=4, s=5, mf=4, dense=3, bs=64, n_rec=64 * 11,
+                   init_range=None):
+    """A 4-shard table on ``dev`` (one device or a list of n) loaded from
+    a seeded single-table base of slot-qualified keys (a third without mf
+    yet), and a dataset of ragged records over those keys and new ones.
+    ``init_range`` sets mf_initial_range: runs on different devices draw
+    lazy mf from different generators (Philox on the card, the Mersenne
+    twister on the CPU), so they compare only with 0.0."""
     from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
     from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
     rng = np.random.default_rng(15)
@@ -1846,7 +1850,9 @@ def _sharded_setup(dev, n=4, s=5, mf=4, dense=3, bs=64, n_rec=64 * 11):
     rows[:, 7] = (rng.random(len(rows)) < 0.66).astype(np.float32)
     rows[:, 8:] = rng.normal(0, 0.05, size=(len(rows), mf)) * rows[:, 7:8]
     base = table_rows_from_logical(base_keys, rows, mf)
-    cfg = SparseSGDConfig(mf_create_thresholds=0.0)
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0,
+                          **({} if init_range is None else
+                             {"mf_initial_range": init_range}))
 
     def table():
         t = ShardedEmbeddingTable(n, mf_dim=mf, capacity_per_shard=1 << 12,
@@ -1939,3 +1945,87 @@ def test_sharded_trainer_chunks_and_index_route(cuda, deterministic):
     on = run(cuda, flag=True)
     assert elastic_state_digest(on[0]) == elastic_state_digest(mono)
     assert on[2]["auc"] == ev["auc"]
+
+
+def _sharded_logical(table):
+    """Every shard's rows keyed by feasign, sorted: (keys, rows)."""
+    keys, blocks = [], []
+    for s in range(table.n):
+        k, r = table.indexes[s].items()
+        keys.append(k)
+        blocks.append(table._rows_host(s, r))
+    keys = np.concatenate(keys)
+    order = np.argsort(keys)
+    return keys[order], np.concatenate(blocks)[order]
+
+
+def _sharded_run(dev, chunks=1, zero1=False):
+    """Two train passes and an eval pass of the ``_sharded_setup`` table
+    on ``dev``, lazy mf drawing nothing; (trainer, logical rows, params,
+    pass results, eval result)."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+    desc, table, dataset, model = _sharded_setup(dev, init_range=0.0)
+    with flags_scope(a2a_chunks=chunks):
+        tr = ShardedTrainer(model(), table(), desc, seed=2, zero1=zero1)
+        res = [tr.train_pass(dataset()) for _ in range(2)]
+        ev = tr.eval_pass(dataset())
+    for st in tr.table.states:
+        assert not st.data[-1].any(), "the sentinel row was written"
+    return (tr, _sharded_logical(tr.table),
+            {k: v.cpu().numpy() for k, v in tr.model.state_dict().items()},
+            res, ev)
+
+
+def _assert_sharded_close(got, want):
+    """Two ``_sharded_run`` results in the ragged train-state class: the
+    same keys, show/clk/slot columns exact, rows and params within rtol
+    2e-4 / atol 2e-5, the AUCs within 1e-5."""
+    (gk, gr), (wk, wr) = got[1], want[1]
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gr[:, [0, 1, 3]], wr[:, [0, 1, 3]])
+    np.testing.assert_allclose(gr, wr, rtol=2e-4, atol=2e-5)
+    for name, v in want[2].items():
+        np.testing.assert_allclose(got[2][name], v, rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+    for a, b in zip(got[3], want[3]):
+        assert a["batches"] == b["batches"] == 3
+        assert abs(a["auc"] - b["auc"]) < 1e-5
+    assert abs(got[4]["auc"] - want[4]["auc"]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks,zero1", [(1, False), (2, True)])
+def test_sharded_training_on_card_matches_cpu(cuda, chunks, zero1):
+    """The 4-shard train_pass and eval_pass on the card (kernels) against
+    the same run on the CPU (plain versions, held against the JAX
+    package by tests/test_torch_sharded.py). f32 tower, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("gather_rows", "pool_cvm", "segment_gather",
+             "scatter_add_update")
+    before = [getattr(tk, n).launches for n in names]
+    card = _sharded_run(cuda, chunks, zero1)
+    assert all(getattr(tk, n).launches > b for n, b in zip(names, before))
+    assert all(r["chunked_batches"] == (3 if chunks > 1 else 0)
+               for r in card[3])
+    _assert_sharded_close(card, _sharded_run("cpu", chunks, zero1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks,zero1", [(1, False), (2, True)])
+def test_sharded_mixed_devices_match_one_device(cuda, chunks, zero1):
+    """Shards on two devices, the card and the CPU in turns: the
+    exchanges copy between them, destinations 1 and 3 run a CPU replica
+    of the model, ZeRO-1 steps each chunk on its shard's device and the
+    dense grads are summed on the card. Against the same run with every
+    shard on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mixed = _sharded_run([cuda, "cpu", cuda, "cpu"], chunks, zero1)
+    tr = mixed[0]
+    assert [st.data.device.type for st in tr.table.states] == [
+        "cuda", "cpu", "cuda", "cpu"]
+    assert [d.type for d in tr.step_fn._replicas] == ["cpu"]
+    if zero1:
+        assert [c.device.type for c in tr.state.opt.chunks] == [
+            "cuda", "cpu", "cuda", "cpu"]
+    _assert_sharded_close(mixed, _sharded_run(cuda, chunks, zero1))

@@ -466,6 +466,10 @@ def test_chunked_and_zero1_against_monolithic(port_runs):
     replicated update's (Adam is elementwise, each chunk steps the same
     float ops)."""
     assert port_runs["chunked"]["digest"] == port_runs["mono"]["digest"]
+    # every global batch ran the chunked schedule, none fell back
+    for name, want in (("chunked", 3), ("mono", 0)):
+        assert [r["chunked_batches"] for r in port_runs[name]["res"]] == [
+            want, want]
     m, z = port_runs["mono"]["tr"], port_runs["zero1"]["tr"]
     for k, v in m.model.state_dict().items():
         np.testing.assert_allclose(z.model.state_dict()[k].numpy(),
@@ -483,7 +487,8 @@ def test_chunked_digest_repeats(chunks, jax_runs, port_runs):
     _, tds = _datasets(_train_arrays())
     tr = _port_trainer(jax_runs["mono"]["start"], chunks=chunks)
     for _ in range(2):
-        tr.train_pass(tds)
+        res = tr.train_pass(tds)
+        assert res["chunked_batches"] == res["batches"] == 3
     tr.eval_pass(tds)
     assert sharded_state_digest(tr) == port_runs["mono"]["digest"]
 
