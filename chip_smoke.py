@@ -262,9 +262,32 @@ Phases, each of which fails the run:
    ``elastic_state_digest`` and eval AUC; ``a2a_chunks=4`` must equal
    the monolithic run by ``sharded_state_digest``; the trained table's
    ``save_base`` loaded into a new table under a trainer restored from
-   ``dense_snapshot`` must equal it by ``elastic_state_digest``.
-   Printed: examples/s beside phase 5's ``train_pass``. The main path's
-   launches (rows 1, 6, 7, 11, 12, 13) join the ``kernels`` line.
+   ``dense_snapshot`` must equal it by ``elastic_state_digest``. The
+   resident pass: its first global step, decoded from the staged wire,
+   through the kernels against the plain versions (the classes above);
+   ``train_pass_resident`` must equal the streaming ``train_pass`` by
+   ``sharded_state_digest``, monolithic and with ``a2a_chunks=4``; with
+   ``use_pallas_index`` the host index's by ``elastic_state_digest``;
+   two passes through a depth-2 ``PassPreloader(build_fn=...)`` must
+   equal depth 0 (passes of half the batches); the q8 float wire's AUC
+   within 5e-3 of the f32 wire's on those batches. Printed: examples/s beside phase 5's ``train_pass``; the
+   resident pass's examples/s (staged, and with the build) beside the
+   streaming pass's, its build split (plans, re-pad or re-route,
+   encode, h2d) and its staged wire bytes. The main path's launches
+   (rows 1, 6, 7, 11, 12, 13) join the ``kernels`` line.
+14. the other CTR models at phase 5's width: ``CtrDnn``, ``WideDeep``,
+   ``DCNv2`` (parallel) and ``MMoESingle`` at the registry's widths, on
+   one table loaded from phase 5's base file and one 4-shard table on
+   the card: each model's first step on phase 5's batch 0 through the
+   kernels against the plain versions (f32 tower, TF32 off; show/clk
+   exact, rows and params within rtol 2e-4 / atol 2e-5); then, under
+   ``torch.use_deterministic_algorithms``, the main path:
+   ``Trainer.train_pass`` of 2 batches (bf16 tower), one batch with an
+   ``lr_map`` that freezes one layer (its params unchanged bit for
+   bit) and one ``ShardedTrainer`` ZeRO-1 global step with the same
+   ``lr_map`` (the same check). Printed: each model's examples/s and
+   errors, the phase's seconds. The main path's launches (rows 1, 6,
+   7, 13) join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -3603,12 +3626,19 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
     ``use_pallas_index``), the chunked run against it by
     ``sharded_state_digest``, flag on against off by
     ``elastic_state_digest`` and eval AUC, and a ``save_base`` → ``load``
-    → ``restore_state`` round trip by ``elastic_state_digest``. Before the
-    main path, a ZeRO-1 SGD step with the shards on the card and the CPU
-    in turns (copies between devices in both exchanges, a CPU replica of
-    the model, ZeRO-1 chunks on both) against the same step on the card
-    alone: the card's destinations' predictions and the refreshed
-    replica exact, the rest in the ragged train-state class. Returns the kernels' launches
+    → ``restore_state`` round trip by ``elastic_state_digest``; the
+    resident pass against ``train_pass`` (monolithic and chunked) by
+    ``sharded_state_digest``, with the device index by
+    ``elastic_state_digest``, a depth-2 preloader against depth 0, and
+    the q8 wire's AUC against the f32 wire's. Before the main path, the
+    resident pass's first step kernels against plain, and a ZeRO-1 SGD
+    step with the shards on the card and the CPU in turns (copies
+    between devices in both exchanges, a CPU replica of the model,
+    ZeRO-1 chunks on both) against the same step on the card alone: the
+    card's destinations' predictions and the refreshed replica exact,
+    the rest in the ragged train-state class; one step, since two leave
+    the class with Adam between any two devices or thread counts
+    (``scripts/torch_two_step_probe.py``). Returns the kernels' launches
     in the main path."""
     import copy
     import dataclasses
@@ -3624,6 +3654,7 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
     from paddlebox_tpu_torch.train import sharded as SH
     from paddlebox_tpu_torch.train.checkpoint import (elastic_state_digest,
                                                       sharded_state_digest)
+    from paddlebox_tpu_torch.train.device_pass import PassPreloader
     from paddlebox_tpu_torch.train.step import default_tx
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
@@ -3657,9 +3688,10 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         kw = {} if dtype is None else {"compute_dtype": dtype}
         return DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN, **kw)
 
-    def dataset():
+    def dataset(n_batches=SHARD_BATCHES):
+        """The phase's records, or its first ``n_batches`` batches'."""
         ds = InMemoryDataset(desc)
-        ds.records = records
+        ds.records = records[:n_batches * BATCH]
         return ds
 
     t0 = time.perf_counter()
@@ -3726,28 +3758,57 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
                               {k: v.clone() for k, v in
                                st.model.state_dict().items()})
         del step, st
-    (ok, tk_, pk), (op, tp, pp) = runs["kernels"], runs["plain"]
-    for s in range(SHARD_N):
-        if not torch.equal(ok["pushed"][s], op["pushed"][s]):
-            raise AssertionError(f"sharded: shard {s}'s pushed grads, "
-                                 "kernels vs plain, differ")
-        if not torch.equal(tk_[s][:, :4], tp[s][:, :4]):
-            raise AssertionError(f"sharded: shard {s}'s show/clk/"
-                                 "delta_score/slot, kernels vs plain, differ")
-    row_err = max(check_close(f"sharded: shard {s} rows, kernels vs plain",
-                              tk_[s], tp[s], STATE_RTOL, STATE_ATOL)
-                  for s in range(SHARD_N))
-    param_err = max(check_close(f"sharded: dense param {k}", pk[k], pp[k],
-                                STATE_RTOL, STATE_ATOL) for k in pk)
-    del runs, ok, op, tk_, tp, pk, pp, staged
+    def kernels_vs_plain(what, runs):
+        (ok, tk_, pk), (op, tp, pp) = runs["kernels"], runs["plain"]
+        for s in range(SHARD_N):
+            if not torch.equal(ok["pushed"][s], op["pushed"][s]):
+                raise AssertionError(f"{what}: shard {s}'s pushed grads, "
+                                     "kernels vs plain, differ")
+            if not torch.equal(tk_[s][:, :4], tp[s][:, :4]):
+                raise AssertionError(f"{what}: shard {s}'s show/clk/"
+                                     "delta_score/slot, kernels vs plain, "
+                                     "differ")
+        row_err = max(check_close(f"{what}: shard {s} rows, kernels vs "
+                                  "plain", tk_[s], tp[s], STATE_RTOL,
+                                  STATE_ATOL) for s in range(SHARD_N))
+        param_err = max(check_close(f"{what}: dense param {k}", pk[k],
+                                    pp[k], STATE_RTOL, STATE_ATOL)
+                        for k in pk)
+        return row_err, param_err
+
+    row_err, param_err = kernels_vs_plain("sharded", runs)
+    del runs, staged
+
+    # ---- the resident pass's first global step, kernels against plain:
+    # the step decoded from the staged wire (its rows are the streaming
+    # plans', assigned in the same order from the same base) ----
+    t0 = time.perf_counter()
+    probe = SH.ShardedTrainer(model(), fresh(), desc, seed=args.seed)
+    rp0 = probe.build_resident_pass(dataset(SHARD_N))   # the first group
+    rp0.upload()
+    rp0.wait_ready()
+    gb_res = SH._decode_wire_step(rp0, 0)
+    runs = {}
+    for name, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+        step, st = stepper(ops)
+        out = step(st, gb_res, SH.push_generators(table.devices, args.seed,
+                                                  1), rp0.sections)
+        runs[name] = (out, [x.data.clone() for x in st.tables],
+                      {k: v.clone() for k, v in
+                       st.model.state_dict().items()})
+        del step, st
+    res_row_err, res_param_err = kernels_vs_plain("sharded resident", runs)
+    t["resident_check_s"] = time.perf_counter() - t0
+    del runs, probe, rp0, gb_res
 
     # ---- shards on two devices against one device: a ZeRO-1 step ----
     # lazy mf draws nothing (mf_initial_range 0): the CPU's generator is
-    # not the card's. One SGD step: Adam's m / sqrt(v) turns the last-bit
-    # differences of a near-zero grad, summed in another order on the
-    # CPU, into steps of up to lr, and a second step amplifies the CPU's
-    # other sums past the train-state class (PERF.md §7) whether the
-    # shards are mixed or all on the CPU.
+    # not the card's. One step: with Adam, a second step leaves the
+    # train-state class between any two summation orders (the card and
+    # the CPU, or the CPU on 1 and on all threads), in the single-table
+    # Trainer as in the sharded one: m / sqrt(v) turns a near-zero
+    # grad's last-bit differences into steps of up to lr
+    # (scripts/torch_two_step_probe.py, PERF.md §7)
     cfg0 = dataclasses.replace(table.cfg, mf_initial_range=0.0)
     mixed_devs = [torch.device(dev), torch.device("cpu")] * (SHARD_N // 2)
     t0 = time.perf_counter()
@@ -3832,10 +3893,6 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
             res_on = on.train_pass(dataset())
             ev_on = on.eval_pass(dataset())
         sync()
-        launches = {k: f.launches for k, f in fns.items()}
-        for k, n in launches.items():
-            if n == 0:
-                raise AssertionError(f"phase 13: {k} never launched")
         if any(d is None or d.degraded for d in on.table._dev_indexes):
             raise AssertionError("phase 13: a shard's device index "
                                  "degraded")
@@ -3866,6 +3923,92 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
             raise AssertionError(f"sharded: a2a_chunks={SHARD_CHUNKS} != 1 "
                                  "by sharded_state_digest")
         del chunked
+
+        # ---- the resident pass: staged once, no host plan per step ----
+        res_tr = SH.ShardedTrainer(model(), fresh(), desc, seed=args.seed)
+        t0 = time.perf_counter()
+        rp = res_tr.build_resident_pass(dataset())
+        rp.upload()
+        sync()
+        t["resident_build_s"] = time.perf_counter() - t0
+        build_split = dict(rp.build_stats)
+        wire_bytes = rp.nbytes()
+        wire_fmt = dict(rp.fmt)
+        t0 = time.perf_counter()
+        r_res = res_tr.train_pass_resident(rp)
+        sync()
+        t["resident_train_s"] = time.perf_counter() - t0
+        if sharded_state_digest(res_tr) != d_mono:
+            raise AssertionError("sharded: train_pass_resident != "
+                                 "train_pass by sharded_state_digest")
+        del res_tr, rp
+        with flags_scope(a2a_chunks=SHARD_CHUNKS):
+            res_ch = SH.ShardedTrainer(model(), fresh(), desc,
+                                       seed=args.seed)
+            r_ch = res_ch.train_pass_resident(dataset())
+        if r_ch["chunked_batches"] != len(groups):
+            raise AssertionError("sharded resident: the chunked pass fell "
+                                 "back to the monolithic schedule")
+        if sharded_state_digest(res_ch) != d_mono:
+            raise AssertionError(f"sharded: resident a2a_chunks="
+                                 f"{SHARD_CHUNKS} != train_pass by "
+                                 "sharded_state_digest")
+        del res_ch
+        with flags_scope(use_pallas_index=True):
+            on_res = SH.ShardedTrainer(model(), fresh(), desc,
+                                       seed=args.seed)
+            on_res.train_pass_resident(dataset())
+        if any(d is None or d.degraded for d in on_res.table._dev_indexes):
+            raise AssertionError("sharded resident: a shard's device index "
+                                 "degraded")
+        if elastic_state_digest(on_res) != e_mono:
+            raise AssertionError("sharded resident: use_pallas_index on != "
+                                 "the host index by elastic_state_digest")
+        del on_res
+        # two passes (of half the batches each) through a depth-2
+        # preloader against depth 0
+        half = SHARD_BATCHES // 2
+        pre_digests, pre_wait, pre_first = {}, {}, {}
+        for depth in (2, 0):
+            tr_d = SH.ShardedTrainer(model(), fresh(), desc, seed=args.seed)
+            pre = PassPreloader(iter([dataset(half), dataset(half)]),
+                                build_fn=tr_d.build_resident_pass,
+                                depth=depth, device=dev)
+            passes = []
+            try:
+                pre.start_next()
+                while (rp_d := pre.wait()) is not None:
+                    more = pre.start_next()
+                    passes.append(tr_d.train_pass_resident(rp_d))
+                    if not more:
+                        break
+            finally:
+                pre.drain()
+            if len(passes) != 2:
+                raise AssertionError(f"sharded preloader depth {depth}: "
+                                     f"{len(passes)} passes")
+            pre_digests[depth] = sharded_state_digest(tr_d)
+            pre_wait[depth] = pre.wait_sec_total
+            pre_first[depth] = passes[0]
+            del tr_d, pre
+        if pre_digests[2] != pre_digests[0]:
+            raise AssertionError("sharded preloader: depth 2 != depth 0 by "
+                                 "sharded_state_digest")
+        # the q8 float wire trains within the reference's gate of the f32
+        # wire's AUC (the depth-0 run's first pass, the same batches)
+        q8 = SH.ShardedTrainer(model(), fresh(), desc, seed=args.seed,
+                               float_wire="q8")
+        r_q8 = q8.train_pass_resident(dataset(half))
+        r_f32 = pre_first[0]
+        if abs(r_q8["auc"] - r_f32["auc"]) >= 5e-3:
+            raise AssertionError(f"sharded q8 wire auc {r_q8['auc']} vs "
+                                 f"f32 {r_f32['auc']}")
+        del q8
+        sync()
+        launches = {k: f.launches for k, f in fns.items()}
+        for k, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"phase 13: {k} never launched")
         # save_base → load → restore_state gives the same logical state
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "sharded.npz")
@@ -3906,6 +4049,23 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         f"= {json.dumps({k: round(v, 3) for k, v in split.items()})}, "
         f"{SHARD_N * BATCH / step_p50 * 1e3:.0f} examples/s (f32 tower) "
         f"({card})")
+    res_eps = len(records) / t["resident_train_s"]
+    log(f"sharded resident pass (bf16 tower, deterministic algorithms): "
+        f"{res_eps:.0f} examples/s staged, {r_res['examples_per_sec']:.0f} "
+        f"as train_pass_resident reports it, "
+        f"{len(records) / (t['resident_build_s'] + t['resident_train_s']):.0f}"
+        f" with the build, beside train_pass {res['examples_per_sec']:.0f}; "
+        f"build {t['resident_build_s']:.2f}s = "
+        f"{json.dumps({k: round(v, 3) for k, v in build_split.items()})}; "
+        f"staged wire {wire_bytes / 2**20:.1f} MiB a pass "
+        f"{json.dumps(wire_fmt)}; == train_pass, monolithic and "
+        f"a2a_chunks={SHARD_CHUNKS}, by sharded_state_digest; index on == "
+        f"off by elastic_state_digest; depth-2 preloader == depth 0 over 2 "
+        f"passes of {SHARD_BATCHES // 2 // SHARD_N} global steps (wait "
+        f"{pre_wait[2]:.2f}s / {pre_wait[0]:.2f}s); q8 wire auc "
+        f"{r_q8['auc']:.6f} vs f32 {r_f32['auc']:.6f}; first resident step "
+        f"kernels vs plain: pushed grads and show/clk/slot exact, max abs "
+        f"err rows {res_row_err:.3g} params {res_param_err:.3g} ({card})")
     log(f"sharded train_pass (bf16 tower, prefetch, deterministic "
         f"algorithms): {res['examples_per_sec']:.0f} examples/s beside "
         f"phase 5's train_pass {phase5:.0f}, auc {res['auc']:.4f}, last "
@@ -3923,7 +4083,175 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
         row_max_abs_err=row_err, param_max_abs_err=param_err,
         mixed_max_abs_err=mixed_err,
         new_rows=new_rows, saved_rows=n_saved, phase_s=phase_s,
-        launches=launches)
+        launches=launches, resident=dict(
+            pass_=r_res, chunked=r_ch, q8=r_q8, f32_half=r_f32,
+            build_split_s=build_split,
+            wire_bytes=wire_bytes, wire_fmt=wire_fmt,
+            examples_per_sec_staged=res_eps, preload_wait_s=pre_wait,
+            row_max_abs_err=res_row_err, param_max_abs_err=res_param_err))
+    return launches
+
+
+# phase 14: each CTR model of the registry but DeepFM (phases 5-13) and
+# AdsRank (phase 7): (registry name, constructor arguments, the layer
+# its lr_map freezes)
+MODEL_SPECS = (("ctr_dnn", {}, "hidden.0"),
+               ("wide_deep", {}, "hidden.0"),
+               ("dcn_v2", {"structure": "parallel"}, "cross.0"),
+               ("mmoe", {}, "mmoe.gates.0"))
+MODEL_BATCHES = 2                # phase 14: batches of each train_pass
+
+
+def models_phase(torch, args, card, desc, records, batches, details,
+                 dev: str = "cuda") -> dict:
+    """Phase 14: ``CtrDnn``, ``WideDeep``, ``DCNv2`` (parallel) and
+    ``MMoESingle`` (the registry's widths) at phase 5's width, each
+    model from a seeded init, on one table loaded from phase 5's base
+    file (capacity ``CAPACITY``) and one ``ShardedEmbeddingTable`` of
+    ``SHARD_N`` x ``SHARD_CAPACITY`` rows on the card: the first step of
+    phase 5's batch 0 through the kernels against the plain versions
+    (f32 tower, TF32 off; show/clk exact, rows and params in the ragged
+    train-state class), then, under deterministic algorithms, the main
+    path: ``Trainer.train_pass`` of ``MODEL_BATCHES`` batches (bf16
+    tower), a ``train_pass`` of one batch with an ``lr_map`` that
+    freezes one layer (its params unchanged bit for bit, another layer's
+    changed), and one ``ShardedTrainer`` ZeRO-1 global step with the
+    same ``lr_map`` (the same check). Returns the kernels' launches in
+    the main path."""
+    from paddlebox_tpu_torch import (EmbeddingTable, InMemoryDataset,
+                                     Trainer, convert)
+    from paddlebox_tpu_torch.device import seeded_generator
+    from paddlebox_tpu_torch.metrics import init_auc_state
+    from paddlebox_tpu_torch.models import MODEL_REGISTRY
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+    from paddlebox_tpu_torch.train.step import (StepState, TrainStep,
+                                                default_tx,
+                                                make_device_batch)
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    table = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY, seed=args.seed,
+                           device=dev)
+    table.load(base)
+    sharded = ShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                    capacity_per_shard=SHARD_CAPACITY,
+                                    devices=dev)
+    sharded.load(base)
+    del base
+    idx0 = table.prepare(batches[0])
+    fns = (K.gather_rows, K.pool_cvm, K.segment_gather, K.scatter_add_update)
+    launches = {f.__name__: 0 for f in fns}
+
+    def dataset(n):
+        ds = InMemoryDataset(desc)
+        ds.records = records[:n * BATCH]
+        return ds
+
+    def changed(before, after, prefix):
+        return {k: not torch.equal(before[k], after[k]) for k in before
+                if k.startswith(prefix + ".")}
+
+    out = {}
+    for name, kw, frozen in MODEL_SPECS:
+        cls = MODEL_REGISTRY[name]
+        t_model = time.perf_counter()
+
+        def make(dtype=None):
+            torch.manual_seed(args.seed + 3)
+            extra = {} if dtype is None else {"compute_dtype": dtype}
+            return cls(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, **kw, **extra)
+
+        # ---- the first step, kernels against plain, from one start ----
+        start = table.state.data.clone()
+        steps = {}
+        for what, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+            m = make(torch.float32).to(dev)
+            st = StepState(table=TableState(start.clone(), table.state.ext),
+                           model=m, opt=default_tx(m.parameters()),
+                           auc=init_auc_state(device=dev))
+            stats = TrainStep(table.cfg, BATCH, NUM_SLOTS, ops=ops)(
+                st, make_device_batch(batches[0], idx0, dev),
+                seeded_generator(dev, args.seed + 1, 1))
+            if not np.isfinite(float(stats["loss"])):
+                raise AssertionError(f"models {name} {what}: non-finite loss")
+            steps[what] = st
+        del start
+        sk, sp = steps["kernels"], steps["plain"]
+        if not torch.equal(sk.table.data[:, :2], sp.table.data[:, :2]):
+            raise AssertionError(f"models {name}: show/clk, kernels vs "
+                                 "plain, differ")
+        row_err = check_close(f"models {name}: table rows, kernels vs plain",
+                              sk.table.data, sp.table.data, STATE_RTOL,
+                              STATE_ATOL)
+        pk, pp = sk.model.state_dict(), sp.model.state_dict()
+        param_err = max(check_close(f"models {name}: dense param {k}",
+                                    pk[k], pp[k], STATE_RTOL, STATE_ATOL)
+                        for k in pk)
+        del steps, sk, sp, pk, pp
+
+        # ---- the main path, deterministic ----
+        torch.use_deterministic_algorithms(True)
+        try:
+            for f in fns:
+                f.launches = 0
+            tr = Trainer(make(), table, desc, seed=args.seed, device=dev)
+            t0 = time.perf_counter()
+            res = tr.train_pass(dataset(MODEL_BATCHES))
+            sync()
+            pass_s = time.perf_counter() - t0
+            if res["batches"] != MODEL_BATCHES or not np.isfinite(
+                    res["last_loss"]):
+                raise AssertionError(f"models {name} train_pass: {res}")
+            lr_map = {frozen: 0.0}
+            frz = Trainer(make(), table, desc, seed=args.seed, device=dev,
+                          lr_map=lr_map, lr_map_base=1e-3)
+            before = {k: v.clone() for k, v in frz.model.state_dict().items()}
+            frz.train_pass(dataset(1))
+            moved = changed(before, frz.model.state_dict(), frozen)
+            if not moved or any(moved.values()):
+                raise AssertionError(f"models {name}: lr_map {lr_map} left "
+                                     f"{frozen} changed: {moved}")
+            if all(torch.equal(v, frz.model.state_dict()[k])
+                   for k, v in before.items()):
+                raise AssertionError(f"models {name}: nothing trained")
+            shd = ShardedTrainer(make(), sharded, desc, seed=args.seed,
+                                 zero1=True, lr_map=lr_map,
+                                 lr_map_base=1e-3)
+            before = {k: v.clone() for k, v in shd.model.state_dict().items()}
+            r_shd = shd.train_pass(dataset(SHARD_N))
+            moved = changed(before, shd.model.state_dict(), frozen)
+            if r_shd["batches"] != 1 or not moved or any(moved.values()):
+                raise AssertionError(f"models {name}: sharded ZeRO-1 lr_map "
+                                     f"left {frozen} changed: {moved}")
+            sync()
+            for f in fns:
+                if f.launches == 0:
+                    raise AssertionError(f"phase 14: {f.__name__} never "
+                                         f"launched for {name}")
+                launches[f.__name__] += f.launches
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del tr, frz, shd, before
+        out[name] = dict(pass_=res, pass_s=pass_s, row_max_abs_err=row_err,
+                         param_max_abs_err=param_err,
+                         frozen=frozen, model_s=time.perf_counter() - t_model,
+                         params=sum(p.numel() for p in make().parameters()))
+        log(f"models {name} ({out[name]['params']} params): first step "
+            f"kernels vs plain show/clk exact, max abs err rows "
+            f"{row_err:.3g} params {param_err:.3g}; train_pass of "
+            f"{MODEL_BATCHES} batches {res['examples_per_sec']:.0f} "
+            f"examples/s (bf16 tower), auc {res['auc']:.4f}; lr_map "
+            f"freezing {frozen}: unchanged bit for bit, Trainer and "
+            f"ShardedTrainer ZeRO-1 ({card})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"models: phase 14 took {phase_s:.1f}s; launches "
+        f"{json.dumps(launches)} ({card})")
+    details["models"] = dict(out, phase_s=phase_s, launches=launches)
     return launches
 
 
@@ -4301,6 +4629,12 @@ def main() -> int:
     shard_launches = sharded_phase(torch, args, card, desc, details)
     for r in kernels:
         r["launches"] += shard_launches.get(r["name"], 0)
+
+    # ---- phase 14: the other CTR models, lr_map on both trainers ----
+    model_launches = models_phase(torch, args, card, desc, records, batches,
+                                  details)
+    for r in kernels:
+        r["launches"] += model_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -5,7 +5,10 @@
   ``state_dict``. A flax Dense kernel is ``[in, out]``; a torch weight is
   ``[out, in]``.
 - ``ads_rank_state_dict_from_flax``: the same for AdsRank, whose layers
-  carry the flax names.
+  carry the flax names; ``ctr_dnn_``, ``wide_deep_``, ``dcn_v2_`` and
+  ``mmoe_state_dict_from_flax`` for the other CTR models (the last takes
+  an ``MMoE`` tree or an ``MMoESingle`` one, whose params sit under
+  ``mmoe``).
 - ``table_rows_from_logical``: keys and their logical table rows → the
   field mapping a save file holds, for a table handed over in memory
   rather than through ``.npz`` (``EmbeddingTable.load`` takes either).
@@ -76,6 +79,89 @@ def ads_rank_state_dict_from_flax(params_np: Mapping
                   key=lambda k: int(k.split("_")[1]))
     for name in ["ad_proj", *mlps, "head"]:
         out.update(_dense_params(tree[name], name))
+    return out
+
+
+def _dense_names(tree: Mapping) -> list:
+    """The tree's auto-named ``Dense_i`` layers in index order."""
+    return sorted((k for k in tree if k.startswith("Dense_")),
+                  key=lambda k: int(k.split("_")[1]))
+
+
+def _tower(tree: Mapping, names: Sequence[str], tail: str
+           ) -> Dict[str, torch.Tensor]:
+    """``names`` as ``hidden.{i}``, then ``tail`` for the last one."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(names[:-1]):
+        out.update(_dense_params(tree[name], f"hidden.{i}"))
+    out.update(_dense_params(tree[names[-1]], tail))
+    return out
+
+
+def ctr_dnn_state_dict_from_flax(params_np: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """CtrDnn: ``Dense_0..n-1`` the hidden layers, the last the output."""
+    tree = params_np.get("params", params_np)
+    names = _dense_names(tree)
+    if not names:
+        raise ValueError(f"not a CtrDnn param tree: {sorted(tree)}")
+    return _tower(tree, names, "out")
+
+
+def wide_deep_state_dict_from_flax(params_np: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """WideDeep: ``wide_linear``, the ``Dense_i`` hidden layers and
+    ``deep_out``."""
+    tree = params_np.get("params", params_np)
+    if "wide_linear" not in tree or "deep_out" not in tree:
+        raise ValueError(f"not a WideDeep param tree: {sorted(tree)}")
+    out = _dense_params(tree["wide_linear"], "wide_linear")
+    names = _dense_names(tree) + ["deep_out"]
+    out.update(_tower(tree, names, "deep_out"))
+    return out
+
+
+def dcn_v2_state_dict_from_flax(params_np: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """DCNv2: ``CrossLayer_l/Dense_0`` → ``cross.{l}.dense``, the
+    ``Dense_i`` hidden layers, the last Dense the output."""
+    tree = params_np.get("params", params_np)
+    cross = sorted((k for k in tree if k.startswith("CrossLayer_")),
+                   key=lambda k: int(k.split("_")[1]))
+    names = _dense_names(tree)
+    if not names:
+        raise ValueError(f"not a DCNv2 param tree: {sorted(tree)}")
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(cross):
+        out.update(_dense_params(tree[name]["Dense_0"], f"cross.{i}.dense"))
+    out.update(_tower(tree, names, "out"))
+    return out
+
+
+def mmoe_state_dict_from_flax(params_np: Mapping
+                              ) -> Dict[str, torch.Tensor]:
+    """MMoE (or MMoESingle, its params under ``mmoe``, the port's names
+    then prefixed ``mmoe.``): the expert arrays as they are, ``gate{t}``
+    → ``gates.{t}``, ``tower{t}_{i}`` → ``towers.{t}.{i}``, ``head{t}`` →
+    ``heads.{t}``."""
+    tree = params_np.get("params", params_np)
+    prefix = ""
+    if "mmoe" in tree:
+        tree, prefix = tree["mmoe"], "mmoe."
+    if "expert_w0" not in tree:
+        raise ValueError(f"not an MMoE param tree: {sorted(tree)}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in tree.items():
+        if name.startswith("expert_"):
+            out[prefix + name] = torch.from_numpy(
+                np.array(v, dtype=np.float32))
+        elif name.startswith("gate"):
+            out.update(_dense_params(v, f"{prefix}gates.{name[4:]}"))
+        elif name.startswith("tower"):
+            t, i = name[5:].split("_")
+            out.update(_dense_params(v, f"{prefix}towers.{t}.{i}"))
+        elif name.startswith("head"):
+            out.update(_dense_params(v, f"{prefix}heads.{name[4:]}"))
     return out
 
 

@@ -55,9 +55,19 @@ class DeepFM(nn.Module):
         fm = 0.5 * (sum_sq - sq_sum).sum(dim=1)
 
         # deep tower over [cvm stats + vectors + dense]
-        cd = self.compute_dtype
-        x = torch.cat([pooled.reshape(b, -1), dense], dim=1).to(cd)
-        for layer in self.hidden:
-            x = F.relu(F.linear(x, layer.weight.to(cd), layer.bias.to(cd)))
-        deep = self.out(x.float())[:, 0]
+        x = torch.cat([pooled.reshape(b, -1), dense], dim=1)
+        deep = self.out(relu_tower(x, self.hidden,
+                                   self.compute_dtype).float())[:, 0]
         return first + fm + deep
+
+
+def relu_tower(x: torch.Tensor, layers: Sequence[nn.Linear],
+               compute_dtype: torch.dtype) -> torch.Tensor:
+    """ReLU(linear) layers with the input, weights and biases cast to
+    ``compute_dtype`` (flax's ``Dense(dtype=...)``); returns the last
+    activation in ``compute_dtype``."""
+    x = x.to(compute_dtype)
+    for layer in layers:
+        x = F.relu(F.linear(x, layer.weight.to(compute_dtype),
+                            layer.bias.to(compute_dtype)))
+    return x

@@ -106,6 +106,16 @@ def _bucket(n: int, bucket_min: int) -> int:
     return next_bucket(bucket_min, n)
 
 
+def _forced(width: int, forced: Optional[int], need: int, what: str) -> int:
+    """``forced`` in place of the bucketed ``width``; a forced width below
+    the need raises."""
+    if forced is None:
+        return width
+    if forced < need:
+        raise ValueError(f"forced {what} {forced} < needed {need}")
+    return forced
+
+
 def shard_devices(devices: Devices, n: int) -> List[torch.device]:
     """``devices`` as N resolved devices: one device for every shard, or
     a list of N."""
@@ -255,27 +265,43 @@ class ShardedEmbeddingTable:
         return rows_s
 
     # ------------------------------------------------------------------
-    def prepare_global_eval(self, batches: List[SlotBatch]
+    def prepare_global_eval(self, batches: List[SlotBatch],
+                            req_capacity: Optional[int] = None,
+                            serve_capacity: Optional[int] = None
                             ) -> ShardedPullIndex:
         """Read-only routing plan: unknown keys serve the zero sentinel
         row instead of allocating (no index mutation). Only for pull-only
         steps: serve_rows may repeat the sentinel."""
-        return self.prepare_global(batches, assign=False)
+        return self.prepare_global(batches, req_capacity, serve_capacity,
+                                   assign=False)
 
     def prepare_global(self, batches: List[SlotBatch],
+                       req_capacity: Optional[int] = None,
+                       serve_capacity: Optional[int] = None,
                        assign: bool = True,
-                       groups: int = 1) -> ShardedPullIndex:
+                       groups: int = 1,
+                       req_sections: Optional[Tuple[int, ...]] = None,
+                       key_sections: Optional[Tuple[int, ...]] = None
+                       ) -> ShardedPullIndex:
         """The routing plan of N local batches (one global batch), which
-        share batch_size and num_slots.
+        share batch_size and num_slots. ``req_capacity`` /
+        ``serve_capacity`` force the A / A2 widths (a width below the
+        need raises): the sharded resident pass gives every global batch
+        of a pass the same shapes this way, since gather_idx encodes
+        positions as owner*A + j.
 
         ``groups > 1`` builds the chunked exchange layout
         (FLAGS.a2a_chunks): the A axis split into contiguous per-slot-
         group sections. It needs slot-qualified keys (every key's
         occurrences in one slot group of its batch); a batch that breaks
-        this gets the monolithic plan, with a warning."""
+        this gets the monolithic plan, with a warning. ``req_sections``
+        / ``key_sections`` force its per-group widths, the grouped form
+        of ``req_capacity``."""
         if groups > 1:
-            return self._prepare_global_grouped(batches, groups,
-                                                assign=assign)
+            return self._prepare_global_grouped(
+                batches, groups, serve_capacity=serve_capacity,
+                assign=assign, req_sections=req_sections,
+                key_sections=key_sections)
         n = self.n
         self._check_group(batches)
         k_pad = max(b.keys.shape[0] for b in batches)
@@ -313,7 +339,8 @@ class ShardedEmbeddingTable:
                 pos[sel, 1] = np.arange(len(sel))
                 a_max = max(a_max, len(sel))
             req_pos_of_uniq.append(pos)
-        A = _bucket(a_max, self.req_bucket_min)
+        A = _forced(_bucket(a_max, self.req_bucket_min), req_capacity,
+                    a_max, "req_capacity")
 
         # owner-side dedup: all (dst, j) requests to owner s → serve slots
         resp_idx = np.zeros((n, n, A), dtype=np.int32)
@@ -329,7 +356,8 @@ class ShardedEmbeddingTable:
                 # pads point at the sentinel serve slot (last)
                 resp_idx[s, d, cnt:] = len(serve_rows_l[s])
                 off += cnt
-        A2 = _bucket(a2_max, self.serve_bucket_min)
+        A2 = _forced(_bucket(a2_max, self.serve_bucket_min), serve_capacity,
+                     a2_max, "serve_capacity")
         serve_rows, serve_valid, serve_slot = self._serve_arrays(
             serve_rows_l, serve_slot_l, resp_idx, A2)
 
@@ -393,7 +421,10 @@ class ShardedEmbeddingTable:
 
     def _prepare_global_grouped(
             self, batches: List[SlotBatch], groups: int,
-            assign: bool = True) -> ShardedPullIndex:
+            serve_capacity: Optional[int] = None, assign: bool = True,
+            req_sections: Optional[Tuple[int, ...]] = None,
+            key_sections: Optional[Tuple[int, ...]] = None
+            ) -> ShardedPullIndex:
         """Chunked-exchange plan (see prepare_global). Layout contract:
 
         - Rows are assigned in the monolithic order (sorted unique per
@@ -419,7 +450,8 @@ class ShardedEmbeddingTable:
         bounds = slot_group_bounds(S, groups)
         c = len(bounds)
         if c <= 1:
-            return self.prepare_global(batches, assign=assign)
+            return self.prepare_global(batches, assign=assign,
+                                       serve_capacity=serve_capacity)
         grp_of_slot = np.zeros(S, np.int64)
         for g, (lo, hi) in enumerate(bounds):
             grp_of_slot[lo:hi] = g
@@ -443,7 +475,8 @@ class ShardedEmbeddingTable:
                     "a2a_chunks=%d: a key's occurrences span slot groups "
                     "(keys are not slot-qualified): the monolithic "
                     "exchange for this batch", c)
-                return self.prepare_global(batches, assign=assign)
+                return self.prepare_global(batches, assign=assign,
+                                           serve_capacity=serve_capacity)
             dev_uniq.append(uniq)
             dev_inv.append(inv)
             dev_uniq_slot.append(occ_slot[first].astype(np.float32))
@@ -479,8 +512,15 @@ class ShardedEmbeddingTable:
                 pos[sel, 1] = grp_s
                 pos[sel, 2] = ranks
             req_pos_of_uniq.append(pos)
-        bmin = max(1, self.req_bucket_min // c)
-        a_secs = tuple(_bucket(int(need_g[g]) + 1, bmin) for g in range(c))
+        if req_sections is not None:
+            a_secs = tuple(int(x) for x in req_sections)
+            for g in range(c):
+                _forced(0, a_secs[g], int(need_g[g]) + 1,
+                        f"req_sections[{g}]")
+        else:
+            bmin = max(1, self.req_bucket_min // c)
+            a_secs = tuple(_bucket(int(need_g[g]) + 1, bmin)
+                           for g in range(c))
         a_lo = np.concatenate([[0], np.cumsum(a_secs)]).astype(np.int64)
         A = int(a_lo[-1])
 
@@ -502,7 +542,8 @@ class ShardedEmbeddingTable:
                     row[jpos] = sinv[off:off + cnt]
                 resp_idx[s, d] = row
                 off += cnt
-        A2 = _bucket(a2_max, self.serve_bucket_min)
+        A2 = _forced(_bucket(a2_max, self.serve_bucket_min), serve_capacity,
+                     a2_max, "serve_capacity")
         serve_rows, serve_valid, serve_slot = self._serve_arrays(
             serve_rows_l, serve_slot_l, resp_idx, A2)
 
@@ -514,9 +555,15 @@ class ShardedEmbeddingTable:
             occ_grp_dev.append(og)
             for g in range(c):
                 k_need[g] = max(k_need[g], int((og == g).sum()))
-        # power-of-two ladder from a fixed minimum, never from the
-        # batch's k_pad, whose wobble would mint distinct layouts
-        k_secs = tuple(_bucket(max(1, int(k_need[g])), 8) for g in range(c))
+        if key_sections is not None:
+            k_secs = tuple(int(x) for x in key_sections)
+            for g in range(c):
+                _forced(0, k_secs[g], int(k_need[g]), f"key_sections[{g}]")
+        else:
+            # power-of-two ladder from a fixed minimum, never from the
+            # batch's k_pad, whose wobble would mint distinct layouts
+            k_secs = tuple(_bucket(max(1, int(k_need[g])), 8)
+                           for g in range(c))
         k_lo = np.concatenate([[0], np.cumsum(k_secs)]).astype(np.int64)
         kp = int(k_lo[-1])
         gather_idx = np.empty((n, kp), dtype=np.int32)

@@ -53,6 +53,8 @@ from paddlebox_tpu_torch.resilience.retry import RetryPolicy, is_retryable
 from paddlebox_tpu_torch.train.device_pass import (PassPreloader,
                                                    ResidentPass,
                                                    ResidentPassRunner)
+from paddlebox_tpu_torch.train.dense_modes import (build_lr_scales,
+                                                   lr_map_transform)
 from paddlebox_tpu_torch.train.step import (DeviceBatch, OptimizerFactory,
                                             StepState, TrainStep, default_tx,
                                             make_device_batch)
@@ -95,13 +97,20 @@ class Trainer:
     def __init__(self, model: nn.Module, table: EmbeddingTable,
                  desc: DataFeedDesc, tx: Optional[OptimizerFactory] = None,
                  seed: int = 0, check_nan_inf: bool = False,
-                 device: Union[str, torch.device] = "cuda") -> None:
-        """``model`` (the port's DeepFM, params already set — e.g. from
-        ``convert.deepfm_state_dict_from_flax``) moves to ``device``,
-        which must be the table's. ``tx`` builds the dense optimizer from
-        the params (default: Adam, lr 1e-3). ``check_nan_inf`` reads the
-        loss after every step (a sync) and raises on NaN/inf; otherwise
-        it is read every ``LOG_PERIOD_STEPS`` steps."""
+                 device: Union[str, torch.device] = "cuda",
+                 lr_map: Optional[dict] = None,
+                 lr_map_base: float = 1.0) -> None:
+        """``model`` (a ``models.MODEL_REGISTRY`` model taking (pooled,
+        dense), params already set — e.g. from ``convert.
+        deepfm_state_dict_from_flax``) moves to ``device``, which must be
+        the table's. ``tx`` builds the dense optimizer from the params
+        (default: Adam, lr 1e-3). ``check_nan_inf`` reads the loss after
+        every step (a sync) and raises on NaN/inf; otherwise it is read
+        every ``LOG_PERIOD_STEPS`` steps. ``lr_map``: per-param dense lr
+        overrides, name (``dense_modes.lr_pattern_matches``) → lr
+        against ``lr_map_base`` (the optimizer's lr); each matched
+        param's update scales by lr / lr_map_base after the optimizer's
+        step, so 0.0 freezes it (box_wrapper.cc:1303-1335)."""
         self.device = resolve_device(device)
         if table.device != self.device:
             raise ValueError(f"table on {table.device}, trainer on "
@@ -111,9 +120,14 @@ class Trainer:
         self.model = model.to(self.device)
         self.step_fn = TrainStep(table.cfg, desc.batch_size,
                                  len(desc.sparse_slots))
+        tx = tx or default_tx
+        if lr_map:
+            scales = build_lr_scales(self.model, lr_map, lr_map_base)
+            tx = lr_map_transform(
+                tx, [scales[k] for k, _ in self.model.named_parameters()])
         self.state = StepState(
             table=table.state, model=self.model,
-            opt=(tx or default_tx)(self.model.parameters()),
+            opt=tx(self.model.parameters()),
             auc=init_auc_state(device=self.device))
         self.seed = seed
         self.check_nan_inf = check_nan_inf

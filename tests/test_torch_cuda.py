@@ -2029,3 +2029,74 @@ def test_sharded_mixed_devices_match_one_device(cuda, chunks, zero1):
         assert [c.device.type for c in tr.state.opt.chunks] == [
             "cuda", "cpu", "cuda", "cpu"]
     _assert_sharded_close(mixed, _sharded_run(cuda, chunks, zero1))
+
+
+# ---------------------------------------------------------------------------
+# the sharded resident pass
+# ---------------------------------------------------------------------------
+
+def _resident_run(dev, chunks=1, depth=None):
+    """Two resident passes of the ``_sharded_setup`` table on ``dev``
+    (lazy mf drawing nothing), through a ``PassPreloader`` of ``depth``
+    when given; the same result tuple as ``_sharded_run`` (the eval pass
+    after the two)."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.train.device_pass import PassPreloader
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+    desc, table, dataset, model = _sharded_setup(dev, init_range=0.0)
+    with flags_scope(a2a_chunks=chunks):
+        tr = ShardedTrainer(model(), table(), desc, seed=2)
+        if depth is None:
+            res = [tr.train_pass_resident(dataset()) for _ in range(2)]
+        else:
+            pre = PassPreloader(iter([dataset(), dataset()]),
+                                build_fn=tr.build_resident_pass,
+                                depth=depth, device=dev)
+            res = []
+            try:
+                pre.start_next()
+                while (rp := pre.wait()) is not None:
+                    more = pre.start_next()
+                    res.append(tr.train_pass_resident(rp))
+                    if not more:
+                        break
+            finally:
+                pre.drain()
+        ev = tr.eval_pass(dataset())
+    return (tr, _sharded_logical(tr.table),
+            {k: v.cpu().numpy() for k, v in tr.model.state_dict().items()},
+            res, ev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_sharded_resident_on_card_matches_cpu(cuda, chunks):
+    """Two resident passes on the card (kernels, the wire decoded there)
+    against the same passes on the CPU (plain versions, held against the
+    JAX package by tests/test_torch_sharded_resident.py), in the ragged
+    train-state class; on the card the resident pass equals train_pass
+    bit for bit under deterministic algorithms."""
+    from paddlebox_tpu_torch.train.checkpoint import sharded_state_digest
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = tk.gather_rows.launches
+    card = _resident_run(cuda, chunks)
+    assert tk.gather_rows.launches > before
+    _assert_sharded_close(card, _resident_run("cpu", chunks))
+    torch.use_deterministic_algorithms(True)
+    try:
+        res = _resident_run(cuda, chunks)[0]
+        stream = _sharded_run(cuda, chunks)[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert sharded_state_digest(res) == sharded_state_digest(stream)
+
+
+@pytest.mark.cuda
+def test_sharded_resident_preloader_on_card(cuda, deterministic):
+    """Two passes through a depth-2 preloader (built and staged on the
+    worker's stream, ordered by each pass's events) equal depth 0 and
+    the plain resident loop bit for bit."""
+    from paddlebox_tpu_torch.train.checkpoint import sharded_state_digest
+    digests = [sharded_state_digest(_resident_run(cuda, depth=d)[0])
+               for d in (2, 0, None)]
+    assert digests[0] == digests[1] == digests[2]

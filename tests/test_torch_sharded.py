@@ -538,10 +538,19 @@ def test_push_generators_spread_the_trainer_stream():
 
 
 def test_lr_map_waits_for_dense_modes():
+    """``lr_map`` came with ``train/dense_modes``: a frozen layer of the
+    sharded trainer stays at its start through a pass."""
     _, tdesc = _descs()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ShardedTrainer(DeepFM(S, 3 + MF, DENSE, hidden=(4,)), _port_table(2),
-                       tdesc, lr_map={"out": 0.0})
+    _, tds = _datasets(_train_arrays())
+    tr = ShardedTrainer(DeepFM(S, 3 + MF, DENSE, hidden=(4,)),
+                        _port_table(2), tdesc, lr_map={"out": 0.0},
+                        lr_map_base=1e-3)
+    start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    tr.train_pass(tds)
+    after = tr.model.state_dict()
+    for k in ("out.weight", "out.bias"):
+        assert torch.equal(after[k], start[k]), k
+    assert not torch.equal(after["first.weight"], start["first.weight"])
 
 
 # ---------------------------------------------------------------------------
