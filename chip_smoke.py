@@ -3636,10 +3636,10 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
     between devices in both exchanges, a CPU replica of the model,
     ZeRO-1 chunks on both) against the same step on the card alone: the
     card's destinations' predictions and the refreshed replica exact,
-    the rest in the ragged train-state class; one step, since two leave
-    the class with Adam between any two devices or thread counts
-    (``scripts/torch_two_step_probe.py``). Returns the kernels' launches
-    in the main path."""
+    the rest in the ragged train-state class; one step, since at the
+    second a ReLU flip between the card's and the CPU's float order
+    takes a few rows out of the class, all on the CPU as much as mixed.
+    Returns the kernels' launches in the main path."""
     import copy
     import dataclasses
 
@@ -3803,12 +3803,12 @@ def sharded_phase(torch, args, card, desc, details, dev: str = "cuda"
 
     # ---- shards on two devices against one device: a ZeRO-1 step ----
     # lazy mf draws nothing (mf_initial_range 0): the CPU's generator is
-    # not the card's. One step: with Adam, a second step leaves the
-    # train-state class between any two summation orders (the card and
-    # the CPU, or the CPU on 1 and on all threads), in the single-table
-    # Trainer as in the sharded one: m / sqrt(v) turns a near-zero
-    # grad's last-bit differences into steps of up to lr
-    # (scripts/torch_two_step_probe.py, PERF.md §7)
+    # not the card's. One step: at the second, one example's ReLU input
+    # in destination 3's last hidden layer sits within 5e-8 of zero and
+    # takes the other sign on the CPU than on the card (GEMM order), and
+    # that example's keys leave the train-state class. All shards on the
+    # CPU leave it on the same elements, while the mixed run stays within
+    # 7.2e-7 of the all-CPU run (PERF.md §6, PR 16 review round)
     cfg0 = dataclasses.replace(table.cfg, mf_initial_range=0.0)
     mixed_devs = [torch.device(dev), torch.device("cpu")] * (SHARD_N // 2)
     t0 = time.perf_counter()

@@ -95,11 +95,12 @@ def adagrad_update(rows: RowState, g_show: torch.Tensor,
                    g_embedx: torch.Tensor, touched: torch.Tensor,
                    cfg: SparseSGDConfig,
                    init: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
-                   ) -> RowState:
+                   generator: Optional[torch.Generator] = None,
+                   draw_rows: Optional[int] = None) -> RowState:
     """Batched dy_mf_update_value; untouched (padding) rows pass
     through. ``init`` [U, mf_dim] holds the uniform[0, 1) draws for lazy
-    mf creation; without it they are drawn from ``generator``."""
+    mf creation; without it they are drawn from ``generator``, for the
+    first ``draw_rows`` rows (default all U; the rest get zeros)."""
     show = rows.show + g_show
     clk = rows.clk + g_clk
     delta = rows.delta_score + cfg.nonclk_coeff * (g_show - g_clk) \
@@ -119,7 +120,7 @@ def adagrad_update(rows: RowState, g_show: torch.Tensor,
     # lazy creation: threshold on the post-update counters (:105-113)
     score = cfg.nonclk_coeff * (show - clk) + cfg.clk_coeff * clk
     create = (~has_mf) & (score >= cfg.mf_create_thresholds)
-    init = _lazy_init(rows, cfg, init, generator)
+    init = _lazy_init(rows, cfg, init, generator, draw_rows)
     embedx_w = torch.where(create[:, None], init,
                            torch.where(has_mf[:, None], embedx_new,
                                        rows.embedx_w))
@@ -135,16 +136,24 @@ def adagrad_update(rows: RowState, g_show: torch.Tensor,
 
 def _lazy_init(rows: RowState, cfg: SparseSGDConfig,
                init: Optional[torch.Tensor],
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               draw_rows: Optional[int] = None) -> torch.Tensor:
     """The lazy-mf init values [U, mf_dim]: the uniform[0, 1) draws in
-    ``init`` (or drawn from ``generator``) times ``mf_initial_range``."""
+    ``init`` (or drawn from ``generator`` for the first ``draw_rows``
+    rows, zeros after them) times ``mf_initial_range``. On the card a
+    draw's values depend on its size, so a caller whose padded width
+    varies for the same real rows draws for the real rows only."""
     if init is None:
         if generator is None:
             raise ValueError("sparse update: pass init draws or a "
                              "generator")
-        init = torch.rand(rows.embedx_w.shape, generator=generator,
+        u, mf = rows.embedx_w.shape
+        n = u if draw_rows is None else draw_rows
+        init = torch.rand((n, mf), generator=generator,
                           dtype=rows.embedx_w.dtype,
                           device=rows.embedx_w.device)
+        if n < u:
+            init = torch.cat([init, init.new_zeros((u - n, mf))])
     return init * cfg.mf_initial_range
 
 
@@ -181,7 +190,8 @@ def adam_update(rows: RowState, g_show: torch.Tensor, g_clk: torch.Tensor,
                 g_embed: torch.Tensor, g_embedx: torch.Tensor,
                 touched: torch.Tensor, cfg: SparseAdamConfig,
                 init: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> RowState:
+                generator: Optional[torch.Generator] = None,
+                draw_rows: Optional[int] = None) -> RowState:
     """Batched SparseAdam[Shared]Optimizer::dy_mf_update_value
     (optimizer.cuh.h:244-273 / :395-446); untouched (padding) rows pass
     through. ``opt_ext`` holds [embed m1, embed b1p, embed b2p, embedx
@@ -190,7 +200,8 @@ def adam_update(rows: RowState, g_show: torch.Tensor, g_clk: torch.Tensor,
     ``cfg.shared`` (the mean of the new per-dim moments is kept). A beta
     power of 0 with show == 0 marks a never-initialized row, whose
     powers act as the creation value (beta itself). ``init`` /
-    ``generator`` feed lazy mf creation, as in ``adagrad_update``."""
+    ``generator`` / ``draw_rows`` feed lazy mf creation, as in
+    ``adagrad_update``."""
     b1, b2 = cfg.beta1_decay_rate, cfg.beta2_decay_rate
     mf = rows.embedx_w.shape[1]
     ext = rows.opt_ext
@@ -223,7 +234,7 @@ def adam_update(rows: RowState, g_show: torch.Tensor, g_clk: torch.Tensor,
     has_mf = rows.mf_size > 0
     score = cfg.nonclk_coeff * (show - clk) + cfg.clk_coeff * clk
     create = (~has_mf) & (score >= cfg.mf_create_thresholds)
-    init = _lazy_init(rows, cfg, init, generator)
+    init = _lazy_init(rows, cfg, init, generator, draw_rows)
     embedx_w = torch.where(create[:, None], init,
                            torch.where(has_mf[:, None], upd_w,
                                        rows.embedx_w))
@@ -249,10 +260,11 @@ def adam_update(rows: RowState, g_show: torch.Tensor, g_clk: torch.Tensor,
 def sparse_update(rows: RowState, g_show, g_clk, g_embed, g_embedx,
                   touched, cfg: SparseSGDConfig,
                   init: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> RowState:
+                  generator: Optional[torch.Generator] = None,
+                  draw_rows: Optional[int] = None) -> RowState:
     """Dispatch to the configured in-table optimizer (adagrad / adam /
     shared adam, the OptimizerType selection of heter_ps)."""
     update = adam_update if isinstance(cfg, SparseAdamConfig) \
         else adagrad_update
     return update(rows, g_show, g_clk, g_embed, g_embedx, touched, cfg,
-                  init=init, generator=generator)
+                  init=init, generator=generator, draw_rows=draw_rows)

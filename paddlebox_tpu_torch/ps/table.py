@@ -255,7 +255,8 @@ def apply_push(state: TableState, unique_rows: torch.Tensor,
                init: Optional[torch.Tensor] = None,
                ops: KernelSet = KERNELS,
                touched: Optional[torch.Tensor] = None,
-               slot_val: Optional[torch.Tensor] = None) -> TableState:
+               slot_val: Optional[torch.Tensor] = None,
+               draw_rows: Optional[int] = None) -> TableState:
     """In-table optimizer on merged grads (dy_mf_update_value,
     optimizer.cuh.h:80) and its write-back, IN PLACE.
 
@@ -264,8 +265,8 @@ def apply_push(state: TableState, unique_rows: torch.Tensor,
     write is one unique-row scatter-add of ``new − old`` (the reference
     writes ``old + (new − old)`` too, which can differ from ``new`` by
     one ulp) into rows [0, C): the pads' out-of-bounds ids drop and the
-    sentinel row C stays zero. ``init`` / ``generator`` feed lazy mf
-    creation (see ``sgd.adagrad_update``). ``touched`` (bool [U_pad])
+    sentinel row C stays zero. ``init`` / ``generator`` / ``draw_rows``
+    feed lazy mf creation (see ``sgd.adagrad_update``). ``touched`` (bool [U_pad])
     picks the rows the optimizer runs on, by default every row below the
     sentinel; ``slot_val`` (f32 [U_pad]) writes the touched rows' slot
     column, which by default keeps its value (the single table keeps
@@ -289,7 +290,7 @@ def apply_push(state: TableState, unique_rows: torch.Tensor,
         opt_ext=rows_full[:, mf_end:])
     new = sparse_update(rows, g[:, 0], g[:, 1], g[:, 2],
                         g[:, 3:3 + state.mf_dim], touched, cfg, init=init,
-                        generator=generator)
+                        generator=generator, draw_rows=draw_rows)
     slot_new = (rows_full[:, 3:4] if slot_val is None else
                 torch.where(touched, slot_val, rows_full[:, 3])[:, None])
     new_mat = torch.cat([

@@ -516,17 +516,14 @@ class ShardedTrainStep:
             # grads and scale by the global batch (the loss is the
             # global mean)
             g_serve[:, 2:] *= -1.0 * b * n
-            # the lazy-mf draws of the real serve rows only: a draw's
-            # values on the card depend on the draw's size, and the
+            # the lazy-mf draws cover the real serve rows only: the
             # streaming and resident plans pad A2 differently
-            tab = state.tables[s]
-            init = torch.rand((gb.serve_counts[s], tab.mf_dim),
-                              generator=generators[s], device=tab.data.device)
-            init = F.pad(init, (0, 0, 0, a2 - init.shape[0]))
-            apply_push(tab, gb.serve_rows[s], g_serve, self.sgd_cfg,
-                       init=init, rows_full=rows_full[s], ops=self.ops,
+            apply_push(state.tables[s], gb.serve_rows[s], g_serve,
+                       self.sgd_cfg, generator=generators[s],
+                       rows_full=rows_full[s], ops=self.ops,
                        touched=gb.serve_valid[s] > 0,
-                       slot_val=gb.serve_slot[s])
+                       slot_val=gb.serve_slot[s],
+                       draw_rows=gb.serve_counts[s])
             pushed.append(g_serve)
 
         self._dense_sync(state, dense_grads)

@@ -2031,6 +2031,121 @@ def test_sharded_mixed_devices_match_one_device(cuda, chunks, zero1):
     _assert_sharded_close(mixed, _sharded_run(cuda, chunks, zero1))
 
 
+class _ReluInputs(torch.overrides.TorchFunctionMode):
+    """Records, on the host, the input of every ``F.relu`` call made
+    under it: the towers' hidden pre-activations, in call order."""
+
+    def __init__(self):
+        super().__init__()
+        self.inputs = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.nn.functional.relu:
+            self.inputs.append(args[0].detach().cpu())
+        return func(*args, **(kwargs or {}))
+
+
+def _mixed_two_step_runs(cs, card, steps=2):
+    """``chip_smoke.py`` phase 13's data and start (module ``cs``), then
+    ``steps`` ZeRO-1 SGD global steps (lazy mf drawing nothing) with the
+    shards all on ``card``, on card/CPU/card/CPU and all on the CPU.
+    Per run and step: copies of the tables, pushed grads and params (the
+    next step updates a CPU shard's in place) and the towers' ReLU
+    inputs, on the host."""
+    import copy
+    import dataclasses
+
+    from paddlebox_tpu_torch import convert
+    from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.train import sharded as SH
+
+    slots = ([SlotDef("label", "float", 1),
+              SlotDef("dense", "float", cs.DENSE_DIM)]
+             + [SlotDef(f"C{i}", "uint64")
+                for i in range(1, cs.NUM_SLOTS + 1)])
+    desc = DataFeedDesc(slots=slots, batch_size=cs.BATCH,
+                        label_slot="label", key_bucket_min=4096)
+    base = cs.make_table_blob(np.random.default_rng(1), convert,
+                              vocab=cs.TRAIN_BASE_VOCAB, no_mf=0.25)
+    records = cs.make_records(np.random.default_rng(13),
+                              cs.BATCH * cs.SHARD_BATCHES, SlotRecord)
+    builder = BatchBuilder(desc)
+    batches = [builder.build(records[i:i + cs.BATCH])
+               for i in range(0, cs.BATCH * cs.SHARD_N * steps, cs.BATCH)]
+    groups = list(SH.group_batches(batches, cs.SHARD_N))
+    table = ShardedEmbeddingTable(cs.SHARD_N, mf_dim=cs.MF_DIM,
+                                  capacity_per_shard=cs.SHARD_CAPACITY,
+                                  devices=card)
+    table.load(base)
+    plans = [table.prepare_global(g) for g in groups]
+    start = [st.data.clone() for st in table.states]
+    cfg0 = dataclasses.replace(table.cfg, mf_initial_range=0.0)
+    n = cs.SHARD_N
+    layouts = {"card": [torch.device(card)] * n,
+               "mixed": [torch.device(card), torch.device("cpu")] * (n // 2),
+               "cpu": [torch.device("cpu")] * n}
+    runs = {}
+    for name, devs in layouts.items():
+        tab = copy.copy(table)
+        tab.states = [TableState(x.to(d, copy=True), table.opt_ext)
+                      for x, d in zip(start, devs)]
+        step = SH.ShardedTrainStep(lambda p: torch.optim.SGD(p, lr=0.05),
+                                   cfg0, devs, cs.BATCH, cs.NUM_SLOTS,
+                                   zero1=True, ops=tk.KERNELS)
+        torch.manual_seed(2)
+        st = step.init_state(tab, DeepFM(cs.NUM_SLOTS, 3 + cs.MF_DIM,
+                                         cs.DENSE_DIM, hidden=cs.HIDDEN,
+                                         compute_dtype=torch.float32))
+        runs[name] = []
+        for i in range(steps):
+            with _ReluInputs() as relu:
+                out = step(st, SH.make_global_batch(groups[i], plans[i],
+                                                    devs),
+                           SH.push_generators(devs, 0, i + 1))
+            state = ([x.data for x in st.tables] + out["pushed"]
+                     + list(st.model.state_dict().values()))
+            runs[name].append(dict(
+                state=[x.detach().to("cpu", copy=True) for x in state],
+                relu=relu.inputs))
+    return runs
+
+
+@pytest.mark.cuda
+def test_sharded_mixed_devices_two_steps_at_full_width(cuda):
+    """Phase 13's mixed-device check of ``chip_smoke.py`` at its width,
+    continued to a second SGD step. Between any two of the layouts (all
+    on the card, card/CPU in turns, all on the CPU) a table, pushed-grad
+    or param element leaves the ragged train-state class (rtol 2e-4 /
+    atol 2e-5) only from a step at which some tower ReLU input took the
+    other sign in the two runs: a pre-activation within float order of
+    zero, not a fault of the copies, the CPU replica or the ZeRO-1
+    chunks. Why the smoke's check stops at one step."""
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = _mixed_two_step_runs(cs, cuda)
+    for a, b in (("mixed", "card"), ("cpu", "card"), ("mixed", "cpu")):
+        flips = 0
+        for i, (ra, rb) in enumerate(zip(runs[a], runs[b])):
+            assert len(ra["relu"]) == len(rb["relu"]) > 0
+            near = 0.0
+            for xa, xb in zip(ra["relu"], rb["relu"]):
+                flip = (xa > 0) != (xb > 0)
+                flips += int(flip.sum())
+                if flip.any():
+                    near = max(near, float(torch.maximum(
+                        xa.abs(), xb.abs())[flip].max()))
+            n_out, err = 0, 0.0
+            for xa, xb in zip(ra["state"], rb["state"]):
+                d = (xa.double() - xb.double()).abs()
+                n_out += int((d > 2e-5 + 2e-4 * xb.double().abs()).sum())
+                err = max(err, float(d.max()) if d.numel() else 0.0)
+            print(f"{a} vs {b} step {i + 1}: {n_out} elements out of "
+                  f"class, max abs err {err:.3g}; ReLU sign flips so far "
+                  f"{flips} (|input| <= {near:.3g} this step)")
+            assert n_out == 0 or flips > 0, (a, b, i + 1, n_out, err)
+
+
 # ---------------------------------------------------------------------------
 # the sharded resident pass
 # ---------------------------------------------------------------------------

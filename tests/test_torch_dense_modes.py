@@ -190,15 +190,17 @@ def test_async_dense_table_lr_map():
 
 def test_trainer_lr_map_freezes_param_and_matches_jax():
     """The single-table Trainer: the frozen param stays at its start bit
-    for bit through two passes, the rest train, and the run matches the
-    reference's Trainer with the same lr_map."""
+    for bit through two passes, the rest train (the output layer at 3x
+    the base lr: the old + s * (new - old) branch), and the run matches
+    the reference's Trainer with the same lr_map."""
     arrs = _ragged_arrays(n=192, seed=9)
     jdesc, tdesc = _descs()
     jtr = JTrainer(JCtrDnn(hidden=(8,), compute_dtype=jnp.float32),
                    JTable(mf_dim=MF, capacity=CAP, cfg=JCfg(**CFG),
                           unique_bucket_min=512), jdesc,
                    tx=optax.adam(1e-2), seed=3,
-                   lr_map={"['params']['Dense_0']['kernel']": 0.0},
+                   lr_map={"['params']['Dense_0']['kernel']": 0.0,
+                           "Dense_1": 3e-2},
                    lr_map_base=1e-2)
     params0 = jax.device_get(jtr.state.params)
     jds = JDataset(jdesc)
@@ -215,7 +217,8 @@ def test_trainer_lr_map_freezes_param_and_matches_jax():
                                        cfg=ttable.SparseSGDConfig(**CFG),
                                        unique_bucket_min=512, device="cpu"),
                  tdesc, tx=lambda p: torch.optim.Adam(p, lr=1e-2, eps=1e-8),
-                 seed=3, device="cpu", lr_map={"hidden.0.weight": 0.0},
+                 seed=3, device="cpu",
+                 lr_map={"hidden.0.weight": 0.0, "out": 3e-2},
                  lr_map_base=1e-2)
     ds = InMemoryDataset(tdesc)
     ds.records = [SlotRecord(k, o, d, l, 1.0, l) for k, o, d, l in arrs]

@@ -325,6 +325,30 @@ def test_apply_push_touched_and_slot_match_reference(explicit):
                                       slot_val[touched & (rows < cap)])
 
 
+def test_apply_push_draw_rows():
+    """``draw_rows``: the lazy-mf draw covers the first ``draw_rows`` rows
+    (a generator's ``rand(draw_rows, mf)``) and the padded rest draw
+    zeros; without it the draw covers every row."""
+    cap, u, n = 32, 12, 7
+    data = np.zeros((cap + 1, 8 + MF), np.float32)
+    rows = torch.arange(u, dtype=torch.int32)
+    grads = torch.zeros(u, 3 + MF)
+    grads[:, 0] = 1.0                   # a show: every row creates its mf
+    cfg = SparseSGDConfig(**dict(CFG, mf_initial_range=0.5))
+    want = torch.rand(n, MF, generator=seeded_generator("cpu", 4, 9)) * 0.5
+    st = ttable.TableState(torch.from_numpy(data.copy()))
+    ttable.apply_push(st, rows, grads, cfg,
+                      generator=seeded_generator("cpu", 4, 9), draw_rows=n)
+    assert torch.equal(st.data[:n, 8:], want)
+    assert not st.data[n:u, 8:].any()
+    assert (st.data[:u, 7] == 1.0).all()
+    full = ttable.TableState(torch.from_numpy(data.copy()))
+    ttable.apply_push(full, rows, grads, cfg,
+                      generator=seeded_generator("cpu", 4, 9))
+    assert torch.equal(full.data[:u, 8:], torch.rand(
+        u, MF, generator=seeded_generator("cpu", 4, 9)) * 0.5)
+
+
 # ---------------------------------------------------------------------------
 # training against the reference
 # ---------------------------------------------------------------------------
@@ -551,6 +575,70 @@ def test_lr_map_waits_for_dense_modes():
     for k in ("out.weight", "out.bias"):
         assert torch.equal(after[k], start[k]), k
     assert not torch.equal(after["first.weight"], start["first.weight"])
+
+
+# the same two layers on each side: hidden.0 frozen (scale 0) and the
+# output layer boosted (scale 5: the old + s * (new - old) branch)
+LR_MAP_JAX = {"Dense_1": 0.0, "Dense_3": 5e-2}
+LR_MAP_PORT = {"hidden.0": 0.0, "out": 5e-2}
+
+
+@pytest.mark.parametrize("zero1", [False, True])
+def test_lr_map_matches_jax(zero1, tmp_path):
+    """``lr_map`` on the sharded trainer against the reference's, from
+    the same converted start, two passes: replicated (the optimizer
+    wrapped by ``LrMapOptimizer``) and ZeRO-1 (the scales raveled and
+    padded over the flat chunks). Rows and params in the ragged
+    train-state class, keys exact, the frozen layer at its start bit for
+    bit on both sides."""
+    jds, tds = _datasets(_train_arrays())
+    jdesc, _ = _descs()
+    base = str(tmp_path / "base.npz")
+    np.savez(base, **_base_blob(seed=2))
+    table = _jax_table(TRAIN_N)
+    table.load(base)
+    jtr = JShardedTrainer(JDeepFM(hidden=(16, 8), compute_dtype=jnp.float32),
+                          table, jdesc, make_mesh(TRAIN_N),
+                          tx=optax.adam(1e-2), seed=3, zero1=zero1,
+                          lr_map=LR_MAP_JAX, lr_map_base=1e-2)
+    start = dict(
+        params=convert.deepfm_state_dict_from_flax(
+            jax.device_get(jtr.state.params)),
+        table=convert.sharded_table_from_packed(
+            jax.device_get(table.state.packed),
+            [table.indexes[s].items() for s in range(TRAIN_N)], CAP, MF))
+    jres = [jtr.train_pass(jds) for _ in range(2)]
+    jkeys, jrows = _jax_logical(table)
+    jparams = convert.deepfm_state_dict_from_flax(
+        jax.device_get(jtr.state.params))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tr = _port_trainer(start, zero1=zero1, lr_map=LR_MAP_PORT,
+                           lr_map_base=1e-2)
+        res = [tr.train_pass(tds) for _ in range(2)]
+    finally:
+        torch.set_num_threads(threads)
+    keys, rows = _port_logical(tr.table)
+    sd = tr.model.state_dict()
+    for k in ("hidden.0.weight", "hidden.0.bias"):
+        assert torch.equal(jparams[k], start["params"][k]), k
+        assert torch.equal(sd[k], start["params"][k]), k
+    for k in ("out.weight", "out.bias", "first.weight"):
+        assert not torch.equal(sd[k], start["params"][k]), k
+    for k, want in jparams.items():
+        np.testing.assert_allclose(sd[k].numpy(), want.numpy(),
+                                   rtol=STATE_RTOL, atol=STATE_ATOL,
+                                   err_msg=k)
+    np.testing.assert_array_equal(keys, jkeys)
+    np.testing.assert_allclose(rows, jrows, rtol=STATE_RTOL,
+                               atol=STATE_ATOL)
+    for jr, r in zip(jres, res):
+        assert r["ins_num"] == jr["ins_num"]
+        np.testing.assert_allclose(r["auc"], jr["auc"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(r["last_loss"], jr["last_loss"],
+                                   rtol=STATE_RTOL)
 
 
 # ---------------------------------------------------------------------------
