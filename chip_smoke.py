@@ -288,6 +288,35 @@ Phases, each of which fails the run:
    ``lr_map`` (the same check). Printed: each model's examples/s and
    errors, the phase's seconds. The main path's launches (rows 1, 6,
    7, 13) join the ``kernels`` line.
+15. the tiered store, under ``torch.use_deterministic_algorithms``
+   (``tiered_phase``). 15a, bench.py's ``measure_tiered`` at its
+   "uniform" shape: a ``TieredShardedEmbeddingTable`` of 4 shards of
+   2^20 rows with an SSD tier, DeepFM, two seeded columnar datasets of
+   32 768 one-key-a-slot records (~96% key overlap) alternating through
+   ``tiered_pass_pipeline`` at ``FLAGS.preload_depth``: a cold, a warm
+   and 4 measured passes. The same passes at depth 0 must equal them by
+   ``rows_digest`` and the dense params; the cold pass stages its whole
+   working set and each later pass exactly its keys not yet resident;
+   the first resident step through the kernels against the plain
+   versions (phase 13's classes). Then the ``drop_window`` full
+   re-stage, and the whole model demoted to SSD segments and promoted
+   back inline (``rows_digest`` unchanged) and overlapped. 15b, a window
+   smaller than the model: phase 5's base file in 4 windows of 2^19
+   rows over host stores of 2^19 rows with SSD tiers, phase 13's 16
+   local batches as 4 passes of one global step through
+   ``train_passes_tiered`` at depth 0: no window above its capacity,
+   rows evicted, written back and promoted from segments, and (with
+   ``mf_initial_range`` 0) the model read back through the host tiers
+   equal to a plain 4 x 2^20 ``ShardedEmbeddingTable`` trained over the
+   same passes (show/clk exact, rows and params within rtol 2e-4 / atol
+   2e-5). Kernel rows 3 and 4 against their plain versions at the
+   passes' delta and write-back sizes, timed there beside
+   ``index_copy_`` / ``index_select`` and rows 2 and 1 in alternating
+   repeats. Printed: each pass's wait, begin, training, end_pass submit,
+   staged, evicted and written-back rows, SSD promote seconds, the
+   epilogue's write-back seconds and overlapped share, examples/s with
+   the boundaries. The main path's launches (rows 1, 3, 4, 6, 7, 13)
+   join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -4255,6 +4284,587 @@ def models_phase(torch, args, card, desc, records, batches, details,
     return launches
 
 
+TIER_N = 4                       # phase 15: shards, all on the one card
+TIER_SLOTS = 26                  # 15a: bench.py measure_tiered "uniform":
+TIER_BATCH = 8192                # one key a slot, batch 8192,
+TIER_RECORDS = 32768             # 32 768 records a pass,
+TIER_VOCAB = 10_000              # from 10 000 ids a slot
+TIER_CAPACITY = 1 << 20          # 15a: (1 << 22) // 4 rows a shard
+TIER_BUCKET_MIN = 1 << 12        # 15a: request and serve bucket minimums
+TIER_MEASURED = 4                # 15a: passes after the cold and warm ones
+WINDOW_CAPACITY = 1 << 19        # 15b: window rows a shard
+WINDOW_HOST = 1 << 19            # 15b: host-RAM rows a shard
+
+
+def _uniform_records(rng, n: int, SlotRecord):
+    """bench.py ``build_records`` at the "uniform" shape: one key in each
+    of ``TIER_SLOTS`` slots (slot s holds ids from s * TIER_VOCAB), 13
+    dense, label 1 with probability 0.25."""
+    keys = (rng.integers(0, TIER_VOCAB, size=(n, TIER_SLOTS))
+            + np.arange(TIER_SLOTS) * TIER_VOCAB).astype(np.uint64)
+    dense = rng.normal(size=(n, DENSE_DIM)).astype(np.float32)
+    labels = (rng.random(n) < 0.25).astype(np.float32)
+    offs = np.arange(TIER_SLOTS + 1, dtype=np.int32)
+    return [SlotRecord(keys=keys[i], slot_offsets=offs, dense=dense[i],
+                       label=float(labels[i]), show=1.0,
+                       clk=float(labels[i])) for i in range(n)]
+
+
+def _dense_digest(tr) -> str:
+    """sha256 of a trainer's model and optimizer tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tr.model.state_dict().values():
+        h.update(np.ascontiguousarray(t.detach().float().cpu().numpy())
+                 .tobytes())
+    for st in tr.state.opt.state_dict()["state"].values():
+        for v in st.values():
+            if hasattr(v, "detach"):
+                h.update(np.ascontiguousarray(
+                    v.detach().float().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def _host_model(table):
+    """(keys sorted, rows [n, F]) of a table's whole model: the tiered
+    table's host tiers (RAM and SSD) or a plain sharded table's shards."""
+    keys, rows = [], []
+    if hasattr(table, "hosts"):
+        from paddlebox_tpu_torch.ps.table import rows_from_store_fields
+        table.fence()
+        for h in table.hosts:
+            k, f = h.export_rows(clear_touched=False)
+            keys.append(k)
+            rows.append(rows_from_store_fields(f, table.mf_dim,
+                                               table.opt_ext))
+    else:
+        for s in range(table.n):
+            k, r = table.indexes[s].items()
+            keys.append(k)
+            rows.append(table._rows_host(s, r))
+    keys = np.concatenate(keys)
+    order = np.argsort(keys)
+    return keys[order], np.concatenate(rows)[order]
+
+
+def tiered_phase(torch, args, card, desc, details, dev: str = "cuda"
+                 ) -> dict:
+    """Phase 15: the tiered store on the card, under
+    ``torch.use_deterministic_algorithms``.
+
+    15a, bench.py's ``measure_tiered`` at its "uniform" shape: a
+    ``TieredShardedEmbeddingTable`` of ``TIER_N`` shards of
+    ``TIER_CAPACITY`` rows with an SSD tier, ``DeepFM`` at phase 5's
+    widths, two seeded columnar datasets (~96% key overlap) alternating
+    through ``tiered_pass_pipeline`` at ``FLAGS.preload_depth``: a cold
+    pass, a warm pass and ``TIER_MEASURED`` measured passes. The same
+    passes at depth 0 must equal them by ``rows_digest`` and the dense
+    params' bytes; the cold pass stages its whole working set and each
+    later pass exactly its keys not yet resident. Then the
+    ``drop_window`` full re-stage control, and the SSD section: the whole
+    model demoted to segments, a ``begin_pass`` paying the promote
+    inline (the model's ``rows_digest`` unchanged by the round trip) and
+    one whose promote rode the previous pass's training. The first
+    resident step through the kernels against the plain versions (phase
+    13's classes).
+
+    15b, a window smaller than the model: phase 5's base file loads into
+    ``TIER_N`` windows of ``WINDOW_CAPACITY`` rows over host stores of
+    ``WINDOW_HOST`` rows with SSD tiers (the coldest rows past the
+    watermark go to segments), and phase 13's ``SHARD_BATCHES`` local
+    batches run as passes of one global step through
+    ``train_passes_tiered`` at depth 0. With ``mf_initial_range`` 0 the
+    model read back through the host tier must equal a plain
+    ``ShardedEmbeddingTable`` of ``SHARD_CAPACITY`` rows a shard trained
+    over the same passes (show/clk exact, rows and dense params within
+    rtol 2e-4 / atol 2e-5); no window exceeds its capacity; the evicted,
+    written-back, staged and SSD-promoted counts are not all zero.
+    Kernel rows 3 and 4 against their plain versions at the passes' real
+    delta and write-back sizes, timed there beside ``index_copy_`` /
+    ``index_select`` and rows 2 and 1 in alternating repeats. Returns the
+    kernels' launches in the main path (15a's depth-2 pipeline and 15b's
+    passes)."""
+    import copy
+
+    from paddlebox_tpu_torch import DeepFM, InMemoryDataset, convert
+    from paddlebox_tpu_torch.config import FLAGS
+    from paddlebox_tpu_torch.data import DataFeedDesc, SlotDef, SlotRecord
+    from paddlebox_tpu_torch.ops import index as IX
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps import BoxPSHelper, SparseSGDConfig
+    from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.ps.tiered import TieredShardedEmbeddingTable
+    from paddlebox_tpu_torch.train import sharded as SH
+    from paddlebox_tpu_torch.train.step import default_tx
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update,
+           "scatter_rows_dma": K.scatter_rows_dma,
+           "gather_rows_dma": K.gather_rows_dma,
+           "index_insert": IX.insert, "index_lookup": IX.lookup}
+    launches = {k: 0 for k in fns}
+
+    def count(run):
+        """``run()`` with every count set to 0 before and read after."""
+        for f in fns.values():
+            f.launches = 0
+        out = run()
+        sync()
+        for k, f in fns.items():
+            launches[k] += f.launches
+        return out
+
+    # ---- 15a: data, the model, the table ----
+    t = {}
+    t0 = time.perf_counter()
+    slots = [SlotDef("label", "float", 1), SlotDef("dense", "float",
+                                                   DENSE_DIM)]
+    slots += [SlotDef(f"C{i}", "uint64") for i in range(1, TIER_SLOTS + 1)]
+    udesc = DataFeedDesc(slots=slots, batch_size=TIER_BATCH,
+                         label_slot="label",
+                         key_bucket_min=TIER_BATCH * TIER_SLOTS)
+    pool = []
+    for s in range(2):
+        ds = InMemoryDataset(udesc)
+        ds.records = _uniform_records(np.random.default_rng(args.seed + 70
+                                                            + s),
+                                      TIER_RECORDS, SlotRecord)
+        ds.columnarize()
+        pool.append(ds)
+    keys_a, keys_b = pool[0].pass_keys(), pool[1].pass_keys()
+    overlap = len(np.intersect1d(keys_a, keys_b)) / len(keys_b)
+    t["data_s"] = time.perf_counter() - t0
+    cfg_a = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=1e-3)
+
+    def umodel(dtype=None):
+        torch.manual_seed(args.seed + 2)
+        kw = {} if dtype is None else {"compute_dtype": dtype}
+        return DeepFM(TIER_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN, **kw)
+
+    def utable(ssd_root):
+        return TieredShardedEmbeddingTable(
+            TIER_N, mf_dim=MF_DIM, capacity_per_shard=TIER_CAPACITY,
+            cfg=cfg_a, req_bucket_min=TIER_BUCKET_MIN,
+            serve_bucket_min=TIER_BUCKET_MIN, ssd_dir=ssd_root,
+            devices=dev)
+
+    seq = [pool[i % 2] for i in range(TIER_MEASURED + 2)]
+    tmp = tempfile.mkdtemp(prefix="pbx_tiered_")
+    torch.use_deterministic_algorithms(True)
+    try:
+        # ---- 15a: the pipeline at preload depth, then at depth 0 ----
+        depth = int(FLAGS.preload_depth)
+        table = utable(os.path.join(tmp, "a"))
+        tr = SH.ShardedTrainer(umodel(), table, udesc, seed=args.seed)
+        pipe = tr.tiered_pass_pipeline(iter(seq), depth=depth)
+
+        eps0 = {}
+
+        def pipeline_passes():
+            out = []
+            pipe.start_next()
+            for i in range(len(seq)):
+                t0 = time.perf_counter()
+                rp = pipe.wait()
+                t_wait = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                pipe.begin_pass()
+                t_begin = time.perf_counter() - t1
+                pipe.start_next()
+                t2 = time.perf_counter()
+                r = tr.train_pass_resident(rp)
+                sync()
+                t_train = time.perf_counter() - t2
+                t3 = time.perf_counter()
+                pipe.end_pass()
+                t_end = time.perf_counter() - t3
+                out.append(dict(wait=t_wait, begin=t_begin, train=t_train,
+                                end_submit=t_end, auc=r["auc"],
+                                stats=dict(table.last_pass_stats)))
+                if i == 1:
+                    # the measured passes' epilogue accounting starts
+                    # here (the cold and warm passes drained)
+                    table.fence()
+                    eps0.update(table.endpass_stats())
+            table.fence()
+            pipe.drain()
+            return out
+
+        t0 = time.perf_counter()
+        runs = count(pipeline_passes)
+        t["pipeline_s"] = time.perf_counter() - t0
+        eps1 = table.endpass_stats()
+        ep = {k: eps1[k] - eps0[k] for k in
+              ("jobs_run", "writeback_sec", "critical_fence_wait_sec")}
+        ep["overlap_frac"] = (max(0.0, ep["writeback_sec"]
+                                  - ep["critical_fence_wait_sec"])
+                              / max(ep["writeback_sec"], 1e-9))
+        digest2, dense2 = table.rows_digest(), _dense_digest(tr)
+        staged = [r["stats"]["staged"] for r in runs]
+        want = [len(keys_a), len(np.setdiff1d(keys_b, keys_a))] + \
+            [0] * TIER_MEASURED
+        if staged != want:
+            raise AssertionError(f"phase 15a: staged rows {staged}, the "
+                                 f"keys not yet resident {want}")
+        t0 = time.perf_counter()
+        t_d0 = utable(os.path.join(tmp, "a0"))
+        tr_d0 = SH.ShardedTrainer(umodel(), t_d0, udesc, seed=args.seed)
+        tr_d0.train_passes_tiered(seq, depth=0)
+        sync()
+        t["depth0_s"] = time.perf_counter() - t0
+        if t_d0.rows_digest() != digest2 or _dense_digest(tr_d0) != dense2:
+            raise AssertionError(f"phase 15a: depth {depth} != depth 0 by "
+                                 "rows_digest and the dense params")
+        del tr_d0, t_d0
+
+        # ---- 15a: the first resident step, kernels against plain ----
+        rp0 = tr.build_resident_pass(pool[0])
+        rp0.upload()
+        rp0.wait_ready()
+        gb0 = SH._decode_wire_step(rp0, 0)
+        start = [st.data.clone() for st in table.states]
+        first = {}
+        for name, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+            step = SH.ShardedTrainStep(default_tx, table.cfg, table.devices,
+                                       TIER_BATCH, TIER_SLOTS, ops=ops)
+            tab = copy.copy(table)
+            tab.states = [TableState(x.clone(), table.opt_ext)
+                          for x in start]
+            st = step.init_state(tab, umodel(torch.float32))
+            out = step(st, gb0, SH.push_generators(table.devices,
+                                                   args.seed, 1),
+                       rp0.sections)
+            first[name] = (out, [x.data for x in st.tables],
+                           st.model.state_dict())
+        (ok, tk_, pk), (op, tp, pp) = first["kernels"], first["plain"]
+        for s in range(TIER_N):
+            if not torch.equal(ok["pushed"][s], op["pushed"][s]) or \
+                    not torch.equal(tk_[s][:, :4], tp[s][:, :4]):
+                raise AssertionError(f"phase 15a: shard {s}'s pushed "
+                                     "grads or show/clk/slot, kernels vs "
+                                     "plain, differ")
+        first_err = max(
+            [check_close(f"phase 15a: shard {s} rows", tk_[s], tp[s],
+                         STATE_RTOL, STATE_ATOL) for s in range(TIER_N)]
+            + [check_close(f"phase 15a: param {k}", pk[k], pp[k],
+                           STATE_RTOL, STATE_ATOL) for k in pk])
+        del first, start, rp0, gb0, tk_, tp
+
+        # ---- 15a: the full re-stage control, then the SSD section ----
+        helper = BoxPSHelper(table, trainer=tr)
+        table.drop_window()
+        t0 = time.perf_counter()
+        helper.begin_pass(pool[1])
+        sync()
+        begin_full = time.perf_counter() - t0
+        staged_full = table.last_pass_stats["staged"]
+        helper.end_pass(None)
+        table.fence()
+        before = table.rows_digest()
+        table.drop_window()
+        t0 = time.perf_counter()
+        demoted = sum(h.demote_cold() for h in table.hosts)
+        demote_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        helper.begin_pass(pool[1])              # the promote paid inline
+        sync()
+        begin_ssd_sync = time.perf_counter() - t0
+        sync_st = dict(table.last_pass_stats)
+        helper.end_pass(None)
+        if table.rows_digest() != before:
+            raise AssertionError("phase 15a: the demote → promote round "
+                                 "trip changed rows_digest")
+        table.drop_window()
+        sum(h.demote_cold() for h in table.hosts)
+        helper.begin_pass(pool[0])
+        helper.stage_pass(pool[1])              # B's promote rides A's pass
+        tr.train_pass_resident(pool[0])
+        helper.end_pass(pool[0])
+        t0 = time.perf_counter()
+        helper.begin_pass(pool[1])
+        sync()
+        begin_ssd_overlap = time.perf_counter() - t0
+        ov_st = dict(table.last_pass_stats)
+        helper.end_pass(None)
+        table.fence()
+        ssd_a = table.ssd_stats()
+        del helper, tr, table, pipe
+        t["a_s"] = time.perf_counter() - t_phase
+
+        # ---- 15b: a window smaller than the model ----
+        t_b = time.perf_counter()
+        base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                               vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+        records = make_records(np.random.default_rng(args.seed + 13),
+                               BATCH * SHARD_BATCHES, SlotRecord)
+        per_pass = SHARD_N
+        passes = []
+        for i in range(0, SHARD_BATCHES, per_pass):
+            ds = InMemoryDataset(desc)
+            ds.records = records[i * BATCH:(i + per_pass) * BATCH]
+            passes.append(ds)
+        ws = [len(ds.pass_keys()) for ds in passes]
+        per_shard_ws = [int(np.bincount(
+            (ds.pass_keys() % np.uint64(TIER_N)).astype(np.int64),
+            minlength=TIER_N).max()) for ds in passes]
+        log(f"phase 15b: {len(passes)} passes of {per_pass} x {BATCH} "
+            f"records; working set a pass {ws}, the fullest shard's "
+            f"{per_shard_ws} against a window of {WINDOW_CAPACITY} rows a "
+            f"shard; model {len(base['keys'])} base rows")
+        if max(per_shard_ws) > WINDOW_CAPACITY:
+            raise AssertionError("phase 15b: a pass does not fit a window")
+        cfg_b = SparseSGDConfig(mf_create_thresholds=0.0,
+                                mf_initial_range=0.0)
+
+        def bmodel():
+            torch.manual_seed(args.seed + 2)
+            return DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN)
+
+        t0 = time.perf_counter()
+        win = TieredShardedEmbeddingTable(
+            TIER_N, mf_dim=MF_DIM, capacity_per_shard=WINDOW_CAPACITY,
+            cfg=cfg_b, host_capacity=WINDOW_HOST,
+            ssd_dir=os.path.join(tmp, "b"), devices=dev)
+        win.load(base)
+        t["b_load_s"] = time.perf_counter() - t0
+        load_ssd = int(win.ssd_stats().get("live_rows", 0))
+        tr_w = SH.ShardedTrainer(bmodel(), win, desc, seed=args.seed)
+        orig_begin, orig_end = win.begin_pass, win.end_pass
+        pass_log = []
+        mark = [0.0]
+
+        def begin(keys=None):
+            # at depth 0 the time since the last end_pass (or the start)
+            # is the wait for the pass's build and host fetch
+            t0 = time.perf_counter()
+            n = orig_begin(keys)
+            sync()
+            pass_log.append(dict(wait_s=t0 - mark[0],
+                                 begin_s=time.perf_counter() - t0))
+            return n
+
+        def end():
+            t0 = time.perf_counter()
+            n = orig_end()
+            mark[0] = time.perf_counter()
+            pass_log[-1].update(end_submit_s=mark[0] - t0,
+                                stats=dict(win.last_pass_stats),
+                                window=[len(ix) for ix in win.indexes])
+            return n
+
+        win.begin_pass, win.end_pass = begin, end
+        t0 = mark[0] = time.perf_counter()
+        res_w = count(lambda: tr_w.train_passes_tiered(passes, depth=0))
+        win.fence()
+        t["b_passes_s"] = time.perf_counter() - t0
+        win.begin_pass, win.end_pass = orig_begin, orig_end
+        for p in pass_log:
+            if max(p["window"]) > WINDOW_CAPACITY:
+                raise AssertionError(f"phase 15b: a window holds "
+                                     f"{max(p['window'])} rows")
+        totals = {k: sum(p["stats"].get(k, 0) for p in pass_log)
+                  for k in ("staged", "evicted", "evicted_writeback",
+                            "written_back", "evict_async_rows",
+                            "ssd_promoted_rows")}
+        if not all(totals[k] for k in ("staged", "written_back")) or not (
+                totals["evicted"] + totals["evict_async_rows"]):
+            raise AssertionError(f"phase 15b: no eviction or write-back "
+                                 f"{totals}")
+        ssd_b = win.ssd_stats()
+        ep_b = win.endpass_stats()
+        # the plain sharded table over the same passes
+        t0 = time.perf_counter()
+        plain = ShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                      capacity_per_shard=SHARD_CAPACITY,
+                                      cfg=cfg_b, devices=dev)
+        plain.load(base)
+        tr_p = SH.ShardedTrainer(bmodel(), plain, desc, seed=args.seed)
+        res_p = [tr_p.train_pass_resident(ds) for ds in passes]
+        sync()
+        t["b_plain_s"] = time.perf_counter() - t0
+        wk, wr = _host_model(win)
+        pk_, pr = _host_model(plain)
+        if not np.array_equal(wk, pk_):
+            raise AssertionError("phase 15b: the tiered model's keys differ "
+                                 "from the plain table's")
+        if not np.array_equal(wr[:, :2], pr[:, :2]):
+            raise AssertionError("phase 15b: show/clk differ from the "
+                                 "plain table's")
+        b_row_err = check_close("phase 15b: rows vs the plain table",
+                                torch.from_numpy(wr), torch.from_numpy(pr),
+                                STATE_RTOL, STATE_ATOL)
+        sd_w, sd_p = tr_w.model.state_dict(), tr_p.model.state_dict()
+        b_param_err = max(check_close(f"phase 15b: param {k}", sd_w[k],
+                                      sd_p[k], STATE_RTOL, STATE_ATOL)
+                          for k in sd_w)
+        auc_w = [r["auc"] for r in res_w]
+        auc_p = [r["auc"] for r in res_p]
+        del wr, pr, tr_p, plain
+
+        # ---- rows 3 and 4 at the window's real sizes (timed outside
+        # the deterministic mode: index_copy_ and index_select are the
+        # library's calls as they run by default) ----
+        torch.use_deterministic_algorithms(False)
+        flush = torch.empty(1 << 26, dtype=torch.float32, device=dev) \
+            if dev == "cuda" else None
+        data = win.states[0].data
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        last = pass_log[-1]["stats"]
+        k_scatter = max(1, int(max(p["stats"]["staged"]
+                                   for p in pass_log[1:]) // TIER_N))
+        k_gather = max(1, int(last["written_back"] // TIER_N))
+        copy_t = {}
+        for name, k in (("scatter", k_scatter), ("gather", k_gather)):
+            rows = torch.randperm(WINDOW_CAPACITY, generator=gen,
+                                  device=dev)[:k].int()
+            kp = k if k <= 2048 else -(-k // 2048) * 2048
+            rows_p = torch.full((kp,), WINDOW_CAPACITY, dtype=torch.int32,
+                                device=dev)
+            rows_p[:k] = rows
+            rows_l = rows_p.long()
+            feat = data.shape[1]
+            row_bound = (kp * 4 + (k + 1) * feat * 4 * 2) / PEAK_BYTES * 1e3
+            if name == "scatter":
+                vals = torch.randn((kp, feat), generator=gen, device=dev)
+                vals[k:] = 0.0
+                a, b_ = data.clone(), data.clone()
+                K.scatter_rows_dma(a, rows_p, vals)
+                K.scatter_rows_dma_plain(b_, rows_p, vals)
+                sync()
+                if not torch.equal(a, b_):
+                    raise AssertionError("phase 15b: scatter_rows_dma "
+                                         "differs from its plain version "
+                                         f"at {k} rows")
+                fns_t = {"kernel": lambda: K.scatter_rows_dma(a, rows_p,
+                                                              vals),
+                         "index_copy_": lambda: b_.index_copy_(0, rows_l,
+                                                               vals),
+                         "scatter_rows": lambda: K.scatter_rows(a, rows_p,
+                                                                vals)}
+                plain_fn = lambda: K.scatter_rows_dma_plain(b_, rows_p,
+                                                            vals)
+            else:
+                got = K.gather_rows_dma(data, rows_p)
+                if not torch.equal(got, K.gather_rows_dma_plain(data,
+                                                                rows_p)):
+                    raise AssertionError("phase 15b: gather_rows_dma "
+                                         "differs from its plain version "
+                                         f"at {k} rows")
+                fns_t = {"kernel": lambda: K.gather_rows_dma(data, rows_p),
+                         "index_select": lambda: torch.index_select(
+                             data, 0, rows_l),
+                         "gather_rows": lambda: K.gather_rows(data, rows_p)}
+                plain_fn = lambda: K.gather_rows_dma_plain(data, rows_p)
+            if dev == "cuda":
+                reps = alternating_ms(torch, fns_t, flush)
+                copy_t[name] = dict(
+                    rows=k, padded=kp, bound_ms=row_bound,
+                    plain_ms=time_ms(torch, plain_fn, flush),
+                    medians={n: r["median"] for n, r in reps.items()},
+                    spreads={n: r["spread"] for n, r in reps.items()})
+            else:
+                copy_t[name] = dict(rows=k, padded=kp, bound_ms=row_bound)
+        del flush, win, tr_w
+        t["b_s"] = time.perf_counter() - t_b
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("gather_rows", "pool_cvm", "segment_gather",
+              "scatter_add_update", "scatter_rows_dma", "gather_rows_dma"):
+        if dev == "cuda" and launches[k] == 0:
+            raise AssertionError(f"phase 15: {k} never launched")
+    phase_s = time.perf_counter() - t_phase
+    meas = runs[2:]
+    walls = [r["wait"] + r["begin"] + r["train"] + r["end_submit"]
+             for r in meas]
+    eps_a = TIER_RECORDS * len(meas) / sum(walls)
+    log(f"tiered 15a: {TIER_N} shards of {TIER_CAPACITY} rows, "
+        f"{len(seq)} passes of {TIER_RECORDS} uniform records "
+        f"({TIER_SLOTS} one-key slots, batch {TIER_BATCH}, key overlap "
+        f"{overlap:.3f}) at depth {depth}: staged {staged}; cold pass "
+        f"wait+begin {runs[0]['wait'] + runs[0]['begin']:.3f}s, warm "
+        f"{runs[1]['wait'] + runs[1]['begin']:.3f}s; measured preload wait "
+        f"{[round(r['wait'], 4) for r in meas]}s, reconcile-only begin "
+        f"{[round(r['begin'], 4) for r in meas]}s, train "
+        f"{[round(r['train'], 4) for r in meas]}s, end_pass submit "
+        f"{[round(r['end_submit'], 4) for r in meas]}s, written back "
+        f"{[r['stats']['written_back'] for r in runs]}, evicted "
+        f"{[r['stats']['evicted'] for r in runs]}, SSD promote "
+        f"{[r['stats'].get('ssd_promote_sec') for r in runs]}s; {eps_a:.0f} "
+        f"examples/s with the boundaries; epilogue {ep['jobs_run']} jobs, "
+        f"write-back {ep['writeback_sec']:.3f}s, main-thread fence wait "
+        f"{ep['critical_fence_wait_sec']:.3f}s, overlapped "
+        f"{ep['overlap_frac']:.1%}; depth {depth} == depth 0 by "
+        f"rows_digest and the dense params ({t['depth0_s']:.1f}s); first "
+        f"resident step kernels vs plain max abs err {first_err:.3g} "
+        f"({card})")
+    log(f"tiered 15a control and SSD: drop_window full re-stage of "
+        f"{staged_full} rows {begin_full:.3f}s; demote_cold of the model "
+        f"{demoted} rows {demote_s:.3f}s; begin_pass with the promote "
+        f"inline {begin_ssd_sync:.3f}s (promoted "
+        f"{sync_st.get('ssd_promoted_rows')} rows, "
+        f"{sync_st.get('ssd_promote_sec')}s, main thread "
+        f"{sync_st.get('ssd_promote_wait_sec')}s), with the promote ridden "
+        f"on the previous pass {begin_ssd_overlap:.3f}s (promoted "
+        f"{ov_st.get('ssd_promoted_rows')} rows, "
+        f"{ov_st.get('ssd_promote_sec')}s, main thread "
+        f"{ov_st.get('ssd_promote_wait_sec')}s); round trip == by "
+        f"rows_digest ({card})")
+    for i, p in enumerate(pass_log):
+        st = p["stats"]
+        log(f"tiered 15b pass {i}: build and fetch wait {p['wait_s']:.3f}s, "
+            f"reconcile begin {p['begin_s']:.3f}s, train "
+            f"{res_w[i]['elapsed_sec']:.3f}s, end_pass "
+            f"submit {p['end_submit_s']:.3f}s, staged {st['staged']}, "
+            f"resident {st['resident']}, evicted {st['evicted']} (written "
+            f"back {st['evicted_writeback']}), evicted ahead "
+            f"{st.get('evict_async_rows')}, written back "
+            f"{st['written_back']}, SSD promoted "
+            f"{st.get('ssd_promoted_rows')} rows in "
+            f"{st.get('ssd_promote_sec')}s, windows {p['window']} ({card})")
+    n_b = BATCH * SHARD_BATCHES
+    log(f"tiered 15b: base {len(base['keys'])} rows into {TIER_N} windows "
+        f"of {WINDOW_CAPACITY} over host stores of {WINDOW_HOST} "
+        f"({load_ssd} rows to segments at load, {t['b_load_s']:.2f}s); "
+        f"{len(passes)} passes at depth 0 in {t['b_passes_s']:.2f}s "
+        f"({n_b / t['b_passes_s']:.0f} examples/s with the boundaries; "
+        f"the plain table {n_b / t['b_plain_s']:.0f} with its load); totals "
+        f"{json.dumps(totals)}; SSD {json.dumps({k: round(v, 4) for k, v in ssd_b.items()})}; "
+        f"epilogue write-back {ep_b['writeback_sec']:.3f}s, overlapped "
+        f"{ep_b['overlap_sec'] / max(ep_b['writeback_sec'], 1e-9):.1%}; "
+        f"== the plain sharded table: show/clk exact, max abs err rows "
+        f"{b_row_err:.3g} params {b_param_err:.3g}; auc {auc_w} vs "
+        f"{auc_p} ({card})")
+    for name, c in copy_t.items():
+        if "medians" in c:
+            log(f"  window {name} of {c['rows']} rows ({c['padded']} "
+                f"padded) a shard: "
+                + ", ".join(f"{n} {v:.4f} ms (spread {c['spreads'][n]:.4f})"
+                            for n, v in c["medians"].items())
+                + f", medians of 5 alternating repeats; plain "
+                f"{c['plain_ms']:.4f} ms; bound {c['bound_ms'] * 1e3:.2f} "
+                f"us ({card})")
+    log(f"phase 15 took {phase_s:.1f}s (15a {t['a_s']:.1f}, 15b "
+        f"{t['b_s']:.1f}); launches {json.dumps(launches)} ({card})")
+    details["tiered"] = dict(
+        t, depth=depth, staged=staged, passes=runs, epilogue=ep,
+        overlap=overlap, examples_per_sec=eps_a, first_step_err=first_err,
+        begin_full_s=begin_full, staged_full=staged_full,
+        demoted=demoted, demote_s=demote_s, begin_ssd_sync_s=begin_ssd_sync,
+        ssd_sync=sync_st, begin_ssd_overlap_s=begin_ssd_overlap,
+        ssd_overlap=ov_st, ssd_a=ssd_a, window=dict(
+            passes=pass_log, totals=totals, ssd=ssd_b, epilogue=ep_b,
+            load_ssd_rows=load_ssd, row_err=b_row_err,
+            param_err=b_param_err, auc=auc_w, auc_plain=auc_p,
+            working_set=ws, per_shard_working_set=per_shard_ws),
+        copies=copy_t, launches=launches, phase_s=phase_s)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -4635,6 +5245,11 @@ def main() -> int:
                                   details)
     for r in kernels:
         r["launches"] += model_launches.get(r["name"], 0)
+
+    # ---- phase 15: the tiered store ----
+    tier_launches = tiered_phase(torch, args, card, desc, details)
+    for r in kernels:
+        r["launches"] += tier_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -46,6 +46,41 @@ class Flags:
     # --- embedding store ---
     # default per-shard row capacity of ps/sharded.ShardedEmbeddingTable
     table_capacity_per_shard: int = 1 << 20
+    # host-RAM backing store capacity (ps/host_store.HostStore; the rows
+    # beyond the card's pass window)
+    host_store_capacity: int = 1 << 24
+
+    # --- the SSD tier (ps/ssd.SsdTier) ---
+    # directory for segment files; non-empty attaches a tier to every
+    # HostStore (one subdirectory each). "" = no tier unless a table
+    # passes ssd_dir or spill_cold creates one next to its file.
+    ssd_dir: str = ""
+    # rows per append-only segment before it seals (sealed segments are
+    # immutable: the manifest and compaction unit)
+    ssd_segment_rows: int = 1 << 15
+    # compaction rewrites a sealed segment whose live-row fraction falls
+    # below this (<= 0 disables compaction)
+    ssd_compact_live_frac: float = 0.5
+    # host-RAM occupancy fraction above which the coldest rows demote to
+    # the SSD tier (on the end-pass epilogue worker, after each
+    # write-back); <= 0 disables it
+    host_demote_watermark: float = 0.92
+    # demotion drains RAM occupancy down to this fraction
+    host_demote_target: float = 0.8
+
+    # --- the pass window (ps/pass_table.py, ps/tiered.py) ---
+    # end_pass gathers the touched rows on the training stream, copies
+    # them to pinned host memory and hands the host-store write-back to
+    # one background worker, so pass N+1 trains while pass N drains;
+    # every host-tier read and lifecycle op fences first. False = write
+    # back before end_pass returns (bit for bit the same model).
+    async_end_pass: bool = True
+    # with queued stages (train/device_pass.PassPipeline), the eviction
+    # for the NEXT pass runs on the epilogue worker right after each
+    # write-back lands (clean rows only: an index release, no device
+    # read); begin_pass keeps the inline eviction as the emergency path.
+    # False = eviction stays inline at begin_pass.
+    async_capacity_evict: bool = True
 
     # --- the sharded step (train/sharded.py) ---
     # slot-group chunks of the sharded step's pull exchange: chunk g's

@@ -169,10 +169,19 @@ class ShardedEmbeddingTable:
         # per-shard device key indexes (FLAGS.use_pallas_index), built on
         # first use; None = not built since the last kv lifecycle change
         self._dev_indexes: Optional[List[Optional[DeviceKeyIndex]]] = None
-        # The reference's plan-depth assign (a tiered table's routing plan
-        # for a future pass: _plan_depth, _note_plan_assigned) waits for
-        # the tiered store (ROADMAP queue 1 item 10), and obs_stats for
-        # the observability hub (item 13).
+        # THREAD-LOCAL plan marker (ps/tiered.plan_scope): while the
+        # calling thread builds a routing plan for a FUTURE pass, its
+        # new-key assigns are recorded by _note_plan_assigned instead of
+        # being marked touched (they have no values yet and train only
+        # after their pass's begin_pass). Thread-local: a streaming
+        # prepare_global on another thread (training the open pass)
+        # keeps the normal assign. obs_stats waits for the
+        # observability hub (ROADMAP queue 1 item 13).
+        self._plan_tls = threading.local()
+
+    @property
+    def _plan_depth(self) -> int:
+        return getattr(self._plan_tls, "depth", 0)
 
     @property
     def feat(self) -> int:
@@ -245,7 +254,21 @@ class ShardedEmbeddingTable:
         host_lock; ``keys_s`` sorted unique keys owned by shard ``s``):
         the seam the monolithic and grouped plans share. With
         FLAGS.use_pallas_index the shard's device index serves it, both
-        decisions counted by ``book_index_dispatch``."""
+        decisions counted by ``book_index_dispatch``. Plan-depth assigns
+        (``_plan_depth``) stay on the host kv: their rows need the
+        pre-lookup miss mask and roll back on abort."""
+        if assign and self._plan_depth:
+            pre = self.indexes[s].lookup(keys_s)
+            self._plan_headroom(s, int((pre < 0).sum()))
+            rows_s = self.indexes[s].assign(keys_s)
+            if (pre < 0).any():
+                self._note_plan_assigned(s, keys_s[pre < 0])
+            # touched stays clear: plan rows train only after their pass
+            # opens; mark_trained_rows flags them after training
+            if self._dev_indexes is not None:
+                # the mirror missed these assigns: re-seed on next use
+                self._dev_indexes[s] = None
+            return rows_s
         if FLAGS.use_pallas_index:
             op = "assign" if assign else "lookup"
             rows_s = self._shard_rows_device(s, keys_s, assign)
@@ -263,6 +286,17 @@ class ShardedEmbeddingTable:
             rows_s = np.where(rows_s < 0, self.capacity,
                               rows_s).astype(rows_s.dtype)
         return rows_s
+
+    def _plan_headroom(self, s: int, need: int) -> None:
+        """Hook (called under host_lock) before a plan-depth assign of
+        ``need`` new keys: the tiered table frees window rows; this table
+        has nothing to free."""
+
+    def _note_plan_assigned(self, s: int, new_keys: np.ndarray) -> None:
+        """Hook (called under host_lock) for keys newly assigned during a
+        plan build: the tiered table records them as value-less PENDING
+        rows; this table needs nothing (fresh zero rows ARE its contract
+        for unseen keys)."""
 
     # ------------------------------------------------------------------
     def prepare_global_eval(self, batches: List[SlotBatch],

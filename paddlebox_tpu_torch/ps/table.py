@@ -13,6 +13,16 @@ scatter-add of ``new − old`` (``ops.kernels.scatter_add_update``).
 
 Table state crosses between the two packages through the ``.npz`` files
 ``EmbeddingTable.save_base``/``save_delta`` write in either.
+
+The pass windows of the tiered store (``ps/pass_table.py``,
+``ps/tiered.py``) copy rows through two primitives here: the begin-pass
+delta scatter ``scatter_window_rows`` (kernel row 3, the counterpart of
+the reference's ``scatter_logical_rows``) and the end-pass read
+``RowsToHost`` (kernel row 4, of ``dispatch_packed_row_gather``). The
+reference chunks its scatter into ``FLAGS.scatter_chunk_rows`` rows and
+warms it up (``start_scatter_warmup``) only so that XLA compiles one
+executable per table geometry; a kernel launch compiles nothing, so the
+port has neither.
 """
 
 from __future__ import annotations
@@ -88,6 +98,197 @@ def fill_oob_pads(unique_rows: np.ndarray, u: int, capacity: int) -> None:
     drop them, and they never collide with real rows or each other."""
     n = len(unique_rows) - u
     unique_rows[u:] = capacity + np.arange(1, n + 1, dtype=np.int32)
+
+
+def field_slice(data: np.ndarray, name: str) -> np.ndarray:
+    """Column view of a field on a logical-row matrix."""
+    if name == "embedx_w":
+        return data[..., NUM_FIXED:]
+    return data[..., FIELD_COL[name]]
+
+
+def field_assign(data: np.ndarray, rows: np.ndarray, name: str,
+                 values: np.ndarray) -> None:
+    """Write counterpart of :func:`field_slice`: ``data[rows, <field
+    columns>] = values`` (the embedx block takes the values' width)."""
+    if name == "embedx_w":
+        data[rows, NUM_FIXED:NUM_FIXED + values.shape[-1]] = values
+    else:
+        data[rows, FIELD_COL[name]] = values
+
+
+def store_fields_from_rows(sub: np.ndarray, mf_dim: int, opt_ext: int,
+                           slot_override: Optional[np.ndarray] = None
+                           ) -> Dict[str, np.ndarray]:
+    """Logical rows [k, feat] → a HostStore field dict (the write-back
+    assembly of end_pass and eviction). embedx is sliced to mf_dim so the
+    optimizer extension never leaks into the (k, mf_dim) block;
+    ``slot_override`` substitutes host slot metadata for tables whose
+    device rows do not carry the slot column."""
+    mf_end = NUM_FIXED + mf_dim
+    vals = {f: (sub[:, NUM_FIXED:mf_end] if f == "embedx_w"
+                else field_slice(sub, f)) for f in FIELDS}
+    if slot_override is not None:
+        vals["slot"] = slot_override
+    if opt_ext:
+        vals["opt_ext"] = sub[:, mf_end:]
+    return vals
+
+
+def rows_from_store_fields(vals: Dict[str, np.ndarray], mf_dim: int,
+                           opt_ext: int) -> np.ndarray:
+    """HostStore field dict → logical rows [k, feat] (the scatter input of
+    the begin-pass delta), the inverse of :func:`store_fields_from_rows`."""
+    k = len(vals["show"])
+    mf_end = NUM_FIXED + mf_dim
+    out = np.zeros((k, mf_end + opt_ext), np.float32)
+    idx = np.arange(k)
+    for f in FIELDS:
+        field_assign(out, idx, f, vals[f])
+    if opt_ext:
+        out[:, mf_end:] = vals["opt_ext"]
+    return out
+
+
+def promote_window_delta(index, touched: np.ndarray, capacity: int,
+                         want_keys: np.ndarray, new_keys: np.ndarray,
+                         gather_rows, writeback, on_freed=None,
+                         pending: Optional[np.ndarray] = None,
+                         protect: Optional[np.ndarray] = None):
+    """The per-window delta promotion shared by the tiered shards and the
+    single-table ``PassScopedTable`` (box_wrapper.cc:129-186's incremental
+    window): reconcile the staged delta against the live window (keys that
+    became resident since ``stage`` keep their fresher rows), evict only
+    under capacity pressure (clean rows first; dirty evictees go through
+    ``writeback(keys, rows, gather_rows(rows))``), and assign the
+    remaining new keys as clean rows.
+
+    ``pending`` (sorted uint64) lists keys whose rows a routing-plan
+    build assigned before their values staged (``ps/tiered.plan_scope``):
+    they look resident to the index but their rows hold no values of
+    theirs (a fresh row, or one eviction freed, with an old key's
+    values), so the staged values win, and their plan-baked rows are
+    pinned against eviction. ``protect`` lists more keys pinned against
+    eviction (the queued passes' working sets).
+
+    Caller holds the host lock and scatters the staged values into the
+    returned ``rows_new``. Returns (rows_new, still_missing_mask, stats);
+    ``stats["evict_sec"]`` is the wall of the eviction block.
+    ``on_freed(rows)`` hooks per-row host metadata cleanup. The hub
+    counters of these stats wait for the observability layer (ROADMAP
+    queue 1 item 13)."""
+    miss = index.lookup(new_keys) < 0
+    still = miss
+    if pending is not None and len(pending):
+        still = miss | np.isin(new_keys, pending, assume_unique=False)
+    ins_keys = new_keys[still]
+    stats = dict(resident=len(want_keys) - len(ins_keys),
+                 staged=len(ins_keys), evicted=0, evicted_writeback=0,
+                 evict_sec=0.0)
+    # capacity pressure counts only truly missing keys: pending keys
+    # already own rows
+    overflow = len(index) + int(miss.sum()) - capacity
+    if overflow > 0:
+        t0 = time.perf_counter()
+        live_keys, live_rows = index.items()
+        cand = ~np.isin(live_keys, want_keys)
+        if pending is not None and len(pending):
+            # plan-baked rows of a future pass: their ids are in that
+            # pass's staged wire already
+            cand &= ~np.isin(live_keys, pending)
+        if protect is not None and len(protect):
+            cand &= ~np.isin(live_keys, protect)
+        ck, cr = live_keys[cand], live_rows[cand]
+        t = touched[cr]
+        order = np.argsort(t, kind="stable")[:overflow]
+        ck, cr, t = ck[order], cr[order], t[order]
+        if t.any():
+            writeback(ck[t], cr[t], gather_rows(cr[t]))
+            stats["evicted_writeback"] = int(t.sum())
+        freed = index.release(ck)
+        touched[freed] = False
+        if on_freed is not None:
+            on_freed(freed)
+        stats["evicted"] = len(ck)
+        stats["evict_sec"] = time.perf_counter() - t0
+    rows_new = index.assign(ins_keys)
+    touched[rows_new] = False  # freshly loaded = clean
+    return rows_new, still, stats
+
+
+def _dma_rows(k: int) -> int:
+    """``k`` rounded up to the DMA row kernels' count contract (a
+    multiple of min(2048, k), ``ops/kernels._dma_count``)."""
+    return k if k <= 2048 else -(-k // 2048) * 2048
+
+
+def _pinned(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor for a copy to ``device``: pinned for the
+    card (so the copy does not block the host), the array's own memory
+    for the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def scatter_window_rows(state: "TableState", rows: np.ndarray,
+                        values: np.ndarray, ops: KernelSet = KERNELS) -> None:
+    """The begin-pass delta scatter (the counterpart of the reference's
+    ``scatter_logical_rows``): ``state.data[rows[i]] = values[i]`` IN
+    PLACE through kernel row 3 (``scatter_rows_dma``). The row list pads
+    to the kernel's row-count contract with the sentinel row C and zero
+    values, so the sentinel stays zero. On the card the values and rows
+    go through pinned buffers and non-blocking copies on the current
+    stream (the steps' stream: the scatter follows every gather and push
+    enqueued before it). ``rows`` must be duplicate-free."""
+    k = len(rows)
+    if k == 0:
+        return
+    data = state.data
+    kp = _dma_rows(k)
+    r = np.full(kp, state.capacity, np.int32)
+    r[:k] = rows
+    v = np.zeros((kp, data.shape[1]), np.float32)
+    v[:k] = values
+    dev = data.device
+    ops.scatter_rows_dma(data, _pinned(r, dev).to(dev, non_blocking=True),
+                         _pinned(v, dev).to(dev, non_blocking=True))
+
+
+class RowsToHost:
+    """A device → host copy of gathered window rows in flight: the
+    end-pass and dirty-evictee read through kernel row 4
+    (``gather_rows_dma``; pads read the zero sentinel). On the card the
+    gather runs on the current stream, its output copies into pinned host
+    memory without blocking, and an event records after the copy;
+    :meth:`wait` synchronizes on the event (on any thread) and returns
+    the rows. The gathered device tensor stays referenced until then. On
+    the CPU the plain gather's copy is the result."""
+
+    def __init__(self, state: "TableState", rows: np.ndarray,
+                 ops: KernelSet = KERNELS) -> None:
+        k = len(rows)
+        self.k = k
+        data = state.data
+        dev = data.device
+        r = np.full(_dma_rows(max(k, 1)), state.capacity, np.int32)
+        r[:k] = rows
+        self._dev = ops.gather_rows_dma(
+            data, _pinned(r, dev).to(dev, non_blocking=True))
+        self._event = None
+        if dev.type == "cuda":
+            self._host = torch.empty(self._dev.shape, dtype=torch.float32,
+                                     pin_memory=True)
+            self._host.copy_(self._dev, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+        else:
+            self._host = self._dev
+
+    def wait(self) -> np.ndarray:
+        """The gathered rows [k, F] on the host, once the copy landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host[:self.k].numpy()
 
 
 class PullIndex(NamedTuple):

@@ -842,11 +842,12 @@ class CheckpointManager:
             log.warning("unreadable spill_manifest.json at step %d "
                         "(%r) — skipping tier verification", step, e)
             return
-        from paddlebox_tpu_torch.ps.ssd import SegmentCorruptError
+        from paddlebox_tpu_torch.ps.ssd import (SegmentCorruptError,
+                                                verify_manifest)
         missing: List[str] = []
         for shard, m in manifest.get("shards", {}).items():
             try:
-                missing += _verify_segments(m)
+                missing += verify_manifest(m)
             except SegmentCorruptError as e:
                 raise CheckpointCorruptError(
                     f"checkpoint {step} spill manifest (shard {shard}): "
@@ -1001,23 +1002,3 @@ def read_dense_file(path: str) -> dict:
     """A ``dense.pt`` (``Trainer.dense_snapshot`` contents) on the
     CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
-
-
-def _verify_segments(manifest: dict) -> List[str]:
-    """Check every manifested spill segment still on disk against its
-    recorded sha256 (``SegmentCorruptError`` on the first mismatch).
-    Missing files are fine — compaction unlinks segments and the
-    checkpoint itself is self-contained — and are returned."""
-    from paddlebox_tpu_torch.ps.ssd import SegmentCorruptError
-    missing: List[str] = []
-    for seg in manifest.get("segments", []):
-        path = seg["path"]
-        if not os.path.isfile(path):
-            missing.append(path)
-            continue
-        got = _io_retry().call(_digest, path)
-        if got != seg["sha256"]:
-            raise SegmentCorruptError(
-                f"SSD segment {path} is corrupt: sha256 {got[:12]}… != "
-                f"manifest {seg['sha256'][:12]}…")
-    return missing

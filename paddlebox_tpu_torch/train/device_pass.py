@@ -34,8 +34,11 @@ the device: no host→device copy per step.
   and the consumer's stream waits on it before the first step: the
   host never waits for a copy, and no copy runs on the training stream.
 
-Not ported: the pass-window tables behind ``PassPipeline`` (the tiered
-store), and the reference's trace spans and hub counters.
+``PassPipeline`` drives a pass-window table (``ps/tiered.py``) through
+the same worker: plan build and host fetch ahead of training, a
+reconcile-only ``begin_pass``, the write-back on the table's epilogue
+worker. Not ported: the reference's trace spans and hub counters
+(ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -1406,55 +1409,162 @@ def _settle(rp) -> None:
 
 
 class PassPipeline:
-    """The pass pipeline — build → stage → consume → epilogue — for a
-    plain resident table (``window_table=None``): exactly the depth-N
-    ``PassPreloader`` (build and stage on the worker, consume is the
-    training loop, no epilogue), with its accounting passed through.
+    """The pass pipeline — build → stage → consume → epilogue — shared by
+    plain resident tables and pass-window tables:
 
-        pipe = PassPipeline(datasets, build_fn=..., trainer=tr)
+      build    the host pack of the pass (``build_fn``: e.g.
+               ``ShardedTrainer.build_resident_pass``)
+      stage    the pass's bytes to where training reads them: the wire
+               upload, plus for a pass-WINDOW table the host-tier fetch
+               (``table.stage``)
+      consume  ``begin_pass`` (the window table's reconcile) and the
+               resident train loop
+      epilogue ``end_pass``'s write-back on the table's ``PassEpilogue``
+               worker, which also carries the eviction for the next
+               queued pass and the SSD watermark demotion
+
+    For a plain resident table (``window_table=None``) this is the
+    depth-N ``PassPreloader`` with an empty epilogue. For a window table
+    (``TieredShardedEmbeddingTable``) each build runs on the worker
+    inside the table's ``plan_scope`` and ``pin_working_set``, followed
+    there by the host fetch, queued in pass order
+    (``table.stage(keys, background=False, queue=True)``): by the time
+    ``wait()`` hands a pass out, its plan is baked (plan-pending rows),
+    its wire is staged, its host values are fetched and its spilled rows
+    promoted (``prefetch_promote`` inside the build), so ``begin_pass()``
+    only reconciles.
+
+        pipe = PassPipeline(datasets, build_fn=tr.build_resident_pass,
+                            window_table=table, trainer=tr)
         pipe.start_next()
         while (rp := pipe.wait()) is not None:
-            pipe.begin_pass()
+            pipe.begin_pass()                  # reconcile-only
             pipe.start_next()
             tr.train_pass_resident(rp)
-            pipe.end_pass()
+            pipe.end_pass()                    # submit; the worker drains
         pipe.drain()
 
-    The reference's pass-window tables (the tiered store's host-tier
-    stage fetch, reconcile and asynchronous write-back) are not ported:
-    a ``window_table`` raises ``NotImplementedError``."""
+    ``depth=0`` is the sequential kick-per-pass control."""
 
     def __init__(self, datasets: Iterator, build_fn, window_table=None,
-                 trainer=None, depth: Optional[int] = None) -> None:
-        """The passes are staged on the ``trainer``'s device (default:
-        the card)."""
-        if window_table is not None:
-            raise NotImplementedError(
-                "PassPipeline with a pass-window table needs the tiered "
-                "store, which is not ported yet (ROADMAP queue 1, item 10)")
-        self.table = None
+                 trainer=None, depth: Optional[int] = None,
+                 keys_of=None, device=None) -> None:
+        """The passes are staged on ``device`` (default: the
+        ``trainer``'s, its first shard's for a sharded trainer, else the
+        card). ``keys_of(ds)`` gives a pass's working set (default
+        ``ds.pass_keys()``)."""
+        self.table = window_table
         self.trainer = trainer
-        self.pre = PassPreloader(
-            iter(datasets), build_fn=build_fn, depth=depth,
-            device=None if trainer is None else trainer.device)
+        self._keys_of = keys_of or (lambda ds: ds.pass_keys())
+        # key sets of built-and-staged passes, in build order: begin_pass
+        # checks the head queued stage against them
+        self._key_q: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        build = build_fn if window_table is None else self._window_build(
+            build_fn)
+        if device is None and trainer is not None:
+            device = getattr(trainer, "device", None)
+            if device is None:
+                device = trainer.devices[0]
+        self.pre = PassPreloader(iter(datasets), build_fn=build,
+                                 depth=depth, device=device)
+
+    def _window_build(self, build_fn):
+        """``build_fn`` wrapped for a pass-window table: the plan build
+        and the host fetch in ONE outer ``plan_scope`` (an abort or a
+        fetch failure between them rolls the pass's plan-pending rows
+        back), with the working set pinned against eviction from the
+        plan's first row lookup until the queued stage takes the pin
+        over."""
+        table = self.table
+
+        def build(ds):
+            keys = self._keys_of(ds)
+            scope = getattr(table, "plan_scope", None)
+            pin = getattr(table, "pin_working_set", None)
+            with (scope() if scope is not None
+                  else contextlib.nullcontext()):
+                if pin is not None:
+                    pin(keys)
+                try:
+                    t0 = time.perf_counter()
+                    rp = build_fn(ds)
+                    t_build = time.perf_counter() - t0
+                    poll_preload_abort()
+                    t0 = time.perf_counter()
+                    table.stage(keys, background=False, queue=True)
+                    t_stage = time.perf_counter() - t0
+                except BaseException:
+                    if pin is not None:
+                        table.unpin_working_set()
+                    raise
+            stats = dict(getattr(rp, "build_stats", None) or {})
+            stats.setdefault("build", t_build)
+            stats["stage_fetch"] = t_stage
+            try:
+                rp.build_stats = stats
+            except AttributeError:
+                pass  # a slotted pass object skips the attribution
+            with self._lock:
+                self._key_q.append(keys)
+            return rp
+
+        return build
 
     def start_next(self) -> bool:
         return self.pre.start_next()
 
     def wait(self):
-        """The next staged pass, or None at the end of the stream."""
+        """The next staged pass (for a window table: build, wire and host
+        fetch complete), or None at the end of the stream."""
         return self.pre.wait()
 
     def begin_pass(self) -> int:
-        """Nothing to reconcile for a plain resident table."""
-        return 0
+        """Consume the head queued stage: the window table reconciles the
+        staged working set into the window, then the trainer adopts it.
+        Nothing to reconcile for a plain resident table."""
+        if self.table is None:
+            return 0
+        with self._lock:
+            if not self._key_q:
+                raise RuntimeError("begin_pass with no staged pass — "
+                                   "call wait() first")
+            keys = self._key_q[0]
+        # pop only AFTER the table accepted the pass: a raising begin
+        # leaves both queues aligned (the table restores a consumed stage
+        # to its queue head), so drain() still releases every pin
+        n = self.table.begin_pass(keys)
+        with self._lock:
+            if self._key_q and self._key_q[0] is keys:
+                self._key_q.popleft()
+        # the boundary's trace parts (trace.note_pass_part) wait for the
+        # observability layer (ROADMAP queue 1 item 13); the table's
+        # last_pass_stats carries them
+        if self.trainer is not None:
+            self.trainer.adopt_table()
+        return n
 
     def end_pass(self) -> int:
-        """No write-back for a plain resident table."""
-        return 0
+        """Close the open pass: ``trainer.sync_table()``, then the
+        table's ``end_pass`` (the write-back goes to its epilogue
+        worker). No write-back for a plain resident table."""
+        if self.table is None:
+            return 0
+        if self.trainer is not None:
+            self.trainer.sync_table()
+        return self.table.end_pass()
 
     def drain(self, timeout: Optional[float] = None) -> None:
+        """Stop building, join the worker, settle the copies in flight,
+        and discard the queued stages that will never begin (releasing
+        their plan-pending pins)."""
         self.pre.drain(timeout)
+        if self.table is not None:
+            discard = getattr(self.table, "discard_queued_stages", None)
+            if discard is not None:
+                discard()
+        with self._lock:
+            self._key_q.clear()
 
     # ---- accounting pass-throughs ----
     @property

@@ -41,11 +41,16 @@ count of real requests, the serve rows' count and base, the keys a
 section) stays on the host, computed at build time. It equals the
 streaming ``train_pass`` over the same batches bit for bit.
 
-Not here yet: the tiered pipeline and the table hooks it needs
-(``tiered_pass_pipeline``, ``train_passes_tiered``, ``fence_table``,
-``adopt_table``, ``plan_scope``, ``prefetch_promote``: ROADMAP queue 1
-item 10) and the multi-process form (``globalize_dense_state``, the pod
-branches: item 13).
+The tiered pipeline (``tiered_pass_pipeline``, ``train_passes_tiered``):
+over a ``ps/tiered.TieredShardedEmbeddingTable``, ``build_resident_pass``
+brackets each build in the table's ``plan_scope`` (a future pass's new
+keys become plan-pending rows) and promotes the pass's spilled rows
+host-ward (``prefetch_promote``), so a ``train/device_pass.PassPipeline``
+builds, stages and fetches the next passes on its worker while one
+trains; ``begin_pass`` only reconciles and ``end_pass`` writes back on
+the table's epilogue worker. Not here yet: the multi-process form
+(``globalize_dense_state``, the pod branches, the multi-process tiered
+table: ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -85,6 +90,8 @@ from paddlebox_tpu_torch.ps.table import (TableState, apply_push,
                                           expand_pull, fill_oob_pads,
                                           gather_full_rows, merge_rows,
                                           next_bucket_fine, pull_values)
+from paddlebox_tpu_torch.train.device_pass import (PassPipeline,
+                                                   poll_preload_abort)
 from paddlebox_tpu_torch.train.dense_modes import (build_lr_scales,
                                                    lr_map_transform,
                                                    scale_update)
@@ -783,6 +790,22 @@ class ShardedTrainer:
         place, so this matters only after one side was replaced)."""
         self.table.states = list(self.state.tables)
 
+    def fence_table(self) -> None:
+        """Drain the table's asynchronous end_pass write-back
+        (``ps/epilogue``) and raise the first failure; a no-op for a
+        table without one. Checkpoint capture and every host-tier read
+        fence by themselves: this is the explicit hook for code that
+        reads the host stores directly."""
+        fence = getattr(self.table, "fence", None)
+        if fence is not None:
+            fence()
+
+    def adopt_table(self) -> None:
+        """Point the step state at the table's states (after a window
+        table's begin_pass; its windows are updated in place, so this
+        matters only where a state was replaced)."""
+        self.state.tables = list(self.table.states)
+
     def dense_snapshot(self) -> Dict[str, Any]:
         """The dense state a checkpoint stores: the model and optimizer
         ``state_dict``s and the destinations' AUC states summed into
@@ -841,15 +864,69 @@ class ShardedTrainer:
     def build_resident_pass(self, dataset) -> "ShardedResidentPass":
         """Build one pass's staged plans (on a preloader's worker, ahead
         of training: ``PassPreloader(build_fn=trainer.
-        build_resident_pass)``). The reference's tiered-table hooks
-        (``plan_scope``, ``prefetch_promote``) wait for the tiered store
-        (ROADMAP queue 1 item 10)."""
-        for hook in ("plan_scope", "prefetch_promote"):
-            if getattr(self.table, hook, None) is not None:
-                raise NotImplementedError(
-                    f"a table with {hook} needs the tiered store "
-                    "(ROADMAP queue 1 item 10), not ported yet")
-        return ShardedResidentPass.build(dataset, self)
+        build_resident_pass)``). A tiered table gets the build bracketed
+        in its ``plan_scope``: new keys become value-less PENDING rows
+        that the next begin_pass reconciles with their staged host
+        values, which makes a preloader legal over a pass-window table
+        (preload_into_memory, box_wrapper.h:1142-1156). Each build of a
+        depth-N preloader gets its own bracket; the window must hold the
+        union of the open and every queued pass's working sets. With an
+        SSD tier holding rows, the pass's spilled rows are then promoted
+        host-ward (``prefetch_promote``; on a preloader's worker this
+        overlaps the open pass's training, so begin_pass never waits on
+        segment reads)."""
+        scope = getattr(self.table, "plan_scope", None)
+        if scope is None:
+            rp = ShardedResidentPass.build(dataset, self)
+        else:
+            with scope():
+                rp = ShardedResidentPass.build(dataset, self)
+        pf = getattr(self.table, "prefetch_promote", None)
+        if (pf is not None and hasattr(dataset, "pass_keys")
+                and self.table.has_spilled_rows()):
+            poll_preload_abort()
+            pf(dataset.pass_keys())
+        return rp
+
+    def tiered_pass_pipeline(self, datasets, depth: Optional[int] = None
+                             ) -> PassPipeline:
+        """A ``train/device_pass.PassPipeline`` wired for this trainer's
+        pass-window table: builds (plan_scope + prefetch_promote), the
+        wire and the host-tier fetch ride the depth-N worker,
+        ``begin_pass`` is reconcile-only, and ``end_pass``'s epilogue
+        worker carries the eviction for the next pass. ``depth=0`` is
+        the sequential kick-per-pass control."""
+        return PassPipeline(iter(datasets),
+                            build_fn=self.build_resident_pass,
+                            window_table=self.table, trainer=self,
+                            depth=depth)
+
+    def train_passes_tiered(self, datasets, depth: Optional[int] = None,
+                            log_prefix: str = "") -> List[Dict[str, float]]:
+        """Train tiered resident passes end to end through the pipeline;
+        returns the per-pass results of ``train_pass_resident`` (the
+        tiered twin of ``Trainer.train_passes_resident``)."""
+        pipe = self.tiered_pass_pipeline(datasets, depth=depth)
+        pipe.start_next()
+        sequential = depth == 0
+        results = []
+        try:
+            while True:
+                rp = pipe.wait()
+                if rp is None:
+                    break
+                pipe.begin_pass()
+                if not sequential:
+                    pipe.start_next()
+                results.append(self.train_pass_resident(
+                    rp, log_prefix=log_prefix))
+                pipe.end_pass()
+                if sequential:
+                    # the next build and fetch only after this pass closed
+                    pipe.start_next()
+        finally:
+            pipe.drain()
+        return results
 
     def _feed_registry_resident(self, rp: "ShardedResidentPass",
                                 preds: List[torch.Tensor]) -> None:
@@ -974,7 +1051,6 @@ class ShardedResidentPass:
         """Plan every global batch of the pass (``prepare_global``), make
         the widths uniform, stack and encode. A background (preloader)
         build polls the stop flag between groups."""
-        from paddlebox_tpu_torch.train.device_pass import poll_preload_abort
         table = trainer.table
         groups = list(trainer._group_iter(dataset.batches()))
         if not groups:

@@ -1057,6 +1057,23 @@ class Trainer:
         after something replaced one of the two."""
         self.table.state = self.state.table
 
+    def fence_table(self) -> None:
+        """Drain the table's asynchronous end_pass write-back
+        (``ps/epilogue``) and raise the first failure; a no-op for a
+        table without one. Not called at pass boundaries (that would
+        serialize the overlap): checkpoint capture and host-tier reads
+        fence by themselves."""
+        fence = getattr(self.table, "fence", None)
+        if fence is not None:
+            fence()
+
+    def adopt_table(self) -> None:
+        """Point the step state at the table's state (the pass lifecycle
+        calls it after begin_pass; a ``PassScopedTable`` updates its
+        window in place, so this matters only where the state was
+        replaced)."""
+        self.state.table = self.table.state
+
     def reset_metrics(self) -> None:
         self.state.auc = init_auc_state(device=self.device)
 

@@ -2215,3 +2215,172 @@ def test_sharded_resident_preloader_on_card(cuda, deterministic):
     digests = [sharded_state_digest(_resident_run(cuda, depth=d)[0])
                for d in (2, 0, None)]
     assert digests[0] == digests[1] == digests[2]
+
+
+# ---------------------------------------------------------------------------
+# the tiered store: the window's row copies and tiered passes on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [700, 5000])
+def test_window_row_copies_on_card_match_cpu(cuda, k):
+    """The begin-pass scatter (kernel row 3, padded to the DMA row-count
+    contract with the zero sentinel) and the end-pass read (kernel row 4
+    into pinned memory, an event after the copy) on the card equal the
+    same calls on the CPU exactly; the sentinel stays zero."""
+    from paddlebox_tpu_torch.ps.table import (RowsToHost, TableState,
+                                              scatter_window_rows)
+    rng = np.random.default_rng(k)
+    cap, feat = 1 << 14, 16
+    data = rng.normal(size=(cap + 1, feat)).astype(np.float32)
+    data[cap] = 0.0
+    rows = rng.permutation(cap)[:k].astype(np.int32)
+    vals = rng.normal(size=(k, feat)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = TableState(torch.from_numpy(data.copy()).to(dev))
+        s0, g0 = tk.scatter_rows_dma.launches, tk.gather_rows_dma.launches
+        scatter_window_rows(st, rows, vals)
+        copy = RowsToHost(st, rows[::-1].copy())
+        got = copy.wait()
+        if dev.type == "cuda":
+            assert tk.scatter_rows_dma.launches == s0 + 1
+            assert tk.gather_rows_dma.launches == g0 + 1
+        out[dev.type] = (st.data.cpu().numpy(), got.copy())
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_array_equal(out["cuda"][1], vals[::-1])
+    assert not out["cuda"][0][cap].any()
+
+
+def _tiered_run(dev, depth=0, cap=1 << 12):
+    """Three resident passes (a third of the records each) of the
+    ``_sharded_setup`` data through ``train_passes_tiered`` on a tiered
+    table on ``dev`` holding the setup's base in its host tier (lazy mf
+    drawing nothing): the host model, the dense params and the
+    results, as ``_sharded_run`` gives them."""
+    import tempfile
+    from paddlebox_tpu_torch.ps.table import rows_from_store_fields
+    from paddlebox_tpu_torch.ps.tiered import TieredShardedEmbeddingTable
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+    desc, table, dataset, model = _sharded_setup("cpu", init_range=0.0)
+    base = table()
+    recs = dataset().records
+    parts = []
+    for i in range(3):
+        ds = InMemoryDataset(desc)
+        ds.records = recs[i * len(recs) // 3:(i + 1) * len(recs) // 3]
+        parts.append(ds)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = TieredShardedEmbeddingTable(
+            4, mf_dim=base.mf_dim, capacity_per_shard=cap, cfg=base.cfg,
+            req_bucket_min=128, serve_bucket_min=256, host_capacity=900,
+            ssd_dir=tmp, devices=dev)
+        import os
+        path = os.path.join(tmp, "base.npz")
+        base.save_base(path)
+        t.load(path)
+        tr = ShardedTrainer(model(), t, desc, seed=2)
+        res = tr.train_passes_tiered(parts, depth=depth)
+        t.fence()
+        keys, rows = [], []
+        for h in t.hosts:
+            k, f = h.export_rows(clear_touched=False)
+            keys.append(k)
+            rows.append(rows_from_store_fields(f, t.mf_dim, t.opt_ext))
+        keys = np.concatenate(keys)
+        o = np.argsort(keys)
+        params = {n: v.detach().cpu().numpy()
+                  for n, v in tr.model.state_dict().items()}
+        return tr, (keys[o], np.concatenate(rows)[o]), params, res, \
+            dict(t.ssd_stats(), evicted=t._evict_async_rows)
+
+
+@pytest.mark.cuda
+def test_tiered_passes_on_card_match_cpu(cuda):
+    """Three tiered resident passes on the card (windows that evict,
+    host stores that spill to SSD segments, the write-back through
+    pinned memory on the epilogue worker) against the same passes on
+    the CPU (held against the JAX package by tests/test_torch_tiered.py),
+    in the ragged train-state class; on the card, depth 2 equals depth 0
+    bit for bit under deterministic algorithms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s0, g0 = tk.scatter_rows_dma.launches, tk.gather_rows_dma.launches
+    card = _tiered_run(cuda, cap=800)
+    assert tk.scatter_rows_dma.launches > s0
+    assert tk.gather_rows_dma.launches > g0
+    assert card[4]["demoted_rows"] > 0 and card[4]["promoted_rows"] > 0
+    assert card[4]["evicted"] > 0
+    cpu = _tiered_run("cpu", cap=800)
+    (gk, gr), (wk, wr) = card[1], cpu[1]
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gr[:, [0, 1, 3]], wr[:, [0, 1, 3]])
+    np.testing.assert_allclose(gr, wr, rtol=2e-4, atol=2e-5)
+    for name, v in cpu[2].items():
+        np.testing.assert_allclose(card[2][name], v, rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+    for a, b in zip(card[3], cpu[3]):
+        assert abs(a["auc"] - b["auc"]) < 1e-5
+    torch.use_deterministic_algorithms(True)
+    try:
+        d2 = _tiered_run(cuda, depth=2, cap=1 << 12)
+        d0 = _tiered_run(cuda, depth=0, cap=1 << 12)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    np.testing.assert_array_equal(d2[1][0], d0[1][0])
+    np.testing.assert_array_equal(d2[1][1], d0[1][1])
+    for name, v in d0[2].items():
+        np.testing.assert_array_equal(d2[2][name], v, err_msg=name)
+
+
+def _pass_table_run(dev):
+    """Three passes of the ``_sharded_setup`` data (a third of the
+    records each) through ``BoxPSHelper`` over a ``PassScopedTable`` of
+    3000 rows on ``dev`` (smaller than the passes' union, so begin_pass
+    evicts and writes dirty evictees back) and a ``Trainer``: the host
+    store's rows and the dense params."""
+    from paddlebox_tpu_torch.ps import (BoxPSHelper, HostStore,
+                                        PassScopedTable)
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.ps.table import rows_from_store_fields
+    desc, table, dataset, model = _sharded_setup("cpu", init_range=0.0)
+    recs = dataset().records
+    hs = HostStore(mf_dim=4, capacity=1 << 14)
+    t = PassScopedTable(hs, pass_capacity=3000,
+                        cfg=SparseSGDConfig(mf_create_thresholds=0.0,
+                                            mf_initial_range=0.0),
+                        device=dev)
+    tr = Trainer(model(), t, desc, seed=2, device=dev)
+    helper = BoxPSHelper(t, trainer=tr)
+    evicted = 0
+    for i in range(3):
+        ds = InMemoryDataset(desc)
+        ds.records = recs[i * len(recs) // 3:(i + 1) * len(recs) // 3]
+        helper.begin_pass(ds)
+        evicted += t.last_pass_stats["evicted"]
+        tr.train_pass(ds)
+        helper.end_pass(ds)
+    t.fence()
+    keys, f = hs.export_rows(clear_touched=False)
+    o = np.argsort(keys)
+    return (keys[o], rows_from_store_fields(f, 4, 0)[o],
+            {n: v.detach().cpu().numpy()
+             for n, v in tr.model.state_dict().items()}, evicted)
+
+
+@pytest.mark.cuda
+def test_pass_scoped_table_on_card_matches_cpu(cuda):
+    """A single-table pass window on the card that evicts (the delta
+    scatter by row 3, the write-back read by row 4 into pinned memory on
+    the epilogue worker) against the same passes on the CPU, in the
+    ragged train-state class."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = _pass_table_run(cuda)
+    cpu = _pass_table_run(torch.device("cpu"))
+    assert card[3] > 0 and card[3] == cpu[3]
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_array_equal(card[1][:, [0, 1, 3]], cpu[1][:, [0, 1, 3]])
+    np.testing.assert_allclose(card[1], cpu[1], rtol=2e-4, atol=2e-5)
+    for name, v in cpu[2].items():
+        np.testing.assert_allclose(card[2][name], v, rtol=2e-4, atol=2e-5,
+                                   err_msg=name)

@@ -339,7 +339,8 @@ def test_slow_but_moving_pipeline_does_not_trip():
 def test_pass_pipeline_equals_preloader():
     """``PassPipeline`` over a plain resident table is the preloader: the
     loop of its docstring gives ``train_passes_resident``'s digest
-    and accounting; a pass-window table is not ported and raises."""
+    and accounting; over a pass-window table, begin_pass before a staged
+    pass raises."""
     ref = _run(2, n=3)[1]
     tr = port_trainer(params0())
     pipe = PassPipeline(_passes(3), build_fn=lambda ds: (
@@ -356,8 +357,10 @@ def test_pass_pipeline_equals_preloader():
     assert pipe.builds == 3 and pipe.depth == 2 and not pipe.depth_clamped
     assert pipe.build_sec_total > 0 and pipe.wait_sec_total >= 0
     assert set(pipe.build_stage_sec) >= {"front", "dedup", "pack", "h2d"}
-    with pytest.raises(NotImplementedError, match="tiered store"):
-        PassPipeline([], build_fn=None, window_table=object())
+    window = PassPipeline([], build_fn=None, window_table=object(),
+                          device="cpu")
+    with pytest.raises(RuntimeError, match="no staged pass"):
+        window.begin_pass()
 
 
 def test_stop_between_passes_checkpoints_and_resumes_exactly(tmp_path):

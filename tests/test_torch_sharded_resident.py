@@ -440,11 +440,36 @@ def test_forced_width_below_need_raises():
 
 
 def test_tiered_hooks_raise():
+    """``build_resident_pass`` brackets the build in a table's
+    ``plan_scope`` and then runs its ``prefetch_promote`` over the pass's
+    keys when the table has spilled rows (the tiered store's hooks); a
+    build that raises inside the scope raises through it, and the
+    promote is skipped."""
+    import contextlib
     _, tds = _datasets(DATA["trivial"]())
     tr = _port_trainer({"table": _base(), "params": _port_trainer_params()})
-    tr.table.plan_scope = lambda: None
-    with pytest.raises(NotImplementedError, match="item 10"):
+    calls = []
+
+    @contextlib.contextmanager
+    def scope():
+        calls.append("enter")
+        try:
+            yield
+        except BaseException:
+            calls.append("rollback")
+            raise
+        calls.append("exit")
+
+    tr.table.plan_scope = scope
+    tr.table.has_spilled_rows = lambda: True
+    tr.table.prefetch_promote = lambda keys: calls.append(len(keys))
+    tr.build_resident_pass(tds)
+    assert calls == ["enter", "exit", len(tds.pass_keys())]
+    calls.clear()
+    tr.table.prepare_global = lambda *a, **k: 1 / 0
+    with pytest.raises(ZeroDivisionError):
         tr.build_resident_pass(tds)
+    assert calls == ["enter", "rollback"]
 
 
 def test_train_multichip_walkthrough(tmp_path):

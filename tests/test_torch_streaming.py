@@ -10,12 +10,11 @@ folded resume and the loud mismatch, the window fault retried and
 replayed, and a real SIGTERM resuming at least once. Dataset cases run
 the same scenario through both packages and compare.
 
-Left out: the three fence and hang-deadline cases of
-``tests/test_streaming.py`` (``test_epilogue_fence_hang_deadline``,
-``test_preloader_wait_hang_deadline``,
-``test_fence_slow_but_moving_pipeline_does_not_trip``). They need
-``PassEpilogue`` (ROADMAP queue 1 item 10) and the hub fixture
-``fresh_hub`` (item 13), which the port does not have yet.
+The two epilogue fence cases of ``tests/test_streaming.py``
+(``test_epilogue_fence_hang_deadline``,
+``test_fence_slow_but_moving_pipeline_does_not_trip``) are in
+``tests/test_torch_host_store.py``; the preloader's hang-deadline case
+needs the hub fixture ``fresh_hub`` (ROADMAP queue 1 item 13).
 
 Then the stream scenario at a small size (4 slots, batch 64, 8 files of
 one batch, windows of 2, one CPU thread), held three ways:
