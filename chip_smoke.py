@@ -317,6 +317,27 @@ Phases, each of which fails the run:
    epilogue's write-back seconds and overlapped share, examples/s with
    the boundaries. The main path's launches (rows 1, 3, 4, 6, 7, 13)
    join the ``kernels`` line.
+16. multi-mf, per-slot embedding widths (``multi_mf_phase``): 10 slots
+   of mf 4, 10 of 8 and 6 of 16 (row widths 12, 16, 24; pooled width
+   294 + 13 dense), ``CtrDnn`` (400, 400, 400), one base file a dim
+   class from phase 5's base ids. 16a: ``MultiMfEmbeddingTable`` of
+   2^21 rows a class; the first step through the kernels against the
+   plain versions; rows 1, 7, 6 and 13 against their plain versions at
+   every class width, timed alone beside their bounds; under
+   deterministic algorithms ``MultiMfTrainer.train_pass`` over phase 5's
+   batches and ``train_pass_resident`` over the same batches, bit for
+   bit; ``save_base`` → ``MultiMfServingModel`` → ``predict`` against
+   the trainer's forward. 16b: ``MultiMfShardedTable`` of 4 x 2^20 rows
+   a class over phase 13's batches; the first global step, kernels
+   against plain; ``train_pass`` and the overlapped push order bit for
+   bit, with the synchronized split; the sharded save pulled through a
+   single table. 16c: ``MultiMfTieredShardedTable`` through
+   ``BoxPSHelper``, the same batches as 4 passes, each class's window
+   between a pass's per-shard working set and the per-shard model, SSD
+   tiers; the model equal to 16b's bit for bit; an overlapped stage
+   leaves nothing to stage. 16d: ``ExtendedEmbeddingTable`` pull/push
+   kernels against plain, ``ReplicaCache`` against numpy. The main
+   path's launches (rows 1, 3, 4, 6, 7, 13) join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -4865,6 +4886,824 @@ def tiered_phase(torch, args, card, desc, details, dev: str = "cuda"
     return launches
 
 
+MMF_DIMS = [4] * 10 + [8] * 10 + [16] * 6  # phase 16: the class pattern of
+                                           # examples/train_multi_mf.py
+MMF_HIDDEN = (400, 400, 400)     # phase 16: CtrDnn at the registry width
+MMF_CAPACITY = 1 << 21           # 16a: rows a class table
+MMF_SERVE_BATCHES = 2            # 16a: batches the server predicts
+MMF_EXT_SKIP = (0, 13)           # 16d: the extended table's skipped slots
+MMF_EXT_CAPACITY = 1 << 20       # 16d: rows of each of its two tables
+MMF_REPLICA_ROWS = 100_000       # 16d: replica cache rows, 8 wide
+
+
+def make_mmf_blobs(rng, convert, dims, vocab: int = TRAIN_BASE_VOCAB,
+                   no_mf: float = 0.25, num_slots: int = NUM_SLOTS,
+                   stride: int = VOCAB_PER_SLOT):
+    """Phase 5's base ids split by dim class: per class (widths in
+    ascending order) the keys with id < ``vocab`` of its slots, with
+    seeded logical rows 8 + d wide, a ``no_mf`` share without mf yet."""
+    keys = base_keys(vocab, num_slots, stride)
+    dim_of_key = np.asarray(dims)[(keys // np.uint64(stride)).astype(
+        np.int64)]
+    out = []
+    for d in sorted(set(dims)):
+        k = keys[dim_of_key == d]
+        n = len(k)
+        rows = np.zeros((n, 8 + d), np.float32)
+        show = rng.integers(1, 200, size=n).astype(np.float32)
+        rows[:, 0] = show
+        rows[:, 1] = np.floor(show * rng.random(n, dtype=np.float32) * 0.3)
+        rows[:, 2] = rng.random(n, dtype=np.float32)
+        rows[:, 3] = (k // np.uint64(stride)).astype(np.float32)
+        rows[:, 4] = rng.normal(0, 0.05, size=n).astype(np.float32)
+        rows[:, 5:7] = 3.0
+        rows[:, 7] = 1.0
+        rows[:, 8:] = rng.normal(0, 0.05, size=(n, d)).astype(np.float32)
+        lazy = rng.random(n) < no_mf
+        rows[lazy, 7] = 0.0
+        rows[lazy, 8:] = 0.0
+        out.append(convert.table_rows_from_logical(k, rows, d))
+    return out
+
+
+def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
+    """Rows 1, 7, 6 and 13 on one class's sub-batch of batch 0 at its
+    widths, each against its plain version (exact but the pool, which
+    holds the pooling class) and, on the card, timed alone beside its
+    plain version with its bound (bytes over ``PEAK_BYTES``)."""
+    from paddlebox_tpu_torch.ps.table import expand_pull, pull_values
+    from paddlebox_tpu_torch.train.step import make_device_batch
+    table = state.data
+    cap, feat = table.shape[0] - 1, table.shape[1]
+    d = feat - 8
+    b = cb.batch.batch_size
+    s_c = cb.batch.num_slots
+    dv = make_device_batch(cb.batch, cb.index, dev)
+    rows = dv.unique_rows
+    u = cb.index.num_unique
+    k = cb.batch.num_keys
+    n_seg = b * s_c
+    out = {"mf_dim": d, "row_floats": feat, "value_floats": 3 + d,
+           "slots": s_c, "unique_rows": u, "keys": k}
+    timed = dev == "cuda"
+    # row 1: the pull's gather of the class's unique rows
+    got = K.gather_rows(table, rows)
+    if not torch.equal(got, K.gather_rows_plain(table, rows)):
+        raise AssertionError(f"phase 16: gather_rows differs at width {feat}")
+    values = expand_pull(pull_values(got, d),
+                         dv.gather_idx[:k]).contiguous()
+    segs = dv.segments[:k].contiguous()
+    # row 7: the pool over the class's slots at value width 3 + d
+    pooled = K.pool_cvm(values, segs, None, b, s_c)
+    err7 = check_close(f"phase 16: pool_cvm at width {3 + d}", pooled,
+                       K.pool_cvm_plain(values, segs, None, b, s_c),
+                       POOL_RTOL, POOL_ATOL)
+    # row 6: the pool backward's fused gather (head show/clk)
+    g_out = torch.randn((n_seg, 3 + d), generator=gen, device=dev)
+    src = g_out[:, 2:]
+    head = dv.show_clk.contiguous()
+    sg_args = (src, segs, head, None, b, s_c, 0)
+    if not torch.equal(K.segment_gather(*sg_args),
+                       K.segment_gather_plain(*sg_args)):
+        raise AssertionError(f"phase 16: segment_gather differs at width "
+                             f"{3 + d}")
+    # row 13: the push's write-back into a copy of the class table
+    deltas = torch.randn((rows.shape[0], feat), generator=gen,
+                         device=dev) * 1e-3
+    vals_k, vals_p = table[:cap].clone(), table[:cap].clone()
+    K.scatter_add_update(vals_k, rows, deltas)
+    K.scatter_add_update_plain(vals_p, rows, deltas)
+    if not torch.equal(vals_k, vals_p):
+        raise AssertionError(f"phase 16: scatter_add_update differs at "
+                             f"width {feat}")
+    out["pool_max_abs_err"] = err7
+    n_src = int(torch.unique(segs[(segs >= 0) & (segs < n_seg)]).numel())
+    bounds = {
+        "gather_rows": (2 * u * feat * 4 + u * 4),
+        "pool_cvm": max(k * (3 + d + 1) * 4 + n_seg * (3 + d) * 4,
+                        k * (3 + d) * PEAK_BYTES / PEAK_F32),
+        "segment_gather": (k * 4 + head.numel() * 4 + n_src * (d + 1) * 4
+                           + k * (3 + d) * 4),
+        "scatter_add_update": (rows.shape[0] * 4 + u * 3 * feat * 4)}
+    out["bound_ms"] = {n: v / PEAK_BYTES * 1e3 for n, v in bounds.items()}
+    if timed:
+        calls = {
+            "gather_rows": (lambda: K.gather_rows(table, rows),
+                            lambda: K.gather_rows_plain(table, rows)),
+            "pool_cvm": (lambda: K.pool_cvm(values, segs, None, b, s_c),
+                         lambda: K.pool_cvm_plain(values, segs, None, b,
+                                                  s_c)),
+            "segment_gather": (lambda: K.segment_gather(*sg_args),
+                               lambda: K.segment_gather_plain(*sg_args)),
+            "scatter_add_update": (
+                lambda: K.scatter_add_update(vals_k, rows, deltas),
+                lambda: K.scatter_add_update_plain(vals_p, rows, deltas))}
+        out["ms"] = {n: time_ms(torch, c[0], flush)
+                     for n, c in calls.items()}
+        out["plain_ms"] = {n: time_ms(torch, c[1], flush)
+                           for n, c in calls.items()}
+    return out
+
+
+def multi_mf_phase(torch, args, card, desc, records, batches, details,
+                   dev: str = "cuda") -> dict:
+    """Phase 16: multi-mf, per-slot embedding widths (``MMF_DIMS``: 10
+    slots of 4, 10 of 8, 6 of 16; pooled width 294 + 13 dense) at phase
+    5's width, ``CtrDnn`` at ``MMF_HIDDEN`` with phase 5's Adagrad, one
+    base file a dim class from phase 5's base ids.
+
+    16a, the single table (``MultiMfEmbeddingTable``, ``MMF_CAPACITY``
+    rows a class): the first step of batch 0 through the kernels against
+    the plain versions (f32 tower; the per-class pulls and show/clk
+    exact, rows and params in the ragged train-state class); rows 1, 7,
+    6 and 13 against their plain versions at each class width, timed
+    alone with their bounds; under deterministic algorithms the main
+    path, ``MultiMfTrainer.train_pass`` over phase 5's batches, and
+    ``train_pass_resident`` over the same batches from the same start,
+    bit for bit; ``save_base`` → ``MultiMfServingModel`` ``load_base`` +
+    ``load_dense`` → ``predict`` on ``MMF_SERVE_BATCHES`` batches against
+    the trainer's forward (atol ``PRED_ATOL``).
+
+    16b, sharded (``MultiMfShardedTable``, ``SHARD_N`` shards of
+    ``SHARD_CAPACITY`` rows a class, on the one card) over phase 13's
+    local batches, lazy mf drawing nothing: the first global step,
+    kernels against plain (pushed grads, show/clk and slots exact);
+    ``train_pass`` (the main path) and the overlapped push order
+    (``a2a_chunks`` ``SHARD_CHUNKS``) step by step with the synchronized
+    split, bit for bit; the sharded model's rows (its save's fields, in
+    memory: phase 13 writes and reads a sharded save on the card) loaded
+    into a single ``MultiMfEmbeddingTable`` pull the same values.
+
+    16c, tiered (``MultiMfTieredShardedTable`` through ``BoxPSHelper``
+    and ``MultiMfShardedTrainer``): the same batches as passes of one
+    global step, each class's window a shard between the largest
+    per-shard working set of a pass and the class's per-shard model, host
+    stores below the model with SSD tiers; the model read back through
+    the host tiers and the dense params equal 16b's plain table bit for
+    bit; a ``stage_pass`` of the open pass leaves ``staged == 0`` at the
+    next ``begin_pass``; rows 3 and 4 against their plain versions at
+    each class width on the last pass's delta and write-back rows.
+
+    16d, the remaining PS helpers: an ``ExtendedEmbeddingTable`` (mf 8 +
+    extend 8, ``MMF_EXT_SKIP`` skipped) pull/push on batch 0 through the
+    kernels against the plain versions, and ``ReplicaCache`` on the card
+    against numpy. Returns the kernels' launches in the main path (16a's
+    and 16b's ``train_pass``, 16c's passes, 16d's kernel run)."""
+    from paddlebox_tpu_torch import InMemoryDataset, convert
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.data import BatchBuilder, SlotRecord
+    from paddlebox_tpu_torch.metrics import init_auc_state
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps import (BoxPSHelper, ExtendedEmbeddingTable,
+                                        MultiMfEmbeddingTable,
+                                        MultiMfShardedTable,
+                                        MultiMfTieredShardedTable,
+                                        ReplicaCache, SparseSGDConfig)
+    from paddlebox_tpu_torch.ps.multi_mf import SlotClassMap
+    from paddlebox_tpu_torch.ps.table import (RowsToHost, TableState,
+                                              rows_from_store_fields,
+                                              scatter_window_rows)
+    from paddlebox_tpu_torch.serving import MultiMfServingModel
+    from paddlebox_tpu_torch.train import sharded as SH
+    from paddlebox_tpu_torch.train.multi_mf_sharded import (
+        MultiMfShardedTrainer, MultiMfShardedTrainStep,
+        class_push_generators, make_mmf_global_batch)
+    from paddlebox_tpu_torch.train.multi_mf_step import (
+        MultiMfStepState, MultiMfTrainer, MultiMfTrainStep,
+        class_device_batches, class_generators, multi_mf_forward)
+    from paddlebox_tpu_torch.train.step import default_tx
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    t = {}
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update,
+           "scatter_rows_dma": K.scatter_rows_dma,
+           "gather_rows_dma": K.gather_rows_dma}
+    launches = {k: 0 for k in fns}
+    part_launches = {}
+
+    def count(part, run):
+        """``run()`` with every count set to 0 before and read after."""
+        for f in fns.values():
+            f.launches = 0
+        out = run()
+        sync()
+        got = {k: f.launches for k, f in fns.items()}
+        part_launches[part] = got
+        for k, n in got.items():
+            launches[k] += n
+        return out
+
+    flush = (torch.empty(1 << 26, dtype=torch.float32, device=dev)
+             if dev == "cuda" else None)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    t0 = time.perf_counter()
+    blobs = make_mmf_blobs(np.random.default_rng(args.seed + 16), convert,
+                           MMF_DIMS)
+    t["data_s"] = time.perf_counter() - t0
+    n_base = [len(b["keys"]) for b in blobs]
+
+    def model(dtype=None):
+        torch.manual_seed(args.seed + 16)
+        kw = {} if dtype is None else {"compute_dtype": dtype}
+        return CtrDnn(1, SlotClassMap(MMF_DIMS).pooled_width(), DENSE_DIM,
+                      hidden=MMF_HIDDEN, **kw)
+
+    def single_table(cfg=None):
+        tab = MultiMfEmbeddingTable(MMF_DIMS, capacity=MMF_CAPACITY,
+                                    cfg=cfg, seed=args.seed, device=dev)
+        convert.load_multi_mf(tab, blobs)
+        return tab
+
+    tmp = tempfile.mkdtemp(prefix="mmf_smoke_")
+    out = {"dims": sorted(set(MMF_DIMS)), "base_rows": n_base}
+    try:
+        # ==== 16a: the single table ====
+        t_a = time.perf_counter()
+        t0 = time.perf_counter()
+        table = single_table()
+        sync()
+        t["a_load_s"] = time.perf_counter() - t0
+        route = table.slot_route()
+        class_slots = [len(s) for s in table.class_slots]
+        nc = table.num_classes
+        cbs0 = table.prepare(batches[0])
+        start = [tb.state.data.clone() for tb in table.tables]
+        steps = {}
+        for what, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+            m = model(torch.float32).to(dev)
+            st = MultiMfStepState(
+                tables=[TableState(s.clone(), tb.state.ext)
+                        for s, tb in zip(start, table.tables)],
+                model=m, opt=default_tx(m.parameters()),
+                auc=init_auc_state(device=dev))
+            devs = class_device_batches(cbs0, dev)
+            pulls = [ops.gather_rows(s.data, dv.unique_rows)
+                     for s, dv in zip(st.tables, devs)]
+            stats = MultiMfTrainStep(table, BATCH, ops=ops)(
+                st, devs, class_generators(dev, args.seed, 1, nc),
+                [cb.index.num_unique for cb in cbs0])
+            if not np.isfinite(float(stats["loss"])):
+                raise AssertionError(f"phase 16a {what}: non-finite loss")
+            steps[what] = (st, pulls)
+        del start
+        (sk, pk), (sp, pp) = steps["kernels"], steps["plain"]
+        for a, b in zip(pk, pp):
+            if not torch.equal(a, b):
+                raise AssertionError("phase 16a: a class pull, kernels vs "
+                                     "plain, differs")
+        a_row_err = 0.0
+        for c, (a, b) in enumerate(zip(sk.tables, sp.tables)):
+            if not torch.equal(a.data[:, :2], b.data[:, :2]):
+                raise AssertionError(f"phase 16a: class {c} show/clk, "
+                                     "kernels vs plain, differ")
+            a_row_err = max(a_row_err, check_close(
+                f"phase 16a: class {c} rows, kernels vs plain", a.data,
+                b.data, STATE_RTOL, STATE_ATOL))
+        pk_, pp_ = sk.model.state_dict(), sp.model.state_dict()
+        a_param_err = max(check_close(f"phase 16a: param {k}", pk_[k],
+                                      pp_[k], STATE_RTOL, STATE_ATOL)
+                          for k in pk_)
+        del steps, sk, sp, pk, pp, pk_, pp_
+        widths = [_class_width_timing(torch, K, tb.state, cb, dev, flush,
+                                      gen)
+                  for tb, cb in zip(table.tables, cbs0)]
+        out["class_widths"] = widths
+
+        def dataset(recs):
+            ds = InMemoryDataset(desc)
+            ds.records = recs
+            return ds
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            tr_a = MultiMfTrainer(model(), table, desc, seed=args.seed)
+            t0 = time.perf_counter()
+            res_a = count("16a", lambda: tr_a.train_pass(dataset(records)))
+            t["a_pass_s"] = time.perf_counter() - t0
+            if res_a["batches"] != len(batches) or not np.isfinite(
+                    res_a["last_loss"]):
+                raise AssertionError(f"phase 16a train_pass: {res_a}")
+            tr_r = MultiMfTrainer(model(), single_table(), desc,
+                                  seed=args.seed)
+            t0 = time.perf_counter()
+            res_r = tr_r.train_pass_resident(dataset(records))
+            sync()
+            t["a_resident_s"] = time.perf_counter() - t0
+            diffs = [float((a.state.data - b.state.data).abs().max())
+                     for a, b in zip(table.tables, tr_r.table.tables)]
+            pdiff = max(float((v - tr_r.model.state_dict()[k]).abs().max())
+                        for k, v in tr_a.model.state_dict().items())
+            if max(diffs) or pdiff or res_r["auc"] != res_a["auc"]:
+                raise AssertionError(
+                    f"phase 16a: the resident pass differs from train_pass"
+                    f" (rows max abs {diffs}, params {pdiff}, auc "
+                    f"{res_r['auc']} vs {res_a['auc']})")
+            del tr_r
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        # save_base → the multi-mf server → predict
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "mmf_base")
+        n_saved = table.save_base(path)
+        dense_path = os.path.join(tmp, "dense.pt")
+        torch.save({"model": tr_a.model.state_dict()}, dense_path)
+        t["a_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv = MultiMfServingModel(model(), desc, MMF_DIMS,
+                                  capacity=MMF_CAPACITY, device=dev)
+        if srv.load_base(path) != n_saved:
+            raise AssertionError("phase 16a: the server loaded another "
+                                 "row count")
+        srv.load_dense(dense_path)
+        sync()
+        t["a_srv_load_s"] = time.perf_counter() - t0
+        lat, pred_err = [], 0.0
+        tr_a.model.eval()
+        for b in batches[:MMF_SERVE_BATCHES]:
+            t0 = time.perf_counter()
+            pred, ins_w = srv.predict(b, return_valid=True)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if pred.shape != (BATCH,) or not np.isfinite(pred).all():
+                raise AssertionError("phase 16a: misshapen or non-finite "
+                                     "predictions")
+            with torch.inference_mode():
+                want, _ = multi_mf_forward(
+                    tr_a.state.tables, tr_a.model,
+                    class_device_batches(table.prepare_eval(b), dev), BATCH,
+                    class_slots, route)
+            pred_err = max(pred_err, float(np.abs(
+                pred - want.cpu().numpy()).max()))
+        tr_a.model.train()
+        if pred_err > PRED_ATOL:
+            raise AssertionError(f"phase 16a: served predictions differ "
+                                 f"from the trainer's by {pred_err:.3g}")
+        del srv
+        out["a"] = dict(
+            first_step=dict(row_max_abs_err=a_row_err,
+                            param_max_abs_err=a_param_err),
+            train_pass=res_a, resident=res_r, saved_rows=n_saved,
+            predict_ms=lat, predict_p50_ms=float(np.median(lat)),
+            pred_max_abs_err=pred_err,
+            features=[tb.feature_count for tb in table.tables])
+        del table, tr_a
+        t["a_s"] = time.perf_counter() - t_a
+
+        # ==== 16b: sharded ====
+        t_b = time.perf_counter()
+        sh_records = make_records(np.random.default_rng(args.seed + 13),
+                                  BATCH * SHARD_BATCHES, SlotRecord)
+        builder = BatchBuilder(desc)
+        sh_batches = [builder.build(sh_records[i:i + BATCH])
+                      for i in range(0, len(sh_records), BATCH)]
+        groups = list(SH.group_batches(sh_batches, SHARD_N))
+        cfg0 = SparseSGDConfig(mf_create_thresholds=0.0,
+                               mf_initial_range=0.0)
+
+        def sharded(cls=MultiMfShardedTable, **kw):
+            kw.setdefault("capacity_per_shard", SHARD_CAPACITY)
+            tab = cls(SHARD_N, MMF_DIMS, cfg=cfg0, devices=dev, **kw)
+            convert.load_multi_mf(tab, blobs)
+            return tab
+
+        t0 = time.perf_counter()
+        plain = sharded()
+        sync()
+        t["b_load_s"] = time.perf_counter() - t0
+        subs = [plain.split_batch(b)[0] for b in groups[0]]
+        gb = make_mmf_global_batch(
+            groups[0], subs, plain.prepare_global_from_subs(subs),
+            plain.devices)
+        runs = {}
+        for what, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+            step = MultiMfShardedTrainStep(default_tx, plain, BATCH,
+                                           ops=ops)
+            st = step.init_state(model(torch.float32))
+            st.tables = [[TableState(s.data.clone(), s.ext)
+                          for s in tb.states] for tb in plain.tables]
+            stats = step(st, gb, class_push_generators(
+                plain.devices, args.seed, 1, nc))
+            runs[what] = (st, stats)
+        (sk, k_), (sp, p_) = runs["kernels"], runs["plain"]
+        for ck, cp in zip(k_["pushed"], p_["pushed"]):
+            for a, b in zip(ck, cp):
+                if not torch.equal(a, b):
+                    raise AssertionError("phase 16b: pushed grads, kernels "
+                                         "vs plain, differ")
+        b_row_err = 0.0
+        for c, (ck, cp) in enumerate(zip(sk.tables, sp.tables)):
+            for a, b in zip(ck, cp):
+                if not torch.equal(a.data[:, [0, 1, 3]],
+                                   b.data[:, [0, 1, 3]]):
+                    raise AssertionError(f"phase 16b: class {c} show/clk/"
+                                         "slot, kernels vs plain, differ")
+                b_row_err = max(b_row_err, check_close(
+                    f"phase 16b: class {c} rows, kernels vs plain", a.data,
+                    b.data, STATE_RTOL, STATE_ATOL))
+        pk_, pp_ = sk.model.state_dict(), sp.model.state_dict()
+        b_param_err = max(check_close(f"phase 16b: param {k}", pk_[k],
+                                      pp_[k], STATE_RTOL, STATE_ATOL)
+                          for k in pk_)
+        del runs, sk, sp, k_, p_, pk_, pp_, gb
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            tr_1 = MultiMfShardedTrainer(model(), plain, desc,
+                                         seed=args.seed)
+            t0 = time.perf_counter()
+            res_1 = count("16b", lambda: tr_1.train_pass(
+                dataset(sh_records)))
+            t["b_pass_s"] = time.perf_counter() - t0
+            if res_1["batches"] != len(groups) or not np.isfinite(
+                    res_1["last_loss"]):
+                raise AssertionError(f"phase 16b train_pass: {res_1}")
+            # the overlapped push order, one global step at a time with
+            # the synchronized split
+            with flags_scope(a2a_chunks=SHARD_CHUNKS):
+                tab2 = sharded()
+                tr_2 = MultiMfShardedTrainer(model(), tab2, desc,
+                                             seed=args.seed)
+            if not tr_2.step_fn.a2a_overlap:
+                raise AssertionError("phase 16b: the overlap order is off")
+            split = {"plan_ms": [], "stage_ms": [], "step_ms": []}
+            for g in groups:
+                t0 = time.perf_counter()
+                subs = [tab2.split_batch(b)[0] for b in g]
+                plans = tab2.prepare_global_from_subs(subs)
+                t1 = time.perf_counter()
+                gb = make_mmf_global_batch(g, subs, plans, tab2.devices)
+                sync()
+                t2 = time.perf_counter()
+                tr_2.global_step += 1
+                tr_2.step_fn(tr_2.state, gb,
+                             tr_2.generators(tr_2.global_step))
+                sync()
+                t3 = time.perf_counter()
+                split["plan_ms"].append((t1 - t0) * 1e3)
+                split["stage_ms"].append((t2 - t1) * 1e3)
+                split["step_ms"].append((t3 - t2) * 1e3)
+            for c, (ta, tb) in enumerate(zip(plain.tables, tab2.tables)):
+                for a, b in zip(ta.states, tb.states):
+                    if not torch.equal(a.data, b.data):
+                        raise AssertionError(
+                            f"phase 16b: class {c}: the overlapped order "
+                            "differs from the sequential one")
+            for k, v in tr_1.model.state_dict().items():
+                if not torch.equal(v, tr_2.model.state_dict()[k]):
+                    raise AssertionError(f"phase 16b: param {k}: the "
+                                         "overlapped order differs")
+            del tr_2, tab2, gb
+        finally:
+            torch.use_deterministic_algorithms(False)
+        # the sharded model's rows (the fields its save writes, kept in
+        # memory), loaded into one single table a class
+        t0 = time.perf_counter()
+        plain_rows = []
+        for pb in plain.tables:
+            items = [pb.indexes[s].items() for s in range(SHARD_N)]
+            plain_rows.append((
+                np.concatenate([k for k, _ in items]),
+                np.concatenate([pb._rows_host(s, r)
+                                for s, (_, r) in enumerate(items)])))
+        n_sh = plain.feature_count()
+        one = MultiMfEmbeddingTable(MMF_DIMS, capacity=MMF_CAPACITY,
+                                    cfg=cfg0, device=dev)
+        if convert.load_multi_mf(one, [
+                convert.table_rows_from_logical(k, r, d)
+                for (k, r), d in zip(plain_rows, plain.dims)]) != n_sh:
+            raise AssertionError("phase 16b: the single table loaded "
+                                 "another row count")
+        probe = sh_batches[0]
+        pkeys = probe.keys[:probe.num_keys]
+        pslots = (probe.segments[:probe.num_keys]
+                  % probe.num_slots).astype(np.int32)
+        if not np.array_equal(one.pull(pkeys, pslots),
+                              plain.pull(pkeys, pslots)):
+            raise AssertionError("phase 16b: the single table's pull of "
+                                 "the sharded save differs")
+        del one
+        t["b_rows_load_s"] = time.perf_counter() - t0
+        med = {k: float(np.median(v)) for k, v in split.items()}
+        step_total = sum(med.values())
+        out["b"] = dict(
+            first_step=dict(row_max_abs_err=b_row_err,
+                            param_max_abs_err=b_param_err),
+            train_pass=res_1, split_ms=split, split_median_ms=med,
+            examples_per_sec_split=BATCH * SHARD_N / step_total * 1e3,
+            rows=n_sh, features=[tb.feature_count()
+                                       for tb in plain.tables])
+        t["b_s"] = time.perf_counter() - t_b
+
+        # ==== 16c: tiered ====
+        t_c = time.perf_counter()
+        passes = [dataset(sh_records[i * SHARD_N * BATCH:
+                                     (i + 1) * SHARD_N * BATCH])
+                  for i in range(len(groups))]
+        ws = [0] * nc
+        for ds in passes:
+            keys_p, slots_p = ds.pass_key_slots()
+            for c, kc in enumerate(plain.split_keys_by_class(keys_p,
+                                                             slots_p)):
+                ws[c] = max(ws[c], int(np.bincount(
+                    (kc % np.uint64(SHARD_N)).astype(np.int64),
+                    minlength=SHARD_N).max()))
+        model_rows = [min(len(ix) for ix in tb.indexes)
+                      for tb in plain.tables]
+        windows, hosts = {}, []
+        for c, d in enumerate(plain.dims):
+            if ws[c] < model_rows[c]:
+                windows[d] = (ws[c] + model_rows[c]) // 2
+            else:
+                log(f"phase 16c: class mf {d}: no window lies between the "
+                    f"pass working set ({ws[c]}) and the model "
+                    f"({model_rows[c]} rows a shard); the window holds "
+                    "the working set")
+                windows[d] = ws[c]
+            # a pass's write-back fits; the model spills to SSD
+            hosts.append(windows[d] + (model_rows[c] - windows[d]) // 2)
+        # one host store size for every class: the largest class's need
+        host = max(hosts)
+        log(f"phase 16c: per class (mf {plain.dims}) the largest per-shard "
+            f"pass working set {ws}, per-shard model rows {model_rows}, "
+            f"windows {[windows[d] for d in plain.dims]}; host stores "
+            f"{host} rows a shard")
+        t0 = time.perf_counter()
+        tiered = sharded(MultiMfTieredShardedTable,
+                         capacity_per_shard=None,
+                         capacity_per_class=windows, host_capacity=host,
+                         ssd_dir=os.path.join(tmp, "ssd"))
+        t["c_load_s"] = time.perf_counter() - t0
+        tr_t = MultiMfShardedTrainer(model(), tiered, desc, seed=args.seed)
+        helper = BoxPSHelper(tiered, trainer=tr_t)
+        pass_log = []
+
+        def run_passes():
+            for i, ds in enumerate(passes):
+                t0 = time.perf_counter()
+                helper.begin_pass(ds)
+                sync()
+                t1 = time.perf_counter()
+                begin = [dict(tb.last_pass_stats) for tb in tiered.tables]
+                window = [max(len(ix) for ix in tb.indexes)
+                          for tb in tiered.tables]
+                if i == len(passes) - 1:
+                    helper.stage_pass(ds)   # overlapped, the open pass's
+                res = tr_t.train_pass(ds)
+                sync()
+                t2 = time.perf_counter()
+                helper.end_pass(ds)
+                pass_log.append(dict(
+                    begin_s=t1 - t0, train_s=t2 - t1,
+                    end_submit_s=time.perf_counter() - t2, window=window,
+                    begin_stats=begin, res=res,
+                    end_stats=[dict(tb.last_pass_stats)
+                               for tb in tiered.tables]))
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            t0 = time.perf_counter()
+            count("16c", run_passes)
+            tiered.fence()
+            t["c_passes_s"] = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for p in pass_log:
+            for c, d in enumerate(tiered.dims):
+                if p["window"][c] > windows[d]:
+                    raise AssertionError(f"phase 16c: class mf {d}'s window "
+                                         f"holds {p['window'][c]} rows")
+        # the overlapped stage left nothing to stage
+        helper.begin_pass(passes[-1])
+        restaged = [tb.last_pass_stats["staged"] for tb in tiered.tables]
+        helper.end_pass(passes[-1])
+        tiered.fence()
+        if any(restaged):
+            raise AssertionError(f"phase 16c: begin_pass after the "
+                                 f"overlapped stage staged {restaged}")
+        # rows 3 and 4 at each class width, on shard 0's window: the last
+        # pass's keys that the pass before it lacked (the begin-pass
+        # delta, with seeded values) scattered into copies, and the last
+        # pass's rows (its end-pass write-back) gathered, each through
+        # the kernels and the plain versions
+        last = tiered.split_keys_by_class(*passes[-1].pass_key_slots())
+        prev = tiered.split_keys_by_class(*passes[-2].pass_key_slots())
+        vrng = np.random.default_rng(args.seed + 19)
+        dma_rows = []
+        for c, tb in enumerate(tiered.tables):
+            k_last = tb._split_by_owner(last[c])[0]
+            k_new = np.setdiff1d(k_last, tb._split_by_owner(prev[c])[0])
+            wb_rows = tb.indexes[0].lookup(k_last)
+            new_rows = tb.indexes[0].lookup(k_new)
+            if (wb_rows < 0).any() or (new_rows < 0).any() or not len(
+                    new_rows):
+                raise AssertionError(f"phase 16c: class {c}: no delta, or "
+                                     "a key of the last pass left shard "
+                                     "0's window")
+            st0 = tb.states[0]
+            feat = st0.data.shape[1]
+            vals = vrng.normal(0, 0.05, size=(len(new_rows), feat)).astype(
+                np.float32)
+            sc = {}
+            for what, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+                sc[what] = TableState(st0.data.clone(), st0.ext)
+                scatter_window_rows(sc[what], new_rows, vals, ops)
+            if not torch.equal(sc["kernels"].data, sc["plain"].data):
+                raise AssertionError(f"phase 16c: scatter_rows_dma differs "
+                                     f"from its plain version at width "
+                                     f"{feat}")
+            del sc
+            if not np.array_equal(RowsToHost(st0, wb_rows, K.KERNELS).wait(),
+                                  RowsToHost(st0, wb_rows, K.PLAIN).wait()):
+                raise AssertionError(f"phase 16c: gather_rows_dma differs "
+                                     f"from its plain version at width "
+                                     f"{feat}")
+            dma_rows.append(dict(mf_dim=tb.mf_dim, row_floats=feat,
+                                 scattered=len(new_rows),
+                                 gathered=len(wb_rows)))
+        per_class = {}
+        for c, d in enumerate(tiered.dims):
+            per_class[d] = {k: int(sum(p["begin_stats"][c].get(k, 0)
+                                       for p in pass_log))
+                            for k in ("staged", "resident", "evicted",
+                                      "evicted_writeback",
+                                      "evict_async_rows")}
+            per_class[d]["written_back"] = int(sum(
+                p["end_stats"][c].get("written_back", 0) for p in pass_log))
+            per_class[d]["ssd"] = tiered.tables[c].ssd_stats()
+        if not any(v["evicted"] + v["evict_async_rows"]
+                   for v in per_class.values()) or not all(
+                v["written_back"] for v in per_class.values()):
+            raise AssertionError(f"phase 16c: no eviction or write-back "
+                                 f"{per_class}")
+        c_err = 0.0
+        for c, (tb, (pkeys_, prows)) in enumerate(zip(tiered.tables,
+                                                      plain_rows)):
+            keys, rows = [], []
+            for h in tb.hosts:
+                k, f = h.export_rows(clear_touched=False)
+                keys.append(k)
+                rows.append(rows_from_store_fields(f, tb.mf_dim,
+                                                   tb.opt_ext))
+            keys = np.concatenate(keys)
+            o, po = np.argsort(keys), np.argsort(pkeys_)
+            if not np.array_equal(keys[o], pkeys_[po]):
+                raise AssertionError(f"phase 16c: class {c}: the tiered "
+                                     "model's keys differ from the plain "
+                                     "table's")
+            diff = np.abs(np.concatenate(rows)[o] - prows[po])
+            c_err = max(c_err, float(diff.max()))
+        pdiff = max(float((v - tr_t.model.state_dict()[k]).abs().max())
+                    for k, v in tr_1.model.state_dict().items())
+        if c_err or pdiff:
+            raise AssertionError(f"phase 16c: the tiered model differs from "
+                                 f"the plain sharded table (rows max abs "
+                                 f"{c_err}, params {pdiff})")
+        out["c"] = dict(
+            working_set=ws, model_rows=model_rows,
+            windows=[windows[d] for d in tiered.dims],
+            host=host, per_class=per_class, dma_rows=dma_rows,
+            passes=pass_log, max_abs_err=c_err, restaged=restaged,
+            endpass=tiered.endpass_stats())
+        del tiered, tr_t, helper, plain, plain_rows, tr_1
+        t["c_s"] = time.perf_counter() - t_c
+
+        # ==== 16d: the remaining PS helpers ====
+        t_d = time.perf_counter()
+        b0 = batches[0]
+        ext = {}
+        for what, ops in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+            tab = ExtendedEmbeddingTable(
+                MF_DIM, MF_DIM, capacity=MMF_EXT_CAPACITY,
+                cfg=SparseSGDConfig(mf_create_thresholds=0.0),
+                seed=args.seed, skip_extend_slots=MMF_EXT_SKIP, device=dev)
+            g = torch.Generator(device=dev).manual_seed(args.seed + 17)
+
+            def step(tab=tab, ops=ops, g=g):
+                idx = tab.prepare(b0)
+                first = tab.pull(idx, ops)
+                kp = b0.key_capacity
+                tab.push(idx, torch.randn((kp, 3 + MF_DIM), generator=g,
+                                          device=dev) * 1e-2,
+                         torch.randn((kp, 3 + MF_DIM), generator=g,
+                                     device=dev) * 1e-2, ops=ops)
+                return idx, first, tab.pull(idx, ops)
+
+            ext[what] = (count("16d", step) if ops is K.KERNELS
+                         else step())
+        (ik, fk, ak), (ip, fp, ap) = ext["kernels"], ext["plain"]
+        for a, b in zip(fk + ak, fp + ap):
+            if not torch.equal(a, b):
+                raise AssertionError("phase 16d: the extended table's "
+                                     "pulls, kernels vs plain, differ")
+        skipped = np.isin(b0.segments[:b0.num_keys] % b0.num_slots,
+                          MMF_EXT_SKIP)
+        if fk[1][:b0.num_keys][torch.from_numpy(skipped).to(dev)].abs(
+                ).sum() != 0:
+            raise AssertionError("phase 16d: a skipped slot pulled expand "
+                                 "values")
+        del ext
+        rng = np.random.default_rng(args.seed + 18)
+        rows = rng.normal(size=(MMF_REPLICA_ROWS, MF_DIM)).astype(np.float32)
+        rc = ReplicaCache(MF_DIM, device=dev)
+        rc.add_items(rows[:MMF_REPLICA_ROWS // 2])
+        rc.add_items(rows[MMF_REPLICA_ROWS // 2:])
+        ids = rng.integers(-5, MMF_REPLICA_ROWS + 5, size=(BATCH, NUM_SLOTS))
+        got = rc.pull(torch.from_numpy(ids).to(dev)).cpu().numpy()
+        if not np.array_equal(got, rows[np.clip(ids, 0,
+                                                MMF_REPLICA_ROWS - 1)]):
+            raise AssertionError("phase 16d: ReplicaCache.pull differs from "
+                                 "numpy")
+        out["d"] = dict(extended_keys=int(b0.num_keys),
+                        skipped_keys=int(skipped.sum()),
+                        replica_rows=MMF_REPLICA_ROWS,
+                        replica_ids=int(ids.size))
+        t["d_s"] = time.perf_counter() - t_d
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {"16a": ("gather_rows", "pool_cvm", "segment_gather",
+                    "scatter_add_update"),
+            "16b": ("gather_rows", "pool_cvm", "segment_gather",
+                    "scatter_add_update"),
+            "16c": ("gather_rows", "pool_cvm", "segment_gather",
+                    "scatter_add_update", "scatter_rows_dma",
+                    "gather_rows_dma"),
+            "16d": ("gather_rows", "scatter_add_update")}
+    for part, names in want.items():
+        for k in names:
+            if dev == "cuda" and part_launches[part][k] == 0:
+                raise AssertionError(f"phase {part}: {k} never launched")
+    phase_s = time.perf_counter() - t_phase
+
+    # ---- the log ----
+    a, b_, c_ = out["a"], out["b"], out["c"]
+    ctr = details.get("models", {}).get("ctr_dnn", {}).get("pass_", {})
+    log(f"multi-mf 16a: classes mf {out['dims']} over base rows "
+        f"{n_base}; first step kernels vs plain pulls and show/clk exact, "
+        f"max abs err rows {a['first_step']['row_max_abs_err']:.3g} params "
+        f"{a['first_step']['param_max_abs_err']:.3g}; train_pass of "
+        f"{len(batches)} batches {a['train_pass']['examples_per_sec']:.0f} "
+        f"examples/s (phase 14's CtrDnn on one table: "
+        f"{ctr.get('examples_per_sec', float('nan')):.0f}); resident "
+        f"{a['resident']['examples_per_sec']:.0f} examples/s with its "
+        f"build, bit for bit equal; save_base {a['saved_rows']} rows, "
+        f"predict p50 {a['predict_p50_ms']:.2f} ms, max |pred - trainer| "
+        f"{a['pred_max_abs_err']:.3g} ({card})")
+    for w in out["class_widths"]:
+        line = (f"  class mf {w['mf_dim']} (rows {w['row_floats']} floats, "
+                f"values {w['value_floats']}, {w['slots']} slots, "
+                f"{w['unique_rows']} unique rows, {w['keys']} keys): "
+                f"kernels vs plain exact, pool max abs err "
+                f"{w['pool_max_abs_err']:.3g}")
+        if "ms" in w:
+            line += "; " + ", ".join(
+                f"{n} {w['ms'][n]:.4f} ms (plain {w['plain_ms'][n]:.4f}, "
+                f"bound {w['bound_ms'][n] * 1e3:.2f} us)" for n in w["ms"])
+        log(line + f" ({card})")
+    log(f"multi-mf 16b: {SHARD_N} x {SHARD_CAPACITY} rows a class; first "
+        f"global step kernels vs plain pushed grads, show/clk/slot exact, "
+        f"max abs err rows {b_['first_step']['row_max_abs_err']:.3g} "
+        f"params {b_['first_step']['param_max_abs_err']:.3g}; train_pass "
+        f"{b_['train_pass']['examples_per_sec']:.0f} examples/s; overlapped "
+        f"order equals sequential bit for bit; global step split medians "
+        f"{json.dumps({k: round(v, 2) for k, v in b_['split_median_ms'].items()})}"
+        f" → {b_['examples_per_sec_split']:.0f} examples/s; the sharded "
+        f"model's rows ({b_['rows']}) pull alike from a single table "
+        f"({card})")
+    for d, v in c_["per_class"].items():
+        log(f"multi-mf 16c class mf {d}: staged {v['staged']}, resident "
+            f"{v['resident']}, evicted {v['evicted']} at begin_pass "
+            f"({v['evicted_writeback']} written back there) and "
+            f"{v['evict_async_rows']} ahead, written back at end_pass "
+            f"{v['written_back']}; SSD {json.dumps(v['ssd'])}")
+    for r in c_["dma_rows"]:
+        log(f"  class mf {r['mf_dim']} (rows {r['row_floats']} floats): "
+            f"scatter_rows_dma of {r['scattered']} delta rows and "
+            f"gather_rows_dma of {r['gathered']} write-back rows on shard "
+            f"0's window, kernels vs plain exact ({card})")
+    log(f"multi-mf 16c: {len(passes)} passes, windows "
+        f"{c_['windows']} over host stores of {c_['host']} rows a shard; "
+        f"the model through the host tiers equals the plain table bit for "
+        f"bit (max abs err {c_['max_abs_err']}); after the overlapped "
+        f"stage begin_pass staged {c_['restaged']}; passes took "
+        f"{t['c_passes_s']:.1f}s ({card})")
+    log(f"multi-mf 16d: ExtendedEmbeddingTable pull/push on batch 0 "
+        f"({out['d']['extended_keys']} keys, {out['d']['skipped_keys']} "
+        f"in skipped slots) kernels vs plain exact; ReplicaCache of "
+        f"{MMF_REPLICA_ROWS} rows, {out['d']['replica_ids']} ids, exact "
+        f"against numpy ({card})")
+    log(f"multi-mf: phase 16 took {phase_s:.1f}s "
+        f"{json.dumps({k: round(v, 1) for k, v in t.items()})}; launches "
+        f"{json.dumps(part_launches)} ({card})")
+    details["multi_mf"] = dict(out, seconds=t, phase_s=phase_s,
+                               launches=part_launches)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -5250,6 +6089,12 @@ def main() -> int:
     tier_launches = tiered_phase(torch, args, card, desc, details)
     for r in kernels:
         r["launches"] += tier_launches.get(r["name"], 0)
+
+    # ---- phase 16: multi-mf, the remaining PS helpers ----
+    mmf_launches = multi_mf_phase(torch, args, card, desc, records, batches,
+                                  details)
+    for r in kernels:
+        r["launches"] += mmf_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

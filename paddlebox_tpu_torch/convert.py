@@ -19,6 +19,12 @@
   ``{field}_{s}``) the port's ``ShardedEmbeddingTable.load`` takes, each
   shard's keys in row order, so a fresh port table assigns the same
   rows where the reference's are dense.
+- ``multi_mf_blobs_from_logical`` / ``multi_mf_blobs_from_packed``: a
+  JAX multi-mf table's class tables (single: each class's keys, rows and
+  logical rows; sharded: each class's packed state and shard items) →
+  one save mapping a dim class; ``load_multi_mf`` fills a port
+  ``MultiMfEmbeddingTable`` or ``MultiMfShardedTable`` from them (a
+  sharded table splits a single-table mapping by ``key % N``).
 - ``adam_state_from_optax``: an optax Adam state (count, mu, nu) → the
   ``state_dict`` of the port's ``torch.optim.Adam`` over the same params.
 - ``dense_from_jax_checkpoint``: the unpickled ``dense.pkl`` of a
@@ -30,7 +36,8 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -212,6 +219,48 @@ def sharded_table_from_packed(packed: np.ndarray,
         for f, v in part.items():
             blob[f"{f}_{s}"] = v
     return blob
+
+
+def multi_mf_blobs_from_logical(
+        classes: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray, int]],
+        slots: Optional[Sequence[np.ndarray]] = None
+        ) -> List[Dict[str, np.ndarray]]:
+    """Per dim class ``(keys, rows, logical [C+1, F], mf_dim)`` (a JAX
+    ``EmbeddingTable``'s ``index.items()`` and its logical state) → one
+    save mapping a class, keys in row order (a fresh port table then
+    assigns the same rows where the reference's are dense). ``slots``
+    (per class, the slot of each row, e.g. the JAX table's
+    ``slot_host``) fills the slot field, which the single table keeps
+    on the host rather than in its rows."""
+    out = []
+    for c, (keys, rows, logical, mf_dim) in enumerate(classes):
+        order = np.argsort(rows, kind="stable")
+        rows = np.asarray(rows)[order]
+        blob = table_rows_from_logical(np.asarray(keys)[order],
+                                       np.asarray(logical)[rows], mf_dim)
+        if slots is not None:
+            blob["slot"] = np.asarray(slots[c])[rows].astype(np.float32)
+        out.append(blob)
+    return out
+
+
+def multi_mf_blobs_from_packed(
+        classes: Sequence[Tuple[np.ndarray, Sequence, int, int]]
+        ) -> List[Dict[str, np.ndarray]]:
+    """Per dim class ``(packed [N, L, 128], shard items, capacity,
+    mf_dim)`` of a JAX ``MultiMfShardedTable`` → one sharded save
+    mapping a class (``sharded_table_from_packed``)."""
+    return [sharded_table_from_packed(packed, items, cap, mf_dim)
+            for packed, items, cap, mf_dim in classes]
+
+
+def load_multi_mf(table, blobs: Sequence[Mapping[str, np.ndarray]]) -> int:
+    """Load one mapping a dim class into a port multi-mf table's class
+    tables (in class order). Returns the rows loaded."""
+    if len(blobs) != len(table.tables):
+        raise ValueError(f"{len(blobs)} mappings for "
+                         f"{len(table.tables)} dim classes")
+    return sum(t.load(b) for t, b in zip(table.tables, blobs))
 
 
 def _adam_leaf(opt_state: Any):

@@ -730,19 +730,21 @@ class EmbeddingTable:
         metadata.
 
         The port's ``PullIndex`` has no ``key_valid``: the real keys are
-        those with ``gather_idx < num_unique``, a prefix (``_build_index``
-        points every pad at slot ``num_unique``). Only that prefix is
-        merged, so the pads never reach the accumulating ``index_put_``;
-        the result is the reference's, whose key_valid mask zeroes them."""
-        nk = int(np.count_nonzero(idx.gather_idx < idx.num_unique))
+        those with ``gather_idx < num_unique`` (``_build_index`` points
+        every pad at slot ``num_unique``, as ``ps/extended`` points a
+        skipped key). Only those are merged, in key order, so the pads
+        never reach the accumulating ``index_put_``; the result is the
+        reference's, whose key_valid mask zeroes them."""
+        live = np.flatnonzero(idx.gather_idx < idx.num_unique)
         if slot_of_key is not None:
-            sok = np.asarray(slot_of_key)[:nk].astype(np.int16)
+            sok = np.asarray(slot_of_key)[live].astype(np.int16)
             with self.host_lock:
-                self.record_slots(idx.unique_rows, idx.gather_idx[:nk], sok)
-        gi = torch.from_numpy(idx.gather_idx[:nk].astype(np.int64)).to(
+                self.record_slots(idx.unique_rows, idx.gather_idx[live], sok)
+        gi = torch.from_numpy(idx.gather_idx[live].astype(np.int64)).to(
             self.device)
         g = key_grads.new_zeros((len(idx.unique_rows), key_grads.shape[1]))
-        g.index_put_((gi,), key_grads[:nk], accumulate=True)
+        g.index_put_((gi,), key_grads[torch.from_numpy(live).to(
+            key_grads.device)], accumulate=True)
         rows = torch.from_numpy(idx.unique_rows).to(self.device)
         apply_push(self.state, rows, g, self.cfg,
                    generator=self.next_generator(), ops=ops)

@@ -49,11 +49,14 @@ from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.data.batch import BatchBuilder, SlotBatch
 from paddlebox_tpu_torch.data.schema import DataFeedDesc
 from paddlebox_tpu_torch.device import resolve_device
+from paddlebox_tpu_torch.ps.multi_mf import MultiMfEmbeddingTable
 from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
 from paddlebox_tpu_torch.resilience import faults
 from paddlebox_tpu_torch.resilience.retry import RetryPolicy
 from paddlebox_tpu_torch.train.checkpoint import DENSE, read_dense_file
+from paddlebox_tpu_torch.train.multi_mf_step import (class_device_batches,
+                                                     multi_mf_forward)
 from paddlebox_tpu_torch.train.step import ctr_forward, make_device_batch
 
 log = logging.getLogger(__name__)
@@ -575,3 +578,84 @@ class ReloadLoop:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+class MultiMfServingModel:
+    """Read-only base+delta consumer for MULTI-MF saves (per-slot
+    embedding dims, feature_value.h:42-185): loads the per-dim-class
+    files ``MultiMfEmbeddingTable.save_base/save_delta`` write
+    (``{path}.mf{d}.npz``, either package's), answers per-slot-width
+    lookups and full CTR predictions through the canonical slot-ordered
+    pooled concat, the forward of ``MultiMfTrainStep``. It has no
+    snapshot or hot reload (the reference's has none): loads and queries
+    are not meant to overlap."""
+
+    def __init__(self, model: nn.Module, desc: DataFeedDesc, slot_mf_dims,
+                 capacity: int = 1 << 20, use_cvm: bool = True,
+                 cvm_offset: int = 2,
+                 cfg: Optional[SparseSGDConfig] = None,
+                 device: Union[str, torch.device] = "cuda") -> None:
+        """``model`` takes (flat [B, W], dense); ``cfg`` is the class
+        tables' optimizer config (it sets their row widths)."""
+        self.device = resolve_device(device)
+        self.model = model
+        self.desc = desc
+        self.use_cvm = use_cvm
+        self.cvm_offset = cvm_offset
+        self.table = MultiMfEmbeddingTable(
+            slot_mf_dims, capacity=capacity, cfg=cfg or SparseSGDConfig(),
+            device=self.device)
+        self.params: Optional[nn.Module] = None
+        self._route = self.table.slot_route()
+        self._class_slots = [len(s) for s in self.table.class_slots]
+
+    # ---- artifact loading (the multi-mf save format) ----
+    def load_base(self, path: str) -> int:
+        """Load a ``MultiMfEmbeddingTable.save_base`` file set."""
+        n = self.table.load(path, merge=False)
+        log.info("serving: loaded multi-mf base %s (%d rows)", path, n)
+        return n
+
+    def apply_delta(self, path: str) -> int:
+        n = self.table.load(path, merge=True)
+        log.info("serving: applied multi-mf delta %s (%d rows)", path, n)
+        return n
+
+    def load_params(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """A copy of the model takes ``state_dict`` and serves."""
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(state_dict)
+        self.params = model.to(self.device).eval()
+
+    def load_dense(self, path: str) -> None:
+        """``load_params`` from a ``dense.pt`` (only the model part)."""
+        self.load_params(read_dense_file(path)["model"])
+
+    # ---- queries ----
+    def embed_lookup(self, keys: np.ndarray,
+                     slots: np.ndarray) -> np.ndarray:
+        """[n] keys + their slot ids → [n, 3 + max_mf] pull values with
+        PER-SLOT widths (columns beyond the key's slot width are zero) —
+        the dy_mf CopyForPull contract. Unknown keys read zeros."""
+        return self.table.pull(keys, slots)
+
+    def slot_width(self, slot: int) -> int:
+        """Embedding width (3 + mf_dim) served for a slot."""
+        return 3 + int(self.table.slot_mf_dims[slot])
+
+    def predict(self, batch: SlotBatch, return_valid: bool = False):
+        """CTR predictions [B] (eval semantics: unknown keys read zeros,
+        nothing trains); ``return_valid`` also returns the 0/1 mask of
+        the batch's real records."""
+        if self.params is None:
+            raise RuntimeError("load_dense first")
+        devs = class_device_batches(self.table.prepare_eval(batch),
+                                    self.device)
+        with torch.inference_mode():
+            pred, ins_w = multi_mf_forward(
+                [t.state for t in self.table.tables], self.params, devs,
+                batch.batch_size, self._class_slots, self._route,
+                self.use_cvm, self.cvm_offset)
+        if return_valid:
+            return pred.cpu().numpy(), ins_w.cpu().numpy()
+        return pred.cpu().numpy()

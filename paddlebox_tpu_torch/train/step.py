@@ -172,7 +172,10 @@ class DeviceBatch(NamedTuple):
 
 
 def make_device_batch(batch: SlotBatch, idx: PullIndex,
-                      device: torch.device) -> DeviceBatch:
+                      device: torch.device,
+                      floats: Optional[torch.Tensor] = None) -> DeviceBatch:
+    """``floats`` reuses an already staged float block: the multi-mf
+    class sub-batches share one, so only the first copies it."""
     u_pad = idx.unique_rows.shape[0]
     ints_u = np.empty(u_pad + 2, np.int32)
     ints_u[:u_pad] = idx.unique_rows
@@ -182,11 +185,12 @@ def make_device_batch(batch: SlotBatch, idx: PullIndex,
         ints_k = np.ascontiguousarray(idx.gather_idx[None, :])
     else:
         ints_k = np.stack([idx.gather_idx, batch.segments.astype(np.int32)])
-    floats = pack_floats(batch.dense, batch.label, batch.show, batch.clk)
+    if floats is None:
+        floats = torch.from_numpy(pack_floats(
+            batch.dense, batch.label, batch.show, batch.clk)).to(device)
     return DeviceBatch(ints_u=torch.from_numpy(ints_u).to(device),
                        ints_k=torch.from_numpy(ints_k).to(device),
-                       floats=torch.from_numpy(floats).to(device),
-                       num_keys=int(batch.num_keys))
+                       floats=floats, num_keys=int(batch.num_keys))
 
 
 def _expand_pool(vals_u: torch.Tensor, batch: DeviceBatch,

@@ -2384,3 +2384,206 @@ def test_pass_scoped_table_on_card_matches_cpu(cuda):
     for name, v in cpu[2].items():
         np.testing.assert_allclose(card[2][name], v, rtol=2e-4, atol=2e-5,
                                    err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# multi-mf (ps/multi_mf.py, ps/multi_mf_sharded.py, train/multi_mf_*.py)
+# ---------------------------------------------------------------------------
+
+MMF_TEST_DIMS = [2] * 10 + [4] * 10 + [8] * 6     # row widths 10, 12, 16
+MMF_CHIP_DIMS = [4] * 10 + [8] * 10 + [16] * 6    # 12, 16, 24
+
+
+def _mmf_setup(n_rec=64 * 8, bs=64, dense=13, vocab=400, seed=21):
+    """26 ragged slots (1 + Poisson(2) keys each, slot-qualified ids)
+    and the desc of batches of ``bs``."""
+    rng = np.random.default_rng(seed)
+    s = len(MMF_TEST_DIMS)
+    slots = ([SlotDef("label", "float", 1), SlotDef("d", "float", dense)]
+             + [SlotDef(f"C{i}", "uint64") for i in range(s)])
+    desc = DataFeedDesc(slots=slots, label_slot="label", batch_size=bs,
+                        key_bucket_min=1024)
+    recs = []
+    for i in range(n_rec):
+        counts = 1 + rng.poisson(2.0, size=s)
+        offs = np.zeros(s + 1, np.int32)
+        np.cumsum(counts, out=offs[1:])
+        slot = np.repeat(np.arange(s), counts)
+        keys = (slot * 100_000 + rng.integers(0, vocab, size=int(offs[-1]))
+                ).astype(np.uint64)
+        lab = float(rng.random() < 0.3)
+        recs.append(SlotRecord(keys, offs,
+                               rng.normal(size=dense).astype(np.float32),
+                               lab, 1.0, lab))
+    return desc, recs
+
+
+def _mmf_model(width, dense=13):
+    from paddlebox_tpu_torch.models import CtrDnn
+    torch.manual_seed(6)
+    return CtrDnn(1, width, dense, hidden=(32, 16),
+                  compute_dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [MMF_TEST_DIMS, MMF_CHIP_DIMS],
+                         ids=["test_dims", "chip_dims"])
+def test_multi_mf_step_kernels_match_plain(cuda, dims):
+    """Two multi-mf steps through the kernels against the plain versions
+    from one state, per class widths 10/12/16 (row 1's and row 13's
+    vec = 1 paths at 10) and 12/16/24: the per-class pulls exact, show/
+    clk exact, rows and dense params in the ragged train-state class;
+    every kernel of the path launched."""
+    from paddlebox_tpu_torch.metrics import init_auc_state
+    from paddlebox_tpu_torch.ps import MultiMfEmbeddingTable
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.ps.table import TableState
+    from paddlebox_tpu_torch.train.multi_mf_step import (
+        MultiMfStepState, MultiMfTrainStep, class_device_batches,
+        class_generators)
+    from paddlebox_tpu_torch.train.step import default_tx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    desc, recs = _mmf_setup()
+    table = MultiMfEmbeddingTable(
+        dims, capacity=1 << 14, device=cuda,
+        cfg=SparseSGDConfig(mf_create_thresholds=0.0,
+                            mf_initial_range=0.0))
+    builder = BatchBuilder(desc)
+    batches = [builder.build(recs[i:i + 64]) for i in (0, 64)]
+    cbs = [table.prepare(b) for b in batches]
+    width = table.pooled_width()
+    runs = {}
+    for name, ops in (("kernels", tk.KERNELS), ("plain", tk.PLAIN)):
+        m = _mmf_model(width).to(cuda)
+        st = MultiMfStepState(
+            tables=[TableState(t.state.data.clone(), t.state.ext)
+                    for t in table.tables],
+            model=m, opt=default_tx(m.parameters()),
+            auc=init_auc_state(device=cuda))
+        step = MultiMfTrainStep(table, 64, ops=ops)
+        before = {f: getattr(tk, f).launches for f in
+                  ("gather_rows", "pool_cvm", "segment_gather",
+                   "scatter_add_update")}
+        pulls = []
+        for i, cb in enumerate(cbs):
+            devs = class_device_batches(cb, cuda)
+            pulls.append([ops.gather_rows(s.data, d.unique_rows)
+                          for s, d in zip(st.tables, devs)])
+            step(st, devs, class_generators(cuda, 0, i + 1, len(dims)),
+                 [c.index.num_unique for c in cb])
+        torch.cuda.synchronize()
+        if ops is tk.KERNELS:
+            for f, n0 in before.items():
+                assert getattr(tk, f).launches > n0, f
+        runs[name] = (st, pulls)
+    (sk, pk), (sp, pp) = runs["kernels"], runs["plain"]
+    for a, b in zip(pk[0], pp[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(sk.tables, sp.tables):
+        assert a.data.shape[1] in (10, 12, 16, 24)
+        assert torch.equal(a.data[:, :2], b.data[:, :2])
+        np.testing.assert_allclose(a.data.cpu().numpy(),
+                                   b.data.cpu().numpy(), rtol=2e-4,
+                                   atol=2e-5)
+    for (name, a), b in zip(sk.model.state_dict().items(),
+                            sp.model.state_dict().values()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_multi_mf_resident_equals_streaming_on_card(cuda, deterministic):
+    """The multi-mf resident pass equals train_pass on the card bit for
+    bit, lazy mf drawing (each class's draw covers its real rows)."""
+    from paddlebox_tpu_torch.ps import MultiMfEmbeddingTable
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.train import MultiMfTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    desc, recs = _mmf_setup()
+    ds = InMemoryDataset(desc)
+    ds.records = recs
+    out = []
+    for resident in (False, True):
+        table = MultiMfEmbeddingTable(
+            MMF_TEST_DIMS, capacity=1 << 14, device=cuda,
+            cfg=SparseSGDConfig(mf_create_thresholds=0.0))
+        tr = MultiMfTrainer(_mmf_model(table.pooled_width()), table, desc,
+                            seed=1)
+        res = (tr.train_pass_resident(ds) if resident
+               else tr.train_pass(ds))
+        out.append((tr, res))
+    (a, ra), (b, rb) = out
+    assert ra["auc"] == rb["auc"] and ra["last_loss"] == rb["last_loss"]
+    for ta, tb_ in zip(a.table.tables, b.table.tables):
+        assert torch.equal(ta.state.data, tb_.state.data)
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(v, b.model.state_dict()[k]), k
+
+
+@pytest.mark.cuda
+def test_multi_mf_tiered_equals_plain_sharded_on_card(cuda, deterministic,
+                                                      tmp_path):
+    """Four passes through ``BoxPSHelper`` over a
+    ``MultiMfTieredShardedTable`` whose class windows are smaller than
+    the model (they evict and write back through rows 3 and 4; SSD
+    tiers) against a plain ``MultiMfShardedTable`` trained straight
+    through: the models read back through the host tiers equal bit for
+    bit, the dense params too."""
+    from paddlebox_tpu_torch.ps import (BoxPSHelper, MultiMfShardedTable,
+                                        MultiMfTieredShardedTable)
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.train import MultiMfShardedTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    desc, recs = _mmf_setup(n_rec=64 * 16, vocab=3000)
+    passes = []
+    for i in range(4):
+        ds = InMemoryDataset(desc)
+        ds.records = recs[i * 256:(i + 1) * 256]
+        passes.append(ds)
+    cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
+    kw = dict(cfg=cfg, req_bucket_min=256, serve_bucket_min=512,
+              devices=cuda)
+    plain = MultiMfShardedTable(4, MMF_TEST_DIMS,
+                                capacity_per_shard=1 << 13, **kw)
+    tiered = MultiMfTieredShardedTable(
+        4, MMF_TEST_DIMS, capacity_per_shard=1 << 11, host_capacity=4000,
+        ssd_dir=str(tmp_path), **kw)
+    width = plain.pooled_width()
+    tr_p = MultiMfShardedTrainer(_mmf_model(width), plain, desc, seed=1)
+    tr_t = MultiMfShardedTrainer(_mmf_model(width), tiered, desc, seed=1)
+    helper = BoxPSHelper(tiered, trainer=tr_t)
+    s0, g0 = tk.scatter_rows_dma.launches, tk.gather_rows_dma.launches
+    evicted = 0
+    for ds in passes:
+        tr_p.train_pass(ds)
+        helper.begin_pass(ds)
+        evicted += sum(t.last_pass_stats["evicted"]
+                       for t in tiered.tables)
+        tr_t.train_pass(ds)
+        helper.end_pass(ds)
+    tiered.fence()
+    torch.cuda.synchronize()
+    assert tk.scatter_rows_dma.launches > s0
+    assert tk.gather_rows_dma.launches > g0
+    assert evicted > 0
+    from paddlebox_tpu_torch.ps.table import rows_from_store_fields
+    demoted = 0
+    for t, p in zip(tiered.tables, plain.tables):
+        demoted += t.ssd_stats().get("demoted_rows", 0)
+        keys, rows, pk, pr = [], [], [], []
+        for s, h in enumerate(t.hosts):
+            k, f = h.export_rows(clear_touched=False)
+            keys.append(k)
+            rows.append(rows_from_store_fields(f, t.mf_dim, t.opt_ext))
+            k, r = p.indexes[s].items()
+            pk.append(k)
+            pr.append(p._rows_host(s, r))
+        o, po = np.argsort(np.concatenate(keys)), np.argsort(
+            np.concatenate(pk))
+        np.testing.assert_array_equal(np.concatenate(keys)[o],
+                                      np.concatenate(pk)[po])
+        np.testing.assert_array_equal(np.concatenate(rows)[o],
+                                      np.concatenate(pr)[po])
+    assert demoted > 0
+    for k, v in tr_p.model.state_dict().items():
+        assert torch.equal(v, tr_t.model.state_dict()[k]), k
