@@ -323,7 +323,9 @@ Phases, each of which fails the run:
    class from phase 5's base ids. 16a: ``MultiMfEmbeddingTable`` of
    2^21 rows a class; the first step through the kernels against the
    plain versions; rows 1, 7, 6 and 13 against their plain versions at
-   every class width, timed alone beside their bounds; under
+   every class width, timed alone beside their bounds and against their
+   library calls (``index_select``, ``segment_reduce``, ``index_add_``)
+   in 5 alternating repeats; under
    deterministic algorithms ``MultiMfTrainer.train_pass`` over phase 5's
    batches and ``train_pass_resident`` over the same batches, bit for
    bit; ``save_base`` → ``MultiMfServingModel`` → ``predict`` against
@@ -4930,7 +4932,10 @@ def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
     """Rows 1, 7, 6 and 13 on one class's sub-batch of batch 0 at its
     widths, each against its plain version (exact but the pool, which
     holds the pooling class) and, on the card, timed alone beside its
-    plain version with its bound (bytes over ``PEAK_BYTES``)."""
+    plain version with its bound (bytes over ``PEAK_BYTES``), and timed
+    against its library call on the same inputs in 5 alternating
+    repeats (``alternating_ms``): ``index_select`` for rows 1 and 6,
+    ``segment_reduce`` (sum) for row 7, ``index_add_`` for row 13."""
     from paddlebox_tpu_torch.ps.table import expand_pull, pull_values
     from paddlebox_tpu_torch.train.step import make_device_batch
     table = state.data
@@ -5002,6 +5007,33 @@ def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
                      for n, c in calls.items()}
         out["plain_ms"] = {n: time_ms(torch, c[1], flush)
                            for n, c in calls.items()}
+        # the library calls on the same inputs: row 1's gather of the
+        # unique rows (pads clamped to the sentinel row), row 6's gather
+        # of the src rows (a zero row for an id outside [0, N)), row 7's
+        # sum over the valid keys' segment lengths, row 13's add of the
+        # kept rows' deltas
+        rows_c = torch.where(rows.long() > cap, cap, rows.long())
+        live = torch.where((segs >= 0) & (segs < n_seg), segs.long(), n_seg)
+        src_z = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+        valid = (segs >= 0) & (segs < n_seg)
+        lengths = torch.bincount(segs[valid].long(), minlength=n_seg)
+        vals_valid = values[valid].contiguous()
+        kept = (rows >= 0) & (rows < cap)
+        rows_kept, deltas_kept = rows[kept].long(), deltas[kept]
+        lib = {
+            "gather_rows": lambda: torch.index_select(table, 0, rows_c),
+            "segment_gather": lambda: torch.index_select(src_z, 0, live),
+            "pool_cvm": lambda: torch.segment_reduce(vals_valid, "sum",
+                                                     lengths=lengths),
+            "scatter_add_update": lambda: vals_p.index_add_(
+                0, rows_kept, deltas_kept)}
+        out["repeats"] = {n: alternating_ms(torch, {
+            "kernel": calls[n][0], "library": lib[n]}, flush)
+            for n in calls}
+        out["library_ms"] = {n: r["library"]["median"]
+                             for n, r in out["repeats"].items()}
+        out["alternating_ms"] = {n: r["kernel"]["median"]
+                                 for n, r in out["repeats"].items()}
     return out
 
 
@@ -5662,7 +5694,9 @@ def multi_mf_phase(torch, args, card, desc, records, batches, details,
         if "ms" in w:
             line += "; " + ", ".join(
                 f"{n} {w['ms'][n]:.4f} ms (plain {w['plain_ms'][n]:.4f}, "
-                f"bound {w['bound_ms'][n] * 1e3:.2f} us)" for n in w["ms"])
+                f"library {w['library_ms'][n]:.4f} against "
+                f"{w['alternating_ms'][n]:.4f} in turns, bound "
+                f"{w['bound_ms'][n] * 1e3:.2f} us)" for n in w["ms"])
         log(line + f" ({card})")
     log(f"multi-mf 16b: {SHARD_N} x {SHARD_CAPACITY} rows a class; first "
         f"global step kernels vs plain pushed grads, show/clk/slot exact, "
@@ -5701,6 +5735,596 @@ def multi_mf_phase(torch, args, card, desc, records, batches, details,
         f"{json.dumps(part_launches)} ({card})")
     details["multi_mf"] = dict(out, seconds=t, phase_s=phase_s,
                                launches=part_launches)
+    return launches
+
+
+
+OBS_PHASE_BUDGET_S = 45.0        # phase 17's wall budget
+OBS_SERVE_CAPACITY = 1 << 20     # 17c: rows of the served table
+OBS_PREDICTS = 20                # 17c: predicts through the histogram
+OBS_TIER_PASSES = 3              # 17b: passes (cold, then 2 measured)
+OBS_TRACE_LEAD_S = 0.5           # 17e: the trace window's lead before the step
+#: the CUDA symbols of rows 1, 6, 7 and 13 (csrc/gather_rows.cu,
+#: segment_gather.cu, pool_cvm.cu, scatter_add_update.cu)
+OBS_KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_kernel",),
+                      "segment_gather": ("segment_gather_kernel",
+                                         "segment_gather_wide"),
+                      "pool_cvm": ("pool_cvm_kernel",),
+                      "scatter_add_update": ("scatter_add_kernel",)}
+#: the wrappers' dispatch labels (``pbox_kernel_dispatch_total{kernel}``)
+OBS_LABELS = {"gather_rows": "gather_rows", "segment_gather": "seqpool_grad",
+              "pool_cvm": "fused_embed_pool_cvm",
+              "scatter_add_update": "scatter_add_update",
+              "scatter_rows_dma": "scatter_rows_dma",
+              "gather_rows_dma": "gather_rows_dma"}
+
+
+def _dispatch(hub) -> dict:
+    """{(kernel, impl): count} of the hub's dispatch counter."""
+    snap = hub.snapshot().get("pbox_kernel_dispatch_total", {})
+    out = {}
+    for key, n in snap.get("series", {}).items():
+        kv = dict(x.split("=", 1) for x in key.split(","))
+        out[(kv["kernel"], kv["impl"])] = n
+    return out
+
+
+def _check_dispatch(what: str, hub, launches: dict, dev: str) -> dict:
+    """The hub's dispatch counter against the wrappers' launch deltas:
+    on the card every launch books one ``cuda`` tick and nothing books
+    ``plain``. Returns {label: cuda ticks}."""
+    got = _dispatch(hub)
+    plain = {k: v for k, v in got.items() if k[1] == "plain"}
+    out = {}
+    for name, n in launches.items():
+        lab = OBS_LABELS[name]
+        ticks = got.get((lab, "cuda"), 0)
+        out[lab] = ticks
+        if dev == "cuda" and (ticks != n or n == 0):
+            raise AssertionError(f"{what}: pbox_kernel_dispatch_total"
+                                 f"{{kernel={lab}, impl=cuda}} {ticks}, "
+                                 f"launches {n}")
+    if dev == "cuda" and plain:
+        raise AssertionError(f"{what}: plain dispatches on the card: "
+                             f"{plain}")
+    return out
+
+
+def _strict_prom(text: str) -> int:
+    """Parse a Prometheus text exposition strictly: every sample line
+    belongs to a declared family and matches the sample grammar. Returns
+    the sample count."""
+    import re
+    sample = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+        r'(?:\{((?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\["\\n])*",?)*)\})?'
+        r' (-?(?:[0-9.]+(?:e[+-]?[0-9]+)?|inf)|nan)$', re.IGNORECASE)
+    types, n = {}, 0
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP "):
+            continue
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            types[name] = kind
+            continue
+        m = sample.match(ln)
+        if m is None:
+            raise AssertionError(f"/metrics: unparseable line {ln!r}")
+        name = m.group(1)
+        fam = next((name[:-len(s)] for s in ("_bucket", "_sum", "_count")
+                    if name.endswith(s) and name[:-len(s)] in types), name)
+        if fam not in types:
+            raise AssertionError(f"/metrics: {name} has no # TYPE")
+        n += 1
+    return n
+
+
+def obs_phase(torch, args, card, desc, records, batches, details,
+              dev: str = "cuda") -> dict:
+    """Phase 17: the always-on layer (``obs/``) on the card. Phases 1-16
+    ran with the hub inert; here it is turned on around the main paths.
+
+    17a: ``Trainer.train_pass`` over phase 5's batches from phase 5's
+    ragged base at full width, under deterministic algorithms with
+    ``mf_initial_range`` 0, four times from the same start: hub inert,
+    fully on (JSONL and lane-trace sinks, ``quality_window_passes`` 2,
+    the alert engine on a 0.05 s cadence, a flight-recorder dir), fully
+    on, inert. The table rows and dense params after each turn equal the
+    first's (``torch.equal``); the pass event's stage keys and device
+    memory block, the quality monitor's ``embed_norm`` against the same
+    sampled rows copied to the host, and ``pbox_kernel_dispatch_total``
+    for rows 1, 6, 7 and 13 against the wrappers' launch deltas (no
+    ``plain`` tick). 17b: the tiered depth-2 pipeline of phase 15a's
+    shape with the lane sink: spans on the ``main``, ``preload.worker``
+    and ``epilogue.lane`` lanes, build→consume and end_submit→write-back
+    links, a critical-path verdict on every pass event, rows 3 and 4
+    booked as ``cuda``. 17c: ``ServingModel.predict`` 20 times on batch 0
+    with ``register_health`` and ``start_prom_http(0)``: /readyz 503
+    before the adoption and 200 after, /metrics parses, the predict
+    latency histogram counts 20. 17d: a NaN-poisoned batch through
+    ``Trainer.run_pass`` with a boundary checkpoint: one ``nan_rollback``
+    bundle of the bundle schema, the state after the rollback equal to
+    the pre-pass digest, ``hub.dump_blackbox`` one more bundle. 17e:
+    ``utils.profiler.trace`` around one ``TrainStep``: its chrome trace
+    holds the CUDA kernels of rows 1, 6, 7 and 13. Prints one ``obs:``
+    JSON line; returns the rows' launches on the phase's main path."""
+    import dataclasses
+    import urllib.error
+    import urllib.request
+
+    from paddlebox_tpu_torch import (ArtifactStore, CheckpointManager,
+                                     DeepFM, EmbeddingTable,
+                                     InMemoryDataset, ServingModel, Trainer,
+                                     convert)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.data import DataFeedDesc, SlotDef, SlotRecord
+    from paddlebox_tpu_torch.obs import (ChromeLaneTraceSink,
+                                         FlightRecorder, JsonlSink,
+                                         reset_hub)
+    from paddlebox_tpu_torch.obs import flightrec
+    from paddlebox_tpu_torch.obs.quality import NORM_SAMPLE_ROWS
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps import SparseSGDConfig
+    from paddlebox_tpu_torch.ps.tiered import TieredShardedEmbeddingTable
+    from paddlebox_tpu_torch.tools.obs_check import BUNDLE_KEYS
+    from paddlebox_tpu_torch.train import sharded as SH
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+    from paddlebox_tpu_torch.train.step import make_device_batch
+    from paddlebox_tpu_torch.utils import profiler
+    from paddlebox_tpu_torch.utils.profiler import ChromeTraceWriter
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update,
+           "scatter_rows_dma": K.scatter_rows_dma,
+           "gather_rows_dma": K.gather_rows_dma}
+    launches = {k: 0 for k in fns}
+
+    def count(run, names=tuple(fns)):
+        """``run()`` with every count set to 0 before and read after;
+        returns (result, this run's launches of ``names``)."""
+        for f in fns.values():
+            f.launches = 0
+        out = run()
+        sync()
+        got = {k: fns[k].launches for k in names}
+        for k, f in fns.items():
+            launches[k] += f.launches
+        return out, got
+
+    out: dict = {}
+    t = {}
+    tmp = tempfile.mkdtemp(prefix="pbx_obs_")
+    cfg = SparseSGDConfig(mf_initial_range=0.0)
+    try:
+        # ---- 17a: hub inert / on / on / inert, state bit for bit ----
+        t0 = time.perf_counter()
+        base = make_table_blob(np.random.default_rng(args.seed + 1),
+                               convert, vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+        base_path = os.path.join(tmp, "train_base.npz")
+        np.savez(base_path, **base)
+        del base
+        torch.manual_seed(args.seed + 2)
+        init = {k: v.clone() for k, v in DeepFM(
+            NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+            hidden=HIDDEN).state_dict().items()}
+        t["a_setup_s"] = time.perf_counter() - t0
+        ref = None
+        turns = []
+        names4 = ("gather_rows", "pool_cvm", "segment_gather",
+                  "scatter_add_update")
+        torch.use_deterministic_algorithms(True)
+        try:
+            for i, on in enumerate((False, True, True, False)):
+                hub = reset_hub()
+                flags = {}
+                jsonl = os.path.join(tmp, f"turn{i}.jsonl")
+                if on:
+                    hub.add_sink(JsonlSink(jsonl))
+                    lane = ChromeTraceWriter()
+                    hub.add_sink(ChromeLaneTraceSink(lane))
+                    flags = dict(quality_window_passes=2,
+                                 alerts_eval_interval_sec=0.05,
+                                 flightrec_dir=os.path.join(tmp, f"bb{i}"))
+                with flags_scope(**flags):
+                    table = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY,
+                                           cfg=cfg, seed=args.seed,
+                                           device=dev)
+                    table.load(base_path)
+                    model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                   hidden=HIDDEN)
+                    model.load_state_dict(init)
+                    tr = Trainer(model, table, desc, seed=args.seed,
+                                 check_nan_inf=True, device=dev)
+                    ds = InMemoryDataset(desc)
+                    ds.records = records
+                    sync()
+                    res, got = count(lambda: tr.train_pass(ds), names4)
+                    turn = {"hub": "on" if on else "inert",
+                            "examples_per_sec": res["examples_per_sec"],
+                            "elapsed_sec": res["elapsed_sec"],
+                            "launches": got}
+                    if on:
+                        turn["dispatch"] = _check_dispatch(
+                            f"phase 17a turn {i}", hub, got, dev)
+                        evs = [json.loads(ln) for ln in open(jsonl)]
+                        ev = next(e for e in evs if e["event"] == "pass")
+                        q = next(e for e in evs
+                                 if e["event"] == "quality_window")
+                        stages = sorted(ev["stage_sec"])
+                        if not {"prepare", "h2d", "step"} <= set(stages):
+                            raise AssertionError(f"phase 17a: stage_sec "
+                                                 f"keys {stages}")
+                        mem = ev["hbm"]
+                        if dev == "cuda" and not (
+                                mem["bytes_in_use"] > 0
+                                and mem["peak_bytes_in_use"]
+                                >= mem["bytes_in_use"]
+                                and mem["bytes_limit"] == torch.cuda
+                                .get_device_properties(0).total_memory):
+                            raise AssertionError(f"phase 17a: device "
+                                                 f"memory block {mem}")
+                        # the monitor's sample: the smallest keys' rows,
+                        # gathered here on the host from a whole copy
+                        keys, rows = table.index.items()
+                        order = np.argsort(keys, kind="stable")[
+                            :NORM_SAMPLE_ROWS]
+                        t1 = time.perf_counter()
+                        whole = table.state.data.cpu().numpy()
+                        t["whole_copy_s"] = time.perf_counter() - t1
+                        want = float(np.abs(whole[rows[order]]).mean())
+                        del whole
+                        from paddlebox_tpu_torch.obs.quality import \
+                            norm_sample
+                        sync()
+                        t1 = time.perf_counter()
+                        norm_sample(table.state.data, rows[order])
+                        t["norm_sample_s"] = time.perf_counter() - t1
+                        # the event rounds to 8 decimals
+                        if abs(q["embed_norm"] - want) > \
+                                1e-6 * abs(want) + 5e-9:
+                            raise AssertionError(
+                                f"phase 17a: embed_norm {q['embed_norm']} "
+                                f"against the host copy's {want}")
+                        turn.update(stage_sec_keys=stages,
+                                    device_mem=mem,
+                                    embed_norm=q["embed_norm"],
+                                    embed_norm_host=want,
+                                    critical_path=ev["critical_path"])
+                        lanes = {e["args"]["name"] for e in lane._events
+                                 if e.get("ph") == "M"
+                                 and e["name"] == "thread_name"}
+                        turn["lanes"] = sorted(lanes)
+                    state = (table.state.data, {
+                        k: v for k, v in tr.model.state_dict().items()})
+                    if ref is None:
+                        ref = (state[0].clone(),
+                               {k: v.clone() for k, v in state[1].items()})
+                    else:
+                        if not torch.equal(state[0], ref[0]):
+                            raise AssertionError(f"phase 17a turn {i} "
+                                                 f"(hub {turn['hub']}): "
+                                                 "table rows differ")
+                        for k, v in state[1].items():
+                            if not torch.equal(v, ref[1][k]):
+                                raise AssertionError(
+                                    f"phase 17a turn {i}: param {k} "
+                                    "differs")
+                    turns.append(turn)
+                    del tr, table, model, ds, state
+                reset_hub()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del ref
+        inert = [x["examples_per_sec"] for x in turns if x["hub"] == "inert"]
+        on_ = [x["examples_per_sec"] for x in turns if x["hub"] == "on"]
+        out["a"] = {"turns": turns,
+                    "on_over_inert": float(np.mean(on_) / np.mean(inert))}
+        t["a_s"] = time.perf_counter() - t_phase
+
+        # ---- 17b: the tiered depth-2 job with the lane sink ----
+        t0 = time.perf_counter()
+        slots = [SlotDef("label", "float", 1),
+                 SlotDef("dense", "float", DENSE_DIM)]
+        slots += [SlotDef(f"C{i}", "uint64")
+                  for i in range(1, TIER_SLOTS + 1)]
+        udesc = DataFeedDesc(slots=slots, batch_size=TIER_BATCH,
+                             label_slot="label",
+                             key_bucket_min=TIER_BATCH * TIER_SLOTS)
+        pool = []
+        for s in range(2):
+            ds = InMemoryDataset(udesc)
+            ds.records = _uniform_records(
+                np.random.default_rng(args.seed + 70 + s), TIER_RECORDS,
+                SlotRecord)
+            ds.columnarize()
+            pool.append(ds)
+        hub = reset_hub()
+        writer = ChromeTraceWriter()
+        hub.add_sink(ChromeLaneTraceSink(writer))
+        mem_events = []
+
+        class _Events:
+            def emit(self, ev):
+                mem_events.append(ev)
+
+            def close(self):
+                pass
+
+        hub.add_sink(_Events())
+        table = TieredShardedEmbeddingTable(
+            TIER_N, mf_dim=MF_DIM, capacity_per_shard=TIER_CAPACITY,
+            cfg=cfg, req_bucket_min=TIER_BUCKET_MIN,
+            serve_bucket_min=TIER_BUCKET_MIN,
+            ssd_dir=os.path.join(tmp, "ssd"), devices=dev)
+        torch.manual_seed(args.seed + 2)
+        tr = SH.ShardedTrainer(DeepFM(TIER_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                      hidden=HIDDEN), table, udesc,
+                               seed=args.seed)
+        seq = [pool[i % 2] for i in range(OBS_TIER_PASSES)]
+        t["b_setup_s"] = time.perf_counter() - t0
+
+        def tiered():
+            pipe = tr.tiered_pass_pipeline(iter(seq), depth=2)
+            pipe.start_next()
+            try:
+                while True:
+                    rp = pipe.wait()
+                    if rp is None:
+                        break
+                    pipe.begin_pass()
+                    pipe.start_next()
+                    tr.train_pass_resident(rp)
+                    pipe.end_pass()
+                table.fence()
+            finally:
+                pipe.drain()
+
+        t0 = time.perf_counter()
+        _, got = count(tiered)
+        t["b_passes_s"] = time.perf_counter() - t0
+        dispatch_b = _check_dispatch(
+            "phase 17b", hub, {k: got[k] for k in
+                               ("scatter_rows_dma", "gather_rows_dma")},
+            dev)
+        reset_hub()
+        spans = [e for e in writer._events if e["ph"] == "X"]
+        metas = {e["tid"]: e["args"]["name"] for e in writer._events
+                 if e["ph"] == "M" and e["name"] == "thread_name"}
+        by_name: dict = {}
+        for e in spans:
+            by_name.setdefault(e["name"], []).append(e)
+        lanes = sorted(set(metas.values()))
+        if not {"main", "preload.worker", "epilogue.lane"} <= set(lanes):
+            raise AssertionError(f"phase 17b: lanes {lanes}")
+        links = {e["id"] for e in writer._events if e["ph"] in ("s", "f")}
+        builds = {e["args"]["span_id"] for e in by_name.get("pass.build",
+                                                             [])}
+        submits = {e["args"]["span_id"]
+                   for e in by_name.get("pass.end_submit", [])}
+        consumed = {e["args"]["span_id"]
+                    for e in by_name.get("pass.consume", [])}
+        if len(builds) != OBS_TIER_PASSES or not builds <= links:
+            raise AssertionError(f"phase 17b: {len(builds)} build spans, "
+                                 "not all linked to their consume span")
+        if len(consumed) != OBS_TIER_PASSES or not submits & links:
+            raise AssertionError("phase 17b: no end_submit → write-back "
+                                 "link, or consume spans missing")
+        if not all(metas[e["tid"]] == "epilogue.lane"
+                   for e in by_name.get("endpass.writeback", [])):
+            raise AssertionError("phase 17b: write-back spans off the "
+                                 "epilogue lane")
+        cps = [e["critical_path"] for e in mem_events
+               if e.get("event") == "pass"]
+        if len(cps) != OBS_TIER_PASSES or not all(
+                "bottleneck" in c for c in cps):
+            raise AssertionError(f"phase 17b: critical paths {cps}")
+        out["b"] = {"lanes": lanes, "spans": {k: len(v) for k, v in
+                                              sorted(by_name.items())},
+                    "links": len(links), "dispatch": dispatch_b,
+                    "launches": got,
+                    "bottlenecks": [c["bottleneck"] for c in cps],
+                    "critical_path": cps}
+        del tr, table, pool, writer
+
+        # ---- 17c: the serving surface ----
+        t0 = time.perf_counter()
+        b0 = batches[0]
+        small = EmbeddingTable(mf_dim=MF_DIM, capacity=OBS_SERVE_CAPACITY,
+                               cfg=cfg, seed=args.seed, device=dev)
+        small.prepare(b0)
+        store = ArtifactStore(os.path.join(tmp, "registry"))
+        hub = reset_hub()
+        srv = ServingModel(DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                                  hidden=HIDDEN), desc, mf_dim=MF_DIM,
+                           capacity=OBS_SERVE_CAPACITY, device=dev)
+        srv.load_params(init)
+        srv.register_health()
+        http = hub.start_prom_http(0)
+        port = http.server_address[1]
+
+        def get(route):
+            try:
+                resp = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}{route}", timeout=10)
+                return resp.status, resp.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read().decode()
+
+        try:
+            before = get("/readyz")[0]
+            aid = store.publish({"sparse.npz": lambda p: small.save_base(
+                p, clear_touched=False)}, kind="base")
+            srv.adopt(store)
+            after = get("/readyz")[0]
+            if (before, after) != (503, 200):
+                raise AssertionError(f"phase 17c: /readyz {before} before "
+                                     f"the adoption, {after} after")
+            lat = []
+            for _ in range(OBS_PREDICTS):
+                t1 = time.perf_counter()
+                pred = srv.predict(b0)
+                lat.append(time.perf_counter() - t1)
+            if pred.shape != (BATCH,) or not np.isfinite(pred).all():
+                raise AssertionError("phase 17c: bad predictions")
+            code, text = get("/metrics")
+            n_samples = _strict_prom(text)
+            h = hub.histogram("pbox_serving_latency_seconds")
+            snap = h.snapshot(op="predict")
+            if code != 200 or snap["count"] != OBS_PREDICTS:
+                raise AssertionError(f"phase 17c: /metrics {code}, "
+                                     f"{snap['count']} predicts booked")
+            health = json.loads(get("/healthz")[1])
+            out["c"] = {"readyz": [before, after], "adopted": aid,
+                        "metrics_samples": n_samples,
+                        "predicts": snap["count"],
+                        "hist_p50_ms": h.quantile(0.5, op="predict") * 1e3,
+                        "host_p50_ms": float(np.median(lat)) * 1e3,
+                        "healthz_serving": health.get("serving")}
+        finally:
+            hub.stop_prom_http()
+            reset_hub()
+        t["c_s"] = time.perf_counter() - t0
+        del srv, small
+
+        # ---- 17d: a NaN rollback and a manual dump ----
+        t0 = time.perf_counter()
+        hub = reset_hub()
+        rec = FlightRecorder(os.path.join(tmp, "blackbox"),
+                             debounce_sec=600.0)
+        flightrec.install_recorder(rec)
+        two = records[:2 * BATCH]
+        nan_dense = np.full(DENSE_DIM, np.nan, np.float32)
+        poisoned = [dataclasses.replace(r, dense=nan_dense)
+                    if j == BATCH + 7 else r for j, r in enumerate(two)]
+
+        class OnceDataset(InMemoryDataset):
+            """The poisoned records on the first pass, then none (a
+            transient poison that the retry does not meet)."""
+            calls = 0
+
+            def batches(self, *a, **kw):
+                OnceDataset.calls += 1
+                if OnceDataset.calls > 1:
+                    self.records = []
+                return super().batches(*a, **kw)
+
+        try:
+            table = EmbeddingTable(mf_dim=MF_DIM, capacity=1 << 20, cfg=cfg,
+                                   seed=args.seed, device=dev)
+            model = DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN)
+            model.load_state_dict(init)
+            tr = Trainer(model, table, desc, seed=args.seed,
+                         check_nan_inf=True, device=dev)
+            clean = InMemoryDataset(desc)
+            clean.records = two
+            tr.train_pass(clean)
+            cm = CheckpointManager(os.path.join(tmp, "ckpt"))
+            cm.save(tr)
+            digest0 = state_digest(tr)
+            bad = OnceDataset(desc)
+            bad.records = poisoned
+            res, got_d = count(lambda: tr.run_pass(bad, checkpoint=cm,
+                                                   max_retries=1))
+            if OnceDataset.calls != 2:
+                raise AssertionError(f"phase 17d: {OnceDataset.calls} "
+                                     "attempts, not a poisoned one and a "
+                                     "retry")
+            digest1 = state_digest(tr)
+            if digest1 != digest0:
+                raise AssertionError("phase 17d: the state after the "
+                                     "rollback is not the pre-pass state")
+            names = [os.path.basename(p) for p in rec.bundles()]
+            if names != ["blackbox-00001-nan_rollback.json"]:
+                raise AssertionError(f"phase 17d: bundles {names}")
+            with open(rec.bundles()[0]) as fh:
+                bundle = json.load(fh)
+            missing = BUNDLE_KEYS - set(bundle)
+            if (missing or bundle["schema"] != 1
+                    or bundle["trigger"] != "nan_rollback"
+                    or not bundle["threads"]
+                    or "flightrec_dir" not in bundle["flags"]):
+                raise AssertionError(f"phase 17d: bundle schema (missing "
+                                     f"{sorted(missing)})")
+            hub.dump_blackbox("phase 17d manual dump")
+            names = [os.path.basename(p) for p in rec.bundles()]
+            if len(names) != 2 or not names[1].endswith("-manual.json"):
+                raise AssertionError(f"phase 17d: bundles {names}")
+            out["d"] = {"bundles": names, "digest_equal": True,
+                        "rollbacks": hub.counter(
+                            "pbox_nan_rollbacks_total").value(),
+                        "launches_first_attempt": got_d}
+
+            # ---- 17e: utils.profiler.trace around one TrainStep ----
+            t1 = time.perf_counter()
+            ix = tr.table.prepare(b0)
+            dvb = make_device_batch(b0, ix, tr.device)
+            gen = tr.step_generator(tr.global_step + 1)
+            sync()
+            trace_dir = os.path.join(tmp, "trace")
+            with profiler.trace(trace_dir):
+                # the step starts well inside the window (a pause, then
+                # small kernels): late in a long process a trace of the
+                # step alone lacked its first ~55 kernel events (the
+                # forward's, rows 1 and 7), in a fresh process it held
+                # them all
+                time.sleep(OBS_TRACE_LEAD_S)
+                lead = torch.zeros(1, device=dev)
+                for _ in range(256):
+                    lead.add_(1.0)
+                sync()
+                _, got_e = count(lambda: tr.step_fn(tr.state, dvb, gen),
+                                 names4)
+            with open(os.path.join(trace_dir, profiler.TRACE_FILE)) as fh:
+                evs = json.load(fh)["traceEvents"]
+            kern = [e.get("name", "") for e in sorted(
+                (e for e in evs if e.get("cat") == "kernel"),
+                key=lambda e: e.get("ts", 0))]
+            found = {n: sum(any(s in k for s in syms) for k in kern)
+                     for n, syms in OBS_KERNEL_SYMBOLS.items()}
+            if dev == "cuda" and not all(found.values()):
+                raise AssertionError(f"phase 17e: kernel events {found} in "
+                                     f"{len(kern)} CUDA kernel events, the "
+                                     f"first {[k[:48] for k in kern[:8]]}")
+            out["e"] = {"kernel_events": found, "cuda_kernels": len(kern),
+                        "launches": got_e}
+            t["e_s"] = time.perf_counter() - t1
+        finally:
+            reset_hub()
+        t["d_s"] = time.perf_counter() - t0
+        del tr, table
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        reset_hub()
+    lingering = [th.name for th in threading.enumerate()
+                 if th is not threading.main_thread() and not th.daemon]
+    if lingering:
+        raise AssertionError(f"phase 17: non-daemon threads {lingering}")
+    phase_s = time.perf_counter() - t_phase
+    out["phase_s"] = phase_s
+    out["seconds"] = t
+    out["launches"] = launches
+    out["budget_s"] = OBS_PHASE_BUDGET_S
+    print("obs: " + json.dumps(out, default=str), flush=True)
+    a = out["a"]
+    log(f"obs 17a: train_pass examples/s by turn "
+        f"{[round(x['examples_per_sec']) for x in a['turns']]} (inert, on, "
+        f"on, inert), on/inert {a['on_over_inert']:.4f}; state equal bit "
+        f"for bit; embed_norm {a['turns'][1].get('embed_norm')} (host "
+        f"{a['turns'][1].get('embed_norm_host')}); sample "
+        f"{t.get('norm_sample_s', 0) * 1e3:.2f} ms against a whole-table "
+        f"copy {t.get('whole_copy_s', 0) * 1e3:.1f} ms ({card})")
+    log(f"obs 17b: lanes {out['b']['lanes']}, {out['b']['links']} linked "
+        f"spans, bottlenecks {out['b']['bottlenecks']}; 17c: /readyz "
+        f"{out['c']['readyz']}, predict p50 {out['c']['hist_p50_ms']:.2f} "
+        f"ms by the histogram, {out['c']['host_p50_ms']:.2f} ms by the "
+        f"host clock; 17d: bundles {out['d']['bundles']}; 17e: kernel "
+        f"events {out['e']['kernel_events']}; phase 17 took "
+        f"{phase_s:.1f}s (budget {OBS_PHASE_BUDGET_S:.0f}s) "
+        f"{json.dumps({k: round(v, 2) for k, v in t.items()})} ({card})")
+    details["obs"] = out
     return launches
 
 
@@ -6095,6 +6719,12 @@ def main() -> int:
                                   details)
     for r in kernels:
         r["launches"] += mmf_launches.get(r["name"], 0)
+
+    # ---- phase 17: the always-on layer ----
+    obs_launches = obs_phase(torch, args, card, desc, records, batches,
+                             details)
+    for r in kernels:
+        r["launches"] += obs_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -1,5 +1,5 @@
 """Versioned, crash-safe artifact/publishing layer (copy of
-``paddlebox_tpu/artifacts.py`` without the telemetry counters): the
+``paddlebox_tpu/artifacts.py``): the
 "xbox publish" flow, day/delta model shipping from training to serving.
 The on-disk layout and the ``MANIFEST.json`` schema are the reference's
 byte for byte, so a store either package publishes opens and verifies
@@ -193,6 +193,24 @@ def _fsync_file(path: str) -> None:
         pass  # FUSE/NFS may refuse; the rename convention still holds
     finally:
         os.close(fd)
+
+
+def _counter(name: str, help_: str, **labels) -> None:
+    try:
+        from paddlebox_tpu_torch.obs.hub import get_hub
+        get_hub().counter(name, help_).inc(**labels)
+    except Exception:
+        log.debug("artifact counter failed", exc_info=True)
+
+
+def _emit(event: str, **fields) -> None:
+    try:
+        from paddlebox_tpu_torch.obs.hub import get_hub
+        hub = get_hub()
+        if hub.active:
+            hub.emit(event, **fields)
+    except Exception:
+        log.debug("artifact event emit failed", exc_info=True)
 
 
 # ---------------------------------------------------------------------------
@@ -654,6 +672,11 @@ class ArtifactStore:
                     and os.path.isdir(stage):
                 shutil.rmtree(stage, ignore_errors=True)
             raise
+        _counter("pbox_artifact_published_total",
+                 "artifact versions published", kind=kind)
+        _emit("artifact_published", artifact=aid, kind=kind,
+              parent=parent or "", files=sorted(checksums),
+              epoch=self.epoch_of(aid))
         log.info("published artifact %s (%s, parent=%s, %d files)",
                  aid, kind, parent, len(checksums))
         return aid
@@ -773,10 +796,24 @@ class ArtifactStore:
                     OSError, ValueError) as e:
                 lease.release()
                 last_err = e
+                reason = ("corrupt"
+                          if isinstance(e, ArtifactCorruptError)
+                          else "lineage" if isinstance(
+                              e, ArtifactLineageError) else "io")
+                _counter("pbox_artifact_refused_total",
+                         "artifact versions refused at adoption",
+                         reason=reason)
+                _emit("artifact_refused", artifact=aid, reason=reason,
+                      error=repr(e))
                 log.error("REFUSING artifact %s: %s", aid, e)
                 if explicit:
                     raise
                 continue
+            _counter("pbox_artifact_adopted_total",
+                     "artifact versions adopted by readers",
+                     kind=chain[-1].get("kind", "base"))
+            _emit("artifact_adopted", artifact=aid,
+                  chain=[m["artifact"] for m in chain])
             return ArtifactHandle(self, chain, lease)
         raise last_err if last_err is not None else FileNotFoundError(
             f"no adoptable versions in {self.root}")

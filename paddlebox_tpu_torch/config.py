@@ -1,14 +1,17 @@
 """Process-wide flags of the port: those that the data pipeline, the
 resident training pass, the table's shrink, the sharded table and step,
 the resilience layer, checkpointing, streaming and serving's reload loop
-read, with the names and defaults of
-``paddlebox_tpu/config.py``. Tests change them with ``flags_scope``.
+read, and the telemetry, flight-recorder, quality and alert flags of the
+observability layer (all off by default), with the names and defaults
+of ``paddlebox_tpu/config.py``. ``FLAGS_<name>=...`` in the environment
+overrides a default at import; tests change them with ``flags_scope``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Any, Iterator
 
 
@@ -132,6 +135,11 @@ class Flags:
     # below this, after decaying show/clk/delta_score by this rate
     shrink_delete_threshold: float = 0.0
     show_click_decay_rate: float = 0.98
+    # online-learning daemon (online.py, not ported yet): a shrink cycle
+    # every N completed stream windows; 0 = lifecycle aging off. Read
+    # here by the alert engine's shrink_overdue rule
+    # (obs/alerts.default_rules).
+    shrink_every_windows: int = 0
 
     # --- resilience (resilience/) ---
     # RetryPolicy.from_flags defaults, applied at the IO seams
@@ -162,7 +170,88 @@ class Flags:
     # serving status stale
     serving_staleness_max_sec: float = 60.0
 
+    # --- telemetry (obs/ TelemetryHub; docs/OBSERVABILITY.md) ---
+    # path → attach a JSONL event sink (one structured record per pass)
+    telemetry_jsonl: str = ""
+    # ≥0 → serve Prometheus text exposition over HTTP (0 = ephemeral
+    # port); -1 disables the endpoint
+    telemetry_prom_port: int = -1
+    # multihost straggler watchdog (obs/watchdog, train/multihost):
+    # shared directory for heartbeat files ("" = watchdog not started
+    # by make_straggler_watchdog unless a dir/store is passed)
+    straggler_heartbeat_dir: str = ""
+    straggler_step_lag: int = 1000
+    straggler_timeout_sec: float = 120.0
+    # >0 → a stall persisting this long arms an abort: the training
+    # thread's next heartbeat raises StragglerTimeout
+    straggler_abort_sec: float = 0.0
+    # JSONL sink rotation (always-on daemon: bound the event log).
+    # >0 → when the live segment exceeds this many MiB it rotates to
+    # <path>.1 (older segments shift to .2, .3, ...); 0 = one unbounded
+    # file (the seed behavior). telemetry_report reads rotated sets in
+    # order automatically.
+    telemetry_jsonl_max_mb: float = 0.0
+    # rotated segments kept per JSONL path (the live file rides on top)
+    telemetry_jsonl_keep: int = 3
+    # quarantine a telemetry sink after this many CONSECUTIVE
+    # emit/span failures (pbox_sink_errors_total books every failure;
+    # a broken sink must never take the training hot path down)
+    telemetry_sink_errors_max: int = 8
+
+    # --- anomaly flight recorder (obs/flightrec;
+    # docs/OBSERVABILITY.md §Flight recorder) ---
+    # non-empty → keep a bounded in-memory ring of recent events/spans
+    # and publish a self-contained postmortem bundle (ring + instrument
+    # snapshot + critical-path blocks + FLAGS + live thread stacks)
+    # into this directory whenever a trigger fires (NaN rollback,
+    # reload degrade, pipeline hang, watchdog escalation, SLO breach,
+    # hub.dump_blackbox). "" = recorder off (zero per-event cost).
+    flightrec_dir: str = ""
+    # ring capacity (events + spans, newest win)
+    flightrec_ring_events: int = 512
+    # per-trigger debounce: repeat fires inside this window are
+    # suppressed (counted in pbox_flightrec_suppressed_total) — an
+    # anomaly storm yields ONE bundle per trigger per window
+    flightrec_debounce_sec: float = 60.0
+    # newest bundles kept on disk per recorder dir (retention cap)
+    flightrec_keep: int = 16
+
+    # --- model-quality drift monitor (obs/quality;
+    # docs/OBSERVABILITY.md §Model quality) ---
+    # >0 → windowed per-pass quality stats ride every train/stream
+    # pass event: key coverage/churn, embedding-norm drift vs the
+    # trailing baseline, predicted-vs-observed CTR calibration buckets
+    # and a windowed AUC trend with a degradation verdict
+    # (pbox_quality_* instruments + quality_window events). 0 = off.
+    quality_window_passes: int = 0
+    # windowed-AUC degradation verdict: trailing-half mean AUC below
+    # leading-half mean by more than this → pbox_quality_degraded=1
+    quality_auc_drop: float = 0.01
+    # coarse calibration buckets the 1e6-bin AUC tables collapse into
+    quality_calibration_buckets: int = 10
+
+    # --- SLO alert engine (obs/alerts; docs/OBSERVABILITY.md §Alerts) ---
+    # >0 → evaluate the default alert rules on a cadence thread this
+    # often (serving staleness / p99 / stream lag / hang / NaN-rollback
+    # rate / AUC degradation → pbox_alerts_active{rule,severity},
+    # alert_fired/alert_cleared events, /alertz). 0 = engine not
+    # started (construct AlertEngine explicitly for manual evaluation).
+    alerts_eval_interval_sec: float = 0.0
+    # default-rule thresholds (staleness reuses
+    # serving_staleness_max_sec; hang / NaN-rollback fire on any
+    # counter increase between evaluations)
+    alerts_serving_p99_ms: float = 250.0
+    alerts_stream_lag_files: int = 100
+    # online daemon lifecycle rules (docs/ONLINE.md): shrink_overdue
+    # fires when pbox_online_windows_since_shrink exceeds this; 0 =
+    # auto (2 × shrink_every_windows, rule absent when aging is off).
+    # backlog_growth fires on a rising pbox_stream_lag_files trend.
+    alerts_shrink_overdue_windows: int = 0
+
     # --- runtime ---
+    # utils/profiler: StageTimers report every pass; trace() without a
+    # logdir writes under the temp dir
+    profile: bool = False
     # seeds the shuffles, slots_shuffle's donors and the retry jitter
     seed: int = 0
 
@@ -172,8 +261,35 @@ class Flags:
                 raise AttributeError(f"unknown flag: {k}")
             setattr(self, k, v)
 
+    @classmethod
+    def from_env(cls) -> "Flags":
+        """Defaults overridden by ``FLAGS_<name>=...`` environment
+        variables, as the reference reads them at import."""
+        self = cls()
+        for f in dataclasses.fields(self):
+            raw = os.environ.get(f"FLAGS_{f.name}")
+            if raw is not None:
+                ty = type(getattr(self, f.name))
+                try:
+                    setattr(self, f.name, _env_cast(raw, ty))
+                except ValueError as e:
+                    raise ValueError(f"bad value for env flag "
+                                     f"FLAGS_{f.name}={raw!r}: {e}"
+                                     ) from None
+        return self
 
-FLAGS = Flags()
+
+def _env_cast(raw: str, ty: type) -> Any:
+    if ty is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    if ty is int:
+        return int(raw)
+    if ty is float:
+        return float(raw)
+    return raw
+
+
+FLAGS = Flags.from_env()
 
 
 @contextlib.contextmanager

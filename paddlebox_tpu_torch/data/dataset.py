@@ -17,8 +17,11 @@ Every dataset records the route that loaded it in ``parse_route``
 native library that cannot be built raises instead of turning into the
 per-line route.
 
-The reference's hub counters, events and trace spans of this layer are
-not ported yet (ROADMAP queue 1 item 13); their call sites say so.
+Telemetry (``obs/``): ``pbox_files_quarantined_total`` with a
+``file_quarantined`` event, ``pbox_records_poisoned_total``,
+``pbox_stream_replayed_files_total`` with a ``stream_replay`` event, and
+one ``read.file`` trace span per file on the ``stream.reader`` lane of
+the per-line reader threads.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from paddlebox_tpu_torch.data.parser import get_parser
 from paddlebox_tpu_torch.data.pv import merge_by_insid
 from paddlebox_tpu_torch.data.record import SlotRecord
 from paddlebox_tpu_torch.data.schema import DataFeedDesc
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.hub import get_hub
 from paddlebox_tpu_torch.native import NativeBuildError
 from paddlebox_tpu_torch.resilience import faults
 from paddlebox_tpu_torch.resilience.retry import RetryPolicy, TransientError
@@ -253,8 +258,14 @@ class Dataset:
         log.warning("quarantined bad file %s: %r (budget %d/%d)", path,
                     exc, mine + 1, budget)
         stat_add("files_quarantined", 1)
-        # telemetry (ROADMAP queue 1 item 13): pbox_files_quarantined_total
-        # and the file_quarantined event
+        try:
+            hub = get_hub()
+            hub.counter("pbox_files_quarantined_total",
+                        "dataset files isolated after a failure").inc()
+            if hub.active:
+                hub.emit("file_quarantined", path=path, error=repr(exc))
+        except Exception:
+            log.debug("quarantine telemetry emit failed", exc_info=True)
         return True
 
     def _budget_exceeded(self, path: str, exc: Exception
@@ -333,16 +344,18 @@ class Dataset:
                     n_ok, n_bad = parse_lines(parser, fh, path)
             stat_add("records_parsed", n_ok)
             stat_add("records_dropped", n_bad)
-            # telemetry (ROADMAP queue 1 item 13):
-            # pbox_records_poisoned_total += n_bad
+            if n_bad:
+                get_hub().counter(
+                    "pbox_records_poisoned_total",
+                    "records dropped as unparseable").inc(n_bad)
 
         def worker() -> None:
-            # trace span (ROADMAP queue 1 item 13): read.file per file on
-            # the reader lane
+            trace.set_lane(trace.LANE_READER)
             parser = get_parser(self.desc)
             for path in file_ch:
                 try:
-                    read_one(parser, path)
+                    with trace.span("read.file", file=path):
+                        read_one(parser, path)
                 except BaseException as e:
                     if isinstance(e, ChannelClosed):
                         # the CONSUMER cancelled the output channel
@@ -1062,9 +1075,17 @@ class QueueDataset(Dataset):
                 self.files_replayed += len(hit)
                 log.warning("stream resume: replaying open window "
                             "(at-least-once): %s", hit)
-                # telemetry (ROADMAP queue 1 item 13):
-                # pbox_stream_replayed_files_total and the stream_replay
-                # event
+                try:
+                    hub = get_hub()
+                    hub.counter("pbox_stream_replayed_files_total",
+                                "open-window files replayed after a "
+                                "stream resume (at-least-once)").inc(
+                                    len(hit))
+                    if hub.active:
+                        hub.emit("stream_replay", files=list(hit))
+                except Exception:
+                    log.debug("stream replay telemetry emit failed",
+                              exc_info=True)
             # chaos seam: a seeded fault here breaks the window dispatch
             # deterministically
             faults.inject("stream.window", path=files[0], window=widx,

@@ -7,6 +7,14 @@ hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source or header never loads a stale build. ``build`` compiles
 several sources at once, one ``nvcc`` process each. A failed build raises
 with the compiler's output.
+
+``book`` is every wrapper's dispatch counter:
+``pbox_kernel_dispatch_total{kernel, impl}`` in the telemetry hub,
+booked only while the hub is active (one attribute read otherwise).
+``impl`` is ``cuda`` where the wrapper launches its kernel (beside its
+``.launches`` count, so the two agree) and ``plain`` where a CPU tensor
+runs the plain version. The reference books at jit trace time, once per
+compiled program; the eager port books once per call.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 import torch
+
+from paddlebox_tpu_torch.obs import hub as _obs_hub
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -135,3 +145,13 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry reported a CUDA error for its launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def book(kernel: str, impl: str) -> None:
+    """Book one ``pbox_kernel_dispatch_total{kernel, impl}`` tick when
+    the hub is active; the inert path is one attribute read."""
+    hub = _obs_hub._HUB
+    if hub.active:
+        hub.counter("pbox_kernel_dispatch_total",
+                    "device-kernel dispatch decisions by kernel and impl"
+                    ).inc(kernel=kernel, impl=impl)

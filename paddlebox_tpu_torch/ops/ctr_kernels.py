@@ -12,7 +12,9 @@ their autograd Functions — the counterpart of
 
 Each kernel wrapper takes its plain version for tensors on the CPU and
 launches its kernel for tensors on the card, counting the launch in its
-``launches`` attribute; a failed build or launch raises. The kernels
+``launches`` attribute and booking ``pbox_kernel_dispatch_total{kernel,
+impl}`` (``ops/_build.book``) while the telemetry hub is active; a failed
+build or launch raises. The kernels
 accumulate in float32 (no TF32, no library product), as the TPU kernels
 run ``Precision.HIGHEST``.
 
@@ -136,6 +138,7 @@ def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
     call enqueues the bucket pass, whose output goes to an int32 scratch
     [N + max_rank + 2], and the tile kernel)."""
     if x.device.type == "cpu" and rank_offset.device.type == "cpu":
+        _build.book("rank_attention", "plain")
         return rank_attention_plain(x, rank_offset, param3, max_rank)
     _build.require_cuda("rank_attention", x, rank_offset, param3)
     if (x.dtype != torch.float32 or param3.dtype != torch.float32
@@ -164,6 +167,7 @@ def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
                     scratch.data_ptr(), out.data_ptr(), n, d, p, max_rank,
                     rank_offset.shape[1], _build.stream(x)), "rank_attention")
     rank_attention.launches += 1
+    _build.book("rank_attention", "cuda")
     return out
 
 
@@ -224,6 +228,7 @@ def batch_fc(xb: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``transpose_weight``) + bias [S, O] → [S, N, O] f32
     (``csrc/batch_fc.cu``)."""
     if xb.device.type == "cpu" and w.device.type == "cpu":
+        _build.book("batch_fc", "plain")
         return batch_fc_plain(xb, w, bias, transpose_weight)
     _build.require_cuda("batch_fc", w, bias)
     if xb.device != w.device:
@@ -244,6 +249,7 @@ def batch_fc(xb: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     bias.data_ptr(), out.data_ptr(), s, n, i_dim, o_dim,
                     int(transpose_weight), _build.stream(w)), "batch_fc")
     batch_fc.launches += 1
+    _build.book("batch_fc", "cuda")
     return out
 
 
@@ -334,6 +340,7 @@ def cross_norm(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
     Every column but the dot is exactly the plain version's; the dot sums
     in another order."""
     if x.device.type == "cpu" and mean.device.type == "cpu":
+        _build.book("cross_norm", "plain")
         return cross_norm_plain(x, mean, scale, fields_num, embed_dim)
     _build.require_cuda("cross_norm", x, mean, scale)
     if any(t.dtype != torch.float32 for t in (x, mean, scale)):
@@ -355,6 +362,7 @@ def cross_norm(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                     out.data_ptr(), b, n, d, branch, _build.stream(x)),
                  "cross_norm")
     cross_norm.launches += 1
+    _build.book("cross_norm", "cuda")
     return out
 
 

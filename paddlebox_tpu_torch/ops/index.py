@@ -31,7 +31,9 @@ bytes.
 stays authoritative; the device index mirrors it only while the kv's
 rows are dense, and any state it cannot mirror exactly makes it degrade,
 loudly and for good, to the host path (``book_index_dispatch`` counts
-each decision).
+each decision). The insert and lookup wrappers book
+``pbox_kernel_dispatch_total{kernel="index_insert"|"index_lookup", impl}``
+(``cuda`` or ``plain``) while the telemetry hub is active.
 """
 
 from __future__ import annotations
@@ -67,8 +69,9 @@ _INSERT_ARGS = [_P, _I64, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P]
 _LOOKUP_ARGS = [_P, _I64, _P, _I64, _P, _P]
 
 #: index-seam dispatch decisions, {("index.<op>", impl): count}, impl
-#: "device" or "host" — the port's count of what the reference books as
-#: ``pbox_kernel_dispatch_total{kernel="index.*"}``
+#: "device" or "host", always counted; each one also feeds the hub's
+#: ``pbox_kernel_dispatch_total{kernel="index.<op>", impl}`` while the hub
+#: is active, as the reference books it
 DISPATCH: Dict[Tuple[str, str], int] = {}
 
 
@@ -76,6 +79,7 @@ def book_index_dispatch(op: str, impl: str) -> None:
     """Count one index-seam dispatch decision (op ∈ {assign, lookup})."""
     key = (f"index.{op}", impl)
     DISPATCH[key] = DISPATCH.get(key, 0) + 1
+    _build.book(key[0], impl)
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +215,7 @@ def insert(bkeys: torch.Tensor, brows: torch.Tensor, keys: torch.Tensor,
     ``next_row`` + the new keys exceeded ``capacity``; a failed call
     leaves the index as it found it and its rows must be discarded."""
     if keys.device.type == "cpu" and brows.device.type == "cpu":
+        _build.book("index_insert", "plain")
         return insert_plain(bkeys, brows, keys, next_row, capacity)
     _build.require_cuda("index_insert", keys)
     if keys.dtype != torch.int64:
@@ -237,6 +242,7 @@ def insert(bkeys: torch.Tensor, brows: torch.Tensor, keys: torch.Tensor,
                     slot.data_ptr(), scratch.data_ptr(),
                     _build.stream(keys)), "index_insert")
     insert.launches += 1
+    _build.book("index_insert", "cuda")
     return rows, new, scratch[3].bool()
 
 
@@ -279,6 +285,7 @@ def lookup(bkeys: torch.Tensor, brows: torch.Tensor,
     fine; on the card the :func:`bucket_views` of one bucket tensor) →
     int32 [k], -1 for a miss (``csrc/key_index.cu``). Exact."""
     if keys.device.type == "cpu" and brows.device.type == "cpu":
+        _build.book("index_lookup", "plain")
         return lookup_plain(bkeys, brows, keys)
     _build.require_cuda("index_lookup", keys)
     if keys.dtype != torch.int64:
@@ -296,6 +303,7 @@ def lookup(bkeys: torch.Tensor, brows: torch.Tensor,
     _build.check(fn(base, nb, keys.data_ptr(), k, rows.data_ptr(),
                     _build.stream(keys)), "index_lookup")
     lookup.launches += 1
+    _build.book("index_lookup", "cuda")
     return rows
 
 

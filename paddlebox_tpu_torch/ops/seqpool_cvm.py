@@ -31,6 +31,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from paddlebox_tpu_torch.ops import _build
 from paddlebox_tpu_torch.ops.kernels import (CVM_CONV, CVM_FULL, CVM_NONE,
                                              CVM_SHOW, KERNELS, KernelSet,
                                              _cvm_slice, _cvm_transform_wide,
@@ -293,6 +294,10 @@ def fused_seqpool_cvm(
     key) masks batch padding in the backward. ``ops`` selects the device
     functions (the kernels, unless a check passes ``kernels.PLAIN``)."""
     kk = 1 if (use_cvm and not clk_filter) else embedx_concate_size
+    if kk == 1 and segments is None and ops is KERNELS:
+        # the trivial layout pools by a reshape, no kernel: booked as the
+        # reference books its dispatch decision
+        _build.book("fused_embed_pool_cvm", "reshape")
     attrs = _Attrs(batch_size, num_slots, use_cvm, cvm_offset, pad_value,
                    need_filter, show_coeff, clk_coeff, threshold,
                    quant_ratio, clk_filter, embed_threshold_filter,

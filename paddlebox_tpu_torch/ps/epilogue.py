@@ -22,10 +22,12 @@ Contract:
   ``FLAGS.pipeline_wait_timeout_sec`` it raises ``PipelineHangError``
   naming the stuck stage instead of blocking forever.
 
-The reference's hub mirrors (queue depth, write-back and fence-wait
-counters, the overlap gauge), its hang counter and its flight-recorder
-trigger wait for the observability layer (ROADMAP queue 1 item 13);
-``stats()`` carries the same numbers.
+Telemetry (``obs/``): the worker runs on the ``epilogue.lane`` trace
+lane, each job in an ``endpass.writeback`` span linked to its submitter;
+with the hub active the queue-depth gauge, the write-back and fence-wait
+counters and the overlap gauge mirror ``stats()``. A hang books
+``pbox_pipeline_hangs_total{stage}`` and fires the ``pipeline_hang``
+flight-recorder trigger (``note_hang``) before it raises.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import time
 from typing import Callable, Deque, Dict, Optional, Tuple
 
 from paddlebox_tpu_torch.config import FLAGS
+from paddlebox_tpu_torch.obs import flightrec, trace
+from paddlebox_tpu_torch.obs.hub import active_hub, get_hub
 
 log = logging.getLogger(__name__)
 
@@ -65,14 +69,31 @@ def hang_timeout() -> float:
     return float(FLAGS.pipeline_wait_timeout_sec)
 
 
+def note_hang(stage: str) -> None:
+    """A pipeline wait hit the hang deadline: book
+    ``pbox_pipeline_hangs_total{stage}`` and fire the ``pipeline_hang``
+    flight-recorder trigger (the bundle's live thread stacks name the
+    wedged worker the error cannot see)."""
+    try:
+        get_hub().counter(
+            "pbox_pipeline_hangs_total",
+            "pipeline waits aborted by the hang deadline").inc(
+                stage=stage)
+    except Exception:
+        log.debug("hang telemetry emit failed", exc_info=True)
+    flightrec.trigger("pipeline_hang", reason=f"stage {stage}",
+                      stage=stage)
+
+
 def wait_with_deadline(cv: threading.Condition, done: Callable[[], bool],
-                       progress: Callable[[], object],
+                       progress: Callable[[], object], stage: str,
                        message: Callable[[], str]) -> None:
     """The timed condition wait with the hang deadline. Call with ``cv``
     HELD; returns once ``done()`` is true. With
     ``FLAGS.pipeline_wait_timeout_sec > 0``, an unchanged ``progress()``
-    value for that long raises ``PipelineHangError`` with ``message()``,
-    which names the stuck stage."""
+    value for that long books the hang for ``stage`` (``note_hang``) and
+    raises ``PipelineHangError`` with ``message()``, which names the
+    stuck stage."""
     hang = hang_timeout()
     deadline = (time.monotonic() + hang) if hang > 0 else None
     last = progress()
@@ -86,6 +107,7 @@ def wait_with_deadline(cv: threading.Condition, done: Callable[[], bool],
             last = cur
             deadline = time.monotonic() + hang
         elif time.monotonic() > deadline:
+            note_hang(stage)
             raise PipelineHangError(message())
 
 
@@ -121,7 +143,7 @@ class PassEpilogue:
     def __init__(self, name: str = "endpass") -> None:
         self.name = name
         self._cv = threading.Condition(threading.Lock())
-        self._jobs: Deque[Tuple[Callable[[], None], str]] = \
+        self._jobs: Deque[Tuple[Callable[[], None], str, int]] = \
             collections.deque()
         self._submitted = 0
         self._done = 0
@@ -136,33 +158,38 @@ class PassEpilogue:
         self.critical_fence_wait_sec = 0.0
         self.last_writeback_sec = 0.0
 
-    def submit(self, fn: Callable[[], None], label: str = "") -> None:
+    def submit(self, fn: Callable[[], None], label: str = "",
+               link_from: int = 0) -> None:
         """Enqueue a write-back job and return. Raises an earlier job's
         held failure first (training on after a lost write-back would
-        compound the damage silently)."""
+        compound the damage silently). ``link_from`` names the
+        submitter's trace span: the job's ``endpass.writeback`` span
+        links back to it."""
         with self._cv:
             self._raise_pending_locked()
-            self._jobs.append((fn, label))
+            self._jobs.append((fn, label, link_from))
             self._submitted += 1
+            depth = len(self._jobs)
             if not self._running:
                 self._running = True
                 threading.Thread(target=self._drain, daemon=True,
                                  name=f"pbx-{self.name}").start()
-        # the queue-depth gauge waits for the hub (ROADMAP queue 1 item 13)
+        self._mirror_depth(depth)
 
     def _drain(self) -> None:
+        trace.set_lane(trace.LANE_EPILOGUE)
         while True:
             with self._cv:
                 if not self._jobs:
                     self._running = False
                     self._cv.notify_all()
                     return
-                fn, label = self._jobs.popleft()
+                fn, label, link = self._jobs.popleft()
             t0 = time.perf_counter()
             try:
-                # the job's "endpass.writeback" trace span waits for the
-                # observability layer (ROADMAP queue 1 item 13)
-                fn()
+                with trace.span("endpass.writeback", link_from=link,
+                                job=label or self.name):
+                    fn()
             except BaseException as e:  # held for the next fence
                 log.error("async end_pass write-back failed (%s): %r",
                           label or self.name, e)
@@ -175,9 +202,9 @@ class PassEpilogue:
                 self.jobs_run += 1
                 self.last_writeback_sec = dur
                 self.total_writeback_sec += dur
+                depth = len(self._jobs)
                 self._cv.notify_all()
-            # the write-back counters and the overlap gauge wait for the
-            # hub (ROADMAP queue 1 item 13)
+            self._mirror_job(dur, depth)
 
     @property
     def pending(self) -> int:
@@ -200,6 +227,7 @@ class PassEpilogue:
                     self._cv,
                     done=lambda: self._done >= self._submitted,
                     progress=lambda: self._done,
+                    stage="endpass.writeback",
                     message=lambda: (
                         f"end-pass epilogue fence hung: stage "
                         f"'endpass.writeback' ({self.name}) made no "
@@ -218,8 +246,8 @@ class PassEpilogue:
                 if critical:
                     self.critical_fence_wait_sec += waited
             err = self._take_error_locked()
-        # the hang counter and the fence-wait counter wait for the hub
-        # (ROADMAP queue 1 item 13)
+        if waited > 1e-4:
+            self._mirror_fence(waited)
         if err is not None:
             raise err
 
@@ -257,3 +285,42 @@ class PassEpilogue:
                     0.0, self.total_writeback_sec
                     - self.critical_fence_wait_sec),
             }
+
+    # ---- telemetry ----
+    def _mirror_depth(self, depth: int) -> None:
+        hub = active_hub()
+        if hub is not None:
+            hub.gauge("pbox_endpass_queue_depth",
+                      "end-pass write-back jobs queued").set(depth)
+
+    def _mirror_job(self, dur: float, depth: int) -> None:
+        hub = active_hub()
+        if hub is None:
+            return
+        hub.counter("pbox_endpass_writebacks_total",
+                    "async end-pass write-back jobs completed").inc()
+        hub.counter("pbox_endpass_writeback_seconds_total",
+                    "seconds spent in end-pass write-back jobs").inc(dur)
+        hub.gauge("pbox_endpass_queue_depth",
+                  "end-pass write-back jobs queued").set(depth)
+        self._mirror_overlap(hub)
+
+    def _mirror_fence(self, waited: float) -> None:
+        hub = active_hub()
+        if hub is None:
+            return
+        hub.counter("pbox_endpass_fence_wait_seconds_total",
+                    "seconds callers blocked on the epilogue fence"
+                    ).inc(waited)
+        # a critical fence just consumed overlap: refresh the gauge so it
+        # tracks stats()
+        self._mirror_overlap(hub)
+
+    def _mirror_overlap(self, hub) -> None:
+        with self._cv:
+            overlap = max(0.0, self.total_writeback_sec
+                          - self.critical_fence_wait_sec)
+        hub.gauge("pbox_endpass_overlap_sec",
+                  "cumulative end-pass write-back seconds overlapped "
+                  "with the next pass (writeback - fence waits)"
+                  ).set(overlap)

@@ -175,8 +175,7 @@ class ShardedEmbeddingTable:
         # being marked touched (they have no values yet and train only
         # after their pass's begin_pass). Thread-local: a streaming
         # prepare_global on another thread (training the open pass)
-        # keeps the normal assign. obs_stats waits for the
-        # observability hub (ROADMAP queue 1 item 13).
+        # keeps the normal assign.
         self._plan_tls = threading.local()
 
     @property
@@ -633,6 +632,19 @@ class ShardedEmbeddingTable:
     # ---- host save/load, per shard ----
     def feature_count(self) -> int:
         return sum(len(ix) for ix in self.indexes)
+
+    def obs_stats(self) -> Dict[str, float]:
+        """Occupancy gauges for pass events (obs/hub.emit_pass_event):
+        totals across shards plus the fullest shard's fill (the key % N
+        split skews, and one full shard stalls every step). The tiered
+        table adds ``pending``."""
+        per_shard = [len(ix) for ix in self.indexes]
+        used = sum(per_shard)
+        cap = self.capacity * self.n
+        return {"capacity": cap, "used": used,
+                "fill_frac": round(used / max(cap, 1), 6),
+                "max_shard_fill_frac": round(
+                    max(per_shard) / max(self.capacity, 1), 6)}
 
     def _rows_host(self, s: int, rows: np.ndarray) -> np.ndarray:
         """Shard ``s``'s logical rows at ``rows``, on the host."""

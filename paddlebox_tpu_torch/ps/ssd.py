@@ -1,9 +1,8 @@
 """SSD third tier: disk-backed embedding segments behind the HostStore —
 the port's copy of ``paddlebox_tpu/ps/ssd.py``. Segment files are byte
-for byte the reference's, so either package reads the other's. The hub
-mirrors of the tier's accounting (``_mirror``) wait for the
-observability layer (ROADMAP queue 1 item 13); ``stats()`` carries the
-same numbers.
+for byte the reference's, so either package reads the other's. With the
+telemetry hub active, ``_mirror`` adds the accounting of ``stats()`` to
+the ``pbox_ssd_*`` counters and gauges.
 
 Reference capability: the BoxPS closed core is an HBM + host-mem + SSD
 hierarchy — ``BeginFeedPass`` schedules SSD→mem promotion for the pass
@@ -63,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from paddlebox_tpu_torch.obs.hub import get_hub
 from paddlebox_tpu_torch.resilience import faults
 from paddlebox_tpu_torch.resilience.retry import RetryPolicy
 
@@ -385,6 +385,8 @@ class SsdTier:
                 if book:
                     self.demoted_rows += n
                     self.demote_sec += time.perf_counter() - t0
+        if book:
+            self._mirror()
         return n
 
     def append_sealed_file(self, path: str, keys: np.ndarray,
@@ -425,6 +427,7 @@ class SsdTier:
                                    keys, touched)
                 seg.pending -= 1
                 self.demoted_rows += n
+        self._mirror()
         return n
 
     # ---- read path (promotion) -----------------------------------------
@@ -493,6 +496,8 @@ class SsdTier:
                 self.promote_sec += dur
                 if critical:
                     self.promote_wait_sec += dur
+        if book:
+            self._mirror()
         return fkeys, rows, tch
 
     def export_rows(self, delta: bool = False, clear_touched: bool = True
@@ -549,6 +554,8 @@ class SsdTier:
                     n += 1
             if n:
                 self._drop_dead_segments()
+        if n:
+            self._mirror()
         return n
 
     def shrink(self, delete_threshold: float, decay: float,
@@ -581,6 +588,8 @@ class SsdTier:
             if keep.any():
                 self.append(fkeys[keep], rows[keep],
                             touched=tch[keep], book=False)
+        if dropped:
+            self._mirror()
         return dropped
 
     def clear(self) -> None:
@@ -595,6 +604,7 @@ class SsdTier:
             self._segments.clear()
             self._index.clear()
             self._active = None
+        self._mirror()
 
     # ---- compaction ----------------------------------------------------
     def _drop_dead_segments(self) -> None:
@@ -660,6 +670,7 @@ class SsdTier:
         if moved:
             log.info("ssd compact (%s): rewrote %d live rows", self.name,
                      moved)
+            self._mirror()
         return moved
 
     # ---- spill manifest (checkpoint integration) -----------------------
@@ -702,6 +713,48 @@ class SsdTier:
             # the same reference wherever the registry lives
             m["digest"] = manifest_digest(m)
             return m
+
+    # ---- telemetry -----------------------------------------------------
+    _MIRRORED = (("demoted_rows", "pbox_ssd_demoted_rows_total",
+                  "rows demoted host-RAM -> SSD tier"),
+                 ("promoted_rows", "pbox_ssd_promoted_rows_total",
+                  "rows promoted SSD tier -> host RAM"),
+                 ("compacted_rows", "pbox_ssd_compacted_rows_total",
+                  "live rows rewritten by segment compaction"),
+                 ("demote_sec", "pbox_ssd_demote_seconds_total",
+                  "seconds spent writing demoted rows to segments"),
+                 ("promote_sec", "pbox_ssd_promote_seconds_total",
+                  "seconds spent reading promoted rows from segments"),
+                 ("promote_wait_sec",
+                  "pbox_ssd_promote_wait_seconds_total",
+                  "promote seconds paid on the MAIN thread (critical "
+                  "path; stage-thread promotes overlap training)"))
+
+    def _mirror(self) -> None:
+        """Mirror the cumulative accounting into hub counters (inc by
+        delta since the last mirror) + occupancy gauges."""
+        try:
+            hub = get_hub()
+            if not hub.active:
+                return
+            st = self.stats()
+            last = getattr(self, "_mirrored", None)
+            if last is None:
+                last = self._mirrored = {}
+            for attr, name, help_ in self._MIRRORED:
+                delta = st[attr] - last.get(attr, 0.0)
+                if delta > 0:
+                    hub.counter(name, help_).inc(delta)
+                last[attr] = st[attr]
+            hub.gauge("pbox_ssd_segments",
+                      "live SSD tier segment files").set(st["segments"])
+            hub.gauge("pbox_ssd_bytes",
+                      "bytes held by SSD tier segments").set(st["bytes"])
+            hub.gauge("pbox_ssd_live_rows",
+                      "rows resident only in the SSD tier").set(
+                          st["live_rows"])
+        except Exception:
+            log.debug("ssd telemetry mirror failed", exc_info=True)
 
 
 def manifest_digest(manifest: dict) -> str:

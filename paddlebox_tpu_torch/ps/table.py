@@ -39,6 +39,7 @@ import torch
 from paddlebox_tpu_torch.data.batch import SlotBatch
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
 from paddlebox_tpu_torch.config import FLAGS
+from paddlebox_tpu_torch.obs.hub import get_hub
 from paddlebox_tpu_torch.ops.index import DeviceKeyIndex, book_index_dispatch
 from paddlebox_tpu_torch.ops.kernels import KERNELS, KernelSet
 from paddlebox_tpu_torch.ps.kv import (dedup_first_seen_native,
@@ -174,9 +175,9 @@ def promote_window_delta(index, touched: np.ndarray, capacity: int,
     Caller holds the host lock and scatters the staged values into the
     returned ``rows_new``. Returns (rows_new, still_missing_mask, stats);
     ``stats["evict_sec"]`` is the wall of the eviction block.
-    ``on_freed(rows)`` hooks per-row host metadata cleanup. The hub
-    counters of these stats wait for the observability layer (ROADMAP
-    queue 1 item 13)."""
+    ``on_freed(rows)`` hooks per-row host metadata cleanup. With the hub
+    active the stats also add to ``pbox_table_{staged, resident,
+    evicted, evicted_writeback}_rows_total``."""
     miss = index.lookup(new_keys) < 0
     still = miss
     if pending is not None and len(pending):
@@ -213,6 +214,19 @@ def promote_window_delta(index, touched: np.ndarray, capacity: int,
         stats["evict_sec"] = time.perf_counter() - t0
     rows_new = index.assign(ins_keys)
     touched[rows_new] = False  # freshly loaded = clean
+    hub = get_hub()
+    if hub.active:  # per-pass window accounting → Prometheus counters
+        for k, help_txt in (("staged", "rows fetched+scattered into the "
+                             "device window"),
+                            ("resident", "working-set rows already "
+                             "resident at begin_pass"),
+                            ("evicted", "rows evicted under capacity "
+                             "pressure"),
+                            ("evicted_writeback", "dirty evictions "
+                             "written back to the host tier")):
+            if stats[k]:
+                hub.counter(f"pbox_table_{k}_rows_total",
+                            help_txt).inc(stats[k])
     return rows_new, still, stats
 
 
@@ -977,6 +991,12 @@ class EmbeddingTable:
     @property
     def feature_count(self) -> int:
         return len(self.index)
+
+    def obs_stats(self) -> Dict[str, float]:
+        """Occupancy gauges for pass events (obs/hub.emit_pass_event)."""
+        used = len(self.index)
+        return {"capacity": self.capacity, "used": used,
+                "fill_frac": round(used / max(self.capacity, 1), 6)}
 
 
 def _read_blob(path: Union[str, Mapping[str, np.ndarray]]

@@ -10,10 +10,14 @@ gather of the touched rows (kernel row 4) and its copy to pinned host
 memory on the steps' stream before returning, ahead of the next pass's
 first push, and the epilogue job waits on the copy's event before it
 updates the host store (``ps/table.RowsToHost``). ``drop_window``
-zeroes the windows in place. The reference's trace spans and hub
-counters wait for the observability layer (ROADMAP queue 1 item 13),
-and its multi-process tier (``ps/tiered_multihost.py``) for
-``torch.distributed`` (the same item).
+zeroes the windows in place. Telemetry (``obs/``): ``obs_stats`` (with
+``pending``), the window's staged / resident / evicted counters
+(``ps/table.promote_window_delta``), ``pbox_table_evict_async_rows_total``,
+and the ``pass.stage`` / ``pass.begin`` / ``pass.end_submit`` /
+``evict.ahead`` / ``ssd.maintain`` trace spans, the write-back job linked
+to its submit span. The reference's multi-process tier
+(``ps/tiered_multihost.py``) waits for ``torch.distributed`` (ROADMAP
+queue 1 item 13, slice 3).
 
 The reference's core capability — a table BIGGER than device memory on a
 multi-device PS: per pass, ``BuildPull`` fetches the pass's values from
@@ -133,6 +137,8 @@ from typing import Dict, List, Mapping, Optional, Union
 import numpy as np
 
 from paddlebox_tpu_torch.config import FLAGS
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.hub import get_hub
 from paddlebox_tpu_torch.ps.epilogue import PassEpilogue, fence_under_pressure
 from paddlebox_tpu_torch.ps.host_store import HostStore
 from paddlebox_tpu_torch.ps.kv import make_kv
@@ -245,12 +251,18 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
 
     def pending_rows(self) -> int:
         """Rows a future pass's plan build assigned before their values
-        staged: they pin window capacity until their begin_pass (the
-        reference reports it as ``obs_stats()["pending"]``; obs_stats
-        waits for the observability hub, ROADMAP queue 1 item 13)."""
+        staged: they pin window capacity until their begin_pass
+        (``obs_stats()["pending"]``)."""
         with self.host_lock:
             return int(sum(len(self._pending_of(s))
                            for s in range(self.n)))
+
+    def obs_stats(self) -> Dict[str, float]:
+        out = super().obs_stats()
+        # rows a future pass's plan build assigned before their values
+        # staged: they pin window capacity until begin_pass promotes
+        out["pending"] = self.pending_rows()
+        return out
 
     # ---- async epilogue fence ----------------------------------------
     def fence(self) -> None:
@@ -427,8 +439,12 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
             self._evict_async_rows += freed_total
             self._evict_async_sec += time.perf_counter() - t0
         if freed_total:
-            # the evict-ahead counter waits for the hub (ROADMAP queue 1
-            # item 13)
+            hub = get_hub()
+            if hub.active:
+                hub.counter(
+                    "pbox_table_evict_async_rows_total",
+                    "rows evicted on the epilogue lane ahead of the "
+                    "next queued pass").inc(freed_total)
             log.info("evict_ahead: %d clean rows released on the "
                      "epilogue lane for the next queued pass",
                      freed_total)
@@ -525,10 +541,15 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
         blocks host_lock and is strictly ordered AFTER the write-back —
         rows the pass just touched are marked and never selected).
         barrier=False: fencing from the single-lane worker itself would
-        deadlock. (The reference's ``ssd.maintain`` trace span waits for
-        the observability layer, ROADMAP queue 1 item 13.)"""
-        for h in self.hosts:
-            if h is not None and h.ssd is not None:
+        deadlock. Renders on the ``ssd.compact`` trace lane: the work
+        rides the epilogue worker but is the SSD maintenance service, so
+        it gets its own row in the pass trace."""
+        tiers = [h for h in self.hosts
+                 if h is not None and h.ssd is not None]
+        if not tiers:
+            return
+        with trace.lane_scope(trace.LANE_SSD), trace.span("ssd.maintain"):
+            for h in tiers:
                 h.demote_to_watermark(barrier=False)
                 h.ssd.maybe_compact()
 
@@ -661,7 +682,8 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
     # ---- feed-pass staging (BuildPull, ps_gpu_wrapper.cc:337) ----
     def _fetch_stage_values(self, s: int, new_keys: np.ndarray):
         """Host values for shard s's missing keys (the seam the
-        multi-process table of ROADMAP queue 1 item 13 overrides)."""
+        multi-process table overrides; it waits for ``torch.distributed``,
+        ROADMAP queue 1 item 13, slice 3)."""
         return self.hosts[s].fetch(new_keys)
 
     def stage(self, pass_keys: np.ndarray, background: bool = True,
@@ -730,11 +752,13 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
                 gen = self._stage_gen
         if queue:
             try:
-                # queued feed-pass fetch on the preloader worker (the
-                # reference's "pass.stage" trace span waits for the
-                # observability layer, ROADMAP queue 1 item 13)
-                vals = [self._fetch_stage_values(s, new[s])
-                        for s in range(self.n)]
+                # queued feed-pass fetch on the preloader worker: the
+                # pass trace's "pass.stage" span on that lane, a child of
+                # the enclosing build span
+                with trace.span("pass.stage",
+                                new_rows=int(sum(len(a) for a in new))):
+                    vals = [self._fetch_stage_values(s, new[s])
+                            for s in range(self.n)]
                 with self.host_lock:
                     if self._stage_gen != gen:
                         raise RuntimeError(
@@ -830,9 +854,11 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
         capacity demands, scatter only the genuinely new rows. Returns
         the number of working-set rows across shards. The staged rows go
         into each shard's window by kernel row 3 (``scatter_window_rows``,
-        in place on the steps' stream). (The reference's ``pass.begin``
-        trace span waits for the observability layer, ROADMAP queue 1
-        item 13.)"""
+        in place on the steps' stream)."""
+        with trace.span("pass.begin"):
+            return self._begin_pass_traced(pass_keys)
+
+    def _begin_pass_traced(self, pass_keys: Optional[np.ndarray]) -> int:
         # promote attribution spans since the PREVIOUS begin_pass (the
         # overlapped stage promotes during the previous pass's train)
         ssd0 = self._ssd_mark
@@ -952,6 +978,10 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
         pass's reuse."""
         if not self.in_pass:
             raise RuntimeError("end_pass without begin_pass")
+        with trace.span("pass.end_submit") as sp:
+            return self._end_pass_traced(sp.span_id)
+
+    def _end_pass_traced(self, submit_span: int) -> int:
         total = 0
         t0 = time.perf_counter()
         t_dispatch = 0.0
@@ -1001,7 +1031,8 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
                 # cleared, so candidates are clean and eviction is pure
                 # index release): free the rows the next queued pass
                 # will need so its begin_pass pays no inline eviction
-                self._evict_ahead()
+                with trace.span("evict.ahead"):
+                    self._evict_ahead()
                 # watermark demotion rides the SAME job: strictly after
                 # this pass's rows landed and are marked touched —
                 # selection is untouched-first, so a row whose write-back
@@ -1011,9 +1042,10 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
                 self._demote_after_writeback()
 
             if FLAGS.async_end_pass:
-                # (the reference's end_submit trace span and its link to
-                # the write-back span wait for ROADMAP queue 1 item 13)
-                self._epilogue.submit(run, label="end_pass")
+                # link: the write-back job's span on the epilogue lane
+                # points back at this end_submit span (a flow arrow)
+                self._epilogue.submit(run, label="end_pass",
+                                      link_from=submit_span)
             else:
                 run()
         # submit-time audit: the ONLY synchronous

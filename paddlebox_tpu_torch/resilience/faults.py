@@ -1,5 +1,5 @@
 """Deterministic, seed-driven fault injection (copy of
-``paddlebox_tpu/resilience/faults.py`` without the telemetry counters).
+``paddlebox_tpu/resilience/faults.py``).
 
 A ``FaultPlan`` is a list of ``FaultSpec``s, each bound to a named site:
 a seam in the code that calls :func:`inject`. With no plan installed the
@@ -141,6 +141,23 @@ def _corrupt_value(value):
     return None
 
 
+def _book_fault(site: str, spec, ctx) -> None:
+    """``pbox_faults_injected_total{site, kind}`` and, with a sink
+    attached, a ``fault_injected`` event."""
+    try:
+        from paddlebox_tpu_torch.obs.hub import get_hub
+        hub = get_hub()
+        hub.counter("pbox_faults_injected_total",
+                    "faults fired by the installed FaultPlan").inc(
+                        site=site, kind=spec.kind)
+        if hub.active:
+            hub.emit("fault_injected", site=site, kind=spec.kind,
+                     spec=spec.describe(),
+                     **{k: str(v) for k, v in ctx.items()})
+    except Exception:
+        log.debug("fault telemetry emit failed", exc_info=True)
+
+
 class FaultPlan:
     def __init__(self, specs: List[FaultSpec], seed: int = 0) -> None:
         self.specs = list(specs)
@@ -205,6 +222,7 @@ class FaultPlan:
         for spec in to_fire:
             log.warning("fault injected at %s (%s) ctx=%s", site,
                         spec.describe(), ctx)
+            _book_fault(site, spec, ctx)
             if spec.kind == "slow":
                 time.sleep(spec.delay)
             elif spec.kind == "corrupt":

@@ -1,6 +1,5 @@
 """Graceful preemption: stop flag, signal handlers and the resume marker
-(copy of ``paddlebox_tpu/resilience/preemption.py`` without the
-telemetry counters).
+(copy of ``paddlebox_tpu/resilience/preemption.py``).
 
 1. :func:`install_signal_handlers` turns SIGTERM/SIGINT into a
    process-wide stop flag (``request_stop`` is the programmatic seam).
@@ -73,9 +72,19 @@ def request_stop(reason: str = "request_stop") -> None:
         if first:
             _REASON = reason
         _STOP.set()
-    if first:
-        log.warning("stop requested (%s): training will halt at the next "
-                    "batch boundary with an emergency checkpoint", reason)
+    if not first:
+        return
+    log.warning("stop requested (%s): training will halt at the next "
+                "batch boundary with an emergency checkpoint", reason)
+    try:
+        from paddlebox_tpu_torch.obs.hub import get_hub
+        hub = get_hub()
+        hub.counter("pbox_preempt_requests_total",
+                    "graceful-shutdown requests received").inc()
+        if hub.active:
+            hub.emit("preempt_requested", reason=reason)
+    except Exception:
+        log.debug("preempt telemetry emit failed", exc_info=True)
 
 
 def _drain_signal() -> None:

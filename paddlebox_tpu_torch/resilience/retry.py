@@ -1,6 +1,5 @@
 """RetryPolicy — exponential backoff with seeded jitter for IO seams
-(copy of ``paddlebox_tpu/resilience/retry.py`` without the telemetry
-counters).
+(copy of ``paddlebox_tpu/resilience/retry.py``).
 
 - Bounded: an attempt cap and a wall-clock deadline; a flaky seam
   degrades a run, it never wedges one.
@@ -141,9 +140,25 @@ class RetryPolicy:
                     f"{self.site or 'retry'}: gave up after {attempts} "
                     f"attempt(s) ({why} exhausted, {elapsed:.2f}s): "
                     f"{last!r}", attempts, last) from last
-            log.warning("%s: attempt %d failed (%r) — retrying in %.3fs",
-                        self.site or "retry", attempts, last, delay)
+            self._note_retry(attempts, delay, last)
             self.sleep(delay)
+
+    def _note_retry(self, attempt: int, delay: float,
+                    exc: BaseException) -> None:
+        """Log the retry and book ``pbox_retry_attempts_total{site}``
+        (plus a ``retry`` event when a sink is attached)."""
+        log.warning("%s: attempt %d failed (%r) — retrying in %.3fs",
+                    self.site or "retry", attempt, exc, delay)
+        try:
+            from paddlebox_tpu_torch.obs.hub import get_hub
+            hub = get_hub()
+            hub.counter("pbox_retry_attempts_total",
+                        "IO retries per seam").inc(site=self.site or "?")
+            if hub.active:
+                hub.emit("retry", site=self.site, attempt=attempt,
+                         delay_sec=round(delay, 4), error=repr(exc))
+        except Exception:  # telemetry must never take the retry down
+            log.debug("retry telemetry emit failed", exc_info=True)
 
     def wrap(self, fn: Callable) -> Callable:
         """Decorator form of :meth:`call`."""
@@ -151,3 +166,21 @@ class RetryPolicy:
             return self.call(fn, *args, **kwargs)
         wrapped.__name__ = getattr(fn, "__name__", "wrapped")
         return wrapped
+
+
+def retry_counters() -> dict:
+    """Snapshot of the resilience counters (the ``resilience`` block the
+    per-pass telemetry event carries — obs/hub.emit_pass_event)."""
+    from paddlebox_tpu_torch.obs.hub import get_hub
+    hub = get_hub()
+
+    def total(name: str) -> float:
+        return sum(v for _, v in hub.counter(name).series())
+
+    return {
+        "retry_attempts": total("pbox_retry_attempts_total"),
+        "files_quarantined": total("pbox_files_quarantined_total"),
+        "records_poisoned": total("pbox_records_poisoned_total"),
+        "faults_injected": total("pbox_faults_injected_total"),
+        "pass_retries": total("pbox_pass_retries_total"),
+    }

@@ -26,6 +26,15 @@ version is verified against its manifest, and a delta whose parent is
 not the loaded version is refused. :class:`ReloadLoop` polls the store in
 the background and, on a corrupt or torn tip, keeps serving the prior
 snapshot, backs off on the seeded retry schedule and reports staleness.
+
+Telemetry (``obs/``): ``predict``/``predict_many``/``embed_lookup``
+observe ``pbox_serving_latency_seconds{op}`` (host clock around the
+call, which ends with the predictions on the host) when the hub is
+active; ``register_health`` makes the model the hub's /healthz serving
+block and /readyz gate; ``ReloadLoop`` books the reload counters, the
+``pbox_serving_staleness_sec`` gauge, a ``serving_stats`` event per poll
+and a ``reload_degrade`` flight-recorder trigger on a refused or stale
+reload.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.data.batch import BatchBuilder, SlotBatch
 from paddlebox_tpu_torch.data.schema import DataFeedDesc
 from paddlebox_tpu_torch.device import resolve_device
+from paddlebox_tpu_torch.obs import flightrec
+from paddlebox_tpu_torch.obs.hub import get_hub
+from paddlebox_tpu_torch.obs.instruments import SERVING_LATENCY_BUCKETS
 from paddlebox_tpu_torch.ps.multi_mf import MultiMfEmbeddingTable
 from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
 from paddlebox_tpu_torch.ps.table import EmbeddingTable
@@ -60,6 +72,46 @@ from paddlebox_tpu_torch.train.multi_mf_step import (class_device_batches,
 from paddlebox_tpu_torch.train.step import ctr_forward, make_device_batch
 
 log = logging.getLogger(__name__)
+
+
+def _counter(name: str, help_: str, **labels) -> None:
+    try:
+        get_hub().counter(name, help_).inc(**labels)
+    except Exception:
+        log.debug("serving counter failed", exc_info=True)
+
+
+def _emit(event: str, **fields) -> None:
+    try:
+        hub = get_hub()
+        if hub.active:
+            hub.emit(event, **fields)
+    except Exception:
+        log.debug("serving event emit failed", exc_info=True)
+
+
+def _observe_latency(op: str, t0: Optional[float]) -> None:
+    """Book one query's host seconds since ``t0`` (None: the hub was
+    inert when the query started) in
+    ``pbox_serving_latency_seconds{op}``."""
+    if t0 is None:
+        return
+    try:
+        hub = get_hub()
+        if hub.active:
+            hub.histogram(
+                "pbox_serving_latency_seconds",
+                "serving query latency (per lookup/predict call)",
+                buckets=SERVING_LATENCY_BUCKETS).observe(
+                    time.perf_counter() - t0, op=op)
+    except Exception:
+        log.debug("serving latency observe failed", exc_info=True)
+
+
+def _t0() -> Optional[float]:
+    """A query's start on the host clock, read only when the hub is
+    active (the inert path costs one attribute read)."""
+    return time.perf_counter() if get_hub().active else None
 
 
 class ServingSnapshot:
@@ -294,6 +346,14 @@ class ServingModel:
                           and self._staleness_sec > stale_max),
         }
 
+    def register_health(self, hub=None) -> None:
+        """Register this model as the process's serving health surface:
+        /healthz grows the ``serving`` block and /readyz answers 503
+        until the first adoption (obs/hub). Not automatic on ``adopt``
+        (auxiliary readers adopt too; the last registration wins); a
+        :class:`ReloadLoop`'s ``start`` registers its model."""
+        (hub or get_hub()).set_serving_probe(self.serving_status)
+
     # ---- store adoption (the lease-fenced consumer path) ----
     def adopt(self, store, version: Optional[str] = None) -> str:
         """Adopt a published version from an ``ArtifactStore``: take a
@@ -385,7 +445,10 @@ class ServingModel:
     def embed_lookup(self, keys: np.ndarray) -> np.ndarray:
         """[n] uint64 → [n, 3+mf] pull values (show, clk, w, embedx…);
         unknown keys → zeros."""
-        return self.snapshot().lookup(keys)
+        t0 = _t0()
+        out = self.snapshot().lookup(keys)
+        _observe_latency("lookup", t0)
+        return out
 
     def _predict_on(self, snap: ServingSnapshot, batch: SlotBatch,
                     return_valid: bool):
@@ -408,7 +471,10 @@ class ServingModel:
         A batch shorter than ``desc.batch_size`` is padded; padding
         entries hold the net's output on zero rows, NOT real predictions
         — ``return_valid=True`` also returns the 0/1 validity mask."""
-        return self._predict_on(self.snapshot(), batch, return_valid)
+        t0 = _t0()
+        out = self._predict_on(self.snapshot(), batch, return_valid)
+        _observe_latency("predict", t0)
+        return out
 
     def predict_many(self, requests, batch_max: int = 0,
                      return_valid: bool = False):
@@ -423,7 +489,9 @@ class ServingModel:
         valids: List[np.ndarray] = []
 
         def run(batch: SlotBatch, n_valid: int) -> None:
+            t0 = _t0()
             pred, ins_w = self._predict_on(snap, batch, return_valid=True)
+            _observe_latency("predict", t0)
             preds.append(pred[:n_valid])
             valids.append(ins_w[:n_valid])
 
@@ -495,9 +563,20 @@ class ReloadLoop:
                       else "lineage" if isinstance(e, ArtifactLineageError)
                       else "empty" if isinstance(e, FileNotFoundError)
                       else "io")
+            _counter("pbox_serving_reload_refused_total",
+                     "hot-reload polls that failed (prior snapshot "
+                     "kept serving)", reason=reason)
+            _emit("serving_reload_refused", reason=reason,
+                  error=repr(e), adopted=self.model.adopted_aid or "")
             log.error("serving hot-reload REFUSED (%s) — keeping the "
                       "prior snapshot (%s): %s", reason,
                       self.model.adopted_aid, e)
+            # a refused reload is the reload_degrade anomaly: one
+            # debounced flight-recorder bundle while the prior snapshot
+            # serves on
+            flightrec.trigger("reload_degrade", reason=reason,
+                              error=repr(e),
+                              adopted=self.model.adopted_aid or "")
             if self._backoff is None:
                 self._backoff = RetryPolicy.from_flags(
                     site="serving.reload").delays()
@@ -506,6 +585,8 @@ class ReloadLoop:
         self._backoff = None
         if aid is not None:
             self.adopted += 1
+            _emit("serving_reload", artifact=aid,
+                  rows=self.model.serving_status()["rows"])
         self._note_staleness()
         return aid
 
@@ -539,17 +620,65 @@ class ReloadLoop:
         self.model.note_staleness(lag)
         if lag > 0.0 and tip is not None:
             self.degraded += 1
+            _counter("pbox_serving_reload_degraded_total",
+                     "polls that left serving BEHIND the newest "
+                     "published version")
+            _emit("serving_degraded", tip=tip,
+                  adopted=self.model.adopted_aid or "",
+                  staleness_sec=round(lag, 3))
+            # serving left behind the tip after a poll (a refused reload
+            # or a tip the store itself rejected); the debounce collapses
+            # the per-poll repeats into one bundle
+            flightrec.trigger("reload_degrade", reason="stale behind tip",
+                              tip=tip,
+                              adopted=self.model.adopted_aid or "",
+                              staleness_sec=round(lag, 3))
             if FLAGS.serving_staleness_max_sec > 0 \
                     and lag > FLAGS.serving_staleness_max_sec:
                 log.error("serving snapshot STALE: %s published %.1fs "
                           "ago, still serving %s (SLO %.1fs)", tip, lag,
                           self.model.adopted_aid,
                           FLAGS.serving_staleness_max_sec)
+        try:
+            get_hub().gauge("pbox_serving_staleness_sec",
+                            "serving snapshot age vs newest published "
+                            "version").set(lag)
+            if self.model._snap is not None:
+                self._emit_stats()
+        except Exception:
+            log.debug("staleness gauge failed", exc_info=True)
+
+    def _emit_stats(self) -> None:
+        """Per-poll ``serving_stats`` event: adopted version, staleness
+        and the latency quantiles, so a run's JSONL alone shows the
+        serving SLO timeline (``tools/telemetry_report`` renders the
+        ``serve p99`` column from these)."""
+        hub = get_hub()
+        if not hub.active:
+            return
+        h = hub.histogram("pbox_serving_latency_seconds",
+                          "serving query latency (per lookup/predict "
+                          "call)", buckets=SERVING_LATENCY_BUCKETS)
+        status = self.model.serving_status()
+        fields = dict(adopted=status["adopted"] or "",
+                      staleness_sec=status["staleness_sec"])
+        total = 0
+        for op in ("lookup", "predict"):
+            s = h.snapshot(op=op)
+            if s["count"]:
+                total += s["count"]
+                fields[f"{op}_p50_ms"] = round(
+                    h.quantile(0.5, op=op) * 1e3, 4)
+                fields[f"{op}_p99_ms"] = round(
+                    h.quantile(0.99, op=op) * 1e3, 4)
+        fields["queries"] = total
+        hub.emit("serving_stats", **fields)
 
     # ---- thread lifecycle ----
     def start(self) -> "ReloadLoop":
         if self._thread is not None:
             return self
+        self.model.register_health()
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serving-reload")

@@ -37,8 +37,16 @@ the device: no host→device copy per step.
 ``PassPipeline`` drives a pass-window table (``ps/tiered.py``) through
 the same worker: plan build and host fetch ahead of training, a
 reconcile-only ``begin_pass``, the write-back on the table's epilogue
-worker. Not ported: the reference's trace spans and hub counters
-(ROADMAP queue 1 item 13).
+worker.
+
+Telemetry (``obs/``): the worker runs on the ``preload.worker`` lane and
+times each build in a ``pass.build`` span whose id rides the pass
+(``rp._trace_span_id``) for the consumer's ``pass.consume`` link; the
+preloader books ``pbox_preload_{builds, build_seconds, wait_seconds,
+depth_clamps}_total`` and the ``pbox_preload_queue_depth`` gauge, and
+reports its blocked wait (``build_wait``) and the pipeline's boundary
+stalls into the next pass event's critical path. Spans read the host
+clock only: a span on the worker never reads a tensor of its stream.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ import torch
 from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.data.dataset import InMemoryDataset
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.hub import active_hub
 from paddlebox_tpu_torch.ops.bitpack import (as_wire, pack_delta,
                                              pack_u12, pack_u16m, pack_u18,
                                              pack_u24, unpack_delta16,
@@ -1227,6 +1237,7 @@ class PassPreloader:
     def _run(self) -> None:
         # the builds' stage polls see THIS preloader's stop()
         _PRELOAD_TLS.abort = lambda: self._stopped
+        trace.set_lane(trace.LANE_PRELOAD)
         ctx = contextlib.nullcontext()
         if self._device.type == "cuda":
             # a new thread starts on device 0: take the caller's device
@@ -1262,7 +1273,16 @@ class PassPreloader:
                         self._cv.notify_all()
                     return
                 t0 = time.perf_counter()
-                rp = self._build(ds)
+                # the build span on the preload.worker lane; its id rides
+                # the pass so the main thread's consume span links back
+                with trace.span("pass.build",
+                                pass_seq=self.builds + 1) as sp:
+                    rp = self._build(ds)
+                if sp.span_id:
+                    try:
+                        rp._trace_span_id = sp.span_id
+                    except AttributeError:
+                        pass  # slotted pass objects skip the link
                 self._note_built(rp, time.perf_counter() - t0)
             except PreloadBuildAborted as e:
                 log.warning("pass preload pipeline stopped: %s", e)
@@ -1282,20 +1302,30 @@ class PassPreloader:
                 dropped = self._stopped
                 if not dropped:
                     self._q.append(rp)
+                depth = len(self._q)
                 self._cv.notify_all()
             if dropped:
                 # drained mid-build: wait out the pass's copies before
                 # dropping it, so drain() means "no copy in flight"
                 _settle(rp)
                 return
+            self._mirror_queue(depth)
 
     def _note_built(self, rp, build_sec: float) -> None:
         """Accounting and the budget clamp, off the queue lock."""
         self.builds += 1
         self.build_sec_total += build_sec
+        hub = active_hub()
         for stage, sec in (getattr(rp, "build_stats", None) or {}).items():
             self.build_stage_sec[stage] = \
                 self.build_stage_sec.get(stage, 0.0) + sec
+            if hub is not None:
+                hub.counter("pbox_preload_build_seconds_total",
+                            "pass preload build seconds by stage"
+                            ).inc(sec, stage=stage)
+        if hub is not None:
+            hub.counter("pbox_preload_builds_total",
+                        "passes built by the preload pipeline").inc()
         if self._budget <= 0:
             return
         nbytes = int(rp.nbytes())
@@ -1312,6 +1342,11 @@ class PassPreloader:
             "the budget is %.1f MB — clamping preload depth %d -> %d "
             "(raise FLAGS.preload_hbm_budget_mb to restore the deeper "
             "pipeline)", nbytes / 1e6, self._budget / 1e6, self.depth, fit)
+        hub = active_hub()
+        if hub is not None:
+            hub.counter("pbox_preload_depth_clamps_total",
+                        "preload depth reductions forced by the "
+                        "device-memory budget").inc()
 
     # ---- consumer ----
     def start_next(self) -> bool:
@@ -1351,6 +1386,7 @@ class PassPreloader:
                 done=lambda: bool(self._q) or self._exhausted
                 or self._stopped or self._err is not None,
                 progress=lambda: self.builds,
+                stage="preload.build",
                 message=lambda: (
                     f"pass preload wait hung: stage 'preload.build' made "
                     f"no progress for {hang_timeout():.1f}s — 0 staged "
@@ -1366,8 +1402,20 @@ class PassPreloader:
                 if self._err is not None:
                     err, self._err = self._err, None
                     self._stopped = True
+            depth = len(self._q)
             self._cv.notify_all()  # a build slot just freed
         self.wait_sec_total += waited
+        hub = active_hub()
+        if hub is not None:
+            if waited > 1e-4:
+                hub.counter("pbox_preload_wait_seconds_total",
+                            "seconds the trainer blocked on pass preload"
+                            ).inc(waited)
+                # the blocked wait is the consuming pass's build stall
+                # (its pass event's critical_path block)
+                trace.note_pass_part("build_wait", waited)
+            hub.gauge("pbox_preload_queue_depth",
+                      "staged passes queued ahead of training").set(depth)
         if err is not None:
             raise err
         return rp
@@ -1400,6 +1448,13 @@ class PassPreloader:
         """Passes built and not yet consumed."""
         with self._cv:
             return len(self._q)
+
+    @staticmethod
+    def _mirror_queue(depth: int) -> None:
+        hub = active_hub()
+        if hub is not None:
+            hub.gauge("pbox_preload_queue_depth",
+                      "staged passes queued ahead of training").set(depth)
 
 
 def _settle(rp) -> None:
@@ -1460,6 +1515,15 @@ class PassPipeline:
         # checks the head queued stage against them
         self._key_q: collections.deque = collections.deque()
         self._lock = threading.Lock()
+        # the table's fence-wait seconds at the last end_pass: its
+        # endpass_stats are cumulative, and a new pipeline over a
+        # long-lived table must not book old waits into its first pass
+        self._fence_wait_mark = 0.0
+        if window_table is not None:
+            eps = getattr(window_table, "endpass_stats", None)
+            if eps is not None:
+                self._fence_wait_mark = float(
+                    eps().get("critical_fence_wait_sec", 0.0))
         build = build_fn if window_table is None else self._window_build(
             build_fn)
         if device is None and trainer is not None:
@@ -1537,9 +1601,15 @@ class PassPipeline:
         with self._lock:
             if self._key_q and self._key_q[0] is keys:
                 self._key_q.popleft()
-        # the boundary's trace parts (trace.note_pass_part) wait for the
-        # observability layer (ROADMAP queue 1 item 13); the table's
-        # last_pass_stats carries them
+        # boundary attribution for the upcoming pass event (its
+        # critical_path block): the begin-stall pieces the table just
+        # measured (~0 in steady state, the point of the pipeline)
+        lp = getattr(self.table, "last_pass_stats", None) or {}
+        for stage, key in (("stage_wait", "stage_wait_sec"),
+                           ("evict_scatter", "evict_scatter_sec"),
+                           ("evict_emergency", "evict_emergency_sec"),
+                           ("ssd_promote", "ssd_promote_wait_sec")):
+            trace.note_pass_part(stage, float(lp.get(key, 0.0) or 0.0))
         if self.trainer is not None:
             self.trainer.adopt_table()
         return n
@@ -1547,12 +1617,22 @@ class PassPipeline:
     def end_pass(self) -> int:
         """Close the open pass: ``trainer.sync_table()``, then the
         table's ``end_pass`` (the write-back goes to its epilogue
-        worker). No write-back for a plain resident table."""
+        worker). No write-back for a plain resident table. The submit
+        cost and the fence wait it exposed go into the NEXT pass event's
+        critical path (they stall the next boundary)."""
         if self.table is None:
             return 0
         if self.trainer is not None:
             self.trainer.sync_table()
-        return self.table.end_pass()
+        t0 = time.perf_counter()
+        n = self.table.end_pass()
+        trace.note_pass_part("end_submit", time.perf_counter() - t0)
+        eps = getattr(self.table, "endpass_stats", None)
+        if eps is not None:
+            cur = float(eps().get("critical_fence_wait_sec", 0.0))
+            mark, self._fence_wait_mark = self._fence_wait_mark, cur
+            trace.note_pass_part("fence_wait", cur - mark)
+        return n
 
     def drain(self, timeout: Optional[float] = None) -> None:
         """Stop building, join the worker, settle the copies in flight,

@@ -57,8 +57,9 @@ from paddlebox_tpu_torch.train.sharded import (GlobalBatch, ShardedTrainStep,
                                                push_generators)
 from paddlebox_tpu_torch.train.step import (OptimizerFactory, default_tx,
                                             pack_floats, unpack_floats)
-from paddlebox_tpu_torch.train.trainer import PREFETCH_DEPTH, StageTimers
+from paddlebox_tpu_torch.train.trainer import PREFETCH_DEPTH
 from paddlebox_tpu_torch.utils.prefetch import prefetch_iter
+from paddlebox_tpu_torch.utils.profiler import StageTimers
 
 log = logging.getLogger(__name__)
 

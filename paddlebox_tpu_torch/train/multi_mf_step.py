@@ -51,9 +51,9 @@ from paddlebox_tpu_torch.ps.table import (TableState, apply_push,
 from paddlebox_tpu_torch.train.step import (DeviceBatch, OptimizerFactory,
                                             _expand_pool, default_tx,
                                             make_device_batch, pack_floats)
-from paddlebox_tpu_torch.train.trainer import (PREFETCH_DEPTH, NanInfError,
-                                               StageTimers)
+from paddlebox_tpu_torch.train.trainer import PREFETCH_DEPTH, NanInfError
 from paddlebox_tpu_torch.utils.prefetch import prefetch_iter
+from paddlebox_tpu_torch.utils.profiler import StageTimers
 
 log = logging.getLogger(__name__)
 

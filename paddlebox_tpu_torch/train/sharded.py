@@ -48,9 +48,13 @@ keys become plan-pending rows) and promotes the pass's spilled rows
 host-ward (``prefetch_promote``), so a ``train/device_pass.PassPipeline``
 builds, stages and fetches the next passes on its worker while one
 trains; ``begin_pass`` only reconciles and ``end_pass`` writes back on
-the table's epilogue worker. Not here yet: the multi-process form
-(``globalize_dense_state``, the pod branches, the multi-process tiered
-table: ROADMAP queue 1 item 13).
+the table's epilogue worker. Telemetry (``obs/``): each pass ends with
+a ``train_pass_sharded`` / ``train_pass_resident_sharded`` pass event
+when a sink is attached, and a resident pass's steps run in a
+``pass.consume`` span linked to its build span. Not here yet: the
+multi-process form (``globalize_dense_state``, the pod branches, the
+multi-process tiered table), which waits for ``torch.distributed``
+(ROADMAP queue 1 item 13, slice 3).
 """
 
 from __future__ import annotations
@@ -74,6 +78,8 @@ from paddlebox_tpu_torch.metrics import (AUC_NUM_BUCKETS, AucState,
                                          MetricRegistry, auc_add_batch,
                                          auc_compute, auc_merge,
                                          init_auc_state)
+from paddlebox_tpu_torch.obs import trace
+from paddlebox_tpu_torch.obs.hub import emit_pass_event, get_hub
 from paddlebox_tpu_torch.ops.kernels import KERNELS, KernelSet
 from paddlebox_tpu_torch.ops.seqpool_cvm import (fused_seqpool_cvm,
                                                  fused_seqpool_cvm_slot_group)
@@ -98,9 +104,9 @@ from paddlebox_tpu_torch.train.dense_modes import (build_lr_scales,
 from paddlebox_tpu_torch.train.step import (OptimizerFactory, default_tx,
                                             pack_floats, quantize_floats,
                                             unpack_floats)
-from paddlebox_tpu_torch.train.trainer import (PREFETCH_DEPTH, StageTimers,
-                                               _to_cpu)
+from paddlebox_tpu_torch.train.trainer import PREFETCH_DEPTH, _to_cpu
 from paddlebox_tpu_torch.utils.dump import DumpConfig, DumpWriter
+from paddlebox_tpu_torch.utils.profiler import StageTimers
 from paddlebox_tpu_torch.utils.prefetch import prefetch_iter
 
 log = logging.getLogger(__name__)
@@ -774,6 +780,10 @@ class ShardedTrainer:
         log.info("%ssharded pass done: %d global batches, %.0f ex/s, "
                  "auc=%.4f", log_prefix, nb, out["examples_per_sec"],
                  out["auc"])
+        if get_hub().active:
+            emit_pass_event("train_pass_sharded",
+                            dict(out, global_step=self.global_step),
+                            table=self.table, examples=n_ex)
         return out
 
     @staticmethod
@@ -965,12 +975,17 @@ class ShardedTrainer:
                         "metric; rebuild it with build_resident_pass")
             want_metrics = False
         rp.upload()
-        rp.wait_ready()
-        out = self.step_fn.run_resident(self.state, rp, self.seed,
-                                        self.global_step,
-                                        collect_preds=want_metrics)
-        losses, preds = out if want_metrics else (out, None)
-        last_loss = float(losses[-1])
+        # the consume span links back to this pass's build span on the
+        # preloader lane; it ends with the last loss on the host (the
+        # pass's device work done)
+        with trace.span("pass.consume",
+                        link_from=getattr(rp, "_trace_span_id", 0)):
+            rp.wait_ready()
+            out = self.step_fn.run_resident(self.state, rp, self.seed,
+                                            self.global_step,
+                                            collect_preds=want_metrics)
+            losses, preds = out if want_metrics else (out, None)
+            last_loss = float(losses[-1])
         rp.release_host_buffers()
         rp.mark_trained_rows(self.table)
         if want_metrics:
@@ -984,11 +999,13 @@ class ShardedTrainer:
                    examples=rp.num_records, elapsed_sec=elapsed,
                    examples_per_sec=rp.num_records / max(elapsed, 1e-9),
                    last_loss=last_loss)
-        # the reference's pass event and trace spans wait for the
-        # observability hub (ROADMAP queue 1 item 13)
         log.info("%ssharded resident pass: %d global batches, %.0f ex/s, "
                  "auc=%.4f", log_prefix, rp.num_batches,
                  out["examples_per_sec"], out["auc"])
+        if get_hub().active:
+            emit_pass_event("train_pass_resident_sharded",
+                            dict(out, global_step=self.global_step),
+                            table=self.table, examples=rp.num_records)
         return out
 
 

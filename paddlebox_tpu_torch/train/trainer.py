@@ -18,10 +18,16 @@ one window per ``run_pass``, with stream-boundary checkpoints whose v2
 cursor (completed files, open window) lets a restarted process skip the
 completed files and replay the open window.
 
-The reference's hub counters and events of the stream loop
-(``pbox_stream_*``, ``stream_window``, ``stream_idle``,
-``cursor_resume``) are not ported yet (ROADMAP queue 1 item 13); their
-call sites say so.
+Telemetry (``obs/``): ``Trainer`` init attaches the flag-selected sinks
+(``obs.hub.configure_from_flags``); every pass ends with one ``pass``
+event (``obs.hub.emit_pass_event``: metrics, stage timers, channel
+gauges, table occupancy, the device allocator's watermarks, resilience
+counters, the critical path and the quality hook) when a sink is
+attached. The checkpoint side books ``pbox_inpass_checkpoints_total``,
+``pbox_cursor_resumes_total``, ``pbox_pass_retries_total`` and
+``pbox_nan_rollbacks_total`` (with the ``nan_rollback`` flight-recorder
+trigger before the restore); the stream loop books ``pbox_stream_*``
+and the ``stream_window`` / ``stream_idle`` events.
 """
 
 from __future__ import annotations
@@ -29,8 +35,6 @@ from __future__ import annotations
 import logging
 import math
 import time
-from collections import defaultdict
-from contextlib import contextmanager
 from typing import (Any, Callable, Dict, Iterable, Iterator, List,
                     Mapping, Optional, Sequence, Tuple, Union)
 
@@ -46,6 +50,9 @@ from paddlebox_tpu_torch.data.schema import DataFeedDesc
 from paddlebox_tpu_torch.device import resolve_device, seeded_generator
 from paddlebox_tpu_torch.metrics import (AucState, MetricRegistry,
                                          auc_compute, init_auc_state)
+from paddlebox_tpu_torch.obs import flightrec, trace
+from paddlebox_tpu_torch.obs.hub import (configure_from_flags,
+                                         emit_pass_event, get_hub)
 from paddlebox_tpu_torch.ps.table import EmbeddingTable, PullIndex
 from paddlebox_tpu_torch.resilience import faults, preemption
 from paddlebox_tpu_torch.resilience.preemption import PreemptedError
@@ -60,6 +67,7 @@ from paddlebox_tpu_torch.train.step import (DeviceBatch, OptimizerFactory,
                                             make_device_batch)
 from paddlebox_tpu_torch.utils.dump import DumpConfig, DumpWriter, dump_param
 from paddlebox_tpu_torch.utils.prefetch import prefetch_iter
+from paddlebox_tpu_torch.utils.profiler import StageTimers
 
 log = logging.getLogger(__name__)
 
@@ -69,26 +77,6 @@ LOG_PERIOD_STEPS = 100   # the loss is read (a sync) and logged this often
 
 class NanInfError(RuntimeError):
     pass
-
-
-class StageTimers:
-    """Host seconds per pipeline stage for one pass: prepare, h2d and
-    step for ``train_pass`` (prepare and h2d run on the prefetch
-    threads), build and step for ``train_pass_resident``."""
-
-    def __init__(self) -> None:
-        self.seconds: Dict[str, List[float]] = defaultdict(list)
-
-    def reset(self) -> None:
-        self.seconds.clear()
-
-    @contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds[name].append(time.perf_counter() - t0)
 
 
 class Trainer:
@@ -141,6 +129,11 @@ class Trainer:
         self.metrics = MetricRegistry()
         self._dump_cfg: Optional[DumpConfig] = None
         self._pass_seq = 0
+        # sequence number of this trainer's pass events (every kind)
+        self._event_seq = 0
+        # attach flag-selected telemetry sinks (obs/hub; a no-op when the
+        # telemetry flags are off)
+        configure_from_flags()
         # the flag-selected fault plan (no-op without FLAGS.fault_plan)
         faults.install_from_flags()
         # SIGTERM/SIGINT become a stop flag the pass loop honours at
@@ -191,8 +184,10 @@ class Trainer:
             with st.stage("h2d"):
                 return t[0], make_device_batch(t[0], t[1], self.device)
 
-        prepared = prefetch_iter(batches, do_prep, capacity=PREFETCH_DEPTH)
-        return prefetch_iter(prepared, do_h2d, capacity=PREFETCH_DEPTH)
+        prepared = prefetch_iter(batches, do_prep, capacity=PREFETCH_DEPTH,
+                                 name="trainer.prepare")
+        return prefetch_iter(prepared, do_h2d, capacity=PREFETCH_DEPTH,
+                             name="trainer.h2d")
 
     def _check_loss(self, loss: torch.Tensor, nb: int) -> None:
         if not (self.check_nan_inf or nb % LOG_PERIOD_STEPS == 0):
@@ -330,7 +325,25 @@ class Trainer:
                    last_loss=last_loss)
         log.info("%spass done: %d batches, %.0f ex/s, auc=%.4f",
                  log_prefix, nb, out["examples_per_sec"], out["auc"])
+        if FLAGS.profile:
+            self.stage_timers.report(log_prefix)  # PrintSyncTimer role
+        self._emit_pass("train_pass", out, n_ex)
         return out
+
+    def _emit_pass(self, kind: str, out: Dict[str, float],
+                   examples: int) -> None:
+        """The pass's telemetry record (``obs.hub.emit_pass_event``);
+        returns at once when no sink is attached. Reads only host
+        values: the pass already waited for its device work."""
+        if not get_hub().active:
+            return
+        self._event_seq += 1
+        emit_pass_event(
+            kind, dict(out, global_step=self.global_step,
+                       pass_seq=self._event_seq),
+            stage_timers=self.stage_timers, table=self.table,
+            examples=examples, auc_state=self.state.auc,
+            device=self.device)
 
     def _preempt(self, checkpoint, dataset, batch_index: int,
                  last_save: Tuple[int, Optional[str]],
@@ -341,9 +354,18 @@ class Trainer:
         ``PreemptedError``."""
         path = None
         if checkpoint is not None:
-            path = (last_save[1] if last_save[0] == batch_index
-                    else self._save_inpass(checkpoint, dataset,
-                                           batch_index))
+            if last_save[0] == batch_index:
+                # the periodic save already snapshotted THIS boundary
+                path = last_save[1]
+                hub = get_hub()
+                if hub.active:
+                    hub.emit("emergency_checkpoint", reason="preempt",
+                             reused=True, batch_index=int(batch_index),
+                             global_step=int(self.global_step),
+                             path=path)
+            else:
+                path = self._save_inpass(checkpoint, dataset,
+                                         batch_index, reason="preempt")
             preemption.write_resume_marker(
                 checkpoint.root, step=int(self.global_step),
                 batch_index=batch_index, reason=preemption.stop_reason())
@@ -399,13 +421,26 @@ class Trainer:
             return None
         return self._pass_cursor(dataset, 0)
 
-    def _save_inpass(self, checkpoint, dataset, batch_index: int) -> str:
+    def _save_inpass(self, checkpoint, dataset, batch_index: int,
+                     reason: str = "periodic") -> str:
         """A mid-pass checkpoint (a delta once a base exists) with the
-        resume cursor and the metric snapshot."""
-        return checkpoint.save(
+        resume cursor and the metric snapshot; books
+        ``pbox_inpass_checkpoints_total{reason}`` and an
+        ``inpass_checkpoint`` / ``emergency_checkpoint`` event."""
+        path = checkpoint.save(
             self, delta=checkpoint.has_base(),
             cursor=self._pass_cursor(dataset, batch_index),
             metrics=self.metrics if len(self.metrics) else None)
+        hub = get_hub()
+        hub.counter("pbox_inpass_checkpoints_total",
+                    "mid-pass cursor checkpoints written").inc(
+                        reason=reason)
+        if hub.active:
+            hub.emit("emergency_checkpoint" if reason == "preempt"
+                     else "inpass_checkpoint", reason=reason,
+                     batch_index=int(batch_index),
+                     global_step=int(self.global_step), path=path)
+        return path
 
     def _adopt_cursor(self, checkpoint, dataset,
                       step: Optional[int] = None) -> Optional[dict]:
@@ -507,8 +542,21 @@ class Trainer:
         if mr is not None:
             self.metrics = mr
         preemption.clear_resume_marker(checkpoint.root)
-        # telemetry (ROADMAP queue 1 item 13): pbox_cursor_resumes_total
-        # and the cursor_resume event
+        hub = get_hub()
+        hub.counter("pbox_cursor_resumes_total",
+                    "passes resumed mid-pass from a cursor").inc()
+        if hub.active:
+            fields = {}
+            if stream is not None:
+                fields = dict(
+                    stream=True,
+                    files_completed=nfold + len(
+                        stream.get("files_completed", [])),
+                    folded_files=nfold,
+                    replay_files=len(stream.get("window_files", [])))
+            hub.emit("cursor_resume", global_step=int(self.global_step),
+                     batch_index=int(cur.get("batch_index", 0)),
+                     pass_seq=cur.get("pass_seq"), **fields)
         return cur
 
     def _reject_cursor_state(self, checkpoint) -> None:
@@ -595,12 +643,28 @@ class Trainer:
                 if attempt >= limit or not recoverable:
                     raise
                 attempt += 1
+                hub = get_hub()
+                hub.counter("pbox_pass_retries_total",
+                            "pass-level recovery retries").inc()
+                if hub.active:
+                    hub.emit("pass_retry", attempt=attempt, limit=limit,
+                             error=repr(e), global_step=self.global_step)
                 if checkpoint is None:
                     log.warning("%spass failed (%r) — no checkpoint "
                                 "manager, retrying from current state "
                                 "(%d/%d)", log_prefix, e, attempt, limit)
                     continue
                 if isinstance(e, NanInfError):
+                    # a NaN rollback is a postmortem-worthy anomaly: dump
+                    # the recent-event ring and the instrument snapshot
+                    # BEFORE the restore overwrites the poisoned state,
+                    # and book the counter the nan_rollback alert watches
+                    hub.counter("pbox_nan_rollbacks_total",
+                                "NaN/Inf passes rolled back to a clean "
+                                "boundary").inc()
+                    flightrec.trigger("nan_rollback", reason=repr(e),
+                                      global_step=self.global_step,
+                                      attempt=attempt, limit=limit)
                     # mid-pass snapshots are suspect: roll all the way
                     # back to the clean boundary. A STREAM boundary still
                     # carries its stream cursor — adopt it so the
@@ -690,15 +754,29 @@ class Trainer:
                                                         [])])
                 seen = set(prefix)
                 known = prefix + [f for f in known if f not in seen]
-                # telemetry (ROADMAP queue 1 item 13): a boundary resume
-                # counts in pbox_cursor_resumes_total here
+                if not stream.get("window_files"):
+                    # a fresh process resuming at a window BOUNDARY:
+                    # _adopt_cursor sees an in-process continuation and
+                    # stays silent, so this is the only place the
+                    # restart-resume shows (a mid-window cursor keeps
+                    # its one event from _adopt_cursor)
+                    hub = get_hub()
+                    hub.counter("pbox_cursor_resumes_total",
+                                "passes resumed mid-pass from a cursor"
+                                ).inc()
+                    if hub.active:
+                        hub.emit("cursor_resume", stream=True,
+                                 global_step=int(self.global_step),
+                                 batch_index=0, replay_files=0,
+                                 files_completed=len(
+                                     dataset.files_completed))
         totals: Dict[str, float] = {"windows": 0, "files": 0, "batches": 0,
                                     "examples": 0, "replayed_files": 0,
                                     "idle_polls": 0}
         try:
             self._stream_loop(dataset, checkpoint, filelist_fn,
                               max_windows, max_idle_polls, log_prefix,
-                              known, totals)
+                              known, totals, get_hub())
         finally:
             # each window pass narrowed the filelist to its consumption
             # order — restore the full known list on EVERY exit
@@ -714,7 +792,8 @@ class Trainer:
     def _stream_loop(self, dataset, checkpoint, filelist_fn,
                      max_windows: Optional[int],
                      max_idle_polls: Optional[int], log_prefix: str,
-                     known: List[str], totals: Dict[str, float]) -> None:
+                     known: List[str], totals: Dict[str, float],
+                     hub) -> None:
         wsize = FLAGS.stream_window_files
         since_ckpt = 0
         idle_run = 0
@@ -733,8 +812,10 @@ class Trainer:
                              if str(f) not in have)
             dataset.set_filelist(known)
             pending = dataset.pending_files()
-            # telemetry (ROADMAP queue 1 item 13): the
-            # pbox_stream_lag_files gauge, max(0, len(pending) - wsize)
+            hub.gauge("pbox_stream_lag_files",
+                      "stream backlog: pending files not yet "
+                      "dispatched into a window").set(
+                          max(0, len(pending) - wsize))
             if not pending:
                 if filelist_fn is None:
                     break
@@ -749,8 +830,13 @@ class Trainer:
                     backoff = RetryPolicy.from_flags(
                         site="stream.poll", max_attempts=1 << 20).delays()
                     delay = next(backoff)
-                # telemetry (ROADMAP queue 1 item 13):
-                # pbox_stream_idle_polls_total and the stream_idle event
+                hub.counter("pbox_stream_idle_polls_total",
+                            "filelist polls that found no new files"
+                            ).inc()
+                if hub.active:
+                    hub.emit("stream_idle", idle_polls=idle_run,
+                             backoff_sec=round(delay, 4),
+                             known_files=len(known))
                 self._stream_sleep(delay)
                 continue
             idle_run = 0
@@ -780,9 +866,18 @@ class Trainer:
             totals.update({k: out[k] for k in ("auc", "last_loss")
                            if k in out})
             since_ckpt += 1
-            # telemetry (ROADMAP queue 1 item 13):
-            # pbox_stream_windows_total, pbox_stream_files_total and the
-            # stream_window event
+            hub.counter("pbox_stream_windows_total",
+                        "stream windows fully trained").inc()
+            hub.counter("pbox_stream_files_total",
+                        "files consumed by stream windows").inc(
+                            len(consumed))
+            if hub.active:
+                hub.emit("stream_window", window=widx,
+                         files=len(consumed),
+                         batches=int(out.get("batches", 0)),
+                         lag_files=max(0, len(pending) - len(window)),
+                         replayed_files=replayed,
+                         global_step=int(self.global_step))
             if self.on_window_complete is not None:
                 # boundary work (shrink scheduling, health bookkeeping) —
                 # between passes by construction, and BEFORE the save
@@ -926,7 +1021,12 @@ class Trainer:
                                         chunk_bits=rp.chunk_bits)
             self._resident_runners[key] = runner
         collect = want_metrics and rp.side is not None
-        with st.stage("step"):
+        # "step" ends with the last loss on the host (the pass's device
+        # work done); the consume span links back to the pass's build
+        # span on the preloader lane (obs/trace: the cross-thread arrow)
+        with trace.span("pass.consume",
+                        link_from=getattr(rp, "_trace_span_id", 0)), \
+                st.stage("step"):
             out = runner.run_pass(self.state, rp, self.seed,
                                   self.global_step, collect_preds=collect)
             losses, preds = out if collect else (out, None)
@@ -958,6 +1058,7 @@ class Trainer:
         log.info("%sresident pass done: %d batches, %.0f ex/s, auc=%.4f",
                  log_prefix, rp.num_batches, out["examples_per_sec"],
                  out["auc"])
+        self._emit_pass("train_pass_resident", out, rp.num_records)
         return out
 
     def train_passes_resident(self, datasets: Iterable[InMemoryDataset],
@@ -1049,6 +1150,7 @@ class Trainer:
                    examples_per_sec=res.ins_num / max(elapsed, 1e-9))
         log.info("%seval pass: %d batches, auc=%.4f", log_prefix, nb,
                  res.auc)
+        self._emit_pass("eval_pass", out, int(res.ins_num))
         return out
 
     def sync_table(self) -> None:

@@ -5,7 +5,7 @@ with device compute through it."""
 from __future__ import annotations
 
 import threading
-from typing import Callable, Iterable, Iterator, TypeVar
+from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
 from paddlebox_tpu_torch.utils.channel import Channel, ChannelClosed
 
@@ -14,17 +14,20 @@ U = TypeVar("U")
 
 
 def prefetch_iter(items: Iterable[T], prepare: Callable[[T], U],
-                  capacity: int = 4) -> Iterator[U]:
+                  capacity: int = 4,
+                  name: Optional[str] = None) -> Iterator[U]:
     """Yield prepare(item) for each item, with preparation running in a
     producer thread up to ``capacity`` items ahead. Producer exceptions
-    re-raise at the consumer.
+    re-raise at the consumer. ``name`` registers the backing channel's
+    pipeline gauges (depth, high watermark, blocked time) with the
+    telemetry registry (``utils.channel.channel_stats_snapshot``).
 
     Abandon-safe: if the consumer walks away early (break / exception /
     GeneratorExit), the ``finally`` cancels the channel so a producer
     blocked on ``put`` unblocks, and ``items`` is closed when it is
     itself a generator — so chained prefetch stages unwind transitively
     instead of leaking blocked threads."""
-    ch: Channel = Channel(capacity=capacity)
+    ch: Channel = Channel(capacity=capacity, name=name)
     err: list = []
 
     def producer() -> None:

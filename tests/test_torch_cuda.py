@@ -2587,3 +2587,106 @@ def test_multi_mf_tiered_equals_plain_sharded_on_card(cuda, deterministic,
     assert demoted > 0
     for k, v in tr_p.model.state_dict().items():
         assert torch.equal(v, tr_t.model.state_dict()[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the always-on layer on the card (obs/)
+# ---------------------------------------------------------------------------
+
+def _obs_dispatch(hub):
+    snap = hub.snapshot().get("pbox_kernel_dispatch_total", {})
+    out = {}
+    for key, n in snap.get("series", {}).items():
+        kv = dict(x.split("=", 1) for x in key.split(","))
+        out[(kv["kernel"], kv["impl"])] = n
+    return out
+
+
+@pytest.mark.cuda
+def test_obs_dispatch_counter_equals_launches_on_card(cuda, deterministic,
+                                                      tmp_path):
+    """With a sink attached every kernel launch of a train_pass books one
+    ``cuda`` dispatch tick beside its ``.launches`` count, nothing books
+    ``plain``, and the trained state equals the inert run's bit for bit;
+    the pass event's device memory block reads the card's allocator."""
+    import json
+
+    from paddlebox_tpu_torch.obs import JsonlSink, reset_hub
+    trainer, dataset, _ = _ckpt_setup(cuda)
+    fns = {"gather_rows": tk.gather_rows,
+           "fused_embed_pool_cvm": tk.pool_cvm,
+           "seqpool_grad": tk.segment_gather,
+           "scatter_add_update": tk.scatter_add_update}
+    states = []
+    try:
+        for on in (False, True):
+            hub = reset_hub()
+            path = str(tmp_path / f"ev{int(on)}.jsonl")
+            if on:
+                hub.add_sink(JsonlSink(path))
+            before = {k: f.launches for k, f in fns.items()}
+            tr = trainer()
+            tr.train_pass(dataset())
+            torch.cuda.synchronize()
+            delta = {k: f.launches - before[k] for k, f in fns.items()}
+            got = _obs_dispatch(hub)
+            if on:
+                for k, n in delta.items():
+                    assert n > 0 and got[(k, "cuda")] == n, k
+                assert not [k for k in got if k[1] == "plain"]
+                ev = next(e for e in map(json.loads, open(path))
+                          if e["event"] == "pass")
+                mem = ev["hbm"]
+                assert 0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"]
+                assert mem["bytes_limit"] == \
+                    torch.cuda.get_device_properties(0).total_memory
+            else:
+                assert got == {}
+            states.append((tr.table.state.data.clone(),
+                           {k: v.clone()
+                            for k, v in tr.model.state_dict().items()}))
+    finally:
+        reset_hub()
+    (d0, p0), (d1, p1) = states
+    assert torch.equal(d0, d1)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+
+
+@pytest.mark.cuda
+def test_obs_quality_norm_sample_on_card(cuda):
+    """The quality monitor's norm sample gathers on the card and copies
+    only the sample; it equals the same rows of a whole-table copy."""
+    from paddlebox_tpu_torch.obs.quality import norm_sample
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(
+        rng.normal(size=(70001, 16)).astype(np.float32)).to(cuda)
+    rows = rng.choice(70000, size=2048, replace=False)
+    got = norm_sample(data, rows)
+    want = data.cpu().numpy()[rows]
+    np.testing.assert_array_equal(got, want)
+    assert float(np.abs(got).mean()) == pytest.approx(
+        float(np.abs(want).mean()), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_obs_profiler_trace_holds_kernel_events(cuda, tmp_path):
+    """``utils.profiler.trace`` around one train step on the card writes
+    a chrome trace whose CUDA kernel events name the port's kernels."""
+    import json
+
+    from paddlebox_tpu_torch.utils import profiler
+    trainer, dataset, _ = _ckpt_setup(cuda)
+    tr = trainer()
+    batch = next(iter(dataset().batches()))
+    from paddlebox_tpu_torch.train.step import make_device_batch
+    dev = make_device_batch(batch, tr.table.prepare(batch), cuda)
+    gen = tr.step_generator(1)
+    with profiler.trace(str(tmp_path)) as prof:
+        tr.step_fn(tr.state, dev, gen)
+        torch.cuda.synchronize()
+    assert prof is not None
+    evs = json.load(open(tmp_path / profiler.TRACE_FILE))["traceEvents"]
+    names = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
+    for sym in ("gather_rows_kernel", "pool_cvm_kernel",
+                "segment_gather", "scatter_add_kernel"):
+        assert any(sym in n for n in names), (sym, names[:20])

@@ -612,6 +612,8 @@ def test_host_store_shrink_reaches_ssd(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_epilogue_fence_hang_deadline():
+    from paddlebox_tpu_torch.obs import reset_hub
+    hub = reset_hub()
     ep = PassEpilogue("t")
     release = threading.Event()
     ep.submit(release.wait, label="wedged")
@@ -621,6 +623,9 @@ def test_epilogue_fence_hang_deadline():
     release.set()
     ep.fence()
     assert ep.stats()["pending"] == 0
+    assert hub.counter("pbox_pipeline_hangs_total").value(
+        stage="endpass.writeback") == 1
+    reset_hub()
 
 
 def test_fence_slow_but_moving_pipeline_does_not_trip():

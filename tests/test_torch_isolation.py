@@ -38,6 +38,12 @@ def test_native_library_stands_alone():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, paddlebox_tpu_torch, paddlebox_tpu_torch.convert\n"
+            "import paddlebox_tpu_torch.obs, paddlebox_tpu_torch.tools\n"
+            "import paddlebox_tpu_torch.tools.obs_check\n"
+            "import paddlebox_tpu_torch.tools.telemetry_report\n"
+            "import paddlebox_tpu_torch.utils.profiler\n"
+            "import paddlebox_tpu_torch.utils.timer\n"
+            "import paddlebox_tpu_torch.utils.logging\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -47,6 +53,19 @@ def test_import_pulls_in_no_jax():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_observability_layer_is_checked():
+    """The always-on layer's modules are among the checked files."""
+    pkg = ROOT / "paddlebox_tpu_torch"
+    files = set(_port_files())
+    for rel in ("obs/__init__.py", "obs/hub.py", "obs/instruments.py",
+                "obs/sinks.py", "obs/trace.py", "obs/flightrec.py",
+                "obs/alerts.py", "obs/quality.py", "obs/watchdog.py",
+                "utils/profiler.py", "utils/timer.py", "utils/logging.py",
+                "tools/__init__.py", "tools/telemetry_report.py",
+                "tools/obs_check.py"):
+        assert pkg / rel in files, rel
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -283,6 +283,11 @@ def test_depth_zero_builds_one_pass_per_credit():
 
 
 def test_wait_hang_deadline_names_the_stage():
+    """The hang deadline names the stage and books
+    ``pbox_pipeline_hangs_total{stage="preload.build"}`` (the counter
+    counts without a sink, as the reference's does)."""
+    from paddlebox_tpu_torch.obs import reset_hub
+    hub = reset_hub()
     release = threading.Event()
 
     def build(ds):
@@ -297,6 +302,9 @@ def test_wait_hang_deadline_names_the_stage():
     release.set()
     assert pre.wait() is not None        # the build completes once freed
     pre.drain()
+    assert hub.counter("pbox_pipeline_hangs_total").value(
+        stage="preload.build") == 1
+    reset_hub()
 
 
 def test_slow_but_moving_pipeline_does_not_trip():
@@ -317,7 +325,7 @@ def test_slow_but_moving_pipeline_does_not_trip():
     t.start()
     with flags_scope(pipeline_wait_timeout_sec=0.4), cv:
         wait_with_deadline(cv, done=lambda: state["n"] == 4,
-                           progress=lambda: state["n"],
+                           progress=lambda: state["n"], stage="t",
                            message=lambda: "hung")
     t.join(10)
 
