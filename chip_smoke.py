@@ -5743,7 +5743,7 @@ OBS_PHASE_BUDGET_S = 45.0        # phase 17's wall budget
 OBS_SERVE_CAPACITY = 1 << 20     # 17c: rows of the served table
 OBS_PREDICTS = 20                # 17c: predicts through the histogram
 OBS_TIER_PASSES = 3              # 17b: passes (cold, then 2 measured)
-OBS_TRACE_LEAD_S = 0.5           # 17e: the trace window's lead before the step
+OBS_TRACE_TURNS = 4              # 17e: trace() windows, each after two bare ones
 #: the CUDA symbols of rows 1, 6, 7 and 13 (csrc/gather_rows.cu,
 #: segment_gather.cu, pool_cvm.cu, scatter_add_update.cu)
 OBS_KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_kernel",),
@@ -5751,12 +5751,6 @@ OBS_KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_kernel",),
                                          "segment_gather_wide"),
                       "pool_cvm": ("pool_cvm_kernel",),
                       "scatter_add_update": ("scatter_add_kernel",)}
-#: the wrappers' dispatch labels (``pbox_kernel_dispatch_total{kernel}``)
-OBS_LABELS = {"gather_rows": "gather_rows", "segment_gather": "seqpool_grad",
-              "pool_cvm": "fused_embed_pool_cvm",
-              "scatter_add_update": "scatter_add_update",
-              "scatter_rows_dma": "scatter_rows_dma",
-              "gather_rows_dma": "gather_rows_dma"}
 
 
 def _dispatch(hub) -> dict:
@@ -5769,15 +5763,17 @@ def _dispatch(hub) -> dict:
     return out
 
 
-def _check_dispatch(what: str, hub, launches: dict, dev: str) -> dict:
-    """The hub's dispatch counter against the wrappers' launch deltas:
-    on the card every launch books one ``cuda`` tick and nothing books
-    ``plain``. Returns {label: cuda ticks}."""
+def _check_dispatch(what: str, hub, fns: dict, launches: dict,
+                    dev: str) -> dict:
+    """The hub's dispatch counter against the wrappers' launch deltas
+    (``launches``: {name: n}, ``fns``: {name: wrapper}, each booking
+    under its ``label``): on the card every launch books one ``cuda``
+    tick and nothing books ``plain``. Returns {label: cuda ticks}."""
     got = _dispatch(hub)
     plain = {k: v for k, v in got.items() if k[1] == "plain"}
     out = {}
     for name, n in launches.items():
-        lab = OBS_LABELS[name]
+        lab = fns[name].label
         ticks = got.get((lab, "cuda"), 0)
         out[lab] = ticks
         if dev == "cuda" and (ticks != n or n == 0):
@@ -5819,6 +5815,38 @@ def _strict_prom(text: str) -> int:
     return n
 
 
+def _trace_counts(path: str) -> dict:
+    """Of a chrome trace that ``torch.profiler`` wrote: the CUDA kernel
+    events of the four symbols of :data:`OBS_KERNEL_SYMBOLS`, all CUDA
+    kernel events, and the host's kernel launch events. A window that
+    keeps every device event holds at least as many kernels as launches
+    (a few kernels, the library's own, come without a launch event)."""
+    with open(path) as fh:
+        evs = json.load(fh)["traceEvents"]
+    kern = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
+    return {"symbols": {n: sum(any(s in k for s in syms) for k in kern)
+                        for n, syms in OBS_KERNEL_SYMBOLS.items()},
+            "kernels": len(kern),
+            "runtime_launches": sum(
+                1 for e in evs if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", ""))}
+
+
+def _bare_trace_counts(torch, run, path: str) -> dict:
+    """:func:`_trace_counts` of a bare ``torch.profiler.profile`` window
+    around ``run()``, opened cold as ``utils.profiler.trace`` did before
+    it warmed up: late in a long process such a window has lost its
+    first ~40-60 device events."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    return _trace_counts(path)
+
+
 def obs_phase(torch, args, card, desc, records, batches, details,
               dev: str = "cuda") -> dict:
     """Phase 17: the always-on layer (``obs/``) on the card. Phases 1-16
@@ -5845,9 +5873,13 @@ def obs_phase(torch, args, card, desc, records, batches, details,
     ``Trainer.run_pass`` with a boundary checkpoint: one ``nan_rollback``
     bundle of the bundle schema, the state after the rollback equal to
     the pre-pass digest, ``hub.dump_blackbox`` one more bundle. 17e:
-    ``utils.profiler.trace`` around one ``TrainStep``: its chrome trace
-    holds the CUDA kernels of rows 1, 6, 7 and 13. Prints one ``obs:``
-    JSON line; returns the rows' launches on the phase's main path."""
+    ``utils.profiler.trace`` around one ``TrainStep``, in
+    ``OBS_TRACE_TURNS`` turns: each chrome trace holds one CUDA kernel of
+    rows 1, 6, 7 and 13 for each launch and no fewer kernels than
+    launches; before each, two bare ``torch.profiler`` windows around
+    the same step report the events they lost. The phase fails past
+    ``OBS_PHASE_BUDGET_S``. Prints one ``obs:`` JSON line; returns the
+    rows' launches on the phase's main path."""
     import dataclasses
     import urllib.error
     import urllib.request
@@ -5948,7 +5980,7 @@ def obs_phase(torch, args, card, desc, records, batches, details,
                             "launches": got}
                     if on:
                         turn["dispatch"] = _check_dispatch(
-                            f"phase 17a turn {i}", hub, got, dev)
+                            f"phase 17a turn {i}", hub, fns, got, dev)
                         evs = [json.loads(ln) for ln in open(jsonl)]
                         ev = next(e for e in evs if e["event"] == "pass")
                         q = next(e for e in evs
@@ -6086,7 +6118,7 @@ def obs_phase(torch, args, card, desc, records, batches, details,
         _, got = count(tiered)
         t["b_passes_s"] = time.perf_counter() - t0
         dispatch_b = _check_dispatch(
-            "phase 17b", hub, {k: got[k] for k in
+            "phase 17b", hub, fns, {k: got[k] for k in
                                ("scatter_rows_dma", "gather_rows_dma")},
             dev)
         reset_hub()
@@ -6263,33 +6295,34 @@ def obs_phase(torch, args, card, desc, records, batches, details,
             dvb = make_device_batch(b0, ix, tr.device)
             gen = tr.step_generator(tr.global_step + 1)
             sync()
-            trace_dir = os.path.join(tmp, "trace")
-            with profiler.trace(trace_dir):
-                # the step starts well inside the window (a pause, then
-                # small kernels): late in a long process a trace of the
-                # step alone lacked its first ~55 kernel events (the
-                # forward's, rows 1 and 7), in a fresh process it held
-                # them all
-                time.sleep(OBS_TRACE_LEAD_S)
-                lead = torch.zeros(1, device=dev)
-                for _ in range(256):
-                    lead.add_(1.0)
-                sync()
-                _, got_e = count(lambda: tr.step_fn(tr.state, dvb, gen),
-                                 names4)
-            with open(os.path.join(trace_dir, profiler.TRACE_FILE)) as fh:
-                evs = json.load(fh)["traceEvents"]
-            kern = [e.get("name", "") for e in sorted(
-                (e for e in evs if e.get("cat") == "kernel"),
-                key=lambda e: e.get("ts", 0))]
-            found = {n: sum(any(s in k for s in syms) for k in kern)
-                     for n, syms in OBS_KERNEL_SYMBOLS.items()}
-            if dev == "cuda" and not all(found.values()):
-                raise AssertionError(f"phase 17e: kernel events {found} in "
-                                     f"{len(kern)} CUDA kernel events, the "
-                                     f"first {[k[:48] for k in kern[:8]]}")
-            out["e"] = {"kernel_events": found, "cuda_kernels": len(kern),
-                        "launches": got_e}
+            step = lambda: tr.step_fn(tr.state, dvb, gen)  # noqa: E731
+            # each turn: two bare windows, then trace(). Late in this
+            # process a bare window now and then loses its first ~45
+            # device events; trace() must hold all of its window's
+            # events whatever window came before it
+            turns_e = []
+            for i in range(OBS_TRACE_TURNS):
+                turn = {"bare": [_bare_trace_counts(
+                    torch, step, os.path.join(tmp, f"bare{i}{j}.json"))
+                    for j in range(2)] if dev == "cuda" else []}
+                trace_dir = os.path.join(tmp, f"trace{i}")
+                with profiler.trace(trace_dir):
+                    _, got_e = count(step, names4)
+                held = _trace_counts(os.path.join(trace_dir,
+                                                  profiler.TRACE_FILE))
+                turn.update(trace=held, launches=got_e)
+                turns_e.append(turn)
+                if dev == "cuda" and (held["symbols"] != got_e
+                                      or held["kernels"]
+                                      < held["runtime_launches"]):
+                    raise AssertionError(
+                        f"phase 17e turn {i}: trace() window {held}, the "
+                        f"step launched {got_e}")
+            out["e"] = {"turns": turns_e,
+                        "bare_lost": [[max(0, x["runtime_launches"]
+                                           - x["kernels"])
+                                       for x in turn["bare"]]
+                                      for turn in turns_e]}
             t["e_s"] = time.perf_counter() - t1
         finally:
             reset_hub()
@@ -6320,11 +6353,16 @@ def obs_phase(torch, args, card, desc, records, batches, details,
         f"spans, bottlenecks {out['b']['bottlenecks']}; 17c: /readyz "
         f"{out['c']['readyz']}, predict p50 {out['c']['hist_p50_ms']:.2f} "
         f"ms by the histogram, {out['c']['host_p50_ms']:.2f} ms by the "
-        f"host clock; 17d: bundles {out['d']['bundles']}; 17e: kernel "
-        f"events {out['e']['kernel_events']}; phase 17 took "
+        f"host clock; 17d: bundles {out['d']['bundles']}; 17e: trace() "
+        f"windows held {[x['trace']['symbols'] for x in out['e']['turns']]}"
+        f", the step's launches; bare windows lost "
+        f"{out['e']['bare_lost']} events; phase 17 took "
         f"{phase_s:.1f}s (budget {OBS_PHASE_BUDGET_S:.0f}s) "
         f"{json.dumps({k: round(v, 2) for k, v in t.items()})} ({card})")
     details["obs"] = out
+    if dev == "cuda" and phase_s > OBS_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 17 took {phase_s:.1f}s, past its "
+                             f"{OBS_PHASE_BUDGET_S:.0f}s budget")
     return launches
 
 

@@ -176,15 +176,6 @@ class Flags:
     # ≥0 → serve Prometheus text exposition over HTTP (0 = ephemeral
     # port); -1 disables the endpoint
     telemetry_prom_port: int = -1
-    # multihost straggler watchdog (obs/watchdog, train/multihost):
-    # shared directory for heartbeat files ("" = watchdog not started
-    # by make_straggler_watchdog unless a dir/store is passed)
-    straggler_heartbeat_dir: str = ""
-    straggler_step_lag: int = 1000
-    straggler_timeout_sec: float = 120.0
-    # >0 → a stall persisting this long arms an abort: the training
-    # thread's next heartbeat raises StragglerTimeout
-    straggler_abort_sec: float = 0.0
     # JSONL sink rotation (always-on daemon: bound the event log).
     # >0 → when the live segment exceeds this many MiB it rotates to
     # <path>.1 (older segments shift to .2, .3, ...); 0 = one unbounded

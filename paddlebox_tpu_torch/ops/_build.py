@@ -147,9 +147,20 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
-def book(kernel: str, impl: str) -> None:
-    """Book one ``pbox_kernel_dispatch_total{kernel, impl}`` tick when
-    the hub is active; the inert path is one attribute read."""
+def book(wrapper, impl: str) -> None:
+    """Book one ``pbox_kernel_dispatch_total{kernel, impl}`` tick for a
+    kernel wrapper when the hub is active: ``kernel`` is the wrapper's
+    ``label`` (set beside its ``launches``); the inert path is one
+    attribute read."""
+    hub = _obs_hub._HUB
+    if hub.active:
+        book_label(wrapper.label, impl)
+
+
+def book_label(kernel: str, impl: str) -> None:
+    """Book one ``pbox_kernel_dispatch_total{kernel, impl}`` tick under
+    an explicit label when the hub is active (the index seam's
+    ``index.<op>`` decisions)."""
     hub = _obs_hub._HUB
     if hub.active:
         hub.counter("pbox_kernel_dispatch_total",

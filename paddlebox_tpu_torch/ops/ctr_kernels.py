@@ -138,7 +138,7 @@ def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
     call enqueues the bucket pass, whose output goes to an int32 scratch
     [N + max_rank + 2], and the tile kernel)."""
     if x.device.type == "cpu" and rank_offset.device.type == "cpu":
-        _build.book("rank_attention", "plain")
+        _build.book(rank_attention, "plain")
         return rank_attention_plain(x, rank_offset, param3, max_rank)
     _build.require_cuda("rank_attention", x, rank_offset, param3)
     if (x.dtype != torch.float32 or param3.dtype != torch.float32
@@ -167,11 +167,12 @@ def rank_attention(x: torch.Tensor, rank_offset: torch.Tensor,
                     scratch.data_ptr(), out.data_ptr(), n, d, p, max_rank,
                     rank_offset.shape[1], _build.stream(x)), "rank_attention")
     rank_attention.launches += 1
-    _build.book("rank_attention", "cuda")
+    _build.book(rank_attention, "cuda")
     return out
 
 
 rank_attention.launches = 0
+rank_attention.label = "rank_attention"
 
 
 class RankAttentionFn(torch.autograd.Function):
@@ -228,7 +229,7 @@ def batch_fc(xb: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``transpose_weight``) + bias [S, O] → [S, N, O] f32
     (``csrc/batch_fc.cu``)."""
     if xb.device.type == "cpu" and w.device.type == "cpu":
-        _build.book("batch_fc", "plain")
+        _build.book(batch_fc, "plain")
         return batch_fc_plain(xb, w, bias, transpose_weight)
     _build.require_cuda("batch_fc", w, bias)
     if xb.device != w.device:
@@ -249,11 +250,12 @@ def batch_fc(xb: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     bias.data_ptr(), out.data_ptr(), s, n, i_dim, o_dim,
                     int(transpose_weight), _build.stream(w)), "batch_fc")
     batch_fc.launches += 1
-    _build.book("batch_fc", "cuda")
+    _build.book(batch_fc, "cuda")
     return out
 
 
 batch_fc.launches = 0
+batch_fc.label = "batch_fc"
 
 
 class BatchFcFn(torch.autograd.Function):
@@ -340,7 +342,7 @@ def cross_norm(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
     Every column but the dot is exactly the plain version's; the dot sums
     in another order."""
     if x.device.type == "cpu" and mean.device.type == "cpu":
-        _build.book("cross_norm", "plain")
+        _build.book(cross_norm, "plain")
         return cross_norm_plain(x, mean, scale, fields_num, embed_dim)
     _build.require_cuda("cross_norm", x, mean, scale)
     if any(t.dtype != torch.float32 for t in (x, mean, scale)):
@@ -362,11 +364,12 @@ def cross_norm(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                     out.data_ptr(), b, n, d, branch, _build.stream(x)),
                  "cross_norm")
     cross_norm.launches += 1
-    _build.book("cross_norm", "cuda")
+    _build.book(cross_norm, "cuda")
     return out
 
 
 cross_norm.launches = 0
+cross_norm.label = "cross_norm"
 
 
 class CrossNormFn(torch.autograd.Function):

@@ -79,7 +79,7 @@ def book_index_dispatch(op: str, impl: str) -> None:
     """Count one index-seam dispatch decision (op ∈ {assign, lookup})."""
     key = (f"index.{op}", impl)
     DISPATCH[key] = DISPATCH.get(key, 0) + 1
-    _build.book(key[0], impl)
+    _build.book_label(key[0], impl)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +215,7 @@ def insert(bkeys: torch.Tensor, brows: torch.Tensor, keys: torch.Tensor,
     ``next_row`` + the new keys exceeded ``capacity``; a failed call
     leaves the index as it found it and its rows must be discarded."""
     if keys.device.type == "cpu" and brows.device.type == "cpu":
-        _build.book("index_insert", "plain")
+        _build.book(insert, "plain")
         return insert_plain(bkeys, brows, keys, next_row, capacity)
     _build.require_cuda("index_insert", keys)
     if keys.dtype != torch.int64:
@@ -242,11 +242,12 @@ def insert(bkeys: torch.Tensor, brows: torch.Tensor, keys: torch.Tensor,
                     slot.data_ptr(), scratch.data_ptr(),
                     _build.stream(keys)), "index_insert")
     insert.launches += 1
-    _build.book("index_insert", "cuda")
+    _build.book(insert, "cuda")
     return rows, new, scratch[3].bool()
 
 
 insert.launches = 0
+insert.label = "index_insert"
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +286,7 @@ def lookup(bkeys: torch.Tensor, brows: torch.Tensor,
     fine; on the card the :func:`bucket_views` of one bucket tensor) →
     int32 [k], -1 for a miss (``csrc/key_index.cu``). Exact."""
     if keys.device.type == "cpu" and brows.device.type == "cpu":
-        _build.book("index_lookup", "plain")
+        _build.book(lookup, "plain")
         return lookup_plain(bkeys, brows, keys)
     _build.require_cuda("index_lookup", keys)
     if keys.dtype != torch.int64:
@@ -303,11 +304,12 @@ def lookup(bkeys: torch.Tensor, brows: torch.Tensor,
     _build.check(fn(base, nb, keys.data_ptr(), k, rows.data_ptr(),
                     _build.stream(keys)), "index_lookup")
     lookup.launches += 1
-    _build.book("index_lookup", "cuda")
+    _build.book(lookup, "cuda")
     return rows
 
 
 lookup.launches = 0
+lookup.label = "index_lookup"
 
 
 # ---------------------------------------------------------------------------

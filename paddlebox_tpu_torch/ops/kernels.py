@@ -10,7 +10,8 @@ failed build or launch raises. Each wrapper counts its launches in its
 ``launches`` attribute, so a run can show which kernels it went through,
 and books ``pbox_kernel_dispatch_total{kernel, impl}`` while the
 telemetry hub is active (``_build.book``: ``cuda`` beside each launch,
-``plain`` for a CPU tensor). The ``kernel`` labels are the reference's
+``plain`` for a CPU tensor), with ``kernel`` its ``label`` attribute,
+set beside ``launches``. The ``kernel`` labels are the reference's
 (``gather_rows``, ``fused_embed_pool_cvm``, ``seqpool_grad``,
 ``segment_sum``); the kernels the reference books no label for use
 their Pallas function's name (``scatter_add_update``, ``scatter_rows``,
@@ -91,7 +92,7 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """table [C+1, F] f32, rows [U] int32 → [U, F] = table[min(rows, C)]
     (ids outside [0, C] read the zero sentinel row C). Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
-        _build.book("gather_rows", "plain")
+        _build.book(gather_rows, "plain")
         return gather_rows_plain(table, rows)
     _build.require_cuda("gather_rows", table, rows)
     if table.dtype != torch.float32 or rows.dtype != torch.int32:
@@ -108,11 +109,12 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
                     u, table.shape[0] - 1, f, vec, _build.stream(table)),
                  "gather_rows")
     gather_rows.launches += 1
-    _build.book("gather_rows", "cuda")
+    _build.book(gather_rows, "cuda")
     return out
 
 
 gather_rows.launches = 0
+gather_rows.label = "gather_rows"
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +233,7 @@ def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
     one C call enqueues the segment bounds pass and the tile kernel).
     ``ets`` (embed_thres_size) only affects the CVM_NONE output slice."""
     if values.device.type == "cpu" and segments.device.type == "cpu":
-        _build.book("fused_embed_pool_cvm", "plain")
+        _build.book(pool_cvm, "plain")
         return pool_cvm_plain(values, segments, keep, batch_size, num_slots,
                               cvm_mode, cvm_offset, ets, pad_value)
     extra = () if keep is None else (keep,)
@@ -258,11 +260,12 @@ def pool_cvm(values: torch.Tensor, segments: torch.Tensor,
                     cvm_mode, cvm_offset, ets, float(pad_value),
                     _build.stream(values)), "pool_cvm")
     pool_cvm.launches += 1
-    _build.book("fused_embed_pool_cvm", "cuda")
+    _build.book(pool_cvm, "cuda")
     return out.reshape(batch_size, num_slots, d_out)
 
 
 pool_cvm.launches = 0
+pool_cvm.label = "fused_embed_pool_cvm"
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +353,7 @@ def segment_gather(src: torch.Tensor, ids: torch.Tensor,
     index counts from the end, as in JAX) with zero embedx columns.
     ``mask`` [K] f32 zeroes the rows where it is 0 (in both modes)."""
     if src.device.type == "cpu" and ids.device.type == "cpu":
-        _build.book("seqpool_grad", "plain")
+        _build.book(segment_gather, "plain")
         return segment_gather_plain(src, ids, head, mask, batch_size,
                                     num_slots, ets)
     dev = ids.device
@@ -387,11 +390,12 @@ def segment_gather(src: torch.Tensor, ids: torch.Tensor,
                     out.data_ptr(), k, n, w, n_head, ets, max(num_slots, 1),
                     max(batch_size, 1), _build.stream(ids)), "segment_gather")
     segment_gather.launches += 1
-    _build.book("seqpool_grad", "cuda")
+    _build.book(segment_gather, "cuda")
     return out
 
 
 segment_gather.launches = 0
+segment_gather.label = "seqpool_grad"
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +420,7 @@ def segment_sum_plain(values: torch.Tensor, segments: torch.Tensor,
 def _segment_sum_forward(values: torch.Tensor, segments: torch.Tensor,
                          num_segments: int) -> torch.Tensor:
     if values.device.type == "cpu" and segments.device.type == "cpu":
-        _build.book("segment_sum", "plain")
+        _build.book(segment_sum, "plain")
         return segment_sum_plain(values, segments, num_segments)
     if not values.is_floating_point() or segments.dtype != torch.int32:
         raise TypeError("segment_sum: needs float values and int32 segments")
@@ -435,7 +439,7 @@ def _segment_sum_forward(values: torch.Tensor, segments: torch.Tensor,
                     out.data_ptr(), k, n, d, _build.stream(values)),
                  "segment_sum")
     segment_sum.launches += 1
-    _build.book("segment_sum", "cuda")
+    _build.book(segment_sum, "cuda")
     return out.to(values.dtype)
 
 
@@ -470,6 +474,7 @@ def segment_sum(values: torch.Tensor, segments: torch.Tensor,
 
 
 segment_sum.launches = 0
+segment_sum.label = "segment_sum"
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +496,7 @@ def scatter_add_update(values: torch.Tensor, rows: torch.Tensor,
     (``csrc/scatter_add_update.cu``); rows must be duplicate-free inside
     [0, C), rows outside it are dropped. Returns ``values``. Exact."""
     if values.device.type == "cpu" and rows.device.type == "cpu":
-        _build.book("scatter_add_update", "plain")
+        _build.book(scatter_add_update, "plain")
         return scatter_add_update_plain(values, rows, deltas)
     _build.require_cuda("scatter_add_update", values, rows, deltas)
     if (values.dtype != torch.float32 or deltas.dtype != torch.float32
@@ -512,11 +517,12 @@ def scatter_add_update(values: torch.Tensor, rows: torch.Tensor,
                     u, values.shape[0], f, vec, _build.stream(values)),
                  "scatter_add_update")
     scatter_add_update.launches += 1
-    _build.book("scatter_add_update", "cuda")
+    _build.book(scatter_add_update, "cuda")
     return values
 
 
 scatter_add_update.launches = 0
+scatter_add_update.label = "scatter_add_update"
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +564,7 @@ def scatter_rows(table: torch.Tensor, rows: torch.Tensor,
     the last row (the sentinel), so its content is one of theirs. Returns
     ``table``. Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
-        _build.book("scatter_rows", "plain")
+        _build.book(scatter_rows, "plain")
         return scatter_rows_plain(table, rows, values)
     _rows_args("scatter_rows", table, rows, values)
     u, f = values.shape
@@ -569,11 +575,12 @@ def scatter_rows(table: torch.Tensor, rows: torch.Tensor,
                     u, table.shape[0], f, 4 if _vec4(f, table, values) else 1,
                     _build.stream(table)), "scatter_rows")
     scatter_rows.launches += 1
-    _build.book("scatter_rows", "cuda")
+    _build.book(scatter_rows, "cuda")
     return table
 
 
 scatter_rows.launches = 0
+scatter_rows.label = "scatter_rows"
 
 
 def _dma_count(name: str, rows: torch.Tensor) -> None:
@@ -606,7 +613,7 @@ def gather_rows_dma(table: torch.Tensor, rows: torch.Tensor
     sentinel row C), with several rows in flight on every lane
     (``csrc/row_dma.cu``). Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
-        _build.book("gather_rows_dma", "plain")
+        _build.book(gather_rows_dma, "plain")
         return gather_rows_dma_plain(table, rows)
     _dma_count("gather_rows_dma", rows)
     _rows_args("gather_rows_dma", table, rows)
@@ -619,11 +626,12 @@ def gather_rows_dma(table: torch.Tensor, rows: torch.Tensor
                     table.shape[0] - 1, d, _dma_vec(d, table, out),
                     _build.stream(table)), "gather_rows_dma")
     gather_rows_dma.launches += 1
-    _build.book("gather_rows_dma", "cuda")
+    _build.book(gather_rows_dma, "cuda")
     return out
 
 
 gather_rows_dma.launches = 0
+gather_rows_dma.label = "gather_rows_dma"
 
 
 def scatter_rows_dma_plain(table: torch.Tensor, rows: torch.Tensor,
@@ -644,7 +652,7 @@ def scatter_rows_dma(table: torch.Tensor, rows: torch.Tensor,
     In-bounds rows must be duplicate-free; rows outside [0, C] all write
     the sentinel row C, racily. Returns ``table``. Exact."""
     if table.device.type == "cpu" and rows.device.type == "cpu":
-        _build.book("scatter_rows_dma", "plain")
+        _build.book(scatter_rows_dma, "plain")
         return scatter_rows_dma_plain(table, rows, values)
     _dma_count("scatter_rows_dma", rows)
     _rows_args("scatter_rows_dma", table, rows, values)
@@ -656,11 +664,12 @@ def scatter_rows_dma(table: torch.Tensor, rows: torch.Tensor,
                     table.shape[0] - 1, d, _dma_vec(d, table, values),
                     _build.stream(table)), "scatter_rows_dma")
     scatter_rows_dma.launches += 1
-    _build.book("scatter_rows_dma", "cuda")
+    _build.book(scatter_rows_dma, "cuda")
     return table
 
 
 scatter_rows_dma.launches = 0
+scatter_rows_dma.label = "scatter_rows_dma"
 
 
 class KernelSet(NamedTuple):

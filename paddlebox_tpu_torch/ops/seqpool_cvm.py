@@ -297,7 +297,7 @@ def fused_seqpool_cvm(
     if kk == 1 and segments is None and ops is KERNELS:
         # the trivial layout pools by a reshape, no kernel: booked as the
         # reference books its dispatch decision
-        _build.book("fused_embed_pool_cvm", "reshape")
+        _build.book(ops.pool_cvm, "reshape")
     attrs = _Attrs(batch_size, num_slots, use_cvm, cvm_offset, pad_value,
                    need_filter, show_coeff, clk_coeff, threshold,
                    quant_ratio, clk_filter, embed_threshold_filter,

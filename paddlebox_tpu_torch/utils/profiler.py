@@ -213,16 +213,35 @@ class StageTimers:
 
 
 TRACE_FILE = "trace.json"
+#: small kernels launched on the card while the profiler warms up, before
+#: its window opens. Late in a long process a trace opened cold lost the
+#: first ~55 device events of its window (the first kernels of the step
+#: it was meant to show); events of the warm-up fall before the window
+#: and stay out of the trace
+WARMUP_LAUNCHES = 256
+
+
+def _warm_device(torch) -> None:
+    """Launch :data:`WARMUP_LAUNCHES` one-element kernels on the current
+    card and wait for them."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(WARMUP_LAUNCHES):
+        x.add_(1.0)
+    torch.cuda.synchronize()
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
     """Device trace window (tier c): a ``torch.profiler.profile`` with
     the CPU activity, and the CUDA one when a card is present, whose
-    chrome trace lands at ``<logdir>/trace.json`` on exit. Yields the
-    profiler (``key_averages()`` reads it), or None: a no-op unless
-    ``FLAGS.profile`` or an explicit ``logdir`` is given (the flag's
-    directory is ``paddlebox_tpu_torch_trace`` under the temp dir)."""
+    chrome trace lands at ``<logdir>/trace.json`` on exit. The profiler
+    starts in its warm-up state (device tracing on, nothing kept), runs
+    :func:`_warm_device` on the card, and opens its recording window
+    just before it yields, so the trace holds every device event of the
+    body and none of the warm-up. Yields the profiler (``key_averages()``
+    reads it), or None: a no-op unless ``FLAGS.profile`` or an explicit
+    ``logdir`` is given (the flag's directory is
+    ``paddlebox_tpu_torch_trace`` under the temp dir)."""
     target = logdir or (os.path.join(tempfile.gettempdir(),
                                       "paddlebox_tpu_torch_trace")
                         if FLAGS.profile else None)
@@ -230,14 +249,19 @@ def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
         yield None
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(target, exist_ok=True)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
     prof.__enter__()
     try:
+        if cuda:
+            _warm_device(torch)
+        prof.step()
         yield prof
     finally:
         prof.__exit__(None, None, None)

@@ -2613,10 +2613,8 @@ def test_obs_dispatch_counter_equals_launches_on_card(cuda, deterministic,
 
     from paddlebox_tpu_torch.obs import JsonlSink, reset_hub
     trainer, dataset, _ = _ckpt_setup(cuda)
-    fns = {"gather_rows": tk.gather_rows,
-           "fused_embed_pool_cvm": tk.pool_cvm,
-           "seqpool_grad": tk.segment_gather,
-           "scatter_add_update": tk.scatter_add_update}
+    fns = {f.label: f for f in (tk.gather_rows, tk.pool_cvm,
+                                tk.segment_gather, tk.scatter_add_update)}
     states = []
     try:
         for on in (False, True):
@@ -2671,7 +2669,8 @@ def test_obs_quality_norm_sample_on_card(cuda):
 @pytest.mark.cuda
 def test_obs_profiler_trace_holds_kernel_events(cuda, tmp_path):
     """``utils.profiler.trace`` around one train step on the card writes
-    a chrome trace whose CUDA kernel events name the port's kernels."""
+    a chrome trace whose CUDA kernel events name the port's kernels,
+    one event for each launch."""
     import json
 
     from paddlebox_tpu_torch.utils import profiler
@@ -2681,12 +2680,18 @@ def test_obs_profiler_trace_holds_kernel_events(cuda, tmp_path):
     from paddlebox_tpu_torch.train.step import make_device_batch
     dev = make_device_batch(batch, tr.table.prepare(batch), cuda)
     gen = tr.step_generator(1)
+    fns = {"gather_rows_kernel": tk.gather_rows,
+           "pool_cvm_kernel": tk.pool_cvm,
+           "segment_gather": tk.segment_gather,
+           "scatter_add_kernel": tk.scatter_add_update}
+    before = {sym: f.launches for sym, f in fns.items()}
     with profiler.trace(str(tmp_path)) as prof:
         tr.step_fn(tr.state, dev, gen)
         torch.cuda.synchronize()
     assert prof is not None
     evs = json.load(open(tmp_path / profiler.TRACE_FILE))["traceEvents"]
     names = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
-    for sym in ("gather_rows_kernel", "pool_cvm_kernel",
-                "segment_gather", "scatter_add_kernel"):
-        assert any(sym in n for n in names), (sym, names[:20])
+    for sym, f in fns.items():
+        n = f.launches - before[sym]
+        assert n > 0 and sum(sym in k for k in names) == n, (sym, n,
+                                                              names[:20])

@@ -905,6 +905,37 @@ def test_trainer_dispatch_labels_match_reference(tiny_runs):
     assert series["impl=plain,kernel=gather_rows"] == nb
 
 
+#: each kernel wrapper's dispatch label (the reference's where it books
+#: one, else the Pallas function's name)
+WRAPPER_LABELS = {
+    "gather_rows": "gather_rows", "pool_cvm": "fused_embed_pool_cvm",
+    "segment_gather": "seqpool_grad", "scatter_add_update":
+    "scatter_add_update", "index_insert": "index_insert",
+    "index_lookup": "index_lookup", "rank_attention": "rank_attention",
+    "batch_fc": "batch_fc", "cross_norm": "cross_norm",
+    "segment_sum": "segment_sum", "scatter_rows": "scatter_rows",
+    "scatter_rows_dma": "scatter_rows_dma",
+    "gather_rows_dma": "gather_rows_dma"}
+
+
+@pytest.mark.parametrize("field", sorted(WRAPPER_LABELS))
+def test_kernel_wrapper_books_under_its_label(fresh_hub, field):
+    """Every wrapper of ``KERNELS`` carries its dispatch label beside its
+    launch count, and ``_build.book`` books under that label."""
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.ops.kernels import KERNELS, KernelSet
+    assert set(KernelSet._fields) == set(WRAPPER_LABELS)
+    fn = getattr(KERNELS, field)
+    assert fn.label == WRAPPER_LABELS[field]
+    assert isinstance(fn.launches, int)
+    _build.book(fn, "plain")
+    assert fresh_hub.snapshot() == {}
+    fresh_hub.add_sink(MemorySink())
+    _build.book(fn, "plain")
+    series = fresh_hub.snapshot()["pbox_kernel_dispatch_total"]["series"]
+    assert series == {f"impl=plain,kernel={fn.label}": 1}
+
+
 def test_trainer_without_sinks_stays_inert():
     hub = reset_hub()
     assert not hub.active
