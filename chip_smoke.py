@@ -227,7 +227,8 @@ Phases, each of which fails the run:
    draws): touched rows and dense params within rtol 2e-4 / atol 2e-5.
    Then the stream scenario (a windowed ``QueueDataset``, windows of 2
    files, 1 reader thread): the oracle ``train_stream`` with a boundary
-   checkpoint every window must end at ``train_pass``'s digest; the same
+   checkpoint every ``DATA_CKPT_EVERY`` (2) windows must end at
+   ``train_pass``'s digest; the same
    stream under ``preempt.signal:fail:nth=5`` raises ``PreemptedError``
    inside window 3; new objects restore and stream again, replaying
    exactly window 3's two files; the killed run's step-4 checkpoint must
@@ -340,6 +341,22 @@ Phases, each of which fails the run:
    leaves nothing to stage. 16d: ``ExtendedEmbeddingTable`` pull/push
    kernels against plain, ``ReplicaCache`` against numpy. The main
    path's launches (rows 1, 3, 4, 6, 7, 13) join the ``kernels`` line.
+17. the always-on layer (``obs_phase``): the hub inert and on around
+   phase 5's ``train_pass`` (bit for bit, dispatch ticks equal to the
+   launches), the tiered pipeline's lanes, serving's /readyz and
+   /metrics, a NaN rollback's bundle and ``utils.profiler.trace``; see
+   its docstring.
+18. the online daemon (``online_phase``): ``OnlineLearner`` at phase
+   12's width over its first 6 files as 3 windows of 2, training,
+   publishing, serving through a ``ReloadLoop`` to a client thread and
+   shrinking at window 2 (18a, on the card); window 1 again on the CPU
+   through the plain versions (18b); a real SIGTERM on the daemon in a
+   child process and its relaunch (18c); see its docstring. Prints one
+   ``online:`` line, then the seconds of phase 18 beside those of
+   phases 1-17 and of phase 10's base save in both npz encodings (the
+   port's model files are uncompressed since phase 18 came, to pay for
+   it). Rows 1, 6, 7 and 13's launches in 18a join the ``kernels``
+   line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -2717,14 +2734,15 @@ def checkpoint_phase(torch, args, card, desc, records, batches, details,
             cm_a.save(tr_a)                          # step-0 base
             t["base_save_s"] = time.perf_counter() - t0
             t["save_base_s"] = saves[-1]
-            # the same rows through uncompressed np.savez, for comparison
+            # the same rows through np.savez_compressed (the reference's
+            # encoding of its model files), for comparison
             keys, rows = tr_a.table.index.items()
             blob = tr_a.table._gather_host(rows)
-            path = os.path.join(tmp, "plain.npz")
+            path = os.path.join(tmp, "deflated.npz")
             t0 = time.perf_counter()
-            np.savez(path, keys=keys, **blob)
-            t["savez_uncompressed_s"] = time.perf_counter() - t0
-            t["savez_uncompressed_mb"] = os.path.getsize(path) / 2**20
+            np.savez_compressed(path, keys=keys, **blob)
+            t["savez_compressed_s"] = time.perf_counter() - t0
+            t["savez_compressed_mb"] = os.path.getsize(path) / 2**20
             t["save_base_mb"] = os.path.getsize(os.path.join(
                 cm_a._dir(0), "sparse.npz")) / 2**20
             rows_saved = len(keys)
@@ -2876,9 +2894,9 @@ def checkpoint_phase(torch, args, card, desc, records, batches, details,
         f"{json.dumps({k: (v['auc'], v['ins_num']) for k, v in msgs.items()})}"
         f"; launches {json.dumps(launches)}")
     log(f"checkpoint times: save_base {t['save_base_s']:.2f}s "
-        f"({rows_saved} rows, {t['save_base_mb']:.0f} MiB compressed) vs "
-        f"np.savez of the same blob {t['savez_uncompressed_s']:.2f}s "
-        f"({t['savez_uncompressed_mb']:.0f} MiB); step-0 checkpoint + "
+        f"({rows_saved} rows, {t['save_base_mb']:.0f} MiB uncompressed) vs "
+        f"np.savez_compressed of the same blob {t['savez_compressed_s']:.2f}s "
+        f"({t['savez_compressed_mb']:.0f} MiB); step-0 checkpoint + "
         f"publish {t['base_save_s']:.2f}s; run A {t['run_a_s']:.2f}s "
         f"(sparse saves {[round(x, 2) for x in t['run_a_saves_s']]} s); "
         f"run B: restore at step {CKPT_EVERY} {t['restore_b_s']:.2f}s, "
@@ -3234,6 +3252,7 @@ DATA_WINDOW = 2                  # phase 12: files a stream window
 DATA_PREEMPT = 5                 # phase 12: the killed stream stops here
 DATA_BASE_VOCAB = 9_000          # phase 12: ids of each slot in its base
 DATA_THREADS = 8                 # phase 12: the native load's pool
+DATA_CKPT_EVERY = 2              # phase 12: windows a boundary checkpoint
 
 
 def write_slot_text(path: str, recs) -> int:
@@ -3474,7 +3493,7 @@ def data_phase(torch, args, card, desc, records, batches, details,
 
             with flags_scope(stream_window_files=DATA_WINDOW,
                              read_thread_num=1,
-                             stream_ckpt_every_windows=1):
+                             stream_ckpt_every_windows=DATA_CKPT_EVERY):
                 # (a) the oracle, uninterrupted
                 oracle = trainer()
                 at_boundary = {}
@@ -3628,8 +3647,9 @@ def data_phase(torch, args, card, desc, records, batches, details,
         f"plain max abs err rows {row_err:.3g} params {param_err:.3g}; "
         f"{n_base} base rows ({card})")
     log(f"stream: oracle {out_o['windows']} windows of {DATA_WINDOW} files, "
-        f"{ex_stream:.0f} examples/s ({t['stream_oracle_s']:.2f}s, 4 "
-        f"boundary checkpoints) against train_pass {ex_pass:.0f}; per-line "
+        f"{ex_stream:.0f} examples/s ({t['stream_oracle_s']:.2f}s, "
+        f"{DATA_FILES // DATA_WINDOW // DATA_CKPT_EVERY} boundary "
+        f"checkpoints) against train_pass {ex_pass:.0f}; per-line "
         f"parse {sum(parse_s):.2f}s = {share:.1%} of the stream's wall; "
         f"final digest == train_pass's; killed at batch {DATA_PREEMPT} "
         f"({t['stream_killed_s']:.2f}s), resumed by new objects "
@@ -6366,11 +6386,790 @@ def obs_phase(torch, args, card, desc, records, batches, details,
     return launches
 
 
+ONLINE_PHASE_BUDGET_S = 90.0     # phase 18's wall budget
+ONLINE_FILES = 6                 # phase 18: phase 12's first 6 files ...
+ONLINE_WINDOW = 2                # ... as 3 windows of 2
+ONLINE_SHRINK_EVERY = 2          # 18a: one shrink cycle, at window 2
+ONLINE_THRESHOLD = 0.15          # shrink: the decayed score's threshold
+ONLINE_DECAY = 0.98              # shrink: the show/clk decay
+ONLINE_POLL_SEC = 0.2            # 18a: the reload loop's poll
+ONLINE_CLIENT_PAUSE_S = 0.2      # 18a: the client's pause between predicts
+ONLINE_INIT_SEED = 18            # the dense init's torch seed offset
+
+
+def ragged_desc():
+    """The ragged DeepFM feed of phases 4-18: label, 13 dense floats, 26
+    uint64 slots, batch ``BATCH``."""
+    from paddlebox_tpu_torch.data import DataFeedDesc, SlotDef
+    slots = ([SlotDef("label", "float", 1),
+              SlotDef("dense", "float", DENSE_DIM)]
+             + [SlotDef(f"C{i}", "uint64") for i in range(1, NUM_SLOTS + 1)])
+    return DataFeedDesc(slots=slots, batch_size=BATCH, label_slot="label",
+                        key_bucket_min=4096)
+
+
+def _online_flags(args) -> dict:
+    return dict(seed=args.seed, stream_window_files=ONLINE_WINDOW,
+                stream_ckpt_every_windows=1,
+                shrink_every_windows=ONLINE_SHRINK_EVERY,
+                shrink_delete_threshold=ONLINE_THRESHOLD,
+                show_click_decay_rate=ONLINE_DECAY, read_thread_num=1)
+
+
+def _online_daemon(torch, args, desc, root, files, dev, serving=False,
+                   checkpoint=True, max_windows=None):
+    """Phase 18's daemon on ``dev`` (call under ``_online_flags``): an
+    Adagrad table of ``CAPACITY`` rows with ``mf_initial_range`` 0, an
+    f32 DeepFM from the seeded init, boundary checkpoints under
+    ``root/ckpt`` (publishing into ``root/registry`` with ``serving``)
+    and, with ``serving``, a ``ServingModel`` on ``dev``. Returns
+    (learner, trainer, checkpoint manager, server)."""
+    from paddlebox_tpu_torch import (CheckpointManager, DeepFM,
+                                     EmbeddingTable, QueueDataset,
+                                     ServingModel, Trainer)
+    from paddlebox_tpu_torch.online import OnlineLearner
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+
+    def f32_deepfm():
+        return DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN,
+                      compute_dtype=torch.float32)
+
+    table = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY,
+                           cfg=SparseSGDConfig(mf_initial_range=0.0),
+                           seed=args.seed, device=dev)
+    torch.manual_seed(args.seed + ONLINE_INIT_SEED)
+    tr = Trainer(f32_deepfm(), table, desc, seed=args.seed,
+                 check_nan_inf=True, device=dev)
+    cm = (CheckpointManager(os.path.join(root, "ckpt"), keep=8,
+                            artifacts=(os.path.join(root, "registry")
+                                       if serving else None))
+          if checkpoint else None)
+    srv = (ServingModel(f32_deepfm(), desc, mf_dim=MF_DIM,
+                        capacity=CAPACITY, device=dev)
+           if serving else None)
+
+    def dataset():
+        ds = QueueDataset(desc)
+        ds.set_filelist(files)
+        return ds
+
+    learner = OnlineLearner(tr, dataset, cm, serving=srv,
+                            store=cm.artifacts if serving else None,
+                            max_windows=max_windows,
+                            reload_poll_sec=ONLINE_POLL_SEC)
+    return learner, tr, cm, srv
+
+
+def _logical_rows(tr) -> tuple:
+    """(keys sorted, {field: rows}) of the trainer's table, on the host."""
+    tr.sync_table()
+    t = tr.table
+    with t.host_lock:
+        keys, rows = t.index.items()
+    order = np.argsort(keys)
+    return keys[order], t._gather_host(rows[order])
+
+
+def _ckpt_kinds(cm) -> list:
+    return [json.load(open(os.path.join(cm._dir(s), "meta.json")))["kind"]
+            for s in cm.steps()]
+
+
+def online_child(torch, args) -> int:
+    """Phase 18c's child process: the phase's daemon on
+    ``--online-device`` (no serving) over the ``*.txt`` files of
+    ``--online-data``, its state under ``--online-child``; restores the
+    newest checkpoint there when one exists. With ``--online-wait``
+    it is the relaunch's warm standby: it brings the card up, then waits
+    for that file and goes on only if it reads ``go``. Prints
+    ``{"healthz_port": N}``, then, on a line of its own,
+    ``{"online_child": ...}`` (its totals, status, the kernel builds
+    it made and wall-clock stamps of its stages): exits 75 after a
+    graceful stop, else drains the stream."""
+    import glob
+
+    stamps = {"entry": time.time()}
+
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.obs.hub import get_hub
+    from paddlebox_tpu_torch.ops import _build
+    from paddlebox_tpu_torch.resilience.preemption import (EXIT_RESUME,
+                                                           PreemptedError)
+
+    dev = args.online_device
+    torch.use_deterministic_algorithms(True)
+    if args.online_wait:
+        x = torch.ones((64, 64), device=dev)
+        float((x @ x).sum())
+        stamps["warm"] = time.time()
+        while not os.path.exists(args.online_wait):
+            time.sleep(0.01)
+        stamps["go"] = time.time()
+        with open(args.online_wait) as fh:
+            if fh.read() != "go":
+                return 0
+    files = sorted(glob.glob(os.path.join(args.online_data, "*.txt")))
+    hub = get_hub()
+    server = hub.start_prom_http(0)
+    print(json.dumps({"healthz_port": server.server_address[1]}),
+          flush=True)
+    out: dict = {}
+    try:
+        with flags_scope(graceful_shutdown=True, **_online_flags(args)):
+            learner, tr, cm, _ = _online_daemon(
+                torch, args, ragged_desc(), args.online_child, files, dev)
+            stamps["built"] = time.time()
+            out["resumed_step"] = (cm.restore(tr)
+                                   if cm.latest_step() is not None
+                                   else None)
+            stamps["restored"] = time.time()
+            out["kv_route"] = tr.table.index.kv_route
+            try:
+                totals = learner.run()
+            except PreemptedError as e:
+                stamps["done"] = time.time()
+                out.update(preempted=True, step=e.step,
+                           status=learner.online_status(),
+                           built=sorted(_build.build_logs), stamps=stamps)
+                print(json.dumps({"online_child": out}), flush=True)
+                return EXIT_RESUME
+            stamps["done"] = time.time()
+            out.update(preempted=False, status=learner.online_status(),
+                       totals={k: v for k, v in totals.items()
+                               if isinstance(v, (int, float))},
+                       step=int(tr.global_step), steps=cm.steps(),
+                       built=sorted(_build.build_logs), stamps=stamps)
+    finally:
+        hub.stop_prom_http()
+    print(json.dumps({"online_child": out}), flush=True)
+    return 0
+
+
+def _child_split(res: dict, t_start: float, t_exit: float) -> dict:
+    """A child's wall seconds by stage (start, then warm and wait for a
+    standby, build, restore, run, exit), from the parent's clock at its
+    start and exit and the child's stamps."""
+    s = dict(res["stamps"], start=t_start, exit=t_exit)
+    order = [k for k in ("start", "entry", "warm", "go", "built",
+                         "restored", "done", "exit") if k in s]
+    names = {"entry": "start", "warm": "warm", "go": "wait",
+             "built": "build", "restored": "restore", "done": "run",
+             "exit": "exit"}
+    return {names[b]: s[b] - s[a] for a, b in zip(order, order[1:])}
+
+
+def _start_children(args, data_dir: str, croot: str, dev: str,
+                    tmp: str) -> dict:
+    """Phase 18c: start the child to be killed and, beside it, the
+    relaunch as a warm standby waiting for its go file, both over state
+    root ``croot`` (their stderr to files under ``tmp``). Returns their
+    handles, the go file and the wall clock at their start."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--online-child",
+           croot, "--online-data", data_dir, "--online-device", dev,
+           "--seed", str(args.seed)]
+    name = os.path.basename(croot)
+    errs = [os.path.join(tmp, f"{name}.{k}.stderr")
+            for k in ("term", "relaunch")]
+    kids = {"go": os.path.join(tmp, f"{name}.go"), "errs": errs,
+            "t_start": time.time()}
+    for key, extra, err in (("term", [], errs[0]),
+                            ("relaunch", ["--online-wait", kids["go"]],
+                             errs[1])):
+        with open(err, "w") as fh:
+            kids[key] = subprocess.Popen(cmd + extra,
+                                         stdout=subprocess.PIPE,
+                                         stderr=fh, text=True)
+    return kids
+
+
+def _release(kids: dict, word: str) -> None:
+    """Write the standby's go file (``go`` or ``abort``) atomically."""
+    with open(kids["go"] + ".tmp", "w") as fh:
+        fh.write(word)
+    os.replace(kids["go"] + ".tmp", kids["go"])
+
+
+def _child_line(text: str) -> dict:
+    for ln in reversed(text.splitlines()):
+        if ln.startswith('{"online_child"'):
+            return json.loads(ln)["online_child"]
+    raise AssertionError(f"phase 18c: the child printed no result:\n"
+                         f"{text[-2000:]}")
+
+
+def _sigterm_child(proc, latest: str, step: int) -> tuple:
+    """Phase 18c: wait until the child's /healthz ``online`` block reads
+    1 completed window and its ``LATEST`` names ``step`` (window 1's
+    boundary checkpoint has landed and window 2 begins), send SIGTERM and
+    wait for it. Returns (exit code, stdout, the wall clock at its
+    exit)."""
+    import signal
+    import urllib.request
+    port = json.loads(proc.stdout.readline())["healthz_port"]
+    deadline = time.time() + 120
+    while time.time() < deadline and proc.poll() is None:
+        try:
+            seen = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=5
+            ).read()).get("online") or {}
+        except OSError:
+            seen = {}
+        if seen.get("windows_completed", 0) >= 1:
+            break
+        time.sleep(0.01)
+    while time.time() < deadline and proc.poll() is None:
+        if os.path.isfile(latest) and \
+                open(latest).read().strip() == str(step):
+            break
+        time.sleep(0.005)
+    if proc.poll() is None:
+        os.kill(proc.pid, signal.SIGTERM)
+    stdout, _ = proc.communicate(timeout=120)
+    return proc.returncode, stdout, time.time()
+
+
+def online_serve_run(torch, args, desc, files, probe, root, dev, t):
+    """Phase 18a (see ``online_phase``): the daemon with serving and a
+    client thread over ``files``, state under ``root``; raises on a
+    failed check. Returns (the ``online:`` line's ``a`` block, window 1's
+    state: step, logical rows and dense params)."""
+    from paddlebox_tpu_torch import ReloadLoop, ServingModel
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.obs import MemorySink, reset_hub
+    from paddlebox_tpu_torch.ops import kernels as K
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update}
+    n_windows = ONLINE_FILES // ONLINE_WINDOW
+    healthz: dict = {}
+    hub = reset_hub()
+    hub.add_sink(MemorySink())
+    with flags_scope(**_online_flags(args)):
+        learner, tr, cm, srv = _online_daemon(torch, args, desc, root,
+                                              files, dev, serving=True)
+        store = cm.artifacts
+        table = tr.table
+        inner_shrink, inner_cycle = table.shrink, learner._shrink_cycle
+        inner_reload, hook = srv.hot_reload, learner._on_window
+        cycle: dict = {}
+        adopt_s: list = []
+        behind: list = []
+        w1: dict = {}
+
+        def shrink(*a, **kw):
+            # the numpy recount: show/clk copied to the host just
+            # before the cycle, decayed and scored in float32 as
+            # EmbeddingTable.shrink does on the card
+            keys, rows = table.index.items()
+            idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
+            sc = table.state.data[idx, 0:2].cpu().numpy()
+            dk = np.float32(ONLINE_DECAY)
+            show, clk = sc[:, 0] * dk, sc[:, 1] * dk
+            score = (table.cfg.nonclk_coeff * (show - clk)
+                     + table.cfg.clk_coeff * clk)
+            cycle.update(rows_before=len(keys),
+                         want=int((score < ONLINE_THRESHOLD).sum()))
+            cycle["freed"] = inner_shrink(*a, **kw)
+            return cycle["freed"]
+
+        def shrink_cycle(window):
+            t0 = time.perf_counter()
+            inner_cycle(window)
+            sync()
+            cycle["cycle_s"] = time.perf_counter() - t0
+            cycle["window"] = window
+
+        def hot_reload(st):
+            t0 = time.perf_counter()
+            aid = inner_reload(st)
+            if aid is not None:
+                adopt_s.append(time.perf_counter() - t0)
+            return aid
+
+        def versions_behind():
+            vs = store.versions()
+            aid = srv.adopted_aid
+            return len(vs) - 1 - vs.index(aid) if aid in vs else len(vs)
+
+        def on_window(widx, ds):
+            hook(widx, ds)
+            behind.append(versions_behind())
+            if widx == 0:
+                # window 1's state: the step-2 boundary saves it
+                w1.update(step=int(tr.global_step),
+                          rows=_logical_rows(tr),
+                          params={k: v.detach().cpu().clone() for k, v
+                                  in tr.model.state_dict().items()})
+            if widx == n_windows - 1:
+                healthz.update(hub.health().get("online") or {})
+
+        table.shrink = shrink
+        learner._shrink_cycle = shrink_cycle
+        srv.hot_reload = hot_reload
+        learner._on_window = on_window
+
+        answers: list = []
+        lat: list = []
+        halt = threading.Event()
+        client_err: list = []
+
+        def client():
+            try:
+                while not halt.is_set():
+                    # the version that answered lies between the
+                    # snapshots read just before and just after
+                    before = (srv.snapshot().aid
+                              if srv.adopted_aid is not None else None)
+                    if before is None:
+                        time.sleep(0.01)
+                        continue
+                    t0 = time.perf_counter()
+                    pred = srv.predict(probe)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    answers.append((before, srv.snapshot().aid, pred))
+                    halt.wait(ONLINE_CLIENT_PAUSE_S)
+            except BaseException as e:   # reported below
+                client_err.append(e)
+
+        for f in fns.values():
+            f.launches = 0
+        th = threading.Thread(target=client, name="online-client",
+                              daemon=True)
+        sync()
+        t0 = time.perf_counter()
+        th.start()
+        totals = learner.run()
+        sync()
+        t["a_run_s"] = time.perf_counter() - t0
+        # the daemon stopped its reload loop on the way out: adopt the
+        # tip with one more poll while the client still asks, and let
+        # it answer from the tip once
+        tip = store.versions()[-1]
+        ReloadLoop(srv, store).poll_once()
+        deadline = time.time() + 60
+        while time.time() < deadline and th.is_alive() and \
+                not any(a == tip for a, _, _ in answers[-3:]):
+            time.sleep(0.01)
+        behind.append(versions_behind())
+        halt.set()
+        th.join(timeout=60)
+        sync()
+        launches = {k: f.launches for k, f in fns.items()}
+        if th.is_alive() or client_err:
+            raise AssertionError(f"phase 18a: the client thread failed "
+                                 f"({client_err})")
+        dispatch = _check_dispatch("phase 18a", hub, fns, launches, dev)
+        status = learner.online_status()
+    reset_hub()
+
+    # ---- 18a's checks ----
+    if totals["windows"] != n_windows or cycle.get("window") != 2:
+        raise AssertionError(f"phase 18a: {totals}, shrink {cycle}")
+    if not 0 < cycle["freed"] == cycle["want"] < cycle["rows_before"]:
+        raise AssertionError(f"phase 18a: the cycle freed "
+                             f"{cycle['freed']} rows, the numpy "
+                             f"recount {cycle['want']} of "
+                             f"{cycle['rows_before']}")
+    kinds = _ckpt_kinds(cm)
+    vs = store.versions()
+    mans = [store.read_manifest(v, verify=False) for v in vs]
+    vkinds = [m["kind"] for m in mans]
+    if kinds != ["base", "base", "delta"] or vkinds != kinds or \
+            mans[2].get("parent") != vs[1]:
+        raise AssertionError(f"phase 18a: checkpoints {kinds}, versions "
+                             f"{vkinds}: the shrink boundary must save "
+                             f"a base and window 3 a delta on it")
+    lcs = [(cm.load_cursor(s) or {}).get("lifecycle")
+           for s in cm.steps()]
+    want_lc = {"version": 1, "cycles": 1, "last_shrink_window": 2,
+               "shrunk_rows_total": cycle["freed"],
+               "live_rows": cycle["rows_before"] - cycle["freed"],
+               "decay": ONLINE_DECAY,
+               "delete_threshold": ONLINE_THRESHOLD}
+    if lcs != [None, want_lc, want_lc]:
+        raise AssertionError(f"phase 18a: cursor lifecycle blocks {lcs}")
+    if (healthz.get("mode"), healthz.get("windows_completed"),
+            healthz.get("shrink_cycles")) != ("full", n_windows, 1):
+        raise AssertionError(f"phase 18a: /healthz online block "
+                             f"{healthz}")
+    # each answer's candidate versions: those from the snapshot before
+    # its predict() to the one after (one version unless an adoption
+    # landed during the call)
+    spans = [vs[vs.index(b):vs.index(e) + 1] for b, e, _ in answers]
+    served = sorted({v for span in spans for v in span})
+    if len(served) < 2 or answers[-1][:2] != (vs[-1], vs[-1]) \
+            or behind[-1] != 0:
+        raise AssertionError(f"phase 18a: the client's answers came "
+                             f"from versions {served} (published {vs}"
+                             f", {behind[-1]} behind at the end)")
+    t0 = time.perf_counter()
+    oracle = {}
+    for aid in served:
+        fresh = ServingModel(srv.model, desc, mf_dim=MF_DIM,
+                             capacity=CAPACITY, device=dev)
+        if fresh.adopt(store, aid) != aid:
+            raise AssertionError(f"phase 18a: {aid} not adopted")
+        oracle[aid] = fresh.predict(probe)
+        fresh.release()
+        del fresh
+    bad = [(b, e) for (b, e, p), span in zip(answers, spans)
+           if not any(np.array_equal(p, oracle[v]) for v in span)]
+    if bad:
+        raise AssertionError(f"phase 18a: {len(bad)} answers differ from "
+                             f"a fresh adoption's of every version they "
+                             f"could come from ({bad[:3]})")
+    t["a_oracles_s"] = time.perf_counter() - t0
+    last_load = srv.last_load
+    srv.release()
+    del srv, learner
+    return {
+        "windows": totals["windows"], "examples": totals["examples"],
+        "examples_per_s": totals["examples"] / t["a_run_s"],
+        "shrink": {k: cycle[k] for k in ("window", "rows_before",
+                                         "freed", "want", "cycle_s")},
+        "checkpoints": kinds, "versions": vs,
+        "adoptions": len(adopt_s), "adopt_s": adopt_s,
+        "last_load": last_load, "versions_served": served,
+        "answers": len(answers),
+        "answers_by_version": {a: sum(span == [a] for span in spans)
+                               for a in served},
+        "answers_across_an_adoption": sum(len(sp) > 1 for sp in spans),
+        "staleness_versions": behind,
+        "predict_p50_ms": float(np.percentile(lat, 50)),
+        "predict_p99_ms": float(np.percentile(lat, 99)),
+        "dispatch": dispatch, "launches": launches,
+        "status": {k: v for k, v in status.items()
+                   if not k.endswith("_ts")},
+        "healthz_online": healthz}, w1
+
+
+def _ckpt_digest(torch, root: str, step: int) -> str:
+    """sha256 over checkpoint ``step`` under ``root``: its sparse file's
+    name (base or delta) and arrays by name, then every tensor and
+    number of its ``dense.pt`` (model, optimizer, AUC) in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    path = os.path.join(root, f"ckpt-{step:012d}")
+    name = ("sparse.npz" if os.path.isfile(os.path.join(path, "sparse.npz"))
+            else "sparse_delta.npz")
+    h.update(name.encode())
+    with np.load(os.path.join(path, name)) as z:
+        for k in sorted(z.files):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(z[k]).tobytes())
+
+    def walk(x, name: str) -> None:
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                walk(x[k], f"{name}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{name}/{i}")
+        elif isinstance(x, torch.Tensor):
+            h.update(name.encode())
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+        else:
+            h.update(f"{name}={x!r}".encode())
+    walk(torch.load(os.path.join(path, "dense.pt"), map_location="cpu",
+                    weights_only=False), "dense")
+    return h.hexdigest()
+
+
+def online_phase(torch, args, card, records, batches, details,
+                 dev: str = "cuda") -> dict:
+    """Phase 18: the online daemon (``online.OnlineLearner``) at phase 12's
+    ragged DeepFM width, under ``torch.use_deterministic_algorithms``:
+    phase 12's first ``ONLINE_FILES`` slot_text files as 3 windows of 2,
+    an Adagrad table of 2^23 rows (``mf_initial_range`` 0), an f32
+    DeepFM (512, 256, 128), a shrink cycle every 2 windows (threshold
+    ``ONLINE_THRESHOLD``, decay ``ONLINE_DECAY``).
+
+    18a, in process, with the hub on (a memory sink): the daemon trains,
+    publishes every boundary into an ``ArtifactStore`` and serves through
+    ``ServingModel(device="cuda")`` and its ``ReloadLoop`` while a client
+    thread calls ``predict`` on batch 0 over and over, noting the
+    snapshot's version just before and just after each call.
+    One shrink cycle at window 2, freeing exactly the rows a numpy
+    recount of a host copy of show/clk (taken just before it, decayed
+    and scored as the table does) puts under the threshold; its boundary
+    save a base, window 3's a delta on it; the lifecycle block in every
+    later cursor; every served answer bit for bit equal to the answer of
+    a fresh ``ServingModel`` that adopts one of the versions it can have
+    come from; the /healthz
+    ``online`` block at window 3 in mode ``full`` with 3 windows and 1
+    cycle; ``pbox_kernel_dispatch_total`` for rows 1, 6, 7 and 13 equal
+    to the wrappers' launches, all ``cuda``. 18b: window 1 again with
+    the daemon on the CPU (the plain versions, one thread) from the same
+    init: keys, show, clk and slot exact, rows and dense params within
+    rtol 2e-4 / atol 2e-5. 18c: the same daemon in a child process
+    (this file with ``--online-child``, started before 18b) gets a real
+    SIGTERM once /healthz reads 1 window and window 1's checkpoint has
+    landed: exit 75 with ``RESUME.json`` and an emergency cursor whose
+    open window is files 3-4; the relaunch, a second child started
+    beside the first as a warm standby (the card up, waiting for its go
+    file), goes once the first has exited: it consumes the marker,
+    replays exactly those 2 files and drains; the killed child's
+    window-1 boundary checkpoint equals 18a's array for array
+    (``_ckpt_digest``), and neither child built a kernel. The open
+    window's batches trained before the stop train again on the replay
+    (at-least-once): the relaunch ends that many steps past 18a, so its
+    final state is not 18a's. Its oracle, run in this process beside
+    the relaunch: the killed child's checkpoints restored and the same
+    stream run to its end; every checkpoint the relaunch wrote equals
+    the oracle's by ``_ckpt_digest``, with equal cursor lifecycle blocks
+    (one cycle, at window 2), and the relaunch reports 1 shrink cycle.
+    The phase fails past ``ONLINE_PHASE_BUDGET_S``. Prints one
+    ``online:`` JSON line; returns the rows' launches in 18a."""
+    from paddlebox_tpu_torch import CheckpointManager
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.obs import reset_hub
+    from paddlebox_tpu_torch.resilience import faults, preemption
+
+    t_phase = time.perf_counter()
+    n_windows = ONLINE_FILES // ONLINE_WINDOW
+    if len(records) < ONLINE_FILES * BATCH:
+        raise AssertionError(f"phase 18 writes {ONLINE_FILES} files of "
+                             f"{BATCH} records")
+    desc = ragged_desc()
+    probe = batches[0]
+    out: dict = {}
+    t = {}
+    tmp = tempfile.mkdtemp(prefix="pbx_online_")
+    procs: list = []               # 18c's children
+    preemption.clear_stop()
+    faults.clear_plan()
+    torch.use_deterministic_algorithms(True)
+    try:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        files = [os.path.join(data_dir, f"part-{i:03d}.txt")
+                 for i in range(ONLINE_FILES)]
+        for i, f in enumerate(files):
+            write_slot_text(f, records[i * BATCH:(i + 1) * BATCH])
+
+        # ==== 18a: train, publish, serve, age, in one process ====
+        out["a"], w1 = online_serve_run(torch, args, desc, files, probe,
+                                        os.path.join(tmp, "a"), dev, t)
+
+        # ==== 18c starts: the child to be killed and the relaunch's
+        # warm standby come up while 18b runs ====
+        want_window = [os.path.basename(f) for f in files[2:4]]
+        kids = _start_children(args, data_dir, os.path.join(tmp, "c0"),
+                               dev, tmp)
+        procs += [kids["term"], kids["relaunch"]]
+
+        # ==== 18b: window 1 on the CPU through the plain versions ====
+        # on one thread: at the host's full count the CPU's float order
+        # varies between processes, and the window's two Adam steps can
+        # carry that past the class (dense params 3e-4 apart)
+        t0 = time.perf_counter()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            with flags_scope(**_online_flags(args)):
+                learner_c, tr_c, _, _ = _online_daemon(
+                    torch, args, desc, os.path.join(tmp, "b"), files, "cpu",
+                    checkpoint=False, max_windows=1)
+                learner_c.run()
+        finally:
+            torch.set_num_threads(threads)
+        reset_hub()
+        gk, gf = w1["rows"]
+        ck, cf = _logical_rows(tr_c)
+        if tr_c.global_step != w1["step"] or not np.array_equal(gk, ck):
+            raise AssertionError("phase 18b: the CPU window trained other "
+                                 "keys or steps")
+        for f in ("show", "clk", "slot"):
+            if not np.array_equal(gf[f], cf[f]):
+                raise AssertionError(f"phase 18b: {f} differs from the "
+                                     "card's")
+        row_err = max(check_close(f"phase 18b: {f}", torch.from_numpy(
+            np.asarray(gf[f])), torch.from_numpy(np.asarray(cf[f])),
+            STATE_RTOL, STATE_ATOL) for f in gf)
+        pc = tr_c.model.state_dict()
+        param_err = max(check_close(f"phase 18b: {k}", v, pc[k].cpu(),
+                                    STATE_RTOL, STATE_ATOL)
+                        for k, v in w1["params"].items())
+        del learner_c, tr_c
+        t["b_s"] = time.perf_counter() - t0
+        out["b"] = {"rows": len(gk), "row_max_abs_err": row_err,
+                    "param_max_abs_err": param_err}
+
+        # ==== 18c: a real SIGTERM on the child, and its resume ====
+        # a signal that lands at a boundary, or after the stream drained,
+        # leaves no open window: one more pair of children then
+        for attempt in range(2):
+            if attempt:
+                _release(kids, "abort")
+                kids["relaunch"].communicate(timeout=120)
+                kids = _start_children(args, data_dir, os.path.join(
+                    tmp, f"c{attempt}"), dev, tmp)
+                procs += [kids["term"], kids["relaunch"]]
+            croot = os.path.join(tmp, f"c{attempt}")
+            ckpt = os.path.join(croot, "ckpt")
+            rc, stdout, t_exit = _sigterm_child(
+                kids["term"], os.path.join(ckpt, "LATEST"), w1["step"])
+            term = _child_line(stdout)
+            marker = preemption.read_resume_marker(ckpt)
+            cur = CheckpointManager(ckpt).load_cursor() or {}
+            window = [os.path.basename(p) for p in
+                      (cur.get("stream") or {}).get("window_files", [])]
+            if window == want_window:
+                break
+        t["c_term_s"] = t_exit - kids["t_start"]
+        if rc != preemption.EXIT_RESUME or marker is None \
+                or window != want_window:
+            raise AssertionError(
+                f"phase 18c: the SIGTERM child exited {rc}, marker "
+                f"{marker}, open window {window} ({term}); stderr: "
+                f"{open(kids['errs'][0]).read()[-2000:]}")
+        split = {"term": _child_split(term, kids["t_start"], t_exit)}
+        # the oracle's start: the killed child's checkpoints as it left
+        # them; then the standby goes, and the oracle runs beside it
+        oroot = os.path.join(tmp, "oracle")
+        shutil.copytree(ckpt, os.path.join(oroot, "ckpt"))
+        t_go = time.time()
+        _release(kids, "go")
+
+        # the oracle: the killed child's checkpoints restored in this
+        # process, the same stream run to its end; every checkpoint the
+        # relaunch writes must equal the oracle's, and so must their
+        # cursors' lifecycle blocks
+        t0 = time.perf_counter()
+        with flags_scope(**_online_flags(args)):
+            learner_o, tr_o, cm_o, _ = _online_daemon(
+                torch, args, desc, oroot, files, dev)
+            resumed_o = cm_o.restore(tr_o)
+            learner_o.run()
+        reset_hub()
+        oracle_cycles = learner_o.shrink_cycles
+        del learner_o, tr_o
+        t["c_oracle_s"] = time.perf_counter() - t0
+        stdout, _ = kids["relaunch"].communicate(timeout=300)
+        t_exit = time.time()
+        t["c_resume_s"] = t_exit - t_go
+        res = _child_line(stdout)
+        rc = kids["relaunch"].returncode
+        if rc != 0 or preemption.read_resume_marker(ckpt) \
+                is not None or res["totals"]["replayed_files"] != 2 \
+                or res["status"]["windows_completed"] != n_windows:
+            raise AssertionError(f"phase 18c: the relaunch exited "
+                                 f"{rc} ({res}); stderr: "
+                                 f"{open(kids['errs'][1]).read()[-2000:]}")
+        # window 1's boundary checkpoint, written by the killed child,
+        # against 18a's
+        first = [_ckpt_digest(torch, os.path.join(root, "ckpt"), w1["step"])
+                 for root in (croot, os.path.join(tmp, "a"))]
+        at_least_once = res["step"] == 3 * ONLINE_WINDOW + int(
+            cur.get("batch_index", -1))
+        if first[0] != first[1] or not at_least_once:
+            raise AssertionError(f"phase 18c: the child's step-{w1['step']}"
+                                 f" checkpoint {first[0]}, 18a's "
+                                 f"{first[1]}; the relaunch ended at step "
+                                 f"{res['step']}")
+        if term["built"] or res["built"] or res["kv_route"] != "native":
+            raise AssertionError(f"phase 18c: the children built kernels "
+                                 f"{term['built']} {res['built']} or took "
+                                 f"the {res['kv_route']} host index")
+        new = [s for s in cm_o.steps() if s > res["resumed_step"]]
+        relaunch_cm = CheckpointManager(ckpt)
+        got = [s for s in relaunch_cm.steps() if s > res["resumed_step"]]
+        digests = [[_ckpt_digest(torch, root, s) for s in got]
+                   for root in (ckpt, os.path.join(oroot, "ckpt"))]
+        lcs = [[(m.load_cursor(s) or {}).get("lifecycle") for s in got]
+               for m in (relaunch_cm, cm_o)]
+        shrunk = [lc for lc in lcs[0] if lc is not None]
+        if resumed_o != res["resumed_step"] or got != new \
+                or digests[0] != digests[1] or lcs[0] != lcs[1] \
+                or not shrunk or any(
+                    (lc["cycles"], lc["last_shrink_window"]) != (1, 2)
+                    for lc in shrunk) \
+                or res["status"]["shrink_cycles"] != 1 \
+                or oracle_cycles != 1:
+            raise AssertionError(
+                f"phase 18c: the relaunch resumed step "
+                f"{res['resumed_step']} (the oracle {resumed_o}) and wrote "
+                f"checkpoints {got}, the oracle {new}: digests equal "
+                f"{[a == b for a, b in zip(*digests)]}, lifecycle blocks "
+                f"{lcs}, shrink cycles {res['status']['shrink_cycles']} "
+                f"and {oracle_cycles}")
+        out["c"] = {"term": {k: term[k] for k in ("step", "resumed_step")},
+                    "cursor_batch_index": cur.get("batch_index"),
+                    "open_window": window, "marker": marker,
+                    "relaunch": {k: res[k] for k in (
+                        "resumed_step", "totals", "step", "steps",
+                        "kv_route")},
+                    "first_boundary_digest": first[0],
+                    "split_s": dict(split, relaunch=_child_split(
+                        res, kids["t_start"], t_exit)),
+                    "oracle_steps": new,
+                    "final_digest": digests[0][-1],
+                    "lifecycle": lcs[0][-1]}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        torch.use_deterministic_algorithms(False)
+        preemption.clear_stop()
+        preemption.uninstall_signal_handlers()
+        faults.clear_plan()
+        reset_hub()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    lingering = [th.name for th in threading.enumerate()
+                 if th is not threading.main_thread() and not th.daemon]
+    if lingering:
+        raise AssertionError(f"phase 18: non-daemon threads {lingering}")
+    phase_s = time.perf_counter() - t_phase
+    out.update(phase_s=phase_s, seconds=t, budget_s=ONLINE_PHASE_BUDGET_S)
+    print("online: " + json.dumps(out, default=str), flush=True)
+    a = out["a"]
+    log(f"online 18a: {a['windows']} windows, {a['examples_per_s']:.0f} "
+        f"examples/s with serving on; shrink cycle at window "
+        f"{a['shrink']['window']} freed {a['shrink']['freed']} of "
+        f"{a['shrink']['rows_before']} rows (numpy recount "
+        f"{a['shrink']['want']}) in {a['shrink']['cycle_s']:.2f}s; "
+        f"checkpoints {a['checkpoints']}; {a['adoptions']} adoptions "
+        f"{[round(x, 2) for x in a['adopt_s']]} s; {a['answers']} answers "
+        f"from {a['versions_served']}, each equal to a fresh adoption's; "
+        f"staleness in versions by window {a['staleness_versions']}; "
+        f"predict p50 {a['predict_p50_ms']:.2f} ms p99 "
+        f"{a['predict_p99_ms']:.2f} ms ({card})")
+    log(f"online 18b: window 1 on the CPU (plain, one thread) against "
+        f"the card: "
+        f"{out['b']['rows']} rows, keys/show/clk/slot exact, max abs err "
+        f"rows {out['b']['row_max_abs_err']:.3g} params "
+        f"{out['b']['param_max_abs_err']:.3g}; 18c: SIGTERM child exit 75 "
+        f"at step {out['c']['term']['step']} (open window "
+        f"{out['c']['open_window']}), the relaunch replayed "
+        f"{out['c']['relaunch']['totals']['replayed_files']} files and "
+        f"drained, window-1 checkpoint == 18a, checkpoints "
+        f"{out['c']['oracle_steps']} == the in-process oracle's; phase 18 "
+        f"took "
+        f"{phase_s:.1f}s (budget {ONLINE_PHASE_BUDGET_S:.0f}s) "
+        f"{json.dumps({k: round(v, 2) for k, v in t.items()})} ({card})")
+    details["online"] = out
+    if dev == "cuda" and phase_s > ONLINE_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 18 took {phase_s:.1f}s, past its "
+                             f"{ONLINE_PHASE_BUDGET_S:.0f}s budget")
+    return a["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/chip_smoke")
+    # phase 18c's child process (see online_child)
+    ap.add_argument("--online-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--online-data", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--online-device", default="cuda",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--online-wait", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -6378,6 +7177,11 @@ def main() -> int:
     # it creates its handle, before the first GEMM
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
+    if args.online_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return online_child(torch, args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6424,11 +7228,7 @@ def main() -> int:
     t0 = time.perf_counter()
     blob = make_table_blob(rng, convert)
     records = make_records(rng, BATCH * args.batches, SlotRecord)
-    slots = ([SlotDef("label", "float", 1),
-              SlotDef("dense", "float", DENSE_DIM)]
-             + [SlotDef(f"C{i}", "uint64") for i in range(1, NUM_SLOTS + 1)])
-    desc = DataFeedDesc(slots=slots, batch_size=BATCH, label_slot="label",
-                        key_bucket_min=4096)
+    desc = ragged_desc()
     builder = BatchBuilder(desc)
     batches = [builder.build(records[i:i + BATCH])
                for i in range(0, len(records), BATCH)]
@@ -6763,6 +7563,27 @@ def main() -> int:
                              details)
     for r in kernels:
         r["launches"] += obs_launches.get(r["name"], 0)
+
+    # ---- phase 18: the online daemon ----
+    t_18 = time.perf_counter()
+    online_launches = online_phase(torch, args, card, records, batches,
+                                   details)
+    for r in kernels:
+        r["launches"] += online_launches.get(r["name"], 0)
+    # what phase 18's seconds were paid with: every model file the port
+    # writes is an uncompressed npz since phase 18 came; phase 10 times
+    # one base save beside np.savez_compressed of the same arrays
+    cut = {"phase_18_s": details["online"]["phase_s"],
+           "phases_1_17_s": t_18 - t_start,
+           "phase_10_save_base_s": details["checkpoint"]["save_base_s"],
+           "phase_10_savez_compressed_s":
+               details["checkpoint"]["savez_compressed_s"]}
+    details["phase_18_cut"] = cut
+    log(f"phase 18 took {cut['phase_18_s']:.1f}s; phases 1-17 took "
+        f"{cut['phases_1_17_s']:.1f}s, the build included; phase 10's "
+        f"base save {cut['phase_10_save_base_s']:.2f}s uncompressed, "
+        f"{cut['phase_10_savez_compressed_s']:.2f}s as np.savez_compressed "
+        f"of the same arrays ({card})")
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

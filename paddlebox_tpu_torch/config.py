@@ -135,9 +135,9 @@ class Flags:
     # below this, after decaying show/clk/delta_score by this rate
     shrink_delete_threshold: float = 0.0
     show_click_decay_rate: float = 0.98
-    # online-learning daemon (online.py, not ported yet): a shrink cycle
-    # every N completed stream windows; 0 = lifecycle aging off. Read
-    # here by the alert engine's shrink_overdue rule
+    # online-learning daemon (online.OnlineLearner): a shrink cycle
+    # every N completed stream windows; 0 = lifecycle aging off. Also
+    # read by the alert engine's shrink_overdue rule
     # (obs/alerts.default_rules).
     shrink_every_windows: int = 0
 
@@ -150,6 +150,8 @@ class Flags:
     retry_deadline_sec: float = 30.0
     # backoff jitter fraction in [0,1], seeded from the site name
     retry_jitter: float = 0.25
+    # kill a hung CommandBackend CLI after this many seconds (<=0 = none)
+    command_timeout_sec: float = 300.0
     # bounded retry-from-last-checkpoint attempts in Trainer.run_pass
     # (0 = a failed pass raises at once)
     pass_retry_limit: int = 0

@@ -442,8 +442,7 @@ class HostStore:
             keys = np.concatenate([keys, extra["keys"]])
             for f in self.fields:
                 blobs[f] = np.concatenate([blobs[f], extra[f]])
-        np.savez_compressed(path, keys=keys, mf_dim=np.int32(self.mf_dim),
-                            **blobs)
+        np.savez(path, keys=keys, mf_dim=np.int32(self.mf_dim), **blobs)
         return len(keys)
 
     def _ssd_extra(self, delta: bool = False,

@@ -675,13 +675,13 @@ class ShardedEmbeddingTable:
             if self.opt_ext:
                 blobs[f"opt_ext_{s}"] = sub[:, mf_end:]
             total += len(keys)
-        np.savez_compressed(path, n=self.n, **blobs)
+        np.savez(path, n=self.n, **blobs)
         return total
 
     def save_base(self, path: str) -> int:
         """Full model dump (SaveBase, box_wrapper.cc:1383): ``n``, then
         ``keys_{s}`` and ``{field}_{s}`` per shard, the reference's
-        format."""
+        arrays, uncompressed (``EmbeddingTable.save_base``)."""
         return self._dump(path, lambda s, keys, rows: (keys, rows))
 
     def save_delta(self, path: str) -> int:

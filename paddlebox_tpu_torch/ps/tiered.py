@@ -1128,7 +1128,7 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
             for f, v in fields.items():
                 blobs[f"{f}_{s}"] = v
             total += len(keys)
-        np.savez_compressed(path, n=self.n, **blobs)
+        np.savez(path, n=self.n, **blobs)
         log.info("tiered save_base: %d rows -> %s", total, path)
         return total
 
@@ -1145,7 +1145,7 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
             for f, v in fields.items():
                 blobs[f"{f}_{s}"] = v
             total += len(keys)
-        np.savez_compressed(path, n=self.n, **blobs)
+        np.savez(path, n=self.n, **blobs)
         log.info("tiered save_delta: %d rows -> %s", total, path)
         return total
 

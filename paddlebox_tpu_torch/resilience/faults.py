@@ -32,6 +32,28 @@ means the same thing to both packages:
                             (``corrupt`` mangles the line)
 ``stream.window``           each window a windowed ``QueueDataset``
                             dispatches
+``endpass.writeback``       each end-of-pass write-back job before the
+                            pull lands rows in the host tier
+                            (``ps/tiered.py``, ``ps/pass_table.py``): a
+                            ``fail`` surfaces at the next epilogue fence
+                            as ``EndPassWritebackError``
+``ssd.io``                  every SSD-tier segment file operation
+                            (append, read, unlink; ``ps/ssd.py``): a
+                            transient ``fail`` retries on the seeded
+                            policy (site ``ssd.io``)
+``online.supervise``        the online daemon's supervisor seams
+                            (``online.OnlineLearner.run`` and the serve
+                            leg's start): a transient ``fail`` on the
+                            train leg retries on the seeded policy (site
+                            ``online.supervise``, mode ``degraded`` while
+                            backing off); a deterministic one degrades
+                            the daemon to ``serve_only``/``train_only``
+``online.shrink``           start of every shrink attempt of the online
+                            daemon: transients retry on the seeded policy
+                            (site ``online.shrink``); a hard or exhausted
+                            failure skips the cycle loudly
+``file_mgr.command``        every ``utils/file_mgr.CommandBackend`` CLI
+                            invocation
 ==========================  =============================================
 
 Kinds: ``fail`` (raise; ``exc=transient|crash|os`` picks the type),

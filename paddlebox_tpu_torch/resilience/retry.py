@@ -29,7 +29,8 @@ log = logging.getLogger(__name__)
 
 class TransientError(RuntimeError):
     """A failure worth retrying: transient IO trouble, not a programming
-    error. Subclassed by ``TransientInjectedError`` (resilience/faults)."""
+    error. Subclassed by ``TransientCommandError`` (utils/file_mgr) and
+    ``TransientInjectedError`` (resilience/faults)."""
 
 
 class RetryExhausted(RuntimeError):

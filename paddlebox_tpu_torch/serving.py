@@ -404,6 +404,9 @@ class ServingModel:
         self._refresh_snapshot(handle.manifest)
         self.last_load = {"aid": handle.aid, "start": start,
                           "applied": applied, "fresh": fresh}
+        _counter("pbox_serving_reload_adopted_total",
+                 "serving snapshot adoptions",
+                 kind=handle.manifest.get("kind", "base"))
 
     def hot_reload(self, store) -> Optional[str]:
         """Advance to the newest verifiable version, applying ONLY the

@@ -157,6 +157,12 @@ class Trainer:
         # decays EVERY row without marking it touched, so a delta would
         # miss it). Cleared only after a save actually lands.
         self.stream_force_base = False
+        # lifecycle bookkeeping published into every checkpoint cursor
+        # (and the boundary artifact manifest): shrink cycle count, last
+        # shrink window, rows shrunk, live rows. A restore replays to the
+        # same live-key set and the daemon resumes its cadence from it
+        # (online.OnlineLearner)
+        self.lifecycle: Optional[Dict[str, float]] = None
         # elastic membership poll: called at every completed window
         # boundary, AFTER on_window_complete and BEFORE the save
         # decision. A truthy decision publishes a boundary checkpoint and
@@ -409,6 +415,11 @@ class Trainer:
             st = state_fn(int(batch_index))
             if st is not None:
                 cur["stream"] = st
+        if self.lifecycle is not None:
+            # shrink decisions ride EVERY cursor (boundary and emergency
+            # alike) so a restore replays to the same live-key set and
+            # the daemon's cadence survives a resume
+            cur["lifecycle"] = dict(self.lifecycle)
         return cur
 
     def _boundary_cursor(self, dataset) -> Optional[dict]:

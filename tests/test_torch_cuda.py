@@ -2695,3 +2695,43 @@ def test_obs_profiler_trace_holds_kernel_events(cuda, tmp_path):
         n = f.launches - before[sym]
         assert n > 0 and sum(sym in k for k in names) == n, (sym, n,
                                                               names[:20])
+
+
+@pytest.mark.cuda
+def test_online_daemon_serves_while_training_on_card(cuda, deterministic,
+                                                     tmp_path, monkeypatch):
+    """``chip_smoke.py`` phase 18a at a small depth (batch 256, a 2^18-row
+    table, a (32, 16) tower): the online daemon trains 3 windows of 2
+    slot_text files on the card, shrinks at window 2 (the freed rows equal
+    a numpy recount of show/clk), publishes a base there and a delta on
+    it, and serves through a ``ReloadLoop`` while a client thread
+    predicts; every answer equals a fresh adoption of its version bit for
+    bit, /healthz reads mode ``full`` with 3 windows and 1 cycle, and the
+    dispatch counter books only ``cuda`` ticks, one per launch (the
+    phase's own checks, which raise)."""
+    import argparse
+    import os
+
+    import chip_smoke as cs
+    for k, v in {"BATCH": 256, "CAPACITY": 1 << 18,
+                 "VOCAB_PER_SLOT": 30000, "HIDDEN": (32, 16)}.items():
+        monkeypatch.setattr(cs, k, v)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    records = cs.make_records(np.random.default_rng(0),
+                              cs.BATCH * cs.ONLINE_FILES, SlotRecord)
+    desc = cs.ragged_desc()
+    os.makedirs(tmp_path / "data")
+    files = [str(tmp_path / "data" / f"part-{i:03d}.txt")
+             for i in range(cs.ONLINE_FILES)]
+    for i, f in enumerate(files):
+        cs.write_slot_text(f, records[i * cs.BATCH:(i + 1) * cs.BATCH])
+    probe = BatchBuilder(desc).build(records[:cs.BATCH])
+    a, w1 = cs.online_serve_run(torch, argparse.Namespace(seed=0), desc,
+                                files, probe, str(tmp_path / "a"), "cuda",
+                                {})
+    assert a["windows"] == 3 and w1["step"] == 2
+    assert a["shrink"]["freed"] == a["shrink"]["want"] > 0
+    assert a["checkpoints"] == ["base", "base", "delta"]
+    assert len(a["versions_served"]) >= 2
+    assert all(n > 0 for n in a["launches"].values())
+    assert a["healthz_online"]["mode"] == "full"
