@@ -30,3 +30,20 @@ def seeded_generator(device: torch.device, seed: int,
     g = torch.Generator(device=device)
     g.manual_seed(((seed & 0xFFFFFFFF) << 32) | (counter & 0xFFFFFFFF))
     return g
+
+
+def index_sum_(out: torch.Tensor, index: torch.Tensor,
+               src: torch.Tensor) -> torch.Tensor:
+    """Add row ``src[i]`` into row ``index[i]`` of ``out`` IN PLACE
+    (differentiable in ``src``), each row's terms in index order on
+    either device, so a run repeats bit for bit at any thread count. On
+    the CPU an ``index_add_``, which walks the index serially: the CPU's
+    accumulating ``index_put_`` adds through atomics in thread order
+    above ATen's 32 768-element grain unless
+    ``torch.use_deterministic_algorithms(True)``. On the card an
+    accumulating ``index_put_``, which sorts the index stably and sums in
+    key order (its ``index_add_`` adds in atomic order)."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, src)
+    return out.index_put_((index,), src, accumulate=True)
+

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from paddlebox_tpu_torch.device import index_sum_
 from paddlebox_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
@@ -204,11 +205,9 @@ class RankAttentionFn(torch.autograd.Function):
             d_gmat = torch.einsum("np,bdp->bnd", g, param3)
             d_xk = torch.einsum("bnd,nkb->nkd", d_gmat, onehot)
             d_xk = torch.where(valid[..., None], d_xk, 0.0)
-            # an accumulating put sums each row's entries in key order (an
-            # index_add_ adds in atomic order on the card)
-            dx = torch.zeros_like(x).index_put_(
-                (idx.reshape(-1),), d_xk.reshape(-1, d).to(x.dtype),
-                accumulate=True)
+            # each row's entries in key order, on either device
+            dx = index_sum_(torch.zeros_like(x), idx.reshape(-1),
+                            d_xk.reshape(-1, d).to(x.dtype))
         return dx, None, d_param, None, None, None
 
 

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from paddlebox_tpu_torch.device import index_sum_
 from paddlebox_tpu_torch.ops import _build, ctr_kernels, index
 
 #: static CVM epilogue modes (which head columns transform)
@@ -175,12 +176,12 @@ def pool_cvm_plain(values: torch.Tensor, segments: torch.Tensor,
                    num_slots: int, cvm_mode: int = CVM_FULL,
                    cvm_offset: int = 2, ets: int = 0,
                    pad_value: float = 0.0) -> torch.Tensor:
-    """Plain version of :func:`pool_cvm`: an accumulating ``index_put_``
-    over the segments (ids outside [0, B*S) fall into a discarded bin),
-    then ``pad_value`` and the CVM epilogue. The accumulating put sorts
-    the ids stably and sums each segment's keys in key order, as the
-    kernel does, so the two agree bit for bit on the card (``index_add_``
-    would add in atomic order there, which differs from run to run)."""
+    """Plain version of :func:`pool_cvm`: a row sum over the segments in
+    key order (``device.index_sum_``; ids outside [0, B*S) fall into a
+    discarded bin), then ``pad_value`` and the CVM epilogue. Each
+    segment's keys add in key order, as the kernel adds them, so the two
+    agree bit for bit on the card, and a CPU run repeats at any thread
+    count."""
     k, d = values.shape
     n = batch_size * num_slots
     cvm_out_width(d, cvm_mode, cvm_offset, ets)
@@ -189,9 +190,8 @@ def pool_cvm_plain(values: torch.Tensor, segments: torch.Tensor,
     v = values.float()
     if keep is not None:
         v = torch.where(keep[:, None] != 0, v, 0.0)
-    pooled = torch.zeros((n + 1, d), dtype=torch.float32,
-                         device=values.device).index_put_(
-                             (seg,), v, accumulate=True)[:n]
+    pooled = index_sum_(torch.zeros((n + 1, d), dtype=torch.float32,
+                                    device=values.device), seg, v)[:n]
     out = _cvm_slice(_cvm_transform_wide(pooled + pad_value, cvm_mode),
                      cvm_mode, cvm_offset, ets)
     return out.reshape(batch_size, num_slots, -1).to(values.dtype)
@@ -404,16 +404,16 @@ segment_gather.label = "seqpool_grad"
 
 def segment_sum_plain(values: torch.Tensor, segments: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
-    """Plain version of :func:`segment_sum`: an accumulating
-    ``index_put`` into ``num_segments + 1`` f32 bins (ids outside [0,
-    num_segments) fall into the last one, which is cut off), so each
-    segment's keys are summed in key order as the kernel sums them.
-    Differentiable in ``values``."""
+    """Plain version of :func:`segment_sum`: a row sum in key order
+    (``device.index_sum_``) into ``num_segments + 1`` f32 bins (ids
+    outside [0, num_segments) fall into the last one, which is cut off),
+    so each segment's keys are summed in key order as the kernel sums
+    them. Differentiable in ``values``."""
     seg = segments.long()
     seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
-    out = torch.zeros((num_segments + 1, values.shape[1]),
-                      dtype=torch.float32, device=values.device).index_put(
-                          (seg,), values.float(), accumulate=True)
+    out = index_sum_(torch.zeros((num_segments + 1, values.shape[1]),
+                                 dtype=torch.float32, device=values.device),
+                     seg, values.float())
     return out[:num_segments].to(values.dtype)
 
 

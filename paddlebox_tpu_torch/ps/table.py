@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch.data.batch import SlotBatch
-from paddlebox_tpu_torch.device import resolve_device, seeded_generator
+from paddlebox_tpu_torch.device import (index_sum_, resolve_device,
+                                        seeded_generator)
 from paddlebox_tpu_torch.config import FLAGS
 from paddlebox_tpu_torch.obs.hub import get_hub
 from paddlebox_tpu_torch.ops.index import DeviceKeyIndex, book_index_dispatch
@@ -396,14 +397,32 @@ def pull_values(rows_full: torch.Tensor,
     return torch.cat([rows_full[:, 0:2], rows_full[:, 4:5], mf], dim=1)
 
 
+class _ExpandRows(torch.autograd.Function):
+    """``values_u[idx]`` whose backward sums each unique row's key grads
+    in key order on either device (``device.index_sum_``), where a tensor
+    index's own backward, an accumulating ``index_put_``, adds in thread
+    order on a CPU with more than one thread."""
+
+    @staticmethod
+    def forward(ctx, values_u, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = values_u.shape[0]
+        return values_u[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return index_sum_(g.new_zeros((ctx.rows,) + g.shape[1:]), idx,
+                          g), None
+
+
 def expand_pull(values_u: torch.Tensor,
                 gather_idx: torch.Tensor) -> torch.Tensor:
     """[U, D] unique values → [K, D] per-key-occurrence values; indices
     past the end read the last row (the reference's clamped gather). Its
-    autograd backward is the per-unique-row grad merge (an accumulating
-    index_put)."""
+    autograd backward is the per-unique-row grad merge, in key order."""
     u = values_u.shape[0]
-    return values_u[gather_idx.long().clamp(0, u - 1)]
+    return _ExpandRows.apply(values_u, gather_idx.long().clamp(0, u - 1))
 
 
 def _live_keys(gather_idx: torch.Tensor, key_valid: torch.Tensor,
@@ -420,13 +439,13 @@ def merge_push(key_grads: torch.Tensor, gather_idx: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dedup-merge per-key-occurrence grads into per-unique-row grads
     (PushMergeCopy, box_wrapper.cu:417). Returns (unique_grads [U, D],
-    touched [U] bool, slot_val [U]). Only the valid keys are summed, by
-    an accumulating ``index_put_`` (key order): padded keys, which all
-    point at one slot, never reach it."""
+    touched [U] bool, slot_val [U]). Only the valid keys are summed, in
+    key order (``device.index_sum_``): padded keys, which all point at
+    one slot, never reach it."""
     live = _live_keys(gather_idx, key_valid, num_unique)
     gi = gather_idx.long()[live]
-    g = key_grads.new_zeros((num_unique, key_grads.shape[1])).index_put_(
-        (gi,), key_grads[live] * key_valid[live, None], accumulate=True)
+    g = index_sum_(key_grads.new_zeros((num_unique, key_grads.shape[1])),
+                   gi, key_grads[live] * key_valid[live, None])
     touched, slot_val = push_stats(gather_idx, key_valid, slot_of_key,
                                    num_unique)
     return g, touched, slot_val
@@ -439,11 +458,10 @@ def push_stats(gather_idx: torch.Tensor, key_valid: torch.Tensor,
     live = _live_keys(gather_idx, key_valid, num_unique)
     gi = gather_idx.long()[live]
     kv = key_valid[live].float()
-    zeros = torch.zeros(num_unique, dtype=torch.float32,
-                        device=key_valid.device)
-    cnt = zeros.index_put((gi,), kv, accumulate=True)
-    slot_sum = zeros.index_put((gi,), slot_of_key[live].float() * kv,
-                               accumulate=True)
+    cnt = index_sum_(torch.zeros(num_unique, dtype=torch.float32,
+                                 device=key_valid.device), gi, kv)
+    slot_sum = index_sum_(torch.zeros_like(cnt), gi,
+                          slot_of_key[live].float() * kv)
     touched = cnt > 0
     slot_val = torch.where(touched, slot_sum / cnt.clamp_min(1.0), 0.0)
     return touched, slot_val
@@ -453,14 +471,13 @@ def merge_rows(values: torch.Tensor, idx: torch.Tensor,
                num_segments: int) -> torch.Tensor:
     """Segment sum of ``values`` [M, D] by ``idx`` [M] into
     [num_segments, D] (the sharded push's merge of the grads every
-    requester sent back for one served row). An accumulating
-    ``index_put_``: each segment's terms add in position order on the
-    CPU and, under ``torch.use_deterministic_algorithms(True)``, on the
-    card too, so a run repeats bit for bit. The reference packs rows into
-    128-lane lines for the TPU's scatter; the port's rows are row-major
-    and need no packing."""
+    requester sent back for one served row). Each segment's terms add in
+    position order on either device (``device.index_sum_``), so a run
+    repeats bit for bit. The reference packs rows into 128-lane lines for
+    the TPU's scatter; the port's rows are row-major and need no
+    packing."""
     out = values.new_zeros((num_segments, values.shape[1]))
-    return out.index_put_((idx.long(),), values, accumulate=True)
+    return index_sum_(out, idx.long(), values)
 
 
 def apply_push(state: TableState, unique_rows: torch.Tensor,
@@ -747,7 +764,7 @@ class EmbeddingTable:
         those with ``gather_idx < num_unique`` (``_build_index`` points
         every pad at slot ``num_unique``, as ``ps/extended`` points a
         skipped key). Only those are merged, in key order, so the pads
-        never reach the accumulating ``index_put_``; the result is the
+        never reach the key-order row sum; the result is the
         reference's, whose key_valid mask zeroes them."""
         live = np.flatnonzero(idx.gather_idx < idx.num_unique)
         if slot_of_key is not None:
@@ -756,9 +773,9 @@ class EmbeddingTable:
                 self.record_slots(idx.unique_rows, idx.gather_idx[live], sok)
         gi = torch.from_numpy(idx.gather_idx[live].astype(np.int64)).to(
             self.device)
-        g = key_grads.new_zeros((len(idx.unique_rows), key_grads.shape[1]))
-        g.index_put_((gi,), key_grads[torch.from_numpy(live).to(
-            key_grads.device)], accumulate=True)
+        g = index_sum_(
+            key_grads.new_zeros((len(idx.unique_rows), key_grads.shape[1])),
+            gi, key_grads[torch.from_numpy(live).to(key_grads.device)])
         rows = torch.from_numpy(idx.unique_rows).to(self.device)
         apply_push(self.state, rows, g, self.cfg,
                    generator=self.next_generator(), ops=ops)

@@ -6,9 +6,8 @@ DeepFM over 320 ragged records, 10 batches a pass), and three parity
 checks:
 
 - a port run preempted at batch 5 and resumed from its cursor checkpoint
-  equals the uninterrupted port run EXACTLY (``state_digest``). The CPU
-  runs with one thread: an accumulating ``index_put_`` sums in key order
-  only below its parallel grain;
+  equals the uninterrupted port run EXACTLY (``state_digest``), at the
+  host's thread count;
 - the same scenario against the JAX ``Trainer`` (DeepFM, the same params
   through ``convert``), in both JAX flag settings: logical rows and dense
   params within the ragged train-state class, rtol 2e-4 / atol 2e-5;
@@ -75,15 +74,12 @@ CFG = dict(mf_create_thresholds=0.0, mf_initial_range=0.0,
 
 
 @pytest.fixture(autouse=True)
-def one_thread_and_clean_stop():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+def clean_stop():
     preemption.clear_stop()
     jpreemption.clear_stop()
     yield
     preemption.clear_stop()
     jpreemption.clear_stop()
-    torch.set_num_threads(threads)
 
 
 def _arrays(n=N, seed=0):

@@ -48,18 +48,47 @@ def _ragged(rng, b=64, s=7, d=11, drop=0.05):
     return values, segments, keep, b, s
 
 
+# Rows 1 and 13 at the widths the paths use: 16 (Adagrad, mf 8), 37 and
+# 23 (Adam and shared Adam, mf 8), 12 / 16 / 24 (the multi-mf classes),
+# and 13, 1 and 140 (odd, one float, wider than 32 16-byte vectors).
+ROW_WIDTHS = [12, 16, 24, 37, 23, 13, 1, 140]
+# empty, one row, a chunk but one and a chunk and one (a warp takes 32
+# rows), and one row past a full sweep of the card's resident warps
+# (132 SMs x 64 warps x 32 rows), which makes every warp walk twice
+ROW_COUNTS = [0, 1, 31, 33, 132 * 64 * 32 + 1]
+
+
+def _row_case(rng, feat, u, view):
+    """A [c + 2, feat] block, the table view into it (``whole``: rows
+    0..c; ``row_view``: rows 1..c+1, a base 4·feat bytes in, so not
+    16-byte aligned at width 13) and u distinct ids in [0, c - 1) with,
+    from 31 rows on, ids at c, above c and negative at the front."""
+    c = max(6000, u + 16)
+    big = torch.from_numpy(rng.normal(size=(c + 2, feat)).astype(
+        np.float32)).cuda()
+    ids = rng.permutation(c - 1)[:u].astype(np.int32)
+    if u >= 31:
+        ids[:6] = [c, c + 5, -1, -7, 2 ** 31 - 1, c - 1]
+    off = 1 if view == "row_view" else 0
+    return big, off, c, torch.from_numpy(ids).cuda()
+
+
 @pytest.mark.cuda
-# vector and scalar paths; 37 and 23: the Adam and shared-Adam rows (mf 8)
-@pytest.mark.parametrize("feat", [16, 13, 37, 23])
-def test_gather_rows_exact(cuda, feat):
-    rng = np.random.default_rng(feat)
-    table = torch.from_numpy(
-        rng.normal(size=(5001, feat)).astype(np.float32)).to(cuda)
-    rows = torch.from_numpy(
-        rng.integers(-2, 5100, size=3000).astype(np.int32)).to(cuda)
+@pytest.mark.parametrize("view", ["whole", "row_view"])
+@pytest.mark.parametrize("u", ROW_COUNTS)
+@pytest.mark.parametrize("feat", ROW_WIDTHS)
+def test_gather_rows_exact(cuda, feat, u, view):
+    big, off, c, rows = _row_case(np.random.default_rng(feat * 7 + u),
+                                  feat, u, view)
+    table = big[off:off + c + 1]
+    if view == "row_view" and feat == 13:
+        assert table.data_ptr() % 16 != 0
+    before = tk.gather_rows.launches
     got = tk.gather_rows(table, rows)
     torch.cuda.synchronize()
+    assert got.shape == (u, feat)
     assert torch.equal(got, tk.gather_rows_plain(table, rows))
+    assert tk.gather_rows.launches == before + (u > 0)
 
 
 @pytest.mark.cuda
@@ -290,30 +319,29 @@ def test_segment_gather_empty_and_all_dropped(cuda):
 
 
 @pytest.mark.cuda
-# vector and scalar paths; 37 and 23: the Adam and shared-Adam rows (mf 8)
-@pytest.mark.parametrize("feat", [16, 13, 37, 23])
-def test_scatter_add_update_exact(cuda, feat):
-    rng = np.random.default_rng(feat)
-    c, u = 6000, 4000
-    table = torch.from_numpy(
-        rng.normal(size=(c, feat)).astype(np.float32)).to(cuda)
-    rows = rng.permutation(c + 500)[:u].astype(np.int32) - 200
-    rows = torch.from_numpy(rows).to(cuda)        # negatives and OOB drop
+@pytest.mark.parametrize("view", ["whole", "row_view"])
+@pytest.mark.parametrize("u", ROW_COUNTS)
+@pytest.mark.parametrize("feat", ROW_WIDTHS)
+def test_scatter_add_update_exact(cuda, feat, u, view):
+    """Into a view of the block's first c rows (``whole``: rows 0..c-1,
+    as apply_push passes ``state.data[:cap]``; ``row_view``: rows
+    1..c): the block's other rows stay as they were."""
+    rng = np.random.default_rng(feat * 7 + u)
+    big, off, c, rows = _row_case(rng, feat, u, view)
     deltas = torch.from_numpy(
-        rng.normal(size=(u, feat)).astype(np.float32)).to(cuda)
-    got = tk.scatter_add_update(table.clone(), rows, deltas)
-    want = tk.scatter_add_update_plain(table.clone(), rows, deltas)
+        rng.normal(size=(u, feat)).astype(np.float32)).cuda()
+    got, want = big.clone(), big.clone()
+    assert tk.scatter_add_update(got[off:off + c], rows, deltas).data_ptr() \
+        == got[off:].data_ptr()                      # in place
+    tk.scatter_add_update_plain(want[off:off + c], rows, deltas)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    # empty and all-dropped inputs leave the table as it was
-    none = torch.zeros(0, dtype=torch.int32, device=cuda)
-    same = tk.scatter_add_update(table.clone(), none,
-                                 deltas[:0].contiguous())
-    dropped = tk.scatter_add_update(
-        table.clone(), torch.full((u,), -1, dtype=torch.int32, device=cuda),
-        deltas)
+    # every id dropped leaves the table as it was
+    dropped = big.clone()
+    tk.scatter_add_update(dropped[off:off + c], torch.full(
+        (u,), -1, dtype=torch.int32, device=cuda), deltas)
     torch.cuda.synchronize()
-    assert torch.equal(same, table) and torch.equal(dropped, table)
+    assert torch.equal(dropped, big)
 
 
 @pytest.mark.cuda

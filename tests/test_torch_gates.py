@@ -14,7 +14,6 @@ within the port."""
 import os
 
 import pytest
-import torch
 
 from paddlebox_tpu.resilience import preemption as jpreemption
 from scripts import preempt_check as jpreempt
@@ -29,15 +28,12 @@ from paddlebox_tpu_torch.tools import (preempt_check, publish_check,
 
 @pytest.fixture(autouse=True)
 def clean_stop():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     for m in (preemption, jpreemption):
         m.clear_stop()
     yield
     for m in (preemption, jpreemption):
         m.clear_stop()
         m.uninstall_signal_handlers()
-    torch.set_num_threads(threads)
 
 
 def _run(fn, tmp_path, name, **kw):

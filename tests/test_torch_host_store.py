@@ -467,21 +467,15 @@ def _sorted_rows(rows):
 def test_boxps_helper_multi_pass_training(criteo_files, tmp_path):
     """Two days through BoxPSHelper over a PassScopedTable: the window is
     transparent (the port's run equals its plain EmbeddingTable run bit
-    for bit, one CPU thread), and against the reference's helper run the
+    for bit), and against the reference's helper run the
     first pass holds the train-state class (host tier, dense params, AUC
     1e-5) and both passes' keys, show, clk and delta keys are exact. The
     second pass's trained values leave the class against the reference
     on this data (a float-order difference amplified from its tenth
     step), so they are held against the plain run instead."""
     want = _helper_run(criteo_files, tmp_path, "jax")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        got = _helper_run(criteo_files, tmp_path, "port", want["params0"])
-        plain = _helper_run(criteo_files, tmp_path, "plain",
-                            want["params0"])
-    finally:
-        torch.set_num_threads(threads)
+    got = _helper_run(criteo_files, tmp_path, "port", want["params0"])
+    plain = _helper_run(criteo_files, tmp_path, "plain", want["params0"])
     for p in ("1", "2"):
         gk, gf = _sorted_rows(got["rows" + p])
         pk, pf = _sorted_rows(plain["rows" + p])

@@ -222,30 +222,24 @@ def test_multi_mf_pull_per_slot_widths(criteo_files):
 
 
 def test_multi_mf_resident_matches_streaming(criteo_files):
-    """The resident pass equals the streaming pass bit for bit (one CPU
-    thread: the accumulating index_put_ then sums in key order)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        ds, desc = _ds(criteo_files)
-        batches = _Batches(list(ds.batches())[:6])
-        tr_a = _port_trainer(desc)
-        tr_b = _port_trainer(desc, state=tr_a.model.state_dict())
-        for _ in range(2):
-            ra = tr_a.train_pass(batches)
-            rb = tr_b.train_pass_resident(batches)
-        assert rb["batches"] == ra["batches"] == 6
-        assert rb["auc"] == ra["auc"] and rb["last_loss"] == ra["last_loss"]
-        for t_a, t_b in zip(tr_a.table.tables, tr_b.table.tables):
-            assert torch.equal(t_a.state.data, t_b.state.data)
-            np.testing.assert_array_equal(t_a.slot_host, t_b.slot_host)
-        for k, v in tr_a.model.state_dict().items():
-            assert torch.equal(v, tr_b.model.state_dict()[k]), k
-        tr_b.reset_metrics()
-        rb2 = tr_b.train_pass_resident(batches)
-        assert rb2["auc"] > rb["auc"] - 0.02
-    finally:
-        torch.set_num_threads(threads)
+    """The resident pass equals the streaming pass bit for bit."""
+    ds, desc = _ds(criteo_files)
+    batches = _Batches(list(ds.batches())[:6])
+    tr_a = _port_trainer(desc)
+    tr_b = _port_trainer(desc, state=tr_a.model.state_dict())
+    for _ in range(2):
+        ra = tr_a.train_pass(batches)
+        rb = tr_b.train_pass_resident(batches)
+    assert rb["batches"] == ra["batches"] == 6
+    assert rb["auc"] == ra["auc"] and rb["last_loss"] == ra["last_loss"]
+    for t_a, t_b in zip(tr_a.table.tables, tr_b.table.tables):
+        assert torch.equal(t_a.state.data, t_b.state.data)
+        np.testing.assert_array_equal(t_a.slot_host, t_b.slot_host)
+    for k, v in tr_a.model.state_dict().items():
+        assert torch.equal(v, tr_b.model.state_dict()[k]), k
+    tr_b.reset_metrics()
+    rb2 = tr_b.train_pass_resident(batches)
+    assert rb2["auc"] > rb["auc"] - 0.02
 
 
 def test_multi_mf_serving_consumes_save(criteo_files, tmp_path):

@@ -10,7 +10,7 @@ against the reference in the ragged train-state class, rtol 2e-4 / atol
 2e-5, the AUC within 1e-5, with the JAX seqpool on its XLA and its Pallas
 (interpret) route; the port's overlapped push order against its
 sequential one, and its tiered table against the plain one, bit for bit
-(one CPU thread). Lazy mf draws zeros on both sides (``mf_initial_range``
+at the host's thread count. Lazy mf draws zeros on both sides (``mf_initial_range``
 0).
 """
 
@@ -116,15 +116,6 @@ def _sharded(cap=2048, bucket=256, cls=MultiMfShardedTable, **kw):
 def _trainer(table, desc, state=None, **kw):
     return MultiMfShardedTrainer(_model(state), table, desc, tx=_adam,
                                  seed=3, **kw)
-
-
-def _one_thread(fn):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return fn()
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _class_logical(t):
@@ -345,7 +336,7 @@ def test_mmf_tiered_matches_untiered(tmp_path):
             helper.end_pass(ds)
         return plain, tr_a, ra, tiered, tr_b, rb
 
-    plain, tr_a, ra, tiered, tr_b, rb = _one_thread(run)
+    plain, tr_a, ra, tiered, tr_b, rb = run()
     assert rb["auc"] == ra["auc"]
     for k, v in tr_a.model.state_dict().items():
         assert torch.equal(v, tr_b.model.state_dict()[k]), k
@@ -451,7 +442,7 @@ def test_overlap_order_equals_sequential(both_groups):
         tr.train_pass(_Batches(tb))
         return tr
 
-    a, b = _one_thread(lambda: (run(1), run(4)))
+    a, b = run(1), run(4)
     for k, v in a.model.state_dict().items():
         assert torch.equal(v, b.model.state_dict()[k]), k
     for ta, tb_ in zip(a.table.tables, b.table.tables):

@@ -119,10 +119,16 @@ def test_segment_gather_epilogue_and_empty():
     np.testing.assert_array_equal(empty.numpy(), np.zeros((2, w)))
 
 
+# the row widths rows 1 and 13 run at: Adagrad (16), Adam and shared Adam
+# (37, 23), the multi-mf classes (12, 16, 24)
+ROW_WIDTHS = [12, 16, 23, 24, 37]
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_scatter_add_update_matches_reference(use_pallas):
+@pytest.mark.parametrize("f", ROW_WIDTHS)
+def test_scatter_add_update_matches_reference(f, use_pallas):
     rng = np.random.default_rng(3)
-    c, f, u = 50, 12, 30
+    c, u = 50, 30
     values = rng.normal(size=(c, f)).astype(np.float32)
     rows = rng.permutation(c)[:u].astype(np.int32)
     rows[[2, 9]] = -1 - np.arange(2, dtype=np.int32)   # negative: dropped
@@ -136,6 +142,26 @@ def test_scatter_add_update_matches_reference(use_pallas):
                                 torch.from_numpy(deltas))
     assert out is t                                  # in place
     np.testing.assert_array_equal(t.numpy(), ref)
+
+
+@pytest.mark.parametrize("f", ROW_WIDTHS)
+def test_gather_rows_matches_pallas_kernel(f):
+    """The pull's row gather against the JAX Pallas ``gather_rows`` in
+    interpret mode: ids below the sentinel row C, at it and above it (the
+    unique-row bucket's pads) read the same rows. Negative ids, which
+    the port also sends to the sentinel, are outside the reference's
+    contract (its pads all lie above C)."""
+    rng = np.random.default_rng(f)
+    c, u = 40, 33
+    table = rng.normal(size=(c + 1, f)).astype(np.float32)
+    rows = rng.permutation(c)[:u].astype(np.int32)
+    rows[[1, 8]] = c                                 # the sentinel
+    rows[[3, 20, 32]] = c + 1 + np.arange(3, dtype=np.int32)
+    ref = np.asarray(jpk.gather_rows(jnp.asarray(table), jnp.asarray(rows)))
+    got = tk.gather_rows(torch.from_numpy(table), torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy()[[1, 3, 8, 20, 32]],
+                                  np.broadcast_to(table[c], (5, f)))
 
 
 # ---------------------------------------------------------------------------
