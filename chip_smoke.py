@@ -363,6 +363,16 @@ Phases, each of which fails the run:
    port's model files are uncompressed since phase 18 came, to pay for
    it). Rows 1, 6, 7 and 13's launches in 18a join the ``kernels``
    line.
+19. the host side of multi-process training (``multi_phase``): two
+   ranks, each a thread with its own ``TcpShuffler``, ``TcpCollective``
+   and ``RestoreConsensus``, over phase 5's records at the ragged cell's
+   full width: the global shuffle routes exactly (19a); each rank trains
+   on the card, checkpoints at s1 and s2, rank 1 loses s2, and a fresh
+   trainer a rank agrees on s1 and restores its rank's state there
+   (19b); the global AUC over the host allreduce is the same on both
+   ranks and equal to the f64 sum's (19c); see its docstring. Prints
+   one ``multi:`` line. Rows 1, 6, 7 and 13's launches in 19b-19c join
+   the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -5866,7 +5876,7 @@ OBS_PHASE_BUDGET_S = 45.0        # phase 17's wall budget
 OBS_SERVE_CAPACITY = 1 << 20     # 17c: rows of the served table
 OBS_PREDICTS = 20                # 17c: predicts through the histogram
 OBS_TIER_PASSES = 3              # 17b: passes (cold, then 2 measured)
-OBS_TRACE_TURNS = 4              # 17e: trace() windows, each after two bare ones
+OBS_TRACE_TURNS = 40             # 17e: trace() windows, each after a bare one
 #: the CUDA symbols of rows 1, 6, 7 and 13 (csrc/gather_rows.cu,
 #: segment_gather.cu, pool_cvm.cu, scatter_add_update.cu)
 OBS_KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_kernel",),
@@ -5943,16 +5953,23 @@ def _trace_counts(path: str) -> dict:
     events of the four symbols of :data:`OBS_KERNEL_SYMBOLS`, all CUDA
     kernel events, and the host's kernel launch events. A window that
     keeps every device event holds at least as many kernels as launches
-    (a few kernels, the library's own, come without a launch event)."""
+    (a few kernels, the library's own, come without a launch event).
+    ``window``: the record ``utils.profiler.trace`` wrote into the trace
+    (``profiler.window_record``), or the same record, with no margin, of
+    a bare window."""
+    from paddlebox_tpu_torch.utils import profiler
     with open(path) as fh:
-        evs = json.load(fh)["traceEvents"]
+        doc = json.load(fh)
+    evs = doc["traceEvents"]
     kern = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
     return {"symbols": {n: sum(any(s in k for s in syms) for k in kern)
                         for n, syms in OBS_KERNEL_SYMBOLS.items()},
             "kernels": len(kern),
             "runtime_launches": sum(
                 1 for e in evs if e.get("cat") == "cuda_runtime"
-                and "LaunchKernel" in e.get("name", ""))}
+                and "LaunchKernel" in e.get("name", "")),
+            "window": (doc.get(profiler.WINDOW_KEY)
+                       or profiler.window_record(evs, 0.0))}
 
 
 def _bare_trace_counts(torch, run, path: str) -> dict:
@@ -5999,8 +6016,11 @@ def obs_phase(torch, args, card, desc, records, batches, details,
     ``utils.profiler.trace`` around one ``TrainStep``, in
     ``OBS_TRACE_TURNS`` turns: each chrome trace holds one CUDA kernel of
     rows 1, 6, 7 and 13 for each launch and no fewer kernels than
-    launches; before each, two bare ``torch.profiler`` windows around
-    the same step report the events they lost. The phase fails past
+    launches, its window record (``profiler.window_record``) no launch
+    without its kernel and no kernel stamped more than the window's
+    margin before its launch; before each, a bare ``torch.profiler``
+    window around the same step reports the events it lost and its
+    clock's error, against which the margin is read. The phase fails past
     ``OBS_PHASE_BUDGET_S``. Prints one ``obs:`` JSON line; returns the
     rows' launches on the phase's main path."""
     import dataclasses
@@ -6419,33 +6439,51 @@ def obs_phase(torch, args, card, desc, records, batches, details,
             gen = tr.step_generator(tr.global_step + 1)
             sync()
             step = lambda: tr.step_fn(tr.state, dvb, gen)  # noqa: E731
-            # each turn: two bare windows, then trace(). Late in this
-            # process a bare window now and then loses its first ~45
+            # each turn: a bare window, then trace(). Late in this
+            # process a bare window now and then loses its first ~40
             # device events; trace() must hold all of its window's
-            # events whatever window came before it
+            # events whatever window came before it, and its margin must
+            # cover the card's clock error, read from every window
             turns_e = []
             for i in range(OBS_TRACE_TURNS):
-                turn = {"bare": [_bare_trace_counts(
-                    torch, step, os.path.join(tmp, f"bare{i}{j}.json"))
-                    for j in range(2)] if dev == "cuda" else []}
+                bare = (_bare_trace_counts(
+                    torch, step, os.path.join(tmp, f"bare{i}.json"))
+                    if dev == "cuda" else None)
                 trace_dir = os.path.join(tmp, f"trace{i}")
                 with profiler.trace(trace_dir):
                     _, got_e = count(step, names4)
                 held = _trace_counts(os.path.join(trace_dir,
                                                   profiler.TRACE_FILE))
-                turn.update(trace=held, launches=got_e)
-                turns_e.append(turn)
+                turns_e.append({"bare": bare, "trace": held,
+                                "launches": got_e})
+                win = held["window"]
+                lag = win["kernel_minus_launch_us"]
                 if dev == "cuda" and (held["symbols"] != got_e
                                       or held["kernels"]
-                                      < held["runtime_launches"]):
+                                      < held["runtime_launches"]
+                                      or win["lost_launches"]
+                                      or lag is None
+                                      or lag[0] < -win["margin_us"]):
                     raise AssertionError(
                         f"phase 17e turn {i}: trace() window {held}, the "
                         f"step launched {got_e}")
-            out["e"] = {"turns": turns_e,
-                        "bare_lost": [[max(0, x["runtime_launches"]
-                                           - x["kernels"])
-                                       for x in turn["bare"]]
-                                      for turn in turns_e]}
+
+            def lag_span(kind):
+                lags = [x[kind]["window"]["kernel_minus_launch_us"]
+                        for x in turns_e if x[kind] is not None]
+                lags = [x for x in lags if x is not None]
+                return ([min(x[0] for x in lags), max(x[1] for x in lags)]
+                        if lags else None)
+
+            out["e"] = {
+                "turns": OBS_TRACE_TURNS,
+                "launches": turns_e[0]["launches"],
+                "margin_us": turns_e[0]["trace"]["window"]["margin_us"],
+                "kernel_minus_launch_us": lag_span("trace"),
+                "bare_kernel_minus_launch_us": lag_span("bare"),
+                "bare_lost": [x["bare"]["window"]["lost_launches"]
+                              for x in turns_e if x["bare"] is not None]}
+            details["obs_trace_turns"] = turns_e
             t["e_s"] = time.perf_counter() - t1
         finally:
             reset_hub()
@@ -6476,10 +6514,13 @@ def obs_phase(torch, args, card, desc, records, batches, details,
         f"spans, bottlenecks {out['b']['bottlenecks']}; 17c: /readyz "
         f"{out['c']['readyz']}, predict p50 {out['c']['hist_p50_ms']:.2f} "
         f"ms by the histogram, {out['c']['host_p50_ms']:.2f} ms by the "
-        f"host clock; 17d: bundles {out['d']['bundles']}; 17e: trace() "
-        f"windows held {[x['trace']['symbols'] for x in out['e']['turns']]}"
-        f", the step's launches; bare windows lost "
-        f"{out['e']['bare_lost']} events; phase 17 took "
+        f"host clock; 17d: bundles {out['d']['bundles']}; 17e: "
+        f"{out['e']['turns']} trace() windows held the step's launches "
+        f"{out['e']['launches']}, kernel minus launch "
+        f"{out['e']['kernel_minus_launch_us']} us against a margin of "
+        f"{out['e']['margin_us']:.0f} us (bare windows "
+        f"{out['e']['bare_kernel_minus_launch_us']} us, lost "
+        f"{out['e']['bare_lost']} events); phase 17 took "
         f"{phase_s:.1f}s (budget {OBS_PHASE_BUDGET_S:.0f}s) "
         f"{json.dumps({k: round(v, 2) for k, v in t.items()})} ({card})")
     details["obs"] = out
@@ -6498,6 +6539,7 @@ ONLINE_DECAY = 0.98              # shrink: the show/clk decay
 ONLINE_POLL_SEC = 0.2            # 18a: the reload loop's poll
 ONLINE_CLIENT_PAUSE_S = 0.2      # 18a: the client's pause between predicts
 ONLINE_INIT_SEED = 18            # the dense init's torch seed offset
+WINDOWS_STARTED_FILE = "windows_started"  # 18c: the child's count
 
 
 def ragged_desc():
@@ -6621,6 +6663,19 @@ def online_child(torch, args) -> int:
         with flags_scope(graceful_shutdown=True, **_online_flags(args)):
             learner, tr, cm, _ = _online_daemon(
                 torch, args, ragged_desc(), args.online_child, files, dev)
+            progress = os.path.join(args.online_child, WINDOWS_STARTED_FILE)
+            inner_run_pass, started = tr.run_pass, [0]
+
+            def run_pass(*a, **kw):
+                """The stream's pass of one window, after the window is
+                open: the count of windows started, for the parent."""
+                started[0] += 1
+                with open(progress + ".tmp", "w") as fh:
+                    fh.write(str(started[0]))
+                os.replace(progress + ".tmp", progress)
+                return inner_run_pass(*a, **kw)
+
+            tr.run_pass = run_pass
             stamps["built"] = time.time()
             out["resumed_step"] = (cm.restore(tr)
                                    if cm.latest_step() is not None
@@ -6700,10 +6755,12 @@ def _child_line(text: str) -> dict:
                          f"{text[-2000:]}")
 
 
-def _sigterm_child(proc, latest: str, step: int) -> tuple:
+def _sigterm_child(proc, latest: str, step: int, progress: str) -> tuple:
     """Phase 18c: wait until the child's /healthz ``online`` block reads
-    1 completed window and its ``LATEST`` names ``step`` (window 1's
-    boundary checkpoint has landed and window 2 begins), send SIGTERM and
+    1 completed window, its ``LATEST`` names ``step`` (window 1's
+    boundary checkpoint has landed) and its ``progress`` file counts 2
+    windows started (window 2 is open: a signal before that lands
+    between the windows and leaves no window open), send SIGTERM and
     wait for it. Returns (exit code, stdout, the wall clock at its
     exit)."""
     import signal
@@ -6725,6 +6782,11 @@ def _sigterm_child(proc, latest: str, step: int) -> tuple:
                 open(latest).read().strip() == str(step):
             break
         time.sleep(0.005)
+    while time.time() < deadline and proc.poll() is None:
+        if os.path.isfile(progress) and \
+                int(open(progress).read() or 0) >= 2:
+            break
+        time.sleep(0.002)
     if proc.poll() is None:
         os.kill(proc.pid, signal.SIGTERM)
     stdout, _ = proc.communicate(timeout=120)
@@ -7009,8 +7071,11 @@ def online_phase(torch, args, card, records, batches, details,
     clk and slot exact, rows and dense params within rtol 2e-4 / atol
     2e-5. 18c: the same daemon in a child process
     (this file with ``--online-child``, started before 18b) gets a real
-    SIGTERM once /healthz reads 1 window and window 1's checkpoint has
-    landed: exit 75 with ``RESUME.json`` and an emergency cursor whose
+    SIGTERM once /healthz reads 1 window, window 1's checkpoint has
+    landed and the child has opened window 2 (its ``run_pass`` counts
+    the windows it starts into ``WINDOWS_STARTED_FILE``; a signal
+    between the windows leaves none open): exit 75 with ``RESUME.json``
+    and an emergency cursor whose
     open window is files 3-4; the relaunch, a second child started
     beside the first as a warm standby (the card up, waiting for its go
     file), goes once the first has exited: it consumes the marker,
@@ -7115,7 +7180,8 @@ def online_phase(torch, args, card, records, batches, details,
             croot = os.path.join(tmp, f"c{attempt}")
             ckpt = os.path.join(croot, "ckpt")
             rc, stdout, t_exit = _sigterm_child(
-                kids["term"], os.path.join(ckpt, "LATEST"), w1["step"])
+                kids["term"], os.path.join(ckpt, "LATEST"), w1["step"],
+                os.path.join(croot, WINDOWS_STARTED_FILE))
             term = _child_line(stdout)
             marker = preemption.read_resume_marker(ckpt)
             cur = CheckpointManager(ckpt).load_cursor() or {}
@@ -7262,6 +7328,270 @@ def online_phase(torch, args, card, records, batches, details,
         raise AssertionError(f"phase 18 took {phase_s:.1f}s, past its "
                              f"{ONLINE_PHASE_BUDGET_S:.0f}s budget")
     return a["launches"]
+
+
+MULTI_PHASE_BUDGET_S = 60.0      # phase 19's wall budget
+MULTI_RANKS = 2                  # phase 19: ranks, each a thread
+MULTI_S1_BATCHES = 2             # 19b: the checkpoint s1 after these batches
+MULTI_INIT_SEED = 19             # 19b: the dense init's torch seed offset
+MULTI_TIMEOUT_S = 120.0          # 19: a mesh round's and an agreement's
+
+
+def _rank_threads(fns, timeout: float = MULTI_TIMEOUT_S) -> list:
+    """One callable a rank, all at once (an exchange or an agreement
+    needs every rank live); their results in rank order. Raises the
+    first rank's error, or when a rank outlives ``timeout``."""
+    out, errs = {}, []
+
+    def run(r, fn):
+        try:
+            out[r] = fn()
+        except BaseException as e:  # raised below, in the caller
+            errs.append(e)
+
+    ts = [threading.Thread(target=run, args=(r, fn), daemon=True,
+                           name=f"phase19-rank{r}")
+          for r, fn in enumerate(fns)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout)
+    if any(t.is_alive() for t in ts):
+        raise AssertionError(f"phase 19: a rank outlived {timeout:.0f}s")
+    if errs:
+        raise errs[0]
+    return [out[r] for r in range(len(fns))]
+
+
+def _record_digests(records) -> list:
+    """Sorted sha256 digests of each record's serialized bytes (the
+    shuffle's wire): equal lists are equal multisets of records."""
+    import hashlib
+
+    from paddlebox_tpu_torch.distributed import serialize_records
+    return sorted(hashlib.sha256(serialize_records([r])).hexdigest()
+                  for r in records)
+
+
+def multi_run(torch, args, desc, records, root, dev) -> dict:
+    """Phase 19 (see ``multi_phase``) under ``root`` on ``dev``; raises
+    on a failed check. Returns the ``multi:`` line's fields."""
+    from paddlebox_tpu_torch import (CheckpointManager, DeepFM,
+                                     EmbeddingTable, InMemoryDataset,
+                                     Trainer)
+    from paddlebox_tpu_torch.distributed import (TcpCollective, TcpShuffler,
+                                                 default_route)
+    from paddlebox_tpu_torch.metrics import (AucState, auc_compute,
+                                             auc_compute_global)
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.resilience.consensus import (DirConsensusStore,
+                                                          RestoreConsensus,
+                                                          consensus_restore)
+    from paddlebox_tpu_torch.train.checkpoint import state_digest
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update}
+    n = MULTI_RANKS
+    t: dict = {}
+    out: dict = {"ranks": n, "records": len(records)}
+
+    def mesh(cls, **kw):
+        """``n`` meshes of ``cls`` on ports the OS chose, wired up."""
+        ms = [cls(r, n, ["127.0.0.1:0"] * n, timeout=MULTI_TIMEOUT_S, **kw)
+              for r in range(n)]
+        eps = [("127.0.0.1", m.bound_port) for m in ms]
+        for m in ms:
+            m.endpoints = eps
+        return ms
+
+    def trainer():
+        table = EmbeddingTable(mf_dim=MF_DIM, capacity=CAPACITY,
+                               cfg=SparseSGDConfig(mf_initial_range=0.0),
+                               seed=args.seed, device=dev)
+        torch.manual_seed(args.seed + MULTI_INIT_SEED)
+        return Trainer(DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM,
+                              hidden=HIDDEN),
+                       table, desc, seed=args.seed, device=dev)
+
+    def dataset(recs):
+        ds = InMemoryDataset(desc)
+        ds.records = list(recs)
+        return ds
+
+    shufflers = mesh(TcpShuffler, seed=args.seed)
+    collectives = mesh(TcpCollective)
+    try:
+        # ---- 19a: the global shuffle ----
+        t0 = time.perf_counter()
+        half = len(records) // n
+        parts = [records[r * half:(r + 1) * half] for r in range(n)]
+        dss = [dataset(p) for p in parts]
+        _rank_threads([(lambda r=r: dss[r].global_shuffle(
+            shufflers[r], seed=args.seed)) for r in range(n)])
+        t["shuffle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        routed = [[] for _ in range(n)]
+        kept = [0] * n
+        for r, p in enumerate(parts):
+            for x in p:
+                dst = default_route(x, n, args.seed)
+                routed[dst].append(x)
+                kept[r] += dst == r
+        for r in range(n):
+            if _record_digests(dss[r].records) != \
+                    _record_digests(routed[r]):
+                raise AssertionError(f"phase 19a: rank {r} does not hold "
+                                     "exactly the records routed to it")
+        if _record_digests([x for d in dss for x in d.records]) != \
+                _record_digests(records[:n * half]):
+            raise AssertionError("phase 19a: the ranks' union is not the "
+                                 "input")
+        t["shuffle_check_s"] = time.perf_counter() - t0
+        out["a"] = {"kept": kept,
+                    "received": [len(d.records) - k
+                                 for d, k in zip(dss, kept)],
+                    "held": [len(d.records) for d in dss]}
+
+        # ---- 19b: train, checkpoint at s1 and s2, crash, agree ----
+        for f in fns.values():
+            f.launches = 0
+        cut = MULTI_S1_BATCHES * desc.batch_size
+        cms, s1, s2, digests, eps = [], [], [], [], []
+        t0 = time.perf_counter()
+        for r in range(n):
+            tr = trainer()
+            cm = CheckpointManager(os.path.join(root, f"ckpt{r}"), keep=4)
+            recs = dss[r].records
+            t1 = time.perf_counter()
+            tr.train_pass(dataset(recs[:cut]))
+            sync()
+            train_s = time.perf_counter() - t1
+            cm.save(tr)
+            s1.append(tr.global_step)
+            digests.append(state_digest(tr))
+            t1 = time.perf_counter()
+            tr.train_pass(dataset(recs[cut:]))
+            sync()
+            train_s += time.perf_counter() - t1
+            cm.save(tr)
+            s2.append(tr.global_step)
+            eps.append(len(recs) / train_s)
+            cms.append(cm)
+            del tr
+        t["train_s"] = time.perf_counter() - t0
+        if len(set(s1)) != 1 or min(s2) <= s1[0]:
+            raise AssertionError(f"phase 19b: steps s1 {s1}, s2 {s2}")
+        # rank 1 died before its s2 commit: the step is not there
+        shutil.rmtree(cms[1]._dir(s2[1]))
+        t0 = time.perf_counter()
+        store = DirConsensusStore(os.path.join(root, "consensus"))
+        fresh = [trainer() for _ in range(n)]
+        agreed = _rank_threads([
+            (lambda r=r: consensus_restore(
+                cms[r], fresh[r],
+                RestoreConsensus(store, r, n, timeout=MULTI_TIMEOUT_S)))
+            for r in range(n)])
+        sync()
+        t["restore_s"] = time.perf_counter() - t0
+        if agreed != [s1[0]] * n:
+            raise AssertionError(f"phase 19b: the ranks agreed on "
+                                 f"{agreed}, not s1 {s1[0]}")
+        restored = [state_digest(tr) for tr in fresh]
+        if restored != digests:
+            raise AssertionError("phase 19b: a restored state differs "
+                                 "from its rank's state at s1")
+        out["b"] = {"s1": s1[0], "s2": s2, "agreed": agreed[0],
+                    "examples_per_sec": eps, "digest_equal": True}
+
+        # ---- 19c: the global AUC over the host collective ----
+        t0 = time.perf_counter()
+        evals = [fresh[r].eval_pass(dss[r]) for r in range(n)]
+        sync()
+        states = [fresh[r].last_eval_auc for r in range(n)]
+        got = _rank_threads([(lambda r=r: auc_compute_global(
+            states[r], collectives[r])) for r in range(n)])
+        host = [(s.buckets.cpu().numpy(), s.sums.cpu().numpy())
+                for s in states]
+        f64 = [np.zeros(host[0][0].shape), np.zeros(host[0][1].shape)]
+        for b, s in host:                     # rank order
+            f64[0] += b
+            f64[1] += s
+        want = auc_compute(AucState(torch.from_numpy(f64[0]),
+                                    torch.from_numpy(f64[1])))
+        t["auc_s"] = time.perf_counter() - t0
+        if any(g != got[0] for g in got) or got[0] != want:
+            raise AssertionError(f"phase 19c: global AUC {got} against "
+                                 f"the f64 sum's {want}")
+        out["c"] = {"auc": got[0].auc, "ins_num": got[0].ins_num,
+                    "local_auc": [e["auc"] for e in evals]}
+        out["launches"] = {k: f.launches for k, f in fns.items()}
+        del fresh
+    finally:
+        for m in shufflers + collectives:
+            m.close()
+    out["seconds"] = t
+    return out
+
+
+def multi_phase(torch, args, card, desc, records, details,
+                dev: str = "cuda") -> dict:
+    """Phase 19: the host side of multi-process training, two ranks on
+    one host, each a thread of this process with its own
+    ``TcpShuffler``, ``TcpCollective`` and ``RestoreConsensus`` on
+    localhost ports the OS chose. Phase 5's eight seeded batches as
+    records, split in halves by index, one a rank; each rank trains
+    ``DeepFM(HIDDEN)`` over an Adagrad table of ``CAPACITY`` rows
+    (mf_initial_range 0) at ``BATCH``. The ranks train one after the
+    other on the card; every exchange and agreement runs with both live.
+
+    19a: each rank's ``InMemoryDataset.global_shuffle(shuffler)``; each
+    rank holds exactly the records ``default_route`` sends it and the
+    union is the input (sha256 of each record's wire bytes, as
+    multisets). 19b: each rank's ``Trainer.train_pass`` over its first
+    ``MULTI_S1_BATCHES`` batches, a ``CheckpointManager`` save (s1, the
+    same step on both), the rest, a save (s2); rank 1's s2 is removed,
+    as a crash before its commit leaves it; two fresh trainers'
+    ``consensus_restore`` over a ``DirConsensusStore`` must both agree
+    on s1 and restore each its own rank's ``state_digest`` at s1. 19c:
+    each restored rank's ``eval_pass`` AUC tables through
+    ``metrics.auc_compute_global`` over the ``TcpCollective``: the same
+    on both ranks bit for bit, and equal to ``auc_compute`` of the two
+    tables summed in f64 in rank order. Rows 1, 6, 7 and 13 must launch
+    in 19b-19c. The phase fails past ``MULTI_PHASE_BUDGET_S``. Prints
+    one ``multi:`` JSON line; returns the rows' launches."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pbx_multi_")
+    try:
+        out = multi_run(torch, args, desc, records, root, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = out["launches"]
+    if dev == "cuda":
+        for name, k in launches.items():
+            if k == 0:
+                raise AssertionError(f"phase 19: {name} never launched")
+    phase_s = time.perf_counter() - t_phase
+    out.update(phase_s=phase_s, budget_s=MULTI_PHASE_BUDGET_S)
+    print("multi: " + json.dumps(out, default=str), flush=True)
+    b = out["b"]
+    log(f"multi 19a: kept {out['a']['kept']}, received "
+        f"{out['a']['received']} records, routing exact, union equal; "
+        f"19b: examples/s by rank "
+        f"{[round(x) for x in b['examples_per_sec']]}, s1 {b['s1']}, s2 "
+        f"{b['s2']}, both agreed on {b['agreed']}, digests equal; 19c: "
+        f"global AUC {out['c']['auc']:.6f} on both, = the f64 sum's; "
+        f"launches {json.dumps(launches)}; phase 19 took {phase_s:.1f}s "
+        f"(budget {MULTI_PHASE_BUDGET_S:.0f}s) "
+        f"{json.dumps({k: round(v, 2) for k, v in out['seconds'].items()})}"
+        f" ({card})")
+    details["multi"] = out
+    if dev == "cuda" and phase_s > MULTI_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 19 took {phase_s:.1f}s, past its "
+                             f"{MULTI_PHASE_BUDGET_S:.0f}s budget")
+    return launches
 
 
 def main() -> int:
@@ -7684,6 +8014,11 @@ def main() -> int:
         f"base save {cut['phase_10_save_base_s']:.2f}s uncompressed, "
         f"{cut['phase_10_savez_compressed_s']:.2f}s as np.savez_compressed "
         f"of the same arrays ({card})")
+
+    # ---- phase 19: two ranks, the host side of multi-process training ----
+    multi_launches = multi_phase(torch, args, card, desc, records, details)
+    for r in kernels:
+        r["launches"] += multi_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

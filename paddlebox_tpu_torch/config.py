@@ -163,6 +163,9 @@ class Flags:
     # so a preempted pass replays seconds, not the pass; needs
     # run_pass(checkpoint=...) and a dataset whose order is fixed
     ckpt_every_batches: int = 0
+    # how long a restore-consensus gather (resilience/consensus) waits
+    # for the full mesh to publish
+    consensus_timeout_sec: float = 60.0
 
     # --- serving (serving.py) ---
     # ReloadLoop poll cadence while healthy (failed polls back off on the

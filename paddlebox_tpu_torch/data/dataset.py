@@ -1163,7 +1163,8 @@ class PaddleBoxDataset(InMemoryDataset):
 class Shuffler:
     """Cross-host record exchange transport (PaddleShuffler analogue,
     data_set.cc:2573). Implementations route each record to
-    ``hash(record) % world_size`` and return the records received."""
+    ``hash(record) % world_size`` and return the records received: the
+    port's is ``distributed.shuffle.TcpShuffler`` (a TCP full mesh)."""
 
     def exchange(self, records: List[SlotRecord]) -> List[SlotRecord]:
         raise NotImplementedError

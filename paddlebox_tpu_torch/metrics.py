@@ -102,16 +102,15 @@ def auc_compute(state: AucState) -> AucResult:
 def auc_compute_global(state: AucState, collective) -> AucResult:
     """Cross-worker AUC (BasicAucCalculator's MPI reduce,
     metrics.cc:288-304): this worker's tables go through
-    ``collective.allreduce_sum`` (any object whose ``allreduce_sum``
-    takes a list of numpy arrays and returns their element-wise sums
-    over the workers) and ONE global AUC is computed from the sums, the
-    same on every worker."""
+    ``collective.allreduce_sum`` (``distributed.collective.TcpCollective``:
+    float64 sums folded in rank order) and ONE global AUC is computed
+    from the float64 sums, the same on every worker."""
     host = [state.buckets.detach().cpu().numpy(),
             state.sums.detach().cpu().numpy()]
     buckets, sums = collective.allreduce_sum(host)
     return auc_compute(AucState(
-        torch.from_numpy(np.asarray(buckets, np.float32)),
-        torch.from_numpy(np.asarray(sums, np.float32))))
+        torch.from_numpy(np.asarray(buckets, np.float64)),
+        torch.from_numpy(np.asarray(sums, np.float64))))
 
 
 def auc_merge(states: Sequence[AucState]) -> AucState:

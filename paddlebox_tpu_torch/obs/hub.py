@@ -351,7 +351,8 @@ class TelemetryHub:
         """Register (or clear, with None) the elastic manager's status
         provider — a callable returning the ``membership`` block for
         /healthz: ``{alive, np, min_np, max_np, last_scale_event_ts,
-        reshard_count}`` (ElasticManager.membership_status). One manager
+        reshard_count}`` (``distributed.elastic.ElasticManager.
+        membership_status``, which ``register()`` installs). One manager
         per process; the last registration wins."""
         with self._lock:
             self._membership_probe = probe

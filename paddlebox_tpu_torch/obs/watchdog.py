@@ -113,7 +113,7 @@ def shrink_and_continue_action(evict_fn: Callable[[List[StragglerReport]],
     """Escalation action factory — the rung BETWEEN requeue and abort
     (docs/RESILIENCE.md §Elastic membership): hand the wedged ranks to
     ``evict_fn``, which deregisters their elastic leases
-    (``ElasticManager.evict_host``) so the next boundary membership poll
+    (``distributed.elastic.ElasticManager.evict_host``) so the next boundary membership poll
     confirms the death immediately (eviction bypasses the dead-check
     hysteresis) and the survivors re-shard and continue. A hung host
     costs one rollback-to-boundary instead of the job.

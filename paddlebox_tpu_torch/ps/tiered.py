@@ -17,7 +17,7 @@ and the ``pass.stage`` / ``pass.begin`` / ``pass.end_submit`` /
 ``evict.ahead`` / ``ssd.maintain`` trace spans, the write-back job linked
 to its submit span. The reference's multi-process tier
 (``ps/tiered_multihost.py``) waits for ``torch.distributed`` (ROADMAP
-queue 1 item 13, slice 3).
+queue 1 item 13, slice 3b).
 
 The reference's core capability — a table BIGGER than device memory on a
 multi-device PS: per pass, ``BuildPull`` fetches the pass's values from
@@ -683,7 +683,7 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
     def _fetch_stage_values(self, s: int, new_keys: np.ndarray):
         """Host values for shard s's missing keys (the seam the
         multi-process table overrides; it waits for ``torch.distributed``,
-        ROADMAP queue 1 item 13, slice 3)."""
+        ROADMAP queue 1 item 13, slice 3b)."""
         return self.hosts[s].fetch(new_keys)
 
     def stage(self, pass_keys: np.ndarray, background: bool = True,

@@ -54,7 +54,7 @@ when a sink is attached, and a resident pass's steps run in a
 ``pass.consume`` span linked to its build span. Not here yet: the
 multi-process form (``globalize_dense_state``, the pod branches, the
 multi-process tiered table), which waits for ``torch.distributed``
-(ROADMAP queue 1 item 13, slice 3).
+(ROADMAP queue 1 item 13, slice 3b).
 """
 
 from __future__ import annotations

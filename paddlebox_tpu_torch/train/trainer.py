@@ -127,6 +127,8 @@ class Trainer:
                                      ResidentPassRunner] = {}
         # the metric variants fed every batch (AddAucMonitor)
         self.metrics = MetricRegistry()
+        # the last eval_pass's AUC tables (None before the first)
+        self.last_eval_auc: Optional[AucState] = None
         self._dump_cfg: Optional[DumpConfig] = None
         self._pass_seq = 0
         # sequence number of this trainer's pass events (every kind)
@@ -1132,8 +1134,11 @@ class Trainer:
         """Forward-only pass: AUC on the current params and table, no
         updates, no index growth. The registered metric variants are fed
         every batch, as ``train_pass`` feeds them (the test-phase
-        metrics)."""
+        metrics). The pass's AUC tables stay in ``last_eval_auc``, the
+        worker's share of a cross-worker AUC
+        (``metrics.auc_compute_global``)."""
         auc = init_auc_state(device=self.device)
+        self.last_eval_auc = auc
         self.stage_timers.reset()
         t0 = time.perf_counter()
         nb = 0

@@ -213,12 +213,84 @@ class StageTimers:
 
 
 TRACE_FILE = "trace.json"
+#: top-level key of ``trace.json`` under which ``trace()`` records its
+#: window (:func:`window_record`)
+WINDOW_KEY = "pbxWindow"
 #: small kernels launched on the card while the profiler warms up, before
 #: its window opens. Late in a long process a trace opened cold lost the
-#: first ~55 device events of its window (the first kernels of the step
-#: it was meant to show); events of the warm-up fall before the window
-#: and stay out of the trace
+#: first ~40-60 device events of its window (the first kernels of the
+#: step it was meant to show); events of the warm-up fall before the
+#: window and stay out of the trace
 WARMUP_LAUNCHES = 256
+#: seconds the window stays open with the card idle, after it opens and
+#: before it closes. The profiler keeps a device event only when its
+#: CUPTI timestamps fall inside the window's bounds, which are taken on
+#: the host's clock, and a kernel's device timestamp can read earlier
+#: than the host's timestamp of its own launch, by more late in a long
+#: process. A kernel launched within that error of the window's opening
+#: was stamped before it and dropped (once, the step's first kernel).
+#: With the card idle for longer than the error at both edges, every
+#: event of the body falls inside; where the error outgrows the margin,
+#: the window's record (:func:`window_record`) says so and ``trace()``
+#: logs a warning. Both idle spans lie inside the window: a reader of
+#: the card's idle share subtracts ``2 * margin_us`` of the record
+WINDOW_MARGIN_S = 0.025
+
+
+def window_record(events: List[dict], margin_s: float) -> dict:
+    """Of a chrome trace's events (``torch.profiler``'s export): the
+    window's span on the host's clock (``Iteration Start`` to ``Record
+    Window End``), the idle margin held at each edge, the host's kernel
+    launches and the CUDA kernel events, the least and the greatest of a
+    kernel's start less its launch's (microseconds, linked by correlation
+    id; below 0, the card's stamp reads before the launch that caused
+    it), and the launches whose kernel the trace lacks, with how long
+    after the window opened they came. A few kernels, the library's own,
+    come without a launch event; every launch should have its kernel."""
+    kerns = [e for e in events if e.get("cat") == "kernel"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")]
+    start = next((e["ts"] for e in events if str(e.get("name", ""))
+                  .startswith("Iteration Start")), None)
+    end = next((e["ts"] for e in events
+                if e.get("name") == "Record Window End"), None)
+
+    def corr(e):
+        return (e.get("args") or {}).get("correlation")
+
+    by_corr = {corr(e): e for e in launches if corr(e) is not None}
+    lag = [k["ts"] - by_corr[corr(k)]["ts"] for k in kerns
+           if corr(k) in by_corr]
+    kept = {corr(k) for k in kerns}
+    lost = sorted(e["ts"] for e in launches if corr(e) not in kept)
+    origin = start if start is not None else 0.0
+    return {"margin_us": margin_s * 1e6,
+            "window_us": (end - start if start is not None
+                          and end is not None else None),
+            "runtime_launches": len(launches),
+            "kernels": len(kerns),
+            "kernel_minus_launch_us": [min(lag), max(lag)] if lag else None,
+            "lost_launches": len(lost),
+            "lost_launch_after_open_us": [t - origin for t in lost[:8]]}
+
+
+def _record_window(path: str, margin_s: float) -> dict:
+    """Add :func:`window_record` of the chrome trace at ``path`` to the
+    file under :data:`WINDOW_KEY`; warn when a launch lost its kernel."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    rec = window_record(doc.get("traceEvents", []), margin_s)
+    doc[WINDOW_KEY] = rec
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    if rec["lost_launches"]:
+        log.warning(
+            "profiler trace %s lost %d of %d kernel launches' device "
+            "events (kernel minus launch %s us, margin %.0f us at each "
+            "edge): its device view is incomplete", path,
+            rec["lost_launches"], rec["runtime_launches"],
+            rec["kernel_minus_launch_us"], rec["margin_us"])
+    return rec
 
 
 def _warm_device(torch) -> None:
@@ -237,11 +309,16 @@ def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
     chrome trace lands at ``<logdir>/trace.json`` on exit. The profiler
     starts in its warm-up state (device tracing on, nothing kept), runs
     :func:`_warm_device` on the card, and opens its recording window
-    just before it yields, so the trace holds every device event of the
-    body and none of the warm-up. Yields the profiler (``key_averages()``
-    reads it), or None: a no-op unless ``FLAGS.profile`` or an explicit
-    ``logdir`` is given (the flag's directory is
-    ``paddlebox_tpu_torch_trace`` under the temp dir)."""
+    just before it yields; the card is idle for
+    :data:`WINDOW_MARGIN_S` after the window opens and, after the
+    body's work has finished, before it closes. So the trace holds every
+    device event of the body and none of the warm-up. On exit the
+    window's record (:func:`window_record`) goes into the trace under
+    :data:`WINDOW_KEY` and onto the profiler as ``window``, and a
+    launch whose kernel the trace lacks is logged as a warning. Yields
+    the profiler (``key_averages()`` reads it), or None: a no-op unless
+    ``FLAGS.profile`` or an explicit ``logdir`` is given (the flag's
+    directory is ``paddlebox_tpu_torch_trace`` under the temp dir)."""
     target = logdir or (os.path.join(tempfile.gettempdir(),
                                       "paddlebox_tpu_torch_trace")
                         if FLAGS.profile else None)
@@ -254,6 +331,7 @@ def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
+    margin = WINDOW_MARGIN_S if cuda else 0.0
     os.makedirs(target, exist_ok=True)
     prof = profile(activities=activities,
                    schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
@@ -262,9 +340,14 @@ def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
         if cuda:
             _warm_device(torch)
         prof.step()
+        time.sleep(margin)
         yield prof
     finally:
+        if cuda:
+            torch.cuda.synchronize()
+        time.sleep(margin)
         prof.__exit__(None, None, None)
         path = os.path.join(target, TRACE_FILE)
         prof.export_chrome_trace(path)
+        prof.window = _record_window(path, margin)
         log.info("profiler trace written to %s", path)

@@ -2717,7 +2717,11 @@ def test_obs_profiler_trace_holds_kernel_events(cuda, tmp_path):
         tr.step_fn(tr.state, dev, gen)
         torch.cuda.synchronize()
     assert prof is not None
-    evs = json.load(open(tmp_path / profiler.TRACE_FILE))["traceEvents"]
+    doc = json.load(open(tmp_path / profiler.TRACE_FILE))
+    assert doc[profiler.WINDOW_KEY] == prof.window
+    assert prof.window["lost_launches"] == 0, prof.window
+    assert prof.window["margin_us"] == profiler.WINDOW_MARGIN_S * 1e6
+    evs = doc["traceEvents"]
     names = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
     for sym, f in fns.items():
         n = f.launches - before[sym]
@@ -2763,3 +2767,33 @@ def test_online_daemon_serves_while_training_on_card(cuda, deterministic,
     assert len(a["versions_served"]) >= 2
     assert all(n > 0 for n in a["launches"].values())
     assert a["healthz_online"]["mode"] == "full"
+
+
+@pytest.mark.cuda
+def test_two_ranks_shuffle_restore_and_global_auc_on_card(cuda, tmp_path,
+                                                          monkeypatch):
+    """``chip_smoke.py`` phase 19 at a small depth (batch 256, a 2^18-row
+    table, a (32, 16) tower): two ranks as threads; the TCP global
+    shuffle routes every record to the rank ``default_route`` names and
+    the union is the input; each rank trains on the card and checkpoints
+    at s1 and s2; with rank 1's s2 gone both fresh trainers agree on s1
+    and restore their rank's state there by ``state_digest``; the global
+    AUC over the host allreduce is the same on both ranks and equal to
+    the f64 sum's (the phase's own checks, which raise). Rows 1, 6, 7
+    and 13 launch."""
+    import argparse
+
+    import chip_smoke as cs
+    for k, v in {"BATCH": 256, "CAPACITY": 1 << 18,
+                 "HIDDEN": (32, 16)}.items():
+        monkeypatch.setattr(cs, k, v)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    records = cs.make_records(np.random.default_rng(0), cs.BATCH * 8,
+                              SlotRecord)
+    out = cs.multi_run(torch, argparse.Namespace(seed=0), cs.ragged_desc(),
+                       records, str(tmp_path), "cuda")
+    assert sum(out["a"]["held"]) == len(records)
+    assert out["b"]["agreed"] == out["b"]["s1"] == cs.MULTI_S1_BATCHES
+    assert out["b"]["digest_equal"]
+    assert out["c"]["ins_num"] == len(records)
+    assert all(n > 0 for n in out["launches"].values())

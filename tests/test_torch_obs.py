@@ -418,6 +418,75 @@ def test_chrome_span_sink(fresh_hub):
     assert w._events[0]["args"] == {"pass_id": 3}
 
 
+def _launch(corr, ts):
+    return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+            "args": {"correlation": corr}}
+
+
+def _kernel(corr, ts, name="k"):
+    return {"cat": "kernel", "name": name, "ts": ts, "dur": 5,
+            "args": {"correlation": corr}}
+
+
+WINDOW_EVENTS = [
+    {"name": "Iteration Start: PyTorch Profiler", "ts": 100.0},
+    _launch(1, 200.0), _kernel(1, 150.0),     # stamped 50 us early
+    _launch(2, 300.0), _kernel(2, 340.0),
+    _launch(3, 400.0),                        # its kernel was dropped
+    _kernel(99, 500.0, "library_kernel"),     # no launch event
+    {"name": "Record Window End", "ts": 1000.0}]
+
+
+def test_window_record_links_launches_to_kernels():
+    """``profiler.window_record`` links each launch to its kernel by
+    correlation id: the clock's error both ways, and every launch whose
+    kernel the trace lacks, counted from the window's opening."""
+    from paddlebox_tpu_torch.utils.profiler import window_record
+    rec = window_record(WINDOW_EVENTS, 0.025)
+    assert rec == {"margin_us": 25000.0, "window_us": 900.0,
+                   "runtime_launches": 3, "kernels": 3,
+                   "kernel_minus_launch_us": [-50.0, 40.0],
+                   "lost_launches": 1, "lost_launch_after_open_us": [300.0]}
+    clean = window_record([e for e in WINDOW_EVENTS
+                           if e.get("ts") != 400.0], 0.0)
+    assert clean["lost_launches"] == 0
+    assert clean["lost_launch_after_open_us"] == []
+
+
+def test_record_window_writes_the_trace_and_warns_on_a_lost_launch(
+        tmp_path, caplog):
+    """A launch without its kernel makes ``trace()``'s record loud: a
+    warning with the clock's error, and the record in the trace file."""
+    import logging
+
+    from paddlebox_tpu_torch.utils import profiler
+    path = str(tmp_path / profiler.TRACE_FILE)
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": WINDOW_EVENTS}, fh)
+    with caplog.at_level(logging.WARNING):
+        rec = profiler._record_window(path, 0.025)
+    assert rec["lost_launches"] == 1
+    assert any("lost 1 of 3 kernel launches" in r.getMessage()
+               for r in caplog.records)
+    doc = json.load(open(path))
+    assert doc[profiler.WINDOW_KEY] == rec
+    assert doc["traceEvents"] == WINDOW_EVENTS
+
+
+def test_trace_records_its_window_on_the_cpu(tmp_path):
+    """``trace()`` records its window in the file and on the profiler;
+    on a host without a card it holds no margin and sees no launch."""
+    from paddlebox_tpu_torch.utils import profiler
+    with profiler.trace(str(tmp_path)) as prof:
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    doc = json.load(open(tmp_path / profiler.TRACE_FILE))
+    assert doc[profiler.WINDOW_KEY] == prof.window
+    assert prof.window["lost_launches"] == 0
+    if not torch.cuda.is_available():
+        assert prof.window["margin_us"] == 0.0
+        assert prof.window["runtime_launches"] == 0
+
+
 # ---- channel gauges ----------------------------------------------------
 def test_channel_blocked_put_and_watermark():
     reset_channel_stats()
