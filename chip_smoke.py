@@ -359,10 +359,8 @@ Phases, each of which fails the run:
    through the plain versions (18b); a real SIGTERM on the daemon in a
    child process and its relaunch (18c); see its docstring. Prints one
    ``online:`` line, then the seconds of phase 18 beside those of
-   phases 1-17 and of phase 10's base save in both npz encodings (the
-   port's model files are uncompressed since phase 18 came, to pay for
-   it). Rows 1, 6, 7 and 13's launches in 18a join the ``kernels``
-   line.
+   phases 1-17. Rows 1, 6, 7 and 13's launches in 18a join the
+   ``kernels`` line.
 19. the host side of multi-process training (``multi_phase``): two
    ranks, each a thread with its own ``TcpShuffler``, ``TcpCollective``
    and ``RestoreConsensus``, over phase 5's records at the ragged cell's
@@ -373,6 +371,14 @@ Phases, each of which fails the run:
    ranks and equal to the f64 sum's (19c); see its docstring. Prints
    one ``multi:`` line. Rows 1, 6, 7 and 13's launches in 19b-19c join
    the ``kernels`` line.
+20. multi-process sharded training over ``torch.distributed``
+   (``pod_phase``): rank processes started by the port's
+   ``launch_local`` hold phase 13's 4 shards between them; two gloo
+   ranks on the one card (20a replicated and ZeRO-1, 20c the
+   multi-process tiered table at phase 15b's window) and a world of one
+   over NCCL (20b), each equal to the single controller bit for bit;
+   see its docstring. Prints one ``multiproc:`` line; every rank's
+   launches of rows 1, 6, 7 and 13 join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -2845,20 +2851,9 @@ def checkpoint_phase(torch, args, card, desc, records, batches, details,
             cm_a.save(tr_a)                          # step-0 base
             t["base_save_s"] = time.perf_counter() - t0
             t["save_base_s"] = saves[-1]
-            # the same rows through np.savez_compressed (the reference's
-            # encoding of its model files), for comparison
-            keys, rows = tr_a.table.index.items()
-            blob = tr_a.table._gather_host(rows)
-            path = os.path.join(tmp, "deflated.npz")
-            t0 = time.perf_counter()
-            np.savez_compressed(path, keys=keys, **blob)
-            t["savez_compressed_s"] = time.perf_counter() - t0
-            t["savez_compressed_mb"] = os.path.getsize(path) / 2**20
             t["save_base_mb"] = os.path.getsize(os.path.join(
                 cm_a._dir(0), "sparse.npz")) / 2**20
-            rows_saved = len(keys)
-            os.unlink(path)
-            del blob, keys, rows
+            rows_saved = tr_a.table.feature_count
             with flags_scope(ckpt_every_batches=CKPT_EVERY):
                 n_saves = len(saves)
                 t0 = time.perf_counter()
@@ -3005,9 +3000,8 @@ def checkpoint_phase(torch, args, card, desc, records, batches, details,
         f"{json.dumps({k: (v['auc'], v['ins_num']) for k, v in msgs.items()})}"
         f"; launches {json.dumps(launches)}")
     log(f"checkpoint times: save_base {t['save_base_s']:.2f}s "
-        f"({rows_saved} rows, {t['save_base_mb']:.0f} MiB uncompressed) vs "
-        f"np.savez_compressed of the same blob {t['savez_compressed_s']:.2f}s "
-        f"({t['savez_compressed_mb']:.0f} MiB); step-0 checkpoint + "
+        f"({rows_saved} rows, {t['save_base_mb']:.0f} MiB uncompressed); "
+        f"step-0 checkpoint + "
         f"publish {t['base_save_s']:.2f}s; run A {t['run_a_s']:.2f}s "
         f"(sparse saves {[round(x, 2) for x in t['run_a_saves_s']]} s); "
         f"run B: restore at step {CKPT_EVERY} {t['restore_b_s']:.2f}s, "
@@ -7594,6 +7588,426 @@ def multi_phase(torch, args, card, desc, records, details,
     return launches
 
 
+POD_PHASE_BUDGET_S = 90.0        # phase 20's wall budget
+POD_RANKS = 2                    # 20a / 20c: gloo ranks, both on the card
+POD_TIMEOUT_S = 85.0             # a gang still running then is stopped
+POD_TIER_PASSES = 2              # 20c: passes of one global step each
+POD_KERNELS = ("gather_rows", "pool_cvm", "segment_gather",
+               "scatter_add_update")
+
+
+def pod_data(args):
+    """Phase 20's data, made from the seed alike in every process (the
+    SPMD host contract: every rank builds the same batches): phase 13's
+    base and records."""
+    from paddlebox_tpu_torch import convert
+    from paddlebox_tpu_torch.data import SlotRecord
+    base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                           vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+    records = make_records(np.random.default_rng(args.seed + 13),
+                           BATCH * SHARD_BATCHES, SlotRecord)
+    return base, records
+
+
+def _sha(torch, tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np.ascontiguousarray(t.detach().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def _pod_model(torch, args):
+    from paddlebox_tpu_torch import DeepFM
+    torch.manual_seed(args.seed + 2)      # phase 5's initial params
+    return DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN)
+
+
+class _LossRecorder:
+    """A ``ShardedTrainStep`` that keeps every step's loss (host float)
+    and, on a pod, the bytes its steps moved."""
+
+    def __init__(self, step, pod=None) -> None:
+        self._step = step
+        self._pod = pod
+        self.losses: list = []
+        self.nbytes = {"exchanged": 0, "staged": 0}
+
+    def __call__(self, *a, **kw):
+        b0 = dict(self._pod.nbytes) if self._pod is not None else None
+        out = self._step(*a, **kw)
+        self.losses.append(float(out["loss"]))
+        if b0 is not None:
+            for k in self.nbytes:
+                self.nbytes[k] += self._pod.nbytes[k] - b0[k]
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+
+def pod_sharded_leg(torch, args, desc, base, records, pod, dev,
+                    zero1: bool) -> dict:
+    """20a / 20b (and the single controller's twin, ``pod`` None): phase
+    13's 4 shards loaded with the base, one ``train_pass`` over its
+    records (4 global steps). Returns every step's loss, each held
+    shard's ``shard_rows_digest``, the params' and the summed AUC
+    tables' sha256, the seconds and (pod) the bytes moved."""
+    from paddlebox_tpu_torch import InMemoryDataset
+    from paddlebox_tpu_torch.ps.sharded import ShardedEmbeddingTable
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+
+    t0 = time.perf_counter()
+    # a pod names the rank's device itself
+    where = {"devices": dev} if pod is None else {"pod": pod}
+    table = ShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                  capacity_per_shard=SHARD_CAPACITY, **where)
+    table.load(base)
+    tr = ShardedTrainer(_pod_model(torch, args), table, desc,
+                        seed=args.seed, zero1=zero1, pod=pod)
+    tr.step_fn = rec = _LossRecorder(tr.step_fn, pod)
+    ds = InMemoryDataset(desc)
+    ds.records = records
+    t1 = time.perf_counter()
+    res = tr.train_pass(ds)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    auc = tr._finalize_auc(tr.state.auc)
+    out = {"losses": rec.losses, "steps": res["batches"],
+           "shards": {s: table.shard_rows_digest(s) for s in table.owned},
+           "params": _sha(torch, tr.model.state_dict().values()),
+           "auc": _sha(torch, (auc.buckets, auc.sums)),
+           "train_s": train_s, "seconds": time.perf_counter() - t0}
+    if pod is not None:
+        # the steps' exchanges and dense sync (not the pass's AUC gather)
+        out["bytes_per_step"] = {k: v / res["batches"]
+                                 for k, v in rec.nbytes.items()}
+    return out
+
+
+def pod_tiered_leg(torch, args, desc, base, records, pod, dev) -> dict:
+    """20c (and the single-process tiered twin, ``pod`` None): phase
+    15b's windows of ``WINDOW_CAPACITY`` rows a shard over host stores
+    without an SSD tier, the base loaded, ``POD_TIER_PASSES`` passes of
+    one global step of the records (stage, begin_pass, train_pass,
+    end_pass). Returns per held shard its host tier's key count, the
+    sha256 of its keys and of its rows (keys sorted), the owner check
+    and the seconds."""
+    import hashlib
+
+    from paddlebox_tpu_torch import InMemoryDataset
+    from paddlebox_tpu_torch.ps.tiered import TieredShardedEmbeddingTable
+    from paddlebox_tpu_torch.ps.tiered_multihost import \
+        MultihostTieredShardedTable
+    from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+
+    t0 = time.perf_counter()
+    if pod is None:
+        t = TieredShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                        capacity_per_shard=WINDOW_CAPACITY,
+                                        devices=dev)
+        t.load(base)
+    else:
+        t = MultihostTieredShardedTable(pod, mf_dim=MF_DIM,
+                                        capacity_per_shard=WINDOW_CAPACITY)
+        # every rank reads the whole base and imports its shards' rows
+        t.load_reshard([base])
+    tr = ShardedTrainer(_pod_model(torch, args), t, desc, seed=args.seed,
+                        pod=pod)
+    per = BATCH * SHARD_N
+    for i in range(POD_TIER_PASSES):
+        ds = InMemoryDataset(desc)
+        ds.records = records[i * per:(i + 1) * per]
+        t.stage(ds.pass_keys(), background=False)
+        t.begin_pass()
+        tr.adopt_table()
+        tr.train_pass(ds)
+        tr.sync_table()
+        t.end_pass()
+    t.fence()
+    hosts = {}
+    for s in t.owned:
+        keys, fields = t.hosts[s].export_rows(clear_touched=False)
+        order = np.argsort(keys, kind="stable")
+        hk, hr = hashlib.sha256(), hashlib.sha256()
+        hk.update(np.ascontiguousarray(keys[order]).tobytes())
+        for f in sorted(fields):
+            hr.update(f.encode())
+            hr.update(np.ascontiguousarray(fields[f][order]).tobytes())
+        hosts[s] = {"keys": int(len(keys)), "key_sha": hk.hexdigest(),
+                    "rows_sha": hr.hexdigest(),
+                    "own_keys_only": bool((keys % np.uint64(SHARD_N)
+                                           == np.uint64(s)).all())}
+    out = {"hosts": hosts,
+           "others_empty": all(t.hosts[s] is None for s in range(SHARD_N)
+                               if s not in t.owned),
+           "params": _sha(torch, tr.model.state_dict().values()),
+           "seconds": time.perf_counter() - t0}
+    return out
+
+
+def pod_child(torch, args) -> int:
+    """One rank of phase 20 (``--pod-child gloo|nccl``), started by the
+    parent's ``launch_local``: forms the process group
+    (``init_runtime_env``), brings its card up, runs its gang's legs
+    (gloo: 20a replicated and ZeRO-1, then 20c; nccl: 20b) with the
+    kernels' counts set to 0 first, and writes ``<gang>_rank<r>.json``
+    under ``--pod-out``: each leg's results, the kernels' launches and
+    the hub's ``pbox_kernel_dispatch_total`` ticks. Prints one line with
+    both counts."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.distributed.launch import init_runtime_env
+    from paddlebox_tpu_torch.obs import MemorySink, reset_hub
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.train.multihost import global_mesh
+
+    t_start = time.perf_counter()
+    gang, dev = args.pod_child, args.pod_device
+    info = init_runtime_env()
+    if info["backend"] != gang:
+        raise AssertionError(f"pod child: a {info['backend']} group for "
+                             f"the {gang} gang")
+    pod = global_mesh(SHARD_N, device=None if dev == "cuda" else dev)
+    t = {"group_s": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    torch.zeros(1, device=pod.device).add_(1)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t["card_s"] = time.perf_counter() - t0
+    hub = reset_hub()
+    hub.add_sink(MemorySink())
+    desc = ragged_desc()
+    t0 = time.perf_counter()
+    base, records = pod_data(args)
+    t["data_s"] = time.perf_counter() - t0
+    fns = {name: getattr(K, name) for name in POD_KERNELS}
+    for f in fns.values():
+        f.launches = 0
+    out = {"rank": pod.rank, "world": pod.world, "backend": pod.backend,
+           "owned": pod.owned, "device": str(pod.device), "staged_path":
+           pod.staged}
+    torch.use_deterministic_algorithms(True)
+    try:
+        legs = (("rep", False), ("zero1", True)) if gang == "gloo" else \
+            (("rep", False),)
+        for name, zero1 in legs:
+            out[name] = pod_sharded_leg(torch, args, desc, base, records,
+                                        pod, dev, zero1)
+        if gang == "gloo":
+            out["tiered"] = pod_tiered_leg(torch, args, desc, base, records,
+                                           pod, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["launches"] = {n: f.launches for n, f in fns.items()}
+    ticks = _dispatch(hub)
+    out["dispatch"] = {n: ticks.get((f.label, "cuda"), 0)
+                       for n, f in fns.items()}
+    out["dispatch_plain"] = sum(v for k, v in ticks.items()
+                                if k[1] == "plain")
+    t["total_s"] = time.perf_counter() - t_start
+    out["seconds"] = t
+    print(f"pod rank {pod.rank}/{pod.world} ({pod.backend}, "
+          f"{pod.device}): launches {json.dumps(out['launches'])} "
+          f"pbox_kernel_dispatch_total cuda {json.dumps(out['dispatch'])} "
+          f"plain {out['dispatch_plain']}", flush=True)
+    with open(os.path.join(args.pod_out, f"{gang}_rank{pod.rank}.json"),
+              "w") as fh:
+        json.dump(out, fh, default=str)
+    pod.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def pod_phase(torch, args, card, desc, details, dev: str = "cuda") -> dict:
+    """Phase 20: multi-process sharded training over ``torch.distributed``
+    on the one card. Rank processes are started by the port's own
+    ``distributed.launch.launch_local`` (``PBOX_TORCH_DISTRIBUTED=1``,
+    the backend given explicitly) and each runs ``pod_child``:
+
+    - a gloo gang of ``POD_RANKS`` ranks, both on ``cuda:0``, each owning
+      2 of phase 13's 4 shards of ``SHARD_CAPACITY`` rows (phase 5's
+      base by key % 4), its exchanges staged through pinned host memory:
+      20a, one ``train_pass`` of 4 global steps of ``BATCH * SHARD_N``
+      records, replicated and then ZeRO-1; 20c,
+      ``MultihostTieredShardedTable`` at phase 15b's window
+      (``WINDOW_CAPACITY`` rows a shard; host stores without an SSD
+      tier), ``POD_TIER_PASSES`` passes of one global step;
+    - an NCCL gang of one rank owning all 4 shards (20b: the replicated
+      pass again), the only NCCL world one card runs.
+
+    Meanwhile this process runs the single controller over the same
+    shards, data and params on the card: the replicated and ZeRO-1
+    passes and the plain tiered table's passes. Every leg must equal its
+    twin bit for bit: every step's loss, each shard's
+    ``shard_rows_digest`` from its owner, the params' and the summed AUC
+    tables' sha256; 20c each owned host tier's keys (only its shards',
+    and every other rank's tier absent) and rows. All under
+    deterministic algorithms. Every rank must launch rows 1, 6, 7 and 13
+    on the card (its ``pbox_kernel_dispatch_total`` cuda ticks equal to
+    the wrappers' launches, no plain tick). A gang still running after
+    ``POD_TIMEOUT_S`` is stopped, and a failed or stopped rank fails the
+    phase, as does an NCCL group that does not form; the phase fails
+    past ``POD_PHASE_BUDGET_S``. On the CPU (a rehearsal) only the gloo
+    gang runs. Prints one ``multiproc:`` line; returns the ranks'
+    launches summed."""
+    from paddlebox_tpu_torch.distributed.launch import (LaunchConfig,
+                                                        launch_local)
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pbx_pod_")
+    gangs = {"gloo": POD_RANKS}
+    if dev == "cuda":
+        gangs["nccl"] = 1
+    rcs: dict = {}
+    t_gang: dict = {}
+
+    def run_gang(gang: str, n: int) -> None:
+        t0 = time.perf_counter()
+        rcs[gang] = launch_local(
+            [sys.executable, os.path.abspath(__file__), "--pod-child", gang,
+             "--pod-out", root, "--pod-device", dev,
+             "--seed", str(args.seed)],
+            LaunchConfig(nproc=n, coordinator=f"127.0.0.1:{_free_port()}",
+                         distributed=True, backend=gang,
+                         timeout_sec=POD_TIMEOUT_S, stop_grace_sec=5.0))
+        t_gang[gang] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run_gang, args=(g, n), daemon=True,
+                                name=f"phase20-{g}")
+               for g, n in gangs.items()]
+    for th in threads:
+        th.start()
+    try:
+        # the single controller, while the gangs run
+        t0 = time.perf_counter()
+        base, records = pod_data(args)
+        torch.use_deterministic_algorithms(True)
+        try:
+            ref = {"rep": pod_sharded_leg(torch, args, desc, base, records,
+                                          None, dev, False),
+                   "zero1": pod_sharded_leg(torch, args, desc, base,
+                                            records, None, dev, True),
+                   "tiered": pod_tiered_leg(torch, args, desc, base,
+                                            records, None, dev)}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ref_s = time.perf_counter() - t0
+        del base, records
+        for th in threads:
+            th.join(POD_TIMEOUT_S + 30.0)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("phase 20: a gang's launcher outlived its "
+                                 "timeout")
+        for gang, rc in rcs.items():
+            if rc != 0:
+                raise AssertionError(f"phase 20: the {gang} gang exited {rc}"
+                                     + (" (stopped at its time limit)"
+                                        if rc == 124 else ""))
+        ranks = {g: [json.load(open(os.path.join(root, f"{g}_rank{r}.json")))
+                     for r in range(n)] for g, n in gangs.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def same(what, got, want):
+        for k in ("losses", "params", "auc"):
+            if got[k] != want[k]:
+                raise AssertionError(f"phase 20 {what}: {k} differs from "
+                                     "the single controller's")
+        for s, dg in got["shards"].items():
+            if dg != want["shards"][int(s)]:
+                raise AssertionError(f"phase 20 {what}: shard {s}'s rows "
+                                     "differ from the single controller's")
+
+    owned = []
+    for r in ranks["gloo"]:
+        if r["backend"] != "gloo" or r["staged_path"] != (dev == "cuda"):
+            raise AssertionError(f"phase 20: gloo rank {r['rank']}: "
+                                 f"backend {r['backend']}, staged "
+                                 f"{r['staged_path']}")
+        same(f"20a rank {r['rank']} replicated", r["rep"], ref["rep"])
+        same(f"20a rank {r['rank']} ZeRO-1", r["zero1"], ref["zero1"])
+        tier = r["tiered"]
+        if not tier["others_empty"] or tier["params"] != \
+                ref["tiered"]["params"]:
+            raise AssertionError(f"phase 20c rank {r['rank']}: params or "
+                                 "a foreign host tier")
+        for s, h in tier["hosts"].items():
+            if not h["own_keys_only"] or h != ref["tiered"]["hosts"][int(s)]:
+                raise AssertionError(f"phase 20c rank {r['rank']}: shard "
+                                     f"{s}'s host tier differs from the "
+                                     "single process's")
+        owned += r["owned"]
+    if sorted(owned) != list(range(SHARD_N)) or len(set(owned)) != len(owned):
+        raise AssertionError(f"phase 20: the ranks own {owned}")
+    if "nccl" in ranks:
+        r = ranks["nccl"][0]
+        if r["backend"] != "nccl" or r["staged_path"] or r["owned"] != list(
+                range(SHARD_N)):
+            raise AssertionError(f"phase 20b: {r['backend']} rank owning "
+                                 f"{r['owned']}")
+        same("20b (nccl, a world of one)", r["rep"], ref["rep"])
+    launches = {n: 0 for n in POD_KERNELS}
+    for g, rs in ranks.items():
+        for r in rs:
+            for n in POD_KERNELS:
+                k = r["launches"][n]
+                if dev == "cuda" and (k == 0 or r["dispatch"][n] != k
+                                      or r["dispatch_plain"]):
+                    raise AssertionError(
+                        f"phase 20 {g} rank {r['rank']}: {n} launched {k} "
+                        f"times, {r['dispatch'][n]} cuda dispatch ticks, "
+                        f"{r['dispatch_plain']} plain")
+                launches[n] += k
+    phase_s = time.perf_counter() - t_phase
+    legs = {}
+    for g, rs in ranks.items():
+        for r in rs:
+            for leg in ("rep", "zero1", "tiered"):
+                if leg in r:
+                    legs[f"{g}{r['rank']}.{leg}"] = {
+                        k: r[leg][k] for k in ("seconds", "train_s",
+                                               "bytes_per_step")
+                        if k in r[leg]}
+            legs[f"{g}{r['rank']}.process"] = r["seconds"]
+    out = {"backends": {g: rs[0]["backend"] for g, rs in ranks.items()},
+           "ranks": {g: len(rs) for g, rs in ranks.items()},
+           "steps": ref["rep"]["steps"], "legs": legs,
+           "single_controller": {k: {"seconds": v["seconds"],
+                                     **({"train_s": v["train_s"]}
+                                        if "train_s" in v else {})}
+                                 for k, v in ref.items()},
+           "single_controller_s": ref_s, "gang_s": t_gang,
+           "launches": launches, "phase_s": phase_s,
+           "budget_s": POD_PHASE_BUDGET_S}
+    print("multiproc: " + json.dumps(out, default=str), flush=True)
+    g0 = ranks["gloo"][0]
+    log(f"multiproc 20a: 2 gloo ranks on {g0['device']} equal the single "
+        f"controller bit for bit over {ref['rep']['steps']} steps "
+        f"(replicated and ZeRO-1: losses, shard rows, params, AUC); 20b: "
+        + ("an NCCL world of one equal too; " if "nccl" in ranks else "")
+        + f"20c: host tiers disjoint, rows equal the single process's; "
+        f"bytes a step (rank 0, replicated) "
+        f"{json.dumps(g0['rep']['bytes_per_step'])}; launches "
+        f"{json.dumps(launches)}; phase 20 took {phase_s:.1f}s (budget "
+        f"{POD_PHASE_BUDGET_S:.0f}s), gangs "
+        f"{json.dumps({k: round(v, 1) for k, v in t_gang.items()})} s, "
+        f"single controller {ref_s:.1f}s ({card})")
+    details["multiproc"] = out
+    if dev == "cuda" and phase_s > POD_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 20 took {phase_s:.1f}s, past its "
+                             f"{POD_PHASE_BUDGET_S:.0f}s budget")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -7605,6 +8019,11 @@ def main() -> int:
     ap.add_argument("--online-device", default="cuda",
                     help=argparse.SUPPRESS)
     ap.add_argument("--online-wait", default=None, help=argparse.SUPPRESS)
+    # phase 20's rank processes (see pod_child)
+    ap.add_argument("--pod-child", default=None, choices=("gloo", "nccl"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--pod-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -7617,6 +8036,14 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return online_child(torch, args)
+    if args.pod_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if args.pod_device == "cuda" and not torch.cuda.is_available():
+            print("chip_smoke: pod child: no CUDA device", file=sys.stderr)
+            return 2
+        return pod_child(torch, args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -8000,25 +8427,18 @@ def main() -> int:
                                    details)
     for r in kernels:
         r["launches"] += online_launches.get(r["name"], 0)
-    # what phase 18's seconds were paid with: every model file the port
-    # writes is an uncompressed npz since phase 18 came; phase 10 times
-    # one base save beside np.savez_compressed of the same arrays
-    cut = {"phase_18_s": details["online"]["phase_s"],
-           "phases_1_17_s": t_18 - t_start,
-           "phase_10_save_base_s": details["checkpoint"]["save_base_s"],
-           "phase_10_savez_compressed_s":
-               details["checkpoint"]["savez_compressed_s"]}
-    details["phase_18_cut"] = cut
-    log(f"phase 18 took {cut['phase_18_s']:.1f}s; phases 1-17 took "
-        f"{cut['phases_1_17_s']:.1f}s, the build included; phase 10's "
-        f"base save {cut['phase_10_save_base_s']:.2f}s uncompressed, "
-        f"{cut['phase_10_savez_compressed_s']:.2f}s as np.savez_compressed "
-        f"of the same arrays ({card})")
+    log(f"phase 18 took {details['online']['phase_s']:.1f}s; phases 1-17 "
+        f"took {t_18 - t_start:.1f}s, the build included ({card})")
 
     # ---- phase 19: two ranks, the host side of multi-process training ----
     multi_launches = multi_phase(torch, args, card, desc, records, details)
     for r in kernels:
         r["launches"] += multi_launches.get(r["name"], 0)
+
+    # ---- phase 20: multi-process sharded training ----
+    pod_launches = pod_phase(torch, args, card, desc, details)
+    for r in kernels:
+        r["launches"] += pod_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

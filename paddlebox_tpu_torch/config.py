@@ -166,6 +166,27 @@ class Flags:
     # how long a restore-consensus gather (resilience/consensus) waits
     # for the full mesh to publish
     consensus_timeout_sec: float = 60.0
+    # shared dir (NFS/FUSE) for multi-process recovery: restore-step
+    # agreement and shared quarantine (train/multihost.
+    # make_restore_consensus; "" = pass consensus_dir=)
+    restore_consensus_dir: str = ""
+
+    # --- multi-process training (train/multihost) ---
+    # straggler watchdog: shared directory of heartbeat files ("" =
+    # make_straggler_watchdog needs heartbeat_dir=, or a world of one)
+    straggler_heartbeat_dir: str = ""
+    straggler_step_lag: int = 1000
+    straggler_timeout_sec: float = 120.0
+    # >0: a stall persisting this long makes the training thread's next
+    # heartbeat raise StragglerTimeout
+    straggler_abort_sec: float = 0.0
+    # elastic membership: shared directory of the FileKVStore leases
+    # ("" = make_elastic_manager needs elastic_dir= or store=)
+    elastic_dir: str = ""
+    # a host whose lease is older than this is a candidate death,
+    # confirmed after elastic_dead_checks polls
+    elastic_ttl_sec: float = 10.0
+    elastic_dead_checks: int = 2
 
     # --- serving (serving.py) ---
     # ReloadLoop poll cadence while healthy (failed polls back off on the

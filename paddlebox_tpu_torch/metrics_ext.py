@@ -1,6 +1,5 @@
-"""Metric variants beyond plain AUC (counterpart of the single-process
-half of ``paddlebox_tpu/metrics_ext.py``; the pod reductions wait for the
-multi-process port).
+"""Metric variants beyond plain AUC (counterpart of
+``paddlebox_tpu/metrics_ext.py``).
 
 Reference: fleet/metrics.h:198-567 — ``MetricMsg`` (auc),
 ``MultiTaskMetricMsg`` (per-instance task head by cmatch),
@@ -12,16 +11,92 @@ continue-value MSE/RMSE and the NaN/Inf counters.
 Every filtered variant reduces to a selection weight fed to the same
 bucketed ``auc_add_batch`` on the predictions' device; only WuAUC
 collects (uid, pred, label) on the host, as the reference does.
+
+In a multi-process job (a ``torch.distributed`` process group of more
+than one rank) every ``compute`` first sums the ranks' partial
+accumulators (``_pod_sum_tree``, the MPI metric allreduce of
+fleet/metrics.cc:288-304) or gathers their records
+(``_pod_gather_varlen``): collective, so every rank calls ``compute``
+in lockstep.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.metrics import Metric, as_tensor, auc_add_batch
+from paddlebox_tpu_torch.metrics import (AucState, Metric, as_tensor,
+                                         auc_add_batch, auc_compute,
+                                         init_auc_state)
+
+
+def _pod_world() -> int:
+    import torch.distributed as dist
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _allgather_bits(a: np.ndarray) -> np.ndarray:
+    """Every rank's ``a`` (same shape on each) stacked [P, ...] in rank
+    order over the default process group, bit-exact: 8-byte dtypes ride
+    the wire as int64 and come back by view, so no 64-bit uid or f64 sum
+    is rounded (the reference's uint32-pair transport)."""
+    import torch.distributed as dist
+    a = np.ascontiguousarray(a)
+    wire = a.view(np.int64) if a.dtype.itemsize == 8 else a
+    t = torch.from_numpy(wire.copy())
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    out = torch.empty((dist.get_world_size(),) + tuple(t.shape),
+                      dtype=t.dtype, device=t.device)
+    dist.all_gather(list(out.unbind(0)), t)
+    g = np.ascontiguousarray(out.cpu().numpy())
+    return g.view(a.dtype).reshape((g.shape[0],) + a.shape)
+
+
+def _pod_sum_tree(tree):
+    """Sum per-rank partial accumulators across a multi-process job (the
+    MPI metric allreduce, fleet/metrics.cc:288-304): every leaf (a
+    tensor or an array, in tuples, lists and dicts) all-gathered and
+    summed on the host in its own dtype, in rank order; a tensor comes
+    back on its device. The identity in a single process. COLLECTIVE."""
+    if _pod_world() == 1:
+        return tree
+    if torch.is_tensor(tree):
+        host = tree.detach().cpu().numpy()
+        return torch.from_numpy(_allgather_bits(host).sum(axis=0)
+                                .astype(host.dtype)).to(tree.device)
+    if isinstance(tree, np.ndarray) or np.isscalar(tree):
+        a = np.asarray(tree)
+        return _allgather_bits(a).sum(axis=0).astype(a.dtype)
+    if isinstance(tree, dict):
+        return {k: _pod_sum_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_pod_sum_tree(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_pod_sum_tree(v) for v in tree)
+    raise TypeError(f"_pod_sum_tree: unsupported leaf {type(tree)}")
+
+
+def _pod_gather_varlen(arrays: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Concatenate per-rank variable-length record arrays (all the same
+    length on one rank) across the job, in rank order (the
+    record-collecting WuAuc calculator's gather): padded to the longest
+    rank for the fixed-shape gather, pads dropped after. 64-bit dtypes
+    transport bit-exactly."""
+    if _pod_world() == 1:
+        return list(arrays)
+    ns = _allgather_bits(np.asarray(len(arrays[0]), np.int64))
+    m = max(int(ns.max()), 1)
+    out = []
+    for a in arrays:
+        pad = np.zeros(m - len(a), a.dtype)
+        g = _allgather_bits(np.concatenate([a, pad]))
+        out.append(np.concatenate([g[p, :int(ns[p])]
+                                   for p in range(g.shape[0])]))
+    return out
 
 
 def parse_cmatch_rank_group(group: str) -> List[Tuple[int, int]]:
@@ -50,7 +125,12 @@ class AucMetric(Metric):
     method = "auc"
 
     def compute(self) -> Dict[str, float]:
-        return super().compute().as_dict()
+        # a multi-process job: a transient global sum of the tables
+        # (non-mutating, so compute() repeats while accumulation goes on)
+        state = (self.state if self.state is not None
+                 else init_auc_state(self._nbins, "cpu"))
+        return auc_compute(AucState(*_pod_sum_tree(tuple(state))
+                                    )).as_dict()
 
 
 class CmatchRankAucMetric(AucMetric):
@@ -157,9 +237,11 @@ class ContinueValueMetric:
         self._n += float(w.sum())
 
     def compute(self) -> Dict[str, float]:
-        n = max(self._n, 1e-12)
-        return {"mae": self._abs / n, "mse": self._sqr / n,
-                "rmse": float(np.sqrt(self._sqr / n)), "ins_num": self._n}
+        s_abs, s_sqr, s_n = (float(x) for x in _pod_sum_tree(
+            np.array([self._abs, self._sqr, self._n])))
+        n = max(s_n, 1e-12)
+        return {"mae": s_abs / n, "mse": s_sqr / n,
+                "rmse": float(np.sqrt(s_sqr / n)), "ins_num": s_n}
 
     def reset(self):
         self._abs = 0.0
@@ -185,8 +267,10 @@ class NanInfMetric:
         self.total += int(pred.shape[0])
 
     def compute(self) -> Dict[str, float]:
-        return {"nan": float(self.nan_cnt), "inf": float(self.inf_cnt),
-                "ins_num": float(self.total)}
+        s = _pod_sum_tree(np.array([self.nan_cnt, self.inf_cnt,
+                                    self.total], np.float64))
+        return {"nan": float(s[0]), "inf": float(s[1]),
+                "ins_num": float(s[2])}
 
     def reset(self):
         self.nan_cnt = 0
@@ -267,6 +351,9 @@ class WuAucMetric:
                 else np.empty(0)).astype(np.float64, copy=False)
         label = (np.concatenate(self._label) if self._label
                  else np.empty(0)).astype(np.float64, copy=False)
+        # a multi-process job: every rank's records (a user's records
+        # may span ranks; the per-user math runs on the whole)
+        uid, pred, label = _pod_gather_varlen([uid, pred, label])
         wuauc, uauc, users = _tie_averaged_user_auc(uid, pred, label)
         return {"wuauc": wuauc, "uauc": uauc, "user_count": float(users),
                 "ins_num": float(len(uid))}

@@ -18,11 +18,19 @@ blocks per step, one each way, plus the dense-gradient sum.
 
 The port drives all N shards from one process, as the reference's
 single-controller table does; each shard's state lives on a device of
-the ``devices`` list (all on one card when there is one card).
+the ``devices`` list (all on one card when there is one card). In the
+multi-process form (``pod=``, ``train/multihost.global_mesh``) a rank
+holds the states of its owned shards only, while every rank keeps every
+shard's host key index: each rank builds the same plans from the same
+batches (the SPMD host contract), and an eval plan's serve dedup needs
+every owner's key set. Saves are per process (the owned shards' blocks
+of the reference's format); a load reads the whole save set, assigns
+every shard's keys and writes the owned shards' rows.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import threading
 from typing import (Dict, Iterator, List, Mapping, NamedTuple, Optional,
@@ -150,18 +158,35 @@ class ShardedEmbeddingTable:
                  cfg: Optional[SparseSGDConfig] = None,
                  req_bucket_min: int = 512,
                  serve_bucket_min: int = 1024,
-                 devices: Devices = "cuda") -> None:
+                 devices: Devices = "cuda", pod=None) -> None:
+        """``pod`` (``train/multihost.Pod``): this table is one rank's
+        share of the multi-process table, its devices ``pod.devices``
+        and its states those of ``pod.owned``; ``devices`` is then left
+        at its default (the pod names them)."""
         self.n = num_shards
         self.mf_dim = mf_dim
         self.capacity = capacity_per_shard or FLAGS.table_capacity_per_shard
         self.cfg = cfg or SparseSGDConfig()
         self.opt_ext = opt_ext_width(self.cfg, mf_dim)
-        self.devices = shard_devices(devices, num_shards)
+        if pod is not None and pod.n != num_shards:
+            raise ValueError(f"a pod of {pod.n} shards for a table of "
+                             f"{num_shards}")
+        if pod is not None and devices != "cuda":
+            raise ValueError(f"devices={devices!r} with a pod: the pod's "
+                             f"devices are the table's")
+        self.pod = pod
+        self.devices = (list(pod.devices) if pod is not None
+                        else shard_devices(devices, num_shards))
+        # the shards whose rows this process holds
+        self.owned = (list(pod.owned) if pod is not None
+                      else list(range(num_shards)))
         self.indexes = [make_kv(self.capacity) for _ in range(num_shards)]
         self.req_bucket_min = req_bucket_min
         self.serve_bucket_min = serve_bucket_min
-        self.states = [init_table_state(self.capacity, mf_dim, self.opt_ext,
-                                        dev) for dev in self.devices]
+        self.states: List[Optional[TableState]] = [
+            init_table_state(self.capacity, mf_dim, self.opt_ext, dev)
+            if s in self.owned else None
+            for s, dev in enumerate(self.devices)]
         self._touched = np.zeros((num_shards, self.capacity + 1), dtype=bool)
         # serializes host index/touched mutation across threads (the
         # prefetch thread's prepare_global vs save/shrink)
@@ -646,6 +671,19 @@ class ShardedEmbeddingTable:
                 "max_shard_fill_frac": round(
                     max(per_shard) / max(self.capacity, 1), 6)}
 
+    def shard_rows_digest(self, s: int) -> str:
+        """sha256 over shard ``s``'s logical state: its keys sorted, then
+        their rows in that order (the row each key sits in cancels out).
+        For an owned shard only."""
+        with self.host_lock:
+            keys, rows = self.indexes[s].items()
+        order = np.argsort(keys, kind="stable")
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(keys[order]).tobytes())
+        h.update(np.ascontiguousarray(
+            self._rows_host(s, rows[order])).tobytes())
+        return h.hexdigest()
+
     def _rows_host(self, s: int, rows: np.ndarray) -> np.ndarray:
         """Shard ``s``'s logical rows at ``rows``, on the host."""
         idx = torch.from_numpy(rows.astype(np.int64)).to(self.devices[s])
@@ -659,7 +697,7 @@ class ShardedEmbeddingTable:
         mf_end = NUM_FIXED + self.mf_dim
         blobs: Dict[str, np.ndarray] = {}
         total = 0
-        for s in range(self.n):
+        for s in self.owned:
             with self.host_lock:
                 keys, rows = self.indexes[s].items()
                 keys, rows = row_filter(s, keys, rows)
@@ -681,7 +719,9 @@ class ShardedEmbeddingTable:
     def save_base(self, path: str) -> int:
         """Full model dump (SaveBase, box_wrapper.cc:1383): ``n``, then
         ``keys_{s}`` and ``{field}_{s}`` per shard, the reference's
-        arrays, uncompressed (``EmbeddingTable.save_base``)."""
+        arrays, uncompressed (``EmbeddingTable.save_base``). On a pod
+        each rank writes its owned shards' blocks to its own ``path``
+        (the per-node SaveBase file)."""
         return self._dump(path, lambda s, keys, rows: (keys, rows))
 
     def save_delta(self, path: str) -> int:
@@ -712,33 +752,64 @@ class ShardedEmbeddingTable:
             log.warning("load: file has no matching opt_ext block for shard "
                         "%d; optimizer state starts fresh", s)
 
-    def load(self, path: Union[str, Mapping[str, np.ndarray]],
+    def load(self, path: Union[str, Mapping[str, np.ndarray],
+                               Sequence[str]],
              merge: bool = False) -> int:
         """Load a base/delta dump (any shard count, or a single-table
         save: keys re-split by ``key % N``; or the same mapping in
-        memory); ``merge=True`` applies it on top of the live table, else
-        the table (host index and device rows) starts empty. The shards
-        get NEW states either way. Returns the rows in the file."""
-        blob = _read_raw(path)
+        memory), or a save set (a list: the per-process files of one
+        save, each holding some shards); ``merge=True`` applies it on
+        top of the live table, else the table (host index and device
+        rows) starts empty. The shards get NEW states either way (the
+        owned ones; every shard's index takes its keys). Returns the
+        rows in the file(s)."""
+        per_shard = self._set_per_shard(path)
         total = 0
         with self.host_lock:
             if not merge:
                 self.indexes = [make_kv(self.capacity)
                                 for _ in range(self.n)]
                 self._touched[:] = False
-            states = []
-            for s, (keys, fields) in enumerate(self._file_per_shard(blob)):
-                data = (self._logical(s) if merge else
-                        np.zeros((self.capacity + 1, self.feat), np.float32))
+            states: List[Optional[TableState]] = [None] * self.n
+            for s, (keys, fields) in enumerate(per_shard):
                 rows = self.indexes[s].assign(
                     np.ascontiguousarray(keys, np.uint64))
-                self._write_fields(data, rows, fields, s)
-                states.append(TableState.from_logical(data, self.opt_ext,
-                                                      self.devices[s]))
                 total += len(keys)
+                if s not in self.owned:
+                    continue
+                data = (self._logical(s) if merge else
+                        np.zeros((self.capacity + 1, self.feat), np.float32))
+                if len(rows):
+                    self._write_fields(data, rows, fields, s)
+                states[s] = TableState.from_logical(data, self.opt_ext,
+                                                    self.devices[s])
             self.states = states
             self._reset_dev_indexes()
         return total
+
+    def _set_per_shard(self, path) -> List[Tuple[np.ndarray,
+                                                Dict[str, np.ndarray]]]:
+        """(keys, fields) per owner shard of one file or mapping, or of a
+        save set (a list of them: each shard's blocks concatenated in the
+        list's order)."""
+        if isinstance(path, (list, tuple)):
+            parts = [list(self._file_per_shard(_read_raw(p))) for p in path]
+        else:
+            return list(self._file_per_shard(_read_raw(path)))
+        out = []
+        for s in range(self.n):
+            got = [part[s] for part in parts if len(part[s][0])]
+            if not got:
+                out.append((np.zeros(0, np.uint64), {}))
+                continue
+            if len(got) == 1:
+                out.append(got[0])
+                continue
+            names = set.intersection(*(set(f) for _, f in got))
+            out.append((np.concatenate([k for k, _ in got]),
+                        {f: np.concatenate([fl[f] for _, fl in got])
+                         for f in names}))
+        return out
 
     # ---- lifecycle: shrink / merge (box_wrapper.h:638-640, :801-815) ----
     def shrink(self, delete_threshold: Optional[float] = None,
@@ -750,8 +821,9 @@ class ShardedEmbeddingTable:
                if delete_threshold is None else delete_threshold)
         dk = FLAGS.show_click_decay_rate if decay is None else decay
         freed_total = 0
+        gone: Dict[int, np.ndarray] = {}
         with self.host_lock:
-            for s in range(self.n):
+            for s in self.owned:
                 data = self.states[s].data
                 data[:, 0:3] *= dk
                 keys, rows = self.indexes[s].items()
@@ -761,12 +833,24 @@ class ShardedEmbeddingTable:
                 show, clk = sc[:, 0], sc[:, 1]
                 score = (self.cfg.nonclk_coeff * (show - clk)
                          + self.cfg.clk_coeff * clk)
-                freed = self.indexes[s].release(keys[score < thr])
+                gone[s] = keys[score < thr]
+                freed = self.indexes[s].release(gone[s])
                 data[torch.from_numpy(freed.astype(np.int64)).to(
                     self.devices[s])] = 0.0
                 self._touched[s][freed] = False
                 freed_total += len(freed)
             self._reset_dev_indexes()
+        if self.pod is not None:
+            # every rank's index drops the keys the owners released;
+            # the return counts every shard's, as one controller's does
+            freed_total = 0
+            for part in self.pod.all_gather_object(gone):
+                for s, keys in part.items():
+                    freed_total += len(keys)
+                    if s not in self.owned:
+                        with self.host_lock:
+                            self._touched[s][
+                                self.indexes[s].release(keys)] = False
         log.info("sharded shrink: freed %d rows across %d shards",
                  freed_total, self.n)
         return freed_total
@@ -817,16 +901,19 @@ class ShardedEmbeddingTable:
                 if len(keys) == 0:
                     continue
                 keys = np.ascontiguousarray(keys, np.uint64)
-                data = self._logical(s)
                 existing = self.indexes[s].lookup(keys) >= 0
                 rows_new = self.indexes[s].assign(keys[~existing])
+                total += len(keys)
+                if s not in self.owned:
+                    self._touched[s][self.indexes[s].lookup(keys)] = True
+                    continue
+                data = self._logical(s)
                 self._write_fields(data, rows_new, fields, s, sel=~existing)
                 rows_old = self.indexes[s].lookup(keys[existing])
                 for f in ("show", "clk", "delta_score"):
                     data[rows_old, FIELD_COL[f]] += fields[f][existing]
                 self._touched[s][self.indexes[s].lookup(keys)] = True
                 self.states[s].data.copy_(torch.from_numpy(data))
-                total += len(keys)
             self._reset_dev_indexes()
         log.info("sharded merge_model: %d rows", total)
         return total

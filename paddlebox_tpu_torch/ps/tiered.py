@@ -15,9 +15,8 @@ zeroes the windows in place. Telemetry (``obs/``): ``obs_stats`` (with
 (``ps/table.promote_window_delta``), ``pbox_table_evict_async_rows_total``,
 and the ``pass.stage`` / ``pass.begin`` / ``pass.end_submit`` /
 ``evict.ahead`` / ``ssd.maintain`` trace spans, the write-back job linked
-to its submit span. The reference's multi-process tier
-(``ps/tiered_multihost.py``) waits for ``torch.distributed`` (ROADMAP
-queue 1 item 13, slice 3b).
+to its submit span. The multi-process tier (each rank's host stores for
+its owned shards only) is ``ps/tiered_multihost.py``.
 
 The reference's core capability — a table BIGGER than device memory on a
 multi-device PS: per pass, ``BuildPull`` fetches the pass's values from
@@ -179,11 +178,15 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
                  req_bucket_min: int = 512,
                  serve_bucket_min: int = 1024,
                  ssd_dir: Optional[str] = None,
-                 devices: Devices = "cuda") -> None:
+                 devices: Devices = "cuda", *, _pod=None) -> None:
+        """``_pod`` is ``MultihostTieredShardedTable``'s alone: its
+        methods know that the host stores of the shards the rank does
+        not own are None; this class's do not."""
         super().__init__(num_shards, mf_dim=mf_dim,
                          capacity_per_shard=capacity_per_shard, cfg=cfg,
                          req_bucket_min=req_bucket_min,
-                         serve_bucket_min=serve_bucket_min, devices=devices)
+                         serve_bucket_min=serve_bucket_min, devices=devices,
+                         pod=_pod)
         # SSD third tier (ps/ssd.py): an explicit ssd_dir pins each
         # shard's tier under <dir>/s<K>; otherwise HostStore follows
         # FLAGS.ssd_dir (auto subdirs) or stays two-tier
@@ -192,6 +195,7 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
                                 opt_ext=self.opt_ext,
                                 ssd_dir=(f"{ssd_dir}/s{s}" if ssd_dir
                                          else None))
+                      if s in self.owned else None
                       for s in range(self.n)]
         self.in_pass = False
         self._stage: Optional[_ShardStage] = None
@@ -682,8 +686,7 @@ class TieredShardedEmbeddingTable(ShardedEmbeddingTable):
     # ---- feed-pass staging (BuildPull, ps_gpu_wrapper.cc:337) ----
     def _fetch_stage_values(self, s: int, new_keys: np.ndarray):
         """Host values for shard s's missing keys (the seam the
-        multi-process table overrides; it waits for ``torch.distributed``,
-        ROADMAP queue 1 item 13, slice 3b)."""
+        multi-process table overrides: owned shards only)."""
         return self.hosts[s].fetch(new_keys)
 
     def stage(self, pass_keys: np.ndarray, background: bool = True,

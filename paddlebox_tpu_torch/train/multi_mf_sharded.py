@@ -49,7 +49,8 @@ from paddlebox_tpu_torch.ps.sharded import ShardedPullIndex
 from paddlebox_tpu_torch.ps.table import (TableState, apply_push,
                                           merge_rows)
 from paddlebox_tpu_torch.train.multi_mf_step import canonical_concat
-from paddlebox_tpu_torch.train.sharded import (GlobalBatch, ShardedTrainStep,
+from paddlebox_tpu_torch.train.sharded import (_DEVICE_FIELDS, GlobalBatch,
+                                               ShardedTrainStep,
                                                _key_counts, _serve_counts,
                                                exchange, group_batches,
                                                init_sharded_auc,
@@ -95,8 +96,7 @@ def make_mmf_global_batch(group: List[SlotBatch],
     hosts = [make_global_arrays([subs[d][c] for d in range(n)], p)
              for c, p in enumerate(plans)]
     per_class: List[Dict[str, list]] = [
-        {f: [] for f in GlobalBatch._fields if not f.endswith("_counts")}
-        for _ in plans]
+        {f: [] for f in _DEVICE_FIELDS} for _ in plans]
     floats = []
     for s in range(n):
         ints, flts, cuts = [], [], []
@@ -269,16 +269,13 @@ class MultiMfShardedTrainStep:
             # every class's grad exchange, then the dense update, then
             # the merges and pushes: the same ops in another order
             backs = [exchange(g_vals[c], self.devices) for c in range(nc)]
-            self.dense._dense_sync(state, dense_grads)
+            loss = self.dense._dense_sync(state, dense_grads, losses)
             pushed = [push_class(c, backs[c]) for c in range(nc)]
         else:
             pushed = [push_class(c, exchange(g_vals[c], self.devices))
                       for c in range(nc)]
-            self.dense._dense_sync(state, dense_grads)
+            loss = self.dense._dense_sync(state, dense_grads, losses)
         state.step += 1
-        loss = losses[0].to(home)
-        for x in losses[1:]:
-            loss = loss + x.to(home)
         return {"loss": loss, "pred": preds, "pushed": pushed}
 
 

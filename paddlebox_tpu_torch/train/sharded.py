@@ -51,10 +51,21 @@ trains; ``begin_pass`` only reconciles and ``end_pass`` writes back on
 the table's epilogue worker. Telemetry (``obs/``): each pass ends with
 a ``train_pass_sharded`` / ``train_pass_resident_sharded`` pass event
 when a sink is attached, and a resident pass's steps run in a
-``pass.consume`` span linked to its build span. Not here yet: the
-multi-process form (``globalize_dense_state``, the pod branches, the
-multi-process tiered table), which waits for ``torch.distributed``
-(ROADMAP queue 1 item 13, slice 3b).
+``pass.consume`` span linked to its build span.
+
+The multi-process form (``pod=``, a ``train/multihost.Pod`` from
+``global_mesh``): each rank process holds only its owned shards' table
+states, the model (a replica on every rank) and, under ZeRO-1, its
+owned optimizer chunks; every rank builds the same global batches and
+plans (the SPMD host contract) and stages only its owned entries. The
+loops above run over the owned shards; both exchanges are one
+``all_to_all`` across the ranks each (copies within a rank); the dense
+grads of every destination are all-gathered and summed in shard order
+(ZeRO-1: an all-to-all of the grad chunks, each rank summing its
+chunks' slices in shard order, its chunks' update, an all-gather of the
+chunks), as are the losses and, at the end of a pass, the AUC tables.
+So a pod run equals the single-controller run over the same shards bit
+for bit.
 """
 
 from __future__ import annotations
@@ -127,6 +138,14 @@ class GlobalBatch(NamedTuple):
     floats: List[torch.Tensor]       # f32 [B, Dd + 3] = dense|label|show|clk
     key_counts: Tuple[Tuple[int, ...], ...]  # real keys per key section
     serve_counts: Tuple[int, ...]    # real serve rows per owner
+    # shown examples of the whole global batch (host): the loss's weight
+    # sum, also where a rank holds only its own destinations
+    weight_sum: float = 0.0
+
+
+# the GlobalBatch fields that hold one device tensor a shard
+_DEVICE_FIELDS = tuple(f for f in GlobalBatch._fields
+                       if not f.endswith("_counts") and f != "weight_sum")
 
 
 def make_global_arrays(batches: List[SlotBatch],
@@ -158,21 +177,27 @@ def make_global_arrays(batches: List[SlotBatch],
 
 
 def make_global_batch(batches: List[SlotBatch], idx: ShardedPullIndex,
-                      devices: Sequence[torch.device]) -> GlobalBatch:
+                      devices: Sequence[torch.device],
+                      owned: Optional[Sequence[int]] = None) -> GlobalBatch:
     """``make_global_arrays`` staged on the shards' devices: per shard one
     int32 block (resp_idx, serve_rows, the live request positions,
     gather_idx, segments) and one float32 block (serve_valid,
-    serve_slot, the batch's floats), sliced there."""
+    serve_slot, the batch's floats), sliced there. ``owned`` (a rank's
+    shards, ``train/multihost.stage_global_batch``) stages those
+    entries only; the others stay None."""
     host = make_global_arrays(batches, idx)
     n = len(batches)
     a2 = host["serve_rows"].shape[1]
     k = host["gather_idx"].shape[1]
     secs = idx.key_sections or (k,)
-    offs = section_offsets(secs)
-    out: Dict[str, List[torch.Tensor]] = {f: [] for f in GlobalBatch._fields
-                                          if not f.endswith("_counts")}
+    mine = set(range(n) if owned is None else owned)
+    out: Dict[str, List[Optional[torch.Tensor]]] = {
+        f: [None] * n for f in _DEVICE_FIELDS}
     counts = []
     for s in range(n):
+        counts.append(_key_counts(idx.key_valid[s], secs))
+        if s not in mine:
+            continue
         resp = host["resp_idx"][s]
         # a request that is not real points at the sentinel slot A2 - 1
         live = np.flatnonzero(resp.reshape(-1) != a2 - 1).astype(np.int32)
@@ -187,17 +212,17 @@ def make_global_batch(batches: List[SlotBatch], idx: ShardedPullIndex,
         tf = torch.from_numpy(flts).to(devices[s])
         na = resp.size
         o = [0, na, na + a2, na + a2 + len(live), na + a2 + len(live) + k]
-        out["resp_idx"].append(ti[:na].view(resp.shape))
-        out["serve_rows"].append(ti[o[1]:o[2]])
-        out["live"].append(ti[o[2]:o[3]])
-        out["gather_idx"].append(ti[o[3]:o[4]])
-        out["segments"].append(ti[o[4]:])
-        out["serve_valid"].append(tf[:a2])
-        out["serve_slot"].append(tf[a2:2 * a2])
-        out["floats"].append(tf[2 * a2:].view(len(host["label"][s]), -1))
-        counts.append(_key_counts(idx.key_valid[s], secs))
+        out["resp_idx"][s] = ti[:na].view(resp.shape)
+        out["serve_rows"][s] = ti[o[1]:o[2]]
+        out["live"][s] = ti[o[2]:o[3]]
+        out["gather_idx"][s] = ti[o[3]:o[4]]
+        out["segments"][s] = ti[o[4]:]
+        out["serve_valid"][s] = tf[:a2]
+        out["serve_slot"][s] = tf[a2:2 * a2]
+        out["floats"][s] = tf[2 * a2:].view(len(host["label"][s]), -1)
     return GlobalBatch(key_counts=tuple(counts),
-                       serve_counts=_serve_counts(idx.serve_valid), **out)
+                       serve_counts=_serve_counts(idx.serve_valid),
+                       weight_sum=float((host["show"] > 0).sum()), **out)
 
 
 def _key_counts(key_valid: np.ndarray, secs) -> Tuple[int, ...]:
@@ -232,9 +257,14 @@ def push_generators(devices: Sequence[torch.device], seed: int,
 
 
 def init_sharded_auc(devices: Sequence[torch.device],
-                     nbins: int = AUC_NUM_BUCKETS) -> List[AucState]:
-    """One zeroed AUC state per destination shard, on its device."""
-    return [init_auc_state(nbins, device=dev) for dev in devices]
+                     nbins: int = AUC_NUM_BUCKETS,
+                     owned: Optional[Sequence[int]] = None
+                     ) -> List[Optional[AucState]]:
+    """One zeroed AUC state per destination shard, on its device (per
+    ``owned`` shard only; None for the others)."""
+    mine = set(range(len(devices)) if owned is None else owned)
+    return [init_auc_state(nbins, device=dev) if d in mine else None
+            for d, dev in enumerate(devices)]
 
 
 def _assert_elementwise_tx(tx: OptimizerFactory) -> None:
@@ -264,12 +294,16 @@ class Zero1:
     and its optimizer state on ``devices[s]``. A step cuts the summed
     grad into the same chunks (the reduce-scatter), steps each chunk's
     optimizer, and writes the chunks back into the params (the
-    all-gather). Each chunk is read from the params before its step, so
-    params set from outside (a restore) are what the next step updates."""
+    all-gather); ``ShardedTrainStep._dense_sync`` drives the three.
+    Each chunk is read from the params before its step, so params set
+    from outside (a restore) are what the next step updates. ``owned``
+    (a rank's shards in the multi-process form) keeps only those chunks
+    and their optimizers."""
 
     def __init__(self, params: List[nn.Parameter], tx: OptimizerFactory,
                  devices: Sequence[torch.device],
-                 lr_scales: Optional[Sequence[float]] = None) -> None:
+                 lr_scales: Optional[Sequence[float]] = None,
+                 owned: Optional[Sequence[int]] = None) -> None:
         """``lr_scales`` (one multiplier a param, ``dense_modes.
         build_lr_scales``) scale each chunk's update elementwise after its
         step, raveled as the params are (lr_map through the flat
@@ -277,49 +311,61 @@ class Zero1:
         self.params = params
         self.devices = list(devices)
         n = len(self.devices)
+        self.owned = list(range(n)) if owned is None else list(owned)
         self.psize = sum(p.numel() for p in params)
         self.chunk = -(-self.psize // n)
-        self.chunks = [nn.Parameter(torch.zeros(self.chunk, device=dev))
-                       for dev in self.devices]
+        self.chunks = [nn.Parameter(torch.zeros(self.chunk,
+                                                device=self.devices[s]))
+                       for s in self.owned]
         self.opts = [tx([c]) for c in self.chunks]
         self.scales: Optional[List[torch.Tensor]] = None
         if lr_scales is not None:
             flat = F.pad(torch.cat([torch.full((p.numel(),), float(sc))
                                     for p, sc in zip(params, lr_scales)]),
                          (0, n * self.chunk - self.psize), value=1.0)
-            self.scales = [flat[s * self.chunk:(s + 1) * self.chunk].to(dev)
-                           for s, dev in enumerate(self.devices)]
+            self.scales = [flat[s * self.chunk:(s + 1) * self.chunk].to(
+                self.devices[s]) for s in self.owned]
 
     def _flat(self, tensors: List[torch.Tensor]) -> torch.Tensor:
         flat = torch.cat([t.reshape(-1) for t in tensors])
         return F.pad(flat, (0, len(self.devices) * self.chunk - self.psize))
 
-    def step(self, grads: List[torch.Tensor]) -> None:
-        g = self._flat(grads)
+    def step_chunks(self, grad_of: Callable[[int], torch.Tensor]) -> None:
+        """Step each owned chunk s on ``grad_of(s)``, its summed grad."""
         p = self._flat([q.detach() for q in self.params])
         c = self.chunk
         with torch.no_grad():
-            for s, (chunk, opt) in enumerate(zip(self.chunks, self.opts)):
+            for i, (s, chunk, opt) in enumerate(zip(self.owned, self.chunks,
+                                                    self.opts)):
                 chunk.copy_(p[s * c:(s + 1) * c])
                 old = chunk.detach().clone() if self.scales else None
-                chunk.grad = g[s * c:(s + 1) * c].to(self.devices[s])
+                chunk.grad = grad_of(s).to(self.devices[s])
                 opt.step()
                 chunk.grad = None
                 if self.scales:
-                    chunk.copy_(scale_update(old, chunk, self.scales[s]))
-            home = self.params[0].device
-            flat = torch.cat([ch.detach().to(home) for ch in self.chunks])
+                    chunk.copy_(scale_update(old, chunk, self.scales[i]))
+
+    def write_params(self, flat: torch.Tensor) -> None:
+        """The params from the [N * chunk] flat chunks (the all-gather's
+        result)."""
+        with torch.no_grad():
             off = 0
             for q in self.params:
                 q.copy_(flat[off:off + q.numel()].view_as(q))
                 off += q.numel()
 
     def state_dict(self) -> List[Dict[str, Any]]:
+        """The owned chunks' optimizer states, in shard order."""
         return [opt.state_dict() for opt in self.opts]
 
     def load_state_dict(self, sd: List[Dict[str, Any]]) -> None:
-        for opt, part in zip(self.opts, sd):
-            opt.load_state_dict(part)
+        """From all N chunks' states (a snapshot's): each owned chunk
+        takes its own."""
+        if len(sd) != len(self.devices):
+            raise ValueError(f"ZeRO-1 state of {len(sd)} chunks for "
+                             f"{len(self.devices)}")
+        for opt, s in zip(self.opts, self.owned):
+            opt.load_state_dict(sd[s])
 
 
 @dataclasses.dataclass
@@ -347,19 +393,26 @@ class ShardedTrainStep:
                  devices: Sequence[torch.device], batch_size: int,
                  num_slots: int, use_cvm: bool = True, cvm_offset: int = 2,
                  zero1: bool = False, ops: KernelSet = KERNELS,
-                 lr_scales: Optional[Sequence[float]] = None) -> None:
+                 lr_scales: Optional[Sequence[float]] = None,
+                 pod=None) -> None:
         """``ops`` selects the device functions: the kernels, unless a
         check on the card passes ``kernels.PLAIN``. ``zero1`` shards the
         dense optimizer state over the devices (``Zero1``). ``lr_scales``
         (one multiplier a model param, in ``parameters()`` order) scale
         each param's update after the optimizer's step: the per-param
-        lr_map, in either mode."""
+        lr_map, in either mode. ``pod`` (``train/multihost.Pod``) runs
+        the multi-process form: this rank's shards ``pod.owned`` only,
+        the exchanges and the dense sync across the ranks."""
         if zero1:
             _assert_elementwise_tx(tx)
         self.tx = tx
         self.sgd_cfg = sgd_cfg
         self.devices = list(devices)
         self.n = len(self.devices)
+        self.pod = pod
+        # the shards (owners and destinations) this process runs
+        self.local = list(range(self.n)) if pod is None else list(pod.owned)
+        self.home = self.devices[self.local[0]]
         self.batch_size = batch_size
         self.num_slots = num_slots
         self.use_cvm = use_cvm
@@ -373,20 +426,22 @@ class ShardedTrainStep:
 
     def init_state(self, table: ShardedEmbeddingTable,
                    model: nn.Module) -> ShardedStepState:
-        model = model.to(self.devices[0])
+        model = model.to(self.home)
         params = list(model.parameters())
         if self.zero1:
-            opt = Zero1(params, self.tx, self.devices, self.lr_scales)
+            opt = Zero1(params, self.tx, self.devices, self.lr_scales,
+                        owned=self.local)
         elif self.lr_scales is not None:
             opt = lr_map_transform(self.tx, self.lr_scales)(params)
         else:
             opt = self.tx(params)
         self._replicas = {}
-        return ShardedStepState(tables=list(table.states), model=model,
-                                opt=opt, auc=init_sharded_auc(self.devices))
+        return ShardedStepState(
+            tables=list(table.states), model=model, opt=opt,
+            auc=init_sharded_auc(self.devices, owned=self.local))
 
     def _model_on(self, model: nn.Module, dev: torch.device) -> nn.Module:
-        if dev == self.devices[0]:
+        if dev == self.home:
             return model
         rep = self._replicas.get(dev)
         if rep is None:
@@ -399,46 +454,108 @@ class ShardedTrainStep:
                 for q, p in zip(rep.parameters(), model.parameters()):
                     q.copy_(p)
 
+    def _exchange(self, blocks: Sequence[Optional[torch.Tensor]]
+                  ) -> List[Optional[torch.Tensor]]:
+        """``exchange`` over this process's shards: the copies between
+        devices, or (pod) one all-to-all across the ranks."""
+        if self.pod is None:
+            return exchange(blocks, self.devices)
+        return self.pod.exchange(blocks)
+
     # ---- dense grad sync + optimizer (both schedules) ----
+    def _gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """[k, ...] rows of this process's shards → [N, ...] rows of every
+        shard in shard order: the rows themselves on a single controller,
+        an all-gather over the ranks on a pod."""
+        if self.pod is None:
+            return rows
+        return self.pod.all_gather(rows).reshape((self.n,) + rows.shape[1:])
+
+    def _chunk_spans(self, rows: torch.Tensor, c: int) -> torch.Tensor:
+        """ZeRO-1's reduce-scatter exchange: [k, N * c] flat grad rows of
+        this process's shards → [N, k * c], every shard's row cut to this
+        process's chunks (all of them on a single controller; on a pod
+        one all-to-all of the ranks' spans)."""
+        if self.pod is None:
+            return rows
+        k, world = self.pod.k, self.pod.world
+        send = rows.view(k, world, k * c).transpose(0, 1)
+        return self.pod.all_to_all(send).reshape(self.n, k * c)
+
     def _dense_sync(self, state: ShardedStepState,
-                    grads: List[List[torch.Tensor]]) -> None:
-        """Sum every destination's dense grads in shard order on the
-        model's device (the psum, SyncParam's allreduce), then one
-        optimizer step (or ZeRO-1's chunked one)."""
-        home = self.devices[0]
-        total = [g.to(home) for g in grads[0]]
-        for gd in grads[1:]:
-            total = [a + b.to(home) for a, b in zip(total, gd)]
+                    grads: List[Optional[List[torch.Tensor]]],
+                    losses: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """Sum every destination's dense grads and losses in shard order
+        on the model's device (the psum, SyncParam's allreduce), then one
+        optimizer step (or ZeRO-1's chunked one: its chunk spans summed,
+        the owned chunks stepped, the chunks gathered into the params).
+        Each owned destination's grads are one flat row; only how every
+        shard's rows reach this process differs between a single
+        controller and a pod (``_gather``, ``_chunk_spans``), so both sum
+        the same numbers in the same order. Returns the summed loss."""
+        home, n = self.home, self.n
+        params = list(state.model.parameters())
+
+        def flat(d):
+            return torch.cat([(torch.zeros_like(p) if g is None else g)
+                              .reshape(-1).to(home)
+                              for p, g in zip(params, grads[d])])
+
+        def fold(rows):
+            acc = rows[0]
+            for r in rows[1:]:
+                acc = acc + r
+            return acc
+
+        loss_rows = [losses[d].reshape(1).to(home) for d in self.local]
         if self.zero1:
-            state.opt.step(total)
+            opt, c = state.opt, state.opt.chunk
+            rows = torch.stack([opt._flat([flat(d)]) for d in self.local])
+            span = fold(self._chunk_spans(rows, c))
+            lo = self.local[0]
+            opt.step_chunks(
+                lambda s: span[(s - lo) * c:(s - lo + 1) * c])
+            opt.write_params(self._gather(torch.stack(
+                [ch.detach().to(home) for ch in opt.chunks])).reshape(-1))
+            loss = fold(self._gather(torch.cat(loss_rows)))
         else:
-            params = list(state.model.parameters())
-            for p, g in zip(params, total):
-                p.grad = g
+            rows = torch.stack([torch.cat([flat(d), lr])
+                                for d, lr in zip(self.local, loss_rows)])
+            allg = self._gather(rows)
+            total = fold(allg[:, :-1])
+            loss = fold(allg[:, -1])
+            off = 0
+            for p in params:
+                # a tensor of its own a param
+                p.grad = total[off:off + p.numel()].view_as(p).clone()
+                off += p.numel()
             state.opt.step()
             for p in params:
                 p.grad = None
         self._refresh_replicas(state.model)
+        return loss
 
     def _pull(self, tables: List[TableState], gb: GlobalBatch,
               a_secs: Sequence[int]):
         """Owner-side gathers and the pull exchange(s): (rows_full per
         owner, per section the received [N*A_g, D] block per
-        destination)."""
+        destination), None at the shards of other ranks."""
         n = self.n
-        rows_full, serve_vals = [], []
-        for s in range(n):
+        rows_full: List[Optional[torch.Tensor]] = [None] * n
+        serve_vals: List[Optional[torch.Tensor]] = [None] * n
+        for s in self.local:
             rf = gather_full_rows(tables[s], gb.serve_rows[s], self.ops)
-            rows_full.append(rf)
-            serve_vals.append(pull_values(rf, tables[s].mf_dim))
-        d = serve_vals[0].shape[1]
+            rows_full[s] = rf
+            serve_vals[s] = pull_values(rf, tables[s].mf_dim)
+        d = serve_vals[self.local[0]].shape[1]
         recvs, lo = [], 0
         for ag in a_secs:
-            resp = [expand_pull(serve_vals[s],
+            resp = [None if serve_vals[s] is None else
+                    expand_pull(serve_vals[s],
                                 gb.resp_idx[s][:, lo:lo + ag].reshape(-1))
                     .view(n, ag, d) for s in range(n)]
-            recvs.append([r.reshape(n * ag, d)
-                          for r in exchange(resp, self.devices)])
+            recvs.append([None if r is None else r.reshape(n * ag, d)
+                          for r in self._exchange(resp)])
             lo += ag
         return rows_full, recvs
 
@@ -479,20 +596,25 @@ class ShardedTrainStep:
         chunked one (one exchange per slot group, each group pooled
         alone), which gives the same bits. Returns the summed loss, each
         destination's predictions and each owner's pushed grads
-        (device tensors)."""
+        (device tensors; None at the shards of other ranks)."""
         n, b = self.n, self.batch_size
-        a = gb.resp_idx[0].shape[1]
-        a2 = gb.serve_rows[0].shape[0]
+        lo = self.local[0]
+        a = gb.resp_idx[lo].shape[1]
+        a2 = gb.serve_rows[lo].shape[0]
         a_secs = sections[0] if sections else (a,)
         rows_full, recvs = self._pull(state.tables, gb, a_secs)
-        home = self.devices[0]
-        ins_w = [(f[:, -2] > 0).float() for f in gb.floats]
-        wsum = ins_w[0].sum().to(home)
-        for w in ins_w[1:]:
-            wsum = wsum + w.sum().to(home)
+        home = self.home
+        ins_w = [None if f is None else (f[:, -2] > 0).float()
+                 for f in gb.floats]
+        # every destination's weights, the other ranks' too (host; an
+        # integer count, exact in f32)
+        wsum = torch.tensor(gb.weight_sum, dtype=torch.float32, device=home)
 
-        losses, preds, dense_grads, g_vals = [], [], [], []
-        for d in range(n):
+        losses: List[Optional[torch.Tensor]] = [None] * n
+        preds: List[Optional[torch.Tensor]] = [None] * n
+        dense_grads: List[Optional[list]] = [None] * n
+        g_vals: List[Optional[torch.Tensor]] = [None] * n
+        for d in self.local:
             dev = self.devices[d]
             model = self._model_on(state.model, dev)
             leaves = [recvs[g][d].detach().requires_grad_(True)
@@ -510,17 +632,19 @@ class ShardedTrainStep:
                       for x, g in zip(leaves, grads[:len(leaves)])]
             g_params = grads[len(leaves):]
             dd = g_leaf[0].shape[1]
-            g_vals.append(torch.cat([g.view(n, ag, dd) for g, ag in
-                                     zip(g_leaf, a_secs)], dim=1))
-            dense_grads.append(list(g_params))
-            losses.append(loss.detach())
+            g_vals[d] = torch.cat([g.view(n, ag, dd) for g, ag in
+                                   zip(g_leaf, a_secs)], dim=1)
+            dense_grads[d] = list(g_params)
+            losses[d] = loss.detach()
             pred = torch.sigmoid(logits.detach())
             auc_add_batch(state.auc[d], pred, label, ins_w[d])
-            preds.append(pred)
+            preds[d] = pred
 
         # ---- push: grads back to their owners, merge, update ----
-        pushed = []
-        for s, g_back in enumerate(exchange(g_vals, self.devices)):
+        pushed: List[Optional[torch.Tensor]] = [None] * n
+        g_backs = self._exchange(g_vals)
+        for s in self.local:
+            g_back = g_backs[s]
             live = gb.live[s].long()
             dd = g_back.shape[-1]
             g_serve = merge_rows(g_back.reshape(n * a, dd)[live],
@@ -537,41 +661,40 @@ class ShardedTrainStep:
                        touched=gb.serve_valid[s] > 0,
                        slot_val=gb.serve_slot[s],
                        draw_rows=gb.serve_counts[s])
-            pushed.append(g_serve)
+            pushed[s] = g_serve
 
-        self._dense_sync(state, dense_grads)
+        loss = self._dense_sync(state, dense_grads, losses)
         state.step += 1
-        loss = losses[0].to(home)
-        for x in losses[1:]:
-            loss = loss + x.to(home)
         return {"loss": loss, "pred": preds, "pushed": pushed}
 
     # ---- forward-only eval (the test-phase run) ----
     def pull(self, tables: List[TableState], gb: GlobalBatch
-             ) -> List[torch.Tensor]:
+             ) -> List[Optional[torch.Tensor]]:
         """Each destination's pulled values [K_real, 3 + mf] through the
         owners' gathers and the exchange."""
-        a = gb.resp_idx[0].shape[1]
+        a = gb.resp_idx[self.local[0]].shape[1]
         _, recvs = self._pull(tables, gb, (a,))
-        return [expand_pull(recvs[0][d],
+        return [None if recvs[0][d] is None else
+                expand_pull(recvs[0][d],
                             gb.gather_idx[d][:gb.key_counts[d][0]])
                 for d in range(self.n)]
 
     def eval(self, tables: List[TableState], model: nn.Module,
-             auc: List[AucState], gb: GlobalBatch) -> List[torch.Tensor]:
+             auc: List[AucState], gb: GlobalBatch
+             ) -> List[Optional[torch.Tensor]]:
         """Forward only; each destination's AUC state accumulates.
         Returns each destination's predictions [B]."""
-        a = gb.resp_idx[0].shape[1]
-        preds = []
+        a = gb.resp_idx[self.local[0]].shape[1]
+        preds: List[Optional[torch.Tensor]] = [None] * self.n
         with torch.no_grad():
             _, recvs = self._pull(tables, gb, (a,))
-            for d in range(self.n):
+            for d in self.local:
                 m = self._model_on(model, self.devices[d])
                 dense, label, show, _ = unpack_floats(gb.floats[d])
                 logits = m(self._pool([recvs[0][d]], gb, d, a, ()), dense)
                 pred = torch.sigmoid(logits)
                 auc_add_batch(auc[d], pred, label, (show > 0).float())
-                preds.append(pred)
+                preds[d] = pred
         return preds
 
 
@@ -587,7 +710,8 @@ class ShardedTrainStep:
         global step. The host queues ``chunk`` steps (default: the whole
         pass) before it waits for the devices. Returns the per-step
         losses; with ``collect_preds`` also each destination's
-        predictions [nb, B] (device tensors), for the metric feed."""
+        predictions [nb, B] (device tensors; None at other ranks'
+        destinations), for the metric feed."""
         nb = rp.num_batches
         c = chunk or nb
         losses: List[torch.Tensor] = []
@@ -598,13 +722,13 @@ class ShardedTrainStep:
                 self.devices, seed, global_step + i + 1), rp.sections)
             losses.append(stats["loss"])
             if collect_preds:
-                for d, p in enumerate(stats["pred"]):
-                    preds[d].append(p)
+                for d in self.local:
+                    preds[d].append(stats["pred"][d])
             if (i + 1) % c == 0:
                 losses[-1].item()     # the chunk is done on the devices
         if not collect_preds:
             return losses
-        return losses, [torch.stack(p) for p in preds]
+        return losses, [torch.stack(p) if p else None for p in preds]
 
 
 def group_batches(batches: Iterable[SlotBatch], n: int
@@ -630,14 +754,16 @@ def group_batches(batches: Iterable[SlotBatch], n: int
 class ShardedTrainer:
     """Multi-shard trainer: groups the batch stream into global batches
     of N, builds their routing plans and stages them on producer threads,
-    and runs the sharded step (the BoxPSTrainer::Run role)."""
+    and runs the sharded step (the BoxPSTrainer::Run role). With ``pod``
+    it is one rank of the multi-process form (module docstring): every
+    rank calls every method in lockstep over the same datasets."""
 
     def __init__(self, model: nn.Module, table: ShardedEmbeddingTable,
                  desc, tx: Optional[OptimizerFactory] = None,
                  use_cvm: bool = True, prefetch: int = PREFETCH_DEPTH,
                  seed: int = 0, zero1: bool = False, float_wire: str = "f32",
                  lr_map: Optional[dict] = None, lr_map_base: float = 1.0,
-                 ops: KernelSet = KERNELS) -> None:
+                 ops: KernelSet = KERNELS, pod=None) -> None:
         """``model`` (params already set) moves to the table's first
         device. ``tx`` builds the dense optimizer (default: Adam, lr
         1e-3). ``FLAGS.a2a_chunks`` is read here: > 1 runs the chunked
@@ -647,7 +773,14 @@ class ShardedTrainer:
         (``dense_modes.lr_pattern_matches``) → lr against ``lr_map_base``
         (the optimizer's lr); each matched param's update scales by lr /
         lr_map_base, so 0.0 freezes it (box_wrapper.cc:1303-1335), in the
-        replicated and the ZeRO-1 mode alike."""
+        replicated and the ZeRO-1 mode alike. ``pod``
+        (``train/multihost.global_mesh``) makes this trainer one rank of
+        the multi-process form: ``table`` holds the states of
+        ``pod.owned`` only (``ShardedEmbeddingTable(pod=)``)."""
+        if pod is not None and list(table.owned) != list(pod.owned):
+            raise ValueError(f"the table holds shards {list(table.owned)}, "
+                             f"the rank owns {list(pod.owned)}")
+        self.pod = pod
         self.a2a_chunks = max(1, int(FLAGS.a2a_chunks))
         self.float_wire = float_wire
         self.table = table
@@ -661,7 +794,8 @@ class ShardedTrainer:
         self.step_fn = ShardedTrainStep(
             tx or default_tx, table.cfg, self.devices, desc.batch_size,
             len(desc.sparse_slots), use_cvm=use_cvm, zero1=zero1, ops=ops,
-            lr_scales=scales)
+            lr_scales=scales, pod=pod)
+        self.local = self.step_fn.local
         self.state = self.step_fn.init_state(table, model)
         self.model = self.state.model
         self.seed = seed
@@ -676,7 +810,9 @@ class ShardedTrainer:
         """Per-sample prediction dump for later passes; None turns it
         off. Each destination row of the global batch writes its own
         ``.part-<rank + d>`` file (one dump channel per worker,
-        boxps_worker.cc:1595)."""
+        boxps_worker.cc:1595); on a pod each rank writes its own rows'
+        files, which concatenated in rank order are the single
+        controller's."""
         self._dump_cfg = cfg
 
     def _group_iter(self, batches):
@@ -684,6 +820,10 @@ class ShardedTrainer:
 
     def _stage_batch(self, group: List[SlotBatch],
                      idx: ShardedPullIndex) -> GlobalBatch:
+        if self.pod is not None:
+            from paddlebox_tpu_torch.train.multihost import \
+                stage_global_batch
+            return stage_global_batch(self.pod, group, idx)
         return make_global_batch(group, idx, self.devices)
 
     def _prefetch_iter(self, batches, prepare: Callable = None):
@@ -716,7 +856,7 @@ class ShardedTrainer:
         destination row at a time, skipping tail-group fillers."""
         for d, (bt, pred) in enumerate(zip(group, preds)):
             n_real = int((bt.show > 0).sum())
-            if n_real == 0:
+            if n_real == 0 or pred is None:
                 continue
             if len(self.metrics):
                 self.metrics.add_batch(
@@ -749,7 +889,7 @@ class ShardedTrainer:
 
         if self._dump_cfg is not None:
             # every row gets its (maybe empty) part file
-            for d in range(self.n):
+            for d in self.local:
                 writer_for(d)
         try:
             for group, gb, secs in self._prefetch_iter(dataset.batches()):
@@ -786,13 +926,21 @@ class ShardedTrainer:
                             table=self.table, examples=n_ex)
         return out
 
-    @staticmethod
-    def _finalize_auc(auc: List[AucState]) -> AucState:
-        """The destinations' AUC states summed into one."""
-        return auc_merge(auc)
+    def _finalize_auc(self, auc: List[Optional[AucState]]) -> AucState:
+        """The destinations' AUC states summed into one in shard order;
+        on a pod each rank's tables are all-gathered first
+        (``ShardedTrainStep._gather``), so every rank sums the same N
+        states."""
+        nb = auc[self.local[0]].buckets.shape[1]
+        home = self.step_fn.home
+        rows = self.step_fn._gather(torch.stack([
+            torch.cat([auc[d].buckets.reshape(-1), auc[d].sums]).to(home)
+            for d in self.local]))
+        return auc_merge([AucState(r[:2 * nb].view(2, nb), r[2 * nb:])
+                          for r in rows])
 
     def reset_metrics(self) -> None:
-        self.state.auc = init_sharded_auc(self.devices)
+        self.state.auc = init_sharded_auc(self.devices, owned=self.local)
 
     # ---- checkpoint hooks ----
     def sync_table(self) -> None:
@@ -816,13 +964,29 @@ class ShardedTrainer:
         matters only where a state was replaced)."""
         self.state.tables = list(self.table.states)
 
+    def globalize_dense_state(self, check: bool = False) -> None:
+        """On a pod, make every rank's dense state rank 0's (a broadcast of
+        the model's params and buffers), or with ``check`` raise unless
+        they already agree; a no-op on one controller."""
+        if self.pod is not None:
+            from paddlebox_tpu_torch.train.multihost import globalize_state
+            globalize_state(self.pod, self.model, check=check)
+            self.step_fn._refresh_replicas(self.model)
+
     def dense_snapshot(self) -> Dict[str, Any]:
         """The dense state a checkpoint stores: the model and optimizer
         ``state_dict``s and the destinations' AUC states summed into
-        one (additive, restored as shard 0's with zeros elsewhere)."""
+        one (additive, restored as shard 0's with zeros elsewhere). On a
+        pod every rank returns the same snapshot as the single
+        controller (ZeRO-1: every rank's chunk states gathered in shard
+        order); collective."""
         auc = self._finalize_auc(self.state.auc)
+        opt = _to_cpu(self.state.opt.state_dict())
+        if self.pod is not None and isinstance(self.state.opt, Zero1):
+            opt = [sd for part in self.pod.all_gather_object(opt)
+                   for sd in part]
         return {"model": _to_cpu(self.model.state_dict()),
-                "opt": _to_cpu(self.state.opt.state_dict()),
+                "opt": opt,
                 "auc": {"buckets": auc.buckets.detach().cpu().clone(),
                         "sums": auc.sums.detach().cpu().clone()}}
 
@@ -834,9 +998,11 @@ class ShardedTrainer:
         self.step_fn._refresh_replicas(self.model)
         if auc is not None:
             states = init_sharded_auc(self.devices,
-                                      auc["buckets"].shape[1])
-            states[0].buckets.copy_(auc["buckets"])
-            states[0].sums.copy_(auc["sums"])
+                                      auc["buckets"].shape[1],
+                                      owned=self.local)
+            if states[0] is not None:
+                states[0].buckets.copy_(auc["buckets"])
+                states[0].sums.copy_(auc["sums"])
             self.state.auc = states
         self.state.tables = list(self.table.states)
         self.state.step = int(step)
@@ -846,7 +1012,7 @@ class ShardedTrainer:
         """Forward-only pass: the pull and the model over every shard, no
         push, no dense update, no index growth; the AUC summed over the
         destinations (the test-phase run)."""
-        auc = init_sharded_auc(self.devices)
+        auc = init_sharded_auc(self.devices, owned=self.local)
         self.stage_timers.reset()
         t0 = time.perf_counter()
         nb = 0
@@ -946,6 +1112,8 @@ class ShardedTrainer:
         skipped."""
         sd = rp.side
         for d, pred_d in enumerate(preds):
+            if pred_d is None:
+                continue
             pred_d = pred_d.cpu()
             for i in range(rp.num_batches):
                 ins_w = (sd["show"][i, d] > 0).astype(np.float32)
@@ -1027,18 +1195,27 @@ class ShardedResidentPass:
     for trivial segments), ``live_len`` (real requests per (step,
     owner)), ``key_counts`` and ``serve_counts``. The real request
     positions ``live`` ship padded to the pass's widest and are sliced
-    by ``live_len``, so a step's decode reads no device value."""
+    by ``live_len``, so a step's decode reads no device value. On a pod
+    every rank builds the same pass and stages its ``owned`` shards'
+    entries only."""
 
     def __init__(self, arrays: Dict[str, np.ndarray],
                  plans: Sequence[ShardedPullIndex], num_records: int,
                  devices: Sequence[torch.device], capacity: int,
                  sections: tuple = (), trivial: bool = False,
-                 float_wire: str = "f32") -> None:
+                 float_wire: str = "f32",
+                 owned: Optional[Sequence[int]] = None) -> None:
         """``arrays``: the pass's stacked fields ([nb, N, ...]), from
         ``plans`` (uniform widths); ``sections``: their chunk-schedule
-        key, or () for the monolithic schedule."""
+        key, or () for the monolithic schedule; ``owned``: the shards
+        this process stages (default all)."""
         self.num_records = num_records
         self.devices = list(devices)
+        self.owned = (list(range(len(self.devices))) if owned is None
+                      else list(owned))
+        # shown examples of each global batch (the step's weight sum)
+        self.weight_sums = [float(x) for x in
+                            (arrays["show"] > 0).sum(axis=(1, 2))]
         self.capacity = capacity
         self.num_batches = arrays["label"].shape[0]
         self.sections = sections
@@ -1161,7 +1338,7 @@ class ShardedResidentPass:
                 for g in groups])
         rp = cls(arrays, plans, n_rec, table.devices, table.capacity,
                  sections=sections, trivial=trivial,
-                 float_wire=trainer.float_wire)
+                 float_wire=trainer.float_wire, owned=trainer.local)
 
         def stack_opt(field):
             if any(getattr(b, field) is None for g in groups for b in g):
@@ -1325,15 +1502,16 @@ class ShardedResidentPass:
 
     # ---- staging ----
     def _host_leaves(self):
-        """(name, shard, host array) of every staged block: the wire's
-        blocks split along the shard axis (qmeta replicated), then live."""
+        """(name, shard, host array) of every staged block of the owned
+        shards: the wire's blocks split along the shard axis (qmeta
+        replicated), then live."""
         for name, arrs in self.wire.items():
             if name in _HOST_ONLY:
                 continue
-            for s in range(len(self.devices)):
+            for s in self.owned:
                 yield name, s, tuple(x if name == "qmeta" else x[:, s]
                                      for x in arrs)
-        for s in range(len(self.devices)):
+        for s in self.owned:
             yield "live", s, (self.live[:, s],)
 
     def upload(self, device=None) -> None:
@@ -1347,12 +1525,16 @@ class ShardedResidentPass:
         if self.dev is not None:
             return
         t0 = time.perf_counter()
-        stagers = {d: _Stager(d) for d in set(self.devices)}
+        stagers = {self.devices[s]: _Stager(self.devices[s])
+                   for s in self.owned}
         dev: Dict[str, List] = {}
+        n = len(self.devices)
         for name, s, arrs in self._host_leaves():
             st = stagers[self.devices[s]]
-            dev.setdefault(name, []).append(tuple(st.put(x) for x in arrs))
-        self.dev_live = [t[0] for t in dev.pop("live")]
+            dev.setdefault(name, [None] * n)[s] = tuple(st.put(x)
+                                                         for x in arrs)
+        self.dev_live = [None if t is None else t[0]
+                         for t in dev.pop("live")]
         self.dev = dev
         for d, st in stagers.items():
             ev = st.finish()
@@ -1369,8 +1551,8 @@ class ShardedResidentPass:
         for d, ev in self._ready.items():
             cur = torch.cuda.current_stream(d)
             cur.wait_event(ev)
-            for s, sd in enumerate(self.devices):
-                if sd == d:
+            for s in self.owned:
+                if self.devices[s] == d:
                     for t in self._leaves(s):
                         t.record_stream(cur)
 
@@ -1395,8 +1577,7 @@ class ShardedResidentPass:
         bytes that upload stages)."""
         if self.dev is not None:
             return sum(t.numel() * t.element_size()
-                       for s in range(len(self.devices))
-                       for t in self._leaves(s))
+                       for s in self.owned for t in self._leaves(s))
         return sum(x.nbytes for _, _, arrs in self._host_leaves()
                    for x in arrs)
 
@@ -1432,9 +1613,9 @@ def _decode_wire_step(rp: ShardedResidentPass, i: int) -> GlobalBatch:
             return unpack_u24(t[0][i], t[1][i])
         return t[0][i]
 
-    out: Dict[str, List[torch.Tensor]] = {f: [] for f in GlobalBatch._fields
-                                          if not f.endswith("_counts")}
-    for s in range(n):
+    out: Dict[str, List[Optional[torch.Tensor]]] = {
+        f: [None] * n for f in _DEVICE_FIELDS}
+    for s in rp.owned:
         if fmt["serve_rows"] == "delta":
             count, base = (int(v) for v in rp.wire["srmeta"][0][i, s])
             d = dev["serve_rows"][s]
@@ -1468,13 +1649,14 @@ def _decode_wire_step(rp: ShardedResidentPass, i: int) -> GlobalBatch:
             dense = dev["dense"][s][0][i]
         lsc = [dev[f][s][0][i].float()[:, None]
                for f in ("label", "show", "clk")]
-        out["resp_idx"].append(dec_int("resp_idx", s))
-        out["serve_rows"].append(serve_rows)
-        out["serve_valid"].append(serve_valid)
-        out["serve_slot"].append(serve_slot)
-        out["live"].append(rp.dev_live[s][i, :int(rp.live_len[i, s])])
-        out["gather_idx"].append(gather_idx)
-        out["segments"].append(segments)
-        out["floats"].append(torch.cat([dense.float()] + lsc, dim=1))
+        out["resp_idx"][s] = dec_int("resp_idx", s)
+        out["serve_rows"][s] = serve_rows
+        out["serve_valid"][s] = serve_valid
+        out["serve_slot"][s] = serve_slot
+        out["live"][s] = rp.dev_live[s][i, :int(rp.live_len[i, s])]
+        out["gather_idx"][s] = gather_idx
+        out["segments"][s] = segments
+        out["floats"][s] = torch.cat([dense.float()] + lsc, dim=1)
     return GlobalBatch(key_counts=rp.key_counts[i],
-                       serve_counts=rp.serve_counts[i], **out)
+                       serve_counts=rp.serve_counts[i],
+                       weight_sum=rp.weight_sums[i], **out)

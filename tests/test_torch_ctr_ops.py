@@ -290,7 +290,9 @@ def test_cross_norm_update_matches_reference():
         assert not t.requires_grad
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    # the port's sync_axis is a process group (tests/test_torch_pod_reduce.py
+    # runs it across two ranks); a mesh axis name is refused
+    with pytest.raises(TypeError, match="process group"):
         cross_norm_update(ts, _t(xs[0]), n, d, sync_axis="data")
 
 

@@ -2797,3 +2797,93 @@ def test_two_ranks_shuffle_restore_and_global_auc_on_card(cuda, tmp_path,
     assert out["b"]["digest_equal"]
     assert out["c"]["ins_num"] == len(records)
     assert all(n > 0 for n in out["launches"].values())
+
+
+# ---------------------------------------------------------------------------
+# multi-process sharded training (train/multihost.py): rank processes on
+# the card against the single controller
+# ---------------------------------------------------------------------------
+
+def _pod_cfg(zero1: bool) -> dict:
+    """A small sharded case (4 ragged slots, 4 shards, 11 local batches
+    of 32: 3 global steps), made from seeds with numpy."""
+    s, mf, dense, bs, n = 4, 4, 3, 32, 4
+    rng = np.random.default_rng(23)
+    arrays = []
+    for _ in range(bs * 10 + 7):
+        counts = np.minimum(rng.zipf(1.5, size=s), 6)
+        offs = np.zeros(s + 1, np.int32)
+        np.cumsum(counts, out=offs[1:])
+        slot = np.repeat(np.arange(s), counts)
+        keys = (slot * 1000 + rng.integers(0, 300, size=int(offs[-1]))
+                ).astype(np.uint64)
+        arrays.append((keys, offs, rng.normal(size=dense).astype(np.float32),
+                       float(rng.random() < 0.3)))
+    ids = rng.choice(s * 300, size=600, replace=False)
+    keys = ((ids // 300) * 1000 + ids % 300).astype(np.uint64)
+    rows = np.zeros((600, 8 + mf), np.float32)
+    rows[:, 0] = rng.integers(1, 50, size=600)
+    rows[:, 1] = np.floor(rows[:, 0] * rng.random(600) * 0.3)
+    rows[:, 3] = (keys // np.uint64(1000)).astype(np.float32)
+    rows[:, 4] = rng.normal(0, 0.05, size=600)
+    rows[:, 5:7] = 3.0
+    rows[:, 7] = 1.0
+    rows[:, 8:] = rng.normal(0, 0.05, size=(600, mf))
+    torch.manual_seed(3)
+    params = DeepFM(s, 3 + mf, dense, hidden=(16, 16),
+                    compute_dtype=torch.float32).state_dict()
+    return dict(shards=n, mf=mf, cap=2048,
+                sgd=dict(mf_create_thresholds=0.0, learning_rate=0.05,
+                         mf_learning_rate=0.05),
+                table_kw=dict(req_bucket_min=64, serve_bucket_min=128),
+                slots=s, dense=dense, batch=bs, hidden=(16, 16), chunks=1,
+                zero1=zero1, table=table_rows_from_logical(keys, rows, mf),
+                params=params, arrays=arrays, device="cuda")
+
+
+def _assert_pod_equals_single(ranks, want):
+    for r in ranks:
+        for s in r["owned"]:
+            np.testing.assert_array_equal(r["rows"][s][0],
+                                          want["rows"][s][0])
+            np.testing.assert_array_equal(r["rows"][s][1],
+                                          want["rows"][s][1])
+        for k, v in want["params"].items():
+            assert torch.equal(r["params"][k].cpu(), v.cpu()), k
+        assert r["losses"] == want["losses"]
+        assert [x["auc"] for x in r["res"]] == [x["auc"] for x in
+                                                want["res"]]
+        assert r["eval"]["auc"] == want["eval"]["auc"]
+        assert all(n > 0 for n in r["launches"].values()), r["launches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero1", [False, True], ids=["replicated", "zero1"])
+def test_pod_two_gloo_ranks_on_card_equal_single_controller(
+        cuda, deterministic, zero1, tmp_path, monkeypatch):
+    """Two rank processes over gloo, both on cuda:0, 2 of 4 shards each,
+    their exchanges staged through pinned memory: rows, params, every
+    step's loss and the AUCs equal the single controller's on the card
+    bit for bit; each rank launches rows 1, 6, 7 and 13."""
+    from torch_pod_worker import launch_pod, run_trainer
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = _pod_cfg(zero1)
+    ranks = launch_pod("train", cfg, tmp_path, monkeypatch, timeout=300)
+    assert [r["owned"] for r in ranks] == [[0, 1], [2, 3]]
+    assert all(r["nbytes"]["staged"] > 0 for r in ranks)
+    _assert_pod_equals_single(ranks, run_trainer(cfg))
+
+
+@pytest.mark.cuda
+def test_pod_nccl_world_of_one_equals_single_controller(
+        cuda, deterministic, tmp_path, monkeypatch):
+    """A world of one over NCCL owning all 4 shards (the only NCCL world
+    one card runs): equal to the single controller bit for bit."""
+    from torch_pod_worker import launch_pod, run_trainer
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = _pod_cfg(False)
+    ranks = launch_pod("train", cfg, tmp_path, monkeypatch, nproc=1,
+                       timeout=300, backend="nccl")
+    assert ranks[0]["backend"] == "nccl" and ranks[0]["owned"] == [0, 1, 2, 3]
+    assert ranks[0]["nbytes"]["staged"] == 0
+    _assert_pod_equals_single(ranks, run_trainer(cfg))

@@ -68,6 +68,34 @@ def test_observability_layer_is_checked():
         assert pkg / rel in files, rel
 
 
+MULTIPROCESS_MODULES = ("distributed/launch.py", "train/multihost.py",
+                        "ps/tiered_multihost.py", "tools/elastic_check.py",
+                        "tools/scaling_check.py",
+                        "examples/train_multihost.py")
+
+
+def test_multiprocess_layer_is_checked():
+    """The multi-process modules are among the checked files, and they
+    import without pulling in JAX."""
+    pkg = ROOT / "paddlebox_tpu_torch"
+    files = set(_port_files())
+    for rel in MULTIPROCESS_MODULES:
+        assert pkg / rel in files, rel
+    mods = ["paddlebox_tpu_torch." + rel[:-3].replace("/", ".")
+            for rel in MULTIPROCESS_MODULES]
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
