@@ -379,6 +379,21 @@ Phases, each of which fails the run:
    over NCCL (20b), each equal to the single controller bit for bit;
    see its docstring. Prints one ``multiproc:`` line; every rank's
    launches of rows 1, 6, 7 and 13 join the ``kernels`` line.
+21. the ``parallel/`` layers and ``graph.py`` (``parallel_phase``), which
+   no trainer or server calls, driven directly at realistic sizes, TF32
+   off: 21a in this process (``moe_forward_local`` switch and gshard at
+   8192 tokens, D 1024, 8 experts of 1024→4096→1024, against the direct
+   sum of the experts' FFNs; ``reference_attention`` at B 1, T 8192,
+   H 16, D 128 against ``scaled_dot_product_attention``; every graph
+   sampler's core on the card equal to the same core on the CPU given
+   the same draws, every sample a true edge, on a 2^20-node power-law
+   graph; 20 batches of the walk service); 21b a gang of two gloo ranks
+   on the card (the column→row MLP, ``vocab_parallel_embedding``, 3
+   ``pipeline_train_step`` SGD steps, ring and Ulysses attention forward
+   and backward, ``moe_forward_sharded``, ``hierarchical_allreduce`` and
+   the ``ShardedGraphStore`` sampler, each against its single-device
+   computation on the card); see its docstring. Prints one ``parallel:``
+   line; launches none of the 13 kernels.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -6476,7 +6491,9 @@ def obs_phase(torch, args, card, desc, records, batches, details,
                 "kernel_minus_launch_us": lag_span("trace"),
                 "bare_kernel_minus_launch_us": lag_span("bare"),
                 "bare_lost": [x["bare"]["window"]["lost_launches"]
-                              for x in turns_e if x["bare"] is not None]}
+                              for x in turns_e if x["bare"] is not None],
+                "warmup_lost": [x["trace"]["window"].get("warmup_lost", 0)
+                                for x in turns_e]}
             details["obs_trace_turns"] = turns_e
             t["e_s"] = time.perf_counter() - t1
         finally:
@@ -6514,7 +6531,8 @@ def obs_phase(torch, args, card, desc, records, batches, details,
         f"{out['e']['kernel_minus_launch_us']} us against a margin of "
         f"{out['e']['margin_us']:.0f} us (bare windows "
         f"{out['e']['bare_kernel_minus_launch_us']} us, lost "
-        f"{out['e']['bare_lost']} events); phase 17 took "
+        f"{out['e']['bare_lost']} events; trace()'s warm-up lost "
+        f"{out['e']['warmup_lost']}); phase 17 took "
         f"{phase_s:.1f}s (budget {OBS_PHASE_BUDGET_S:.0f}s) "
         f"{json.dumps({k: round(v, 2) for k, v in t.items()})} ({card})")
     details["obs"] = out
@@ -7820,11 +7838,19 @@ def pod_child(torch, args) -> int:
     return 0
 
 
-def _free_port() -> int:
+def _free_ports(n: int) -> list:
+    """``n`` distinct free ports: all bound at once, then released (one
+    at a time, two gangs started together could draw the same port and
+    join each other's rendezvous)."""
     import socket
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
 
 
 def pod_phase(torch, args, card, desc, details, dev: str = "cuda") -> dict:
@@ -7869,6 +7895,7 @@ def pod_phase(torch, args, card, desc, details, dev: str = "cuda") -> dict:
         gangs["nccl"] = 1
     rcs: dict = {}
     t_gang: dict = {}
+    ports = dict(zip(gangs, _free_ports(len(gangs))))
 
     def run_gang(gang: str, n: int) -> None:
         t0 = time.perf_counter()
@@ -7876,7 +7903,7 @@ def pod_phase(torch, args, card, desc, details, dev: str = "cuda") -> dict:
             [sys.executable, os.path.abspath(__file__), "--pod-child", gang,
              "--pod-out", root, "--pod-device", dev,
              "--seed", str(args.seed)],
-            LaunchConfig(nproc=n, coordinator=f"127.0.0.1:{_free_port()}",
+            LaunchConfig(nproc=n, coordinator=f"127.0.0.1:{ports[gang]}",
                          distributed=True, backend=gang,
                          timeout_sec=POD_TIMEOUT_S, stop_grace_sec=5.0))
         t_gang[gang] = time.perf_counter() - t0
@@ -8008,6 +8035,799 @@ def pod_phase(torch, args, card, desc, details, dev: str = "cuda") -> dict:
     return launches
 
 
+PARALLEL_PHASE_BUDGET_S = 75.0   # phase 21's wall budget
+PAR_RANKS = 2                    # 21b: gloo ranks, both on the card
+PAR_TIMEOUT_S = 70.0             # a gang still running then is stopped
+PAR_MOE = (8192, 1024, 8, 4096)  # tokens, width, experts, FFN hidden
+PAR_MOE_CF = 1.25                # capacity factor: C = cf * tokens / E
+PAR_ATT = (1, 8192, 16, 128)     # attention's B, T, H, D
+PAR_NODES = 1 << 20              # the graph's nodes; out-degree
+PAR_DEG_XM = 9                   # floor(9 (1 + Lomax(2))), capped at
+PAR_DEG_CAP = 1 << 16            # 2^16, 1/16 of the nodes isolated:
+PAR_ISOLATED = 1 / 16            # mean ~16, hubs above 128
+PAR_QUERIES = 8192               # 21a: nodes a sampler call; 21b a rank
+PAR_K = 10
+PAR_MAX_DEG = 128                # without replacement: the window
+PAR_WALK = 5                     # hops of PAR_QUERIES walks
+PAR_BFS = (1024, (10, 5), 16384)  # seeds, k a level, node budget
+PAR_SERVICE_BATCHES = 20         # walk batches of PAR_QUERIES
+PAR_HUBS = 8                     # 21a: the proportion check's hubs,
+PAR_HUB_DRAWS = 1 << 21          # weighted draws a hub, the expected
+PAR_HUB_MIN = 100.0              # count a neighbour is tested from, and
+PAR_HUB_SIGMAS = 8.0             # how far from it its count may be
+PAR_TP = (4096, 2048, 8192)      # 21b MLP: rows, in and out, hidden
+PAR_EMB = (1 << 20, 128, 65536)  # 21b: vocab, dim, ids
+PAR_PP = (2048, 8, 1024, 3)      # 21b: width, micros, rows a micro, steps
+PAR_PP_LR = 0.5
+PAR_HIER = 16_777_259            # 21b: floats of the all-reduced vector
+# the reference's tolerances (tests/test_ring_attention.py, test_moe.py,
+# test_parallel_layers.py)
+ATT_RTOL, ATT_ATOL = 2e-4, 2e-5
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5
+MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+PP_RTOL, PP_ATOL = 1e-4, 1e-5
+
+
+def _sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _gen(torch, dev, seed: int):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def _ffn(x, p):
+    w1, w2 = p
+    return (x @ w1).relu() @ w2
+
+
+def par_graph(seed: int):
+    """Phase 21's graph, made from the seed alike in every process:
+    ``PAR_NODES`` nodes with power-law out-degrees (mean ~16, hubs above
+    128, ``PAR_ISOLATED`` of them isolated), uniform destinations and
+    lognormal weights."""
+    from paddlebox_tpu_torch.graph import GraphStore
+    rng = np.random.default_rng(seed)
+    n = PAR_NODES
+    deg = np.minimum(np.floor(PAR_DEG_XM * (1.0 + rng.pareto(2.0, n))),
+                     PAR_DEG_CAP).astype(np.int64)
+    deg[rng.random(n) < PAR_ISOLATED] = 0
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    dst = rng.integers(0, n, size=src.size)
+    w = rng.lognormal(0.0, 1.0, size=src.size).astype(np.float32)
+    return GraphStore.from_edges(src, dst, n_nodes=n, weights=w)
+
+
+def _edge_keys(g) -> np.ndarray:
+    """Every edge as ``src * n + dst``, sorted (a membership index)."""
+    src = np.repeat(np.arange(g.n_nodes, dtype=np.int64), np.diff(g.indptr))
+    keys = src * g.n_nodes + g.indices
+    keys.sort()
+    return keys
+
+
+def _true_edges(what: str, keys, n: int, src, dst) -> None:
+    q = (np.asarray(src, np.int64).ravel() * n
+         + np.asarray(dst, np.int64).ravel())
+    if not q.size:
+        return
+    pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+    bad = int((keys[pos] != q).sum())
+    if bad:
+        raise AssertionError(f"phase 21a {what}: {bad} samples are not "
+                             "edges of the graph")
+
+
+def _check_sampled(what, g, keys, nodes, out, want_real) -> None:
+    """``out`` [N, k] from ``nodes``: every sample a true edge of its
+    node, exactly ``want_real`` [N] samples in each row (the rest -1)."""
+    nodes, out = nodes.cpu().numpy(), out.cpu().numpy()
+    real = out >= 0
+    _true_edges(what, keys, g.n_nodes,
+                np.broadcast_to(nodes[:, None], out.shape)[real], out[real])
+    if not np.array_equal(real.sum(1), want_real):
+        raise AssertionError(f"phase 21a {what}: -1 pads where a row has "
+                             "edges left, or samples where it has none")
+
+
+def _window_edges(torch, ipc, cwc, nodes, off, weighted):
+    """The edges each node's ``PAR_MAX_DEG`` window offers a sample
+    without replacement: its degree, capped; weighted, only the edges of
+    a positive float32 span."""
+    nd = nodes.long()
+    start = ipc[nd].long()
+    deg = (ipc[nd + 1].long() - start).clamp(max=PAR_MAX_DEG)
+    pos = torch.arange(PAR_MAX_DEG)[None, :]
+    ok = pos < deg[:, None]
+    if weighted:
+        edge = (start[:, None] + off.long()[:, None] + pos).clamp(
+            max=cwc.numel() - 1)
+        lo = torch.where(edge > 0, cwc[(edge - 1).clamp(min=0)], 0.0)
+        ok &= cwc[edge] - lo > 0
+    return ok.sum(1).numpy()
+
+
+def _near_tie_rows(torch, rows, ipc, cwc, nodes, off, u, k, weighted):
+    """For rows whose top-k differs between the card and the CPU: True
+    where the row's float64 keys hold two of its top k + 1 within 1e-5
+    (relative) of each other, a tie that float rounding may order either
+    way (the two devices' ``log`` differ in the last bit)."""
+    nd = nodes[rows].long()
+    start = ipc[nd].long()
+    deg = (ipc[nd + 1].long() - start).clamp(max=PAR_MAX_DEG)
+    pos = torch.arange(PAR_MAX_DEG)[None, :]
+    edge = (start[:, None] + off[rows].long()[:, None] + pos).clamp(
+        max=cwc.numel() - 1)
+    keys = -torch.log(-torch.log(u[rows].double()))
+    if weighted:
+        lo = torch.where(edge > 0, cwc[(edge - 1).clamp(min=0)], 0.0)
+        keys = keys + torch.log((cwc[edge] - lo).double())
+    keys = torch.where(pos < deg[:, None], keys, -float("inf"))
+    top = keys.topk(min(k + 1, PAR_MAX_DEG), dim=1).values
+    fin = torch.isfinite(top[:, 1:])
+    gap = (top[:, :-1] - top[:, 1:]).abs() / top[:, :-1].abs().clamp(min=1.0)
+    return (torch.where(fin, gap, float("inf")).min(1).values < 1e-5)
+
+
+def _zero_spans(cumw) -> int:
+    """The edges of ``cumw`` whose span is not positive."""
+    return int((np.diff(cumw, prepend=cumw.dtype.type(0)) <= 0).sum())
+
+
+def _shard_weights(g, n_shards: int) -> list:
+    """Each shard's edge weights in its CSR order (``ShardedGraphStore``'s
+    node % S layout: a shard's nodes in increasing order)."""
+    src = np.repeat(np.arange(g.n_nodes), np.diff(g.indptr))
+    return [g.weights[src % n_shards == s] for s in range(n_shards)]
+
+
+def _hub_proportions(torch, G, g, ip, ix, cw, gen, dev) -> dict:
+    """Weighted draws with replacement at the ``PAR_HUBS`` nodes of most
+    edges, ``PAR_HUB_DRAWS`` a hub, against each neighbour's share of its
+    hub's weight: every neighbour whose expected count is at least
+    ``PAR_HUB_MIN`` must be drawn within ``PAR_HUB_SIGMAS`` standard
+    deviations of it (so a neighbour never drawn fails it). Returns the neighbours tested and the ``off`` ones, and the
+    weight share of the neighbours never drawn."""
+    deg_all = np.diff(g.indptr)
+    hubs = np.argsort(-deg_all, kind="stable")[:PAR_HUBS]
+    rows = PAR_HUB_DRAWS // PAR_K
+    nodes = torch.from_numpy(np.repeat(hubs, rows).astype(np.int32)).to(dev)
+    u = torch.rand((nodes.numel(), PAR_K), generator=gen, device=dev)
+    got = G.sample_neighbors_weighted_core(ip, ix, cw, nodes, u)
+    n = g.n_nodes
+    key = (torch.arange(PAR_HUBS, device=dev).repeat_interleave(rows)[:, None]
+           * n + got.long()).ravel()
+    uk, cnt = torch.unique(key, return_counts=True)
+    seen = dict(zip(uk.cpu().tolist(), cnt.cpu().tolist()))
+    tested = off = 0
+    missed = 0.0
+    for h, v in enumerate(hubs):
+        lo, hi = g.indptr[v], g.indptr[v + 1]
+        dst = g.indices[lo:hi]
+        w = g.weights[lo:hi].astype(np.float64)
+        ud, inv = np.unique(dst, return_inverse=True)
+        p = np.bincount(inv, weights=w) / w.sum()
+        obs = np.array([seen.get(h * n + int(d), 0) for d in ud])
+        exp = PAR_HUB_DRAWS * p
+        t = exp >= PAR_HUB_MIN
+        tested += int(t.sum())
+        off += int((np.abs(obs - exp)[t] > PAR_HUB_SIGMAS
+                    * np.sqrt(exp[t])).sum())
+        missed += float(p[obs == 0].sum()) / PAR_HUBS
+    return {"hubs": PAR_HUBS, "draws": PAR_HUB_DRAWS, "tested": tested,
+            "off": off, "missed_share": missed,
+            "min_degree": int(deg_all[hubs].min())}
+
+
+def parallel_local(torch, args, dev: str = "cuda") -> dict:
+    """Phase 21a in this process on ``dev``: ``moe_forward_local`` (switch
+    and gshard) against the direct sum of each expert's FFN weighted by the
+    gate's combine weights (the port's own ``GATES``: the gates are held
+    against the JAX package's in the CPU tests, so this checks dispatch,
+    the experts and the combine); ``reference_attention`` against
+    ``scaled_dot_product_attention``; on ``par_graph``, every sampler's
+    core on the card against the same core on the CPU given the same
+    draws (exact; without replacement, a row may differ only at a float
+    tie of its keys), every sample a true edge, and 20 batches of the
+    walk service."""
+    import torch.nn.functional as F
+
+    from paddlebox_tpu_torch import graph as G
+    from paddlebox_tpu_torch.parallel import moe_forward_local
+    from paddlebox_tpu_torch.parallel.moe import GATES
+    from paddlebox_tpu_torch.parallel.ring_attention import \
+        reference_attention
+
+    out: dict = {"seconds": {}}
+    sec = out["seconds"]
+
+    def timed(name, fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(torch, dev)
+        sec[name] = time.perf_counter() - t0
+        return r
+
+    # ---- MoE, all experts local ----
+    t, d, e, h = PAR_MOE
+    gen = _gen(torch, dev, args.seed + 210)
+    x = torch.randn(t, d, generator=gen, device=dev)
+    gate_w = torch.randn(d, e, generator=gen, device=dev) * d ** -0.5
+    w1 = torch.randn(e, d, h, generator=gen, device=dev) * d ** -0.5
+    w2 = torch.randn(e, h, d, generator=gen, device=dev) * h ** -0.5
+    cap = int(PAR_MOE_CF * t / e)
+    out["moe"] = {"capacity": cap}
+    for gate in ("switch", "gshard"):
+        timed(f"moe_{gate}_warm", lambda: moe_forward_local(
+            x, gate_w, _ffn, (w1, w2), cap, gate))
+        y, aux = timed(f"moe_{gate}", lambda: moe_forward_local(
+            x, gate_w, _ffn, (w1, w2), cap, gate))
+        _, comb, _, met = GATES[gate](x @ gate_w, cap)
+        wte = comb.sum(-1)                                  # [T, E]
+        want = sum(wte[:, i:i + 1] * _ffn(x, (w1[i], w2[i]))
+                   for i in range(e))
+        out["moe"][gate] = {
+            "max_abs_err": check_close(f"21a moe {gate}", y, want, MOE_RTOL,
+                                       MOE_ATOL),
+            "aux": float(aux), "dropped": float(met["dropped"])}
+        del comb, wte, want, y
+    del x, w1, w2
+
+    # ---- the attention oracle against the library's attention ----
+    b, tt, hh, dd = PAR_ATT
+    gen = _gen(torch, dev, args.seed + 212)
+    q, k, v = (torch.randn(b, tt, hh, dd, generator=gen, device=dev)
+               for _ in range(3))
+    out["attention"] = {}
+    for causal in (False, True):
+        o = timed(f"reference_attention_{causal}", lambda: reference_attention(
+            q, k, v, causal=causal))
+        lib = timed(f"sdpa_{causal}", lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal).transpose(1, 2))
+        out["attention"][f"causal={causal}"] = check_close(
+            f"21a reference_attention (causal {causal})", o, lib, ATT_RTOL,
+            ATT_ATOL)
+        del o, lib
+    del q, k, v
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the graph samplers ----
+    g = timed("graph_build", lambda: par_graph(args.seed + 21))
+    keys = timed("edge_index", lambda: _edge_keys(g))
+    n = g.n_nodes
+    ip, ix, cw = timed("to_device", lambda: g.to_device_weighted(dev))
+    ipc, ixc, cwc = g.to_device_weighted("cpu")
+    deg_all = np.diff(g.indptr)
+    gen = G.make_generator(args.seed + 213, dev)
+    nodes = torch.randint(0, n, (PAR_QUERIES,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    nc = nodes.cpu()
+    deg = deg_all[nc.numpy()]
+    res: dict = {"edges": int(g.indices.size),
+                 "hubs_over_128": int((deg_all > 128).sum()),
+                 "isolated": int((deg_all == 0).sum())}
+
+    def same(what, got, want):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"phase 21a {what}: the card's core "
+                                 "differs from the CPU's on the same draws")
+
+    u = torch.rand((PAR_QUERIES, PAR_K), generator=gen, device=dev)
+    got = timed("uniform", lambda: G.sample_neighbors_core(ip, ix, nodes, u))
+    same("uniform", got, G.sample_neighbors_core(ipc, ixc, nc, u.cpu()))
+    _check_sampled("uniform", g, keys, nodes, got, np.where(deg > 0, PAR_K,
+                                                            0))
+    # the weighted legs on the reference's float32 cumulative weights and
+    # on the float64 ones (cumw_dtype) that a store this large needs
+    g64 = timed("graph_f64", lambda: G.GraphStore(
+        g.indptr, g.indices, g.weights, cumw_dtype=np.float64))
+    cws = {"f32": (cw, cwc), "f64": (g64.to_device_weighted(dev)[2],
+                                     g64.to_device_weighted("cpu")[2])}
+    for label, (cwd, cwh) in cws.items():
+        what = f"weighted {label}"
+        got = timed(what, lambda: G.sample_neighbors_weighted_core(
+            ip, ix, cwd, nodes, u))
+        same(what, got,
+             G.sample_neighbors_weighted_core(ipc, ixc, cwh, nc, u.cpu()))
+        _check_sampled(what, g, keys, nodes, got,
+                       np.where(deg > 0, PAR_K, 0))
+    over = torch.clamp(ip[nodes.long() + 1] - ip[nodes.long()] - PAR_MAX_DEG,
+                       min=0)
+    off = G.window_offsets(over, gen)
+    uw = torch.rand((PAR_QUERIES, PAR_MAX_DEG), generator=gen,
+                    device=dev) * (1.0 - 1e-12) + 1e-12
+    ties = 0
+    for label in (None, "f32", "f64"):
+        what = "without replacement" + (f", weighted {label}" if label
+                                        else "")
+        cwd, cwh = cws[label] if label else (None, cwc)
+        got = timed(what, lambda: G.sample_neighbors_without_replacement_core(
+            ip, ix, nodes, PAR_K, off, uw, PAR_MAX_DEG, cwd))
+        want = G.sample_neighbors_without_replacement_core(
+            ipc, ixc, nc, PAR_K, off.cpu(), uw.cpu(), PAR_MAX_DEG,
+            cwh if label else None)
+        rows = (got.cpu() != want).any(1).nonzero()[:, 0]
+        if rows.numel():
+            tie = _near_tie_rows(torch, rows, ipc, cwh, nc, off.cpu(),
+                                 uw.cpu(), PAR_K, label is not None)
+            if not bool(tie.all()):
+                raise AssertionError(
+                    f"phase 21a {what}: {int((~tie).sum())} rows differ "
+                    "between the card and the CPU without a key tie")
+            ties += rows.numel()
+        _check_sampled(what, g, keys, nodes, got, np.minimum(_window_edges(
+            torch, ipc, cwh, nc, off.cpu(), label is not None), PAR_K))
+    res["without_replacement_tie_rows"] = ties
+    # float32 cumulative weights lose the spans of light edges as the
+    # store grows (an open fault of the reference's one store): such an
+    # edge has weight 0 on both devices; its sharded store keeps no
+    # weights, and a shard's own cumsum (2 shards) would lose fewer
+    res["zero_span_edges"] = {
+        "f32": _zero_spans(g.cumw), "f64": _zero_spans(g64.cumw),
+        "f32_2_shards": [_zero_spans(np.cumsum(
+            w / w.mean(), dtype=np.float64).astype(np.float32))
+            for w in _shard_weights(g, 2)]}
+    if res["zero_span_edges"]["f64"]:
+        raise AssertionError("phase 21a: the float64 cumulative weights "
+                             "give an edge a zero span")
+    res["hub_proportions"] = {
+        label: timed(f"hub_proportions {label}", lambda: _hub_proportions(
+            torch, G, g, ip, ix, cws[label][0], gen, dev))
+        for label in ("f64", "f32")}
+    if res["hub_proportions"]["f64"]["off"]:
+        raise AssertionError(
+            "phase 21a: weighted draws on the float64 cumulative weights "
+            f"are not proportional: {res['hub_proportions']['f64']}")
+    del g64, cws
+    us = torch.rand((PAR_WALK, PAR_QUERIES, 1), generator=gen, device=dev)
+    walks = timed("walks", lambda: G.random_walk_core(ip, ix, nodes, us))
+    same("random walk", walks, G.random_walk_core(ipc, ixc, nc, us.cpu()))
+    wc = walks.cpu().numpy()
+    # a step that stays put is a self-loop or a stall at an isolated node
+    stay = (wc[:, 1:] == wc[:, :-1]) & (deg_all[wc[:, :-1]] == 0)
+    _true_edges("random walk", keys, n, wc[:, :-1][~stay], wc[:, 1:][~stay])
+    seeds_n, kpl, budget = PAR_BFS
+    seeds = nodes[:seeds_n].cpu().numpy()
+    bfs_us = [torch.rand((m, kk), generator=gen, device=dev)
+              for m, kk in zip((seeds_n, budget), kpl)]
+    bfs = timed("bfs", lambda: G.BfsSampler(
+        g, kpl, budget, device=dev).sample_from(seeds, bfs_us))
+    want = G.BfsSampler(g, kpl, budget, device="cpu").sample_from(
+        seeds, [t.cpu() for t in bfs_us])
+    for a, w_ in zip(bfs["levels"] + list(bfs["edges"]),
+                     want["levels"] + list(want["edges"])):
+        if not np.array_equal(a, w_):
+            raise AssertionError("phase 21a BFS: the card's levels or "
+                                 "edges differ from the CPU's")
+    _true_edges("BFS", keys, n, *bfs["edges"])
+    res["bfs_level_nodes"] = [int((lv >= 0).sum()) for lv in bfs["levels"]]
+    svc = G.GraphSamplerService(g, mode="walk", batch_size=PAR_QUERIES,
+                                walk_len=PAR_WALK, capacity=4,
+                                seed=args.seed + 214, device=dev)
+    t0 = time.perf_counter()
+    svc.start(max_batches=PAR_SERVICE_BATCHES)
+    got_batches = 0
+    for wb in svc.batches():
+        if wb.shape != (PAR_QUERIES, PAR_WALK + 1):
+            raise AssertionError(f"phase 21a service: a batch of {wb.shape}")
+        mv = ~((wb[:, 1:] == wb[:, :-1]) & (deg_all[wb[:, :-1]] == 0))
+        _true_edges("service walk", keys, n, wb[:, :-1][mv], wb[:, 1:][mv])
+        got_batches += 1
+    svc.stop()
+    sec["service"] = time.perf_counter() - t0
+    if got_batches != PAR_SERVICE_BATCHES:
+        raise AssertionError(f"phase 21a service: {got_batches} batches")
+    out["graph"] = res
+    return out
+
+
+# ---- 21b: the rank legs -------------------------------------------------
+def par_mlp_leg(torch, args, axis) -> dict:
+    from paddlebox_tpu_torch import convert as C
+    from paddlebox_tpu_torch.parallel import (column_parallel_linear,
+                                              row_parallel_linear)
+    rows, d, h = PAR_TP
+    r, n, dev = axis.rank, axis.size, axis.device
+    gen = _gen(torch, dev, args.seed + 211)
+    x = torch.randn(rows, d, generator=gen, device=dev)
+    w1 = torch.randn(d, h, generator=gen, device=dev) * d ** -0.5
+    b1 = torch.randn(h, generator=gen, device=dev) * 0.1
+    w2 = torch.randn(h, d, generator=gen, device=dev) * h ** -0.5
+    b2 = torch.randn(d, generator=gen, device=dev) * 0.1
+    hid = column_parallel_linear(x, C.column_block(w1, r, n),
+                                 C.column_block(b1, r, n),
+                                 gather_output=False, axis=axis)
+    y = row_parallel_linear(hid.relu(), C.row_block(w2, r, n), b2, axis=axis)
+    want = (x @ w1 + b1).relu() @ w2 + b2
+    return {"max_abs_err": check_close("21b column→row MLP", y, want,
+                                       PP_RTOL, PP_ATOL)}
+
+
+def par_emb_leg(torch, args, axis) -> dict:
+    from paddlebox_tpu_torch import convert as C
+    from paddlebox_tpu_torch.parallel import vocab_parallel_embedding
+    vocab, dim, nids = PAR_EMB
+    dev = axis.device
+    gen = _gen(torch, dev, args.seed + 216)
+    w = torch.randn(vocab, dim, generator=gen, device=dev)
+    ids = torch.randint(0, vocab, (nids,), generator=gen, device=dev)
+    got = vocab_parallel_embedding(ids, C.row_block(w, axis.rank, axis.size),
+                                   axis)
+    if not torch.equal(got, w[ids]):
+        raise AssertionError("21b vocab_parallel_embedding differs from "
+                             "the single-device lookup")
+    return {"max_abs_err": 0.0}
+
+
+def par_pipe_leg(torch, args, axis) -> dict:
+    """``PAR_PP[3]`` SGD steps of ``pipeline_train_step`` against
+    sequential training of the stacked stages on the card."""
+    from paddlebox_tpu_torch import convert as C
+    from paddlebox_tpu_torch.parallel import pipeline_train_step
+    d, m, mb, steps = PAR_PP
+    n, dev = axis.size, axis.device
+    gen = _gen(torch, dev, args.seed + 217)
+    ws = torch.randn(n, d, d, generator=gen, device=dev) * d ** -0.5
+    x = torch.randn(m, mb, d, generator=gen, device=dev)
+    y = torch.randn(m, mb, d, generator=gen, device=dev) * 0.5
+
+    def stage(w, a):
+        return torch.tanh(a @ w)
+
+    def loss_fn(o, yy):
+        return torch.mean((o - yy) ** 2)
+
+    w = C.stage_block(ws, axis.rank, n)
+    losses, seq = [], []
+    for _ in range(steps):
+        loss, g = pipeline_train_step(stage, loss_fn, w, x, y, axis)
+        w = w - PAR_PP_LR * g
+        losses.append(float(loss))
+    wseq = ws.clone()
+    for _ in range(steps):
+        p = wseq.clone().requires_grad_(True)
+        a = x.reshape(-1, d)
+        for i in range(n):
+            a = stage(p[i], a)
+        ls = loss_fn(a, y.reshape(-1, d))
+        (gs,) = torch.autograd.grad(ls, p)
+        wseq = wseq - PAR_PP_LR * gs
+        seq.append(float(ls.detach()))
+    lerr = check_close("21b pipeline losses", torch.tensor(losses),
+                       torch.tensor(seq), PP_RTOL, PP_ATOL)
+    werr = check_close("21b pipeline stage weights", w, wseq[axis.rank],
+                       PP_RTOL, PP_ATOL)
+    return {"losses": losses, "loss_err": lerr, "weight_err": werr}
+
+
+def par_attn_leg(torch, args, axis) -> dict:
+    """Ring and Ulysses attention forward and backward on the rank's
+    sequence block; rank 0 gathers every block and holds out and grads
+    against ``reference_attention`` (and autograd through it) on the
+    card."""
+    from paddlebox_tpu_torch import convert as C
+    from paddlebox_tpu_torch.parallel import make_context_parallel_attention
+    from paddlebox_tpu_torch.parallel.ring_attention import \
+        reference_attention
+    b, t, h, d = PAR_ATT
+    r, n, dev = axis.rank, axis.size, axis.device
+    gen = _gen(torch, dev, args.seed + 212)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev)
+               for _ in range(3))
+    out: dict = {}
+    for causal in (False, True):
+        ref = None
+        if r == 0:
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = reference_attention(*leaves, causal=causal)
+            (o ** 2).sum().backward()
+            ref = [o.detach()] + [x.grad for x in leaves]
+            del o, leaves
+        for kind in ("ring", "ulysses"):
+            attn = make_context_parallel_attention(axis, kind, causal)
+            blocks = [C.sequence_block(x, r, n).requires_grad_(True)
+                      for x in (q, k, v)]
+            b0 = dict(axis.nbytes)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            o = attn(*blocks)
+            (o ** 2).sum().backward()
+            _sync(torch, dev)
+            rec = {"seconds": time.perf_counter() - t0,
+                   "bytes": {key: axis.nbytes[key] - b0[key]
+                             for key in b0}}
+            parts = [axis.all_gather_raw(x.detach()) for x in
+                     [o] + [bl.grad for bl in blocks]]
+            if r == 0:
+                names = ("out", "dq", "dk", "dv")
+                for name, part, want in zip(names, parts, ref):
+                    full = torch.cat(list(part.unbind(0)), dim=1)
+                    rtol, atol = ((ATT_RTOL, ATT_ATOL) if name == "out"
+                                  else (GRAD_RTOL, GRAD_ATOL))
+                    rec[f"{name}_err"] = check_close(
+                        f"21b {kind} attention {name} (causal {causal})",
+                        full, want, rtol, atol)
+            out[f"{kind}_causal={causal}"] = rec
+            del o, blocks, parts
+        del ref
+    return out
+
+
+def par_moe_leg(torch, args, axis) -> dict:
+    """``moe_forward_sharded`` (4 experts a rank, the rank's block of
+    ``PAR_MOE[0]`` tokens) against ``moe_forward_local`` on the rank's
+    tokens with every expert, on the card."""
+    from paddlebox_tpu_torch import convert as C
+    from paddlebox_tpu_torch.parallel import (moe_forward_local,
+                                              moe_forward_sharded)
+    t, d, _, h = PAR_MOE
+    r, n, dev = axis.rank, axis.size, axis.device
+    e = 4 * n
+    gen = _gen(torch, dev, args.seed + 218)
+    x = torch.randn(t, d, generator=gen, device=dev)
+    gate_w = torch.randn(d, e, generator=gen, device=dev) * d ** -0.5
+    w1 = torch.randn(e, d, h, generator=gen, device=dev) * d ** -0.5
+    w2 = torch.randn(e, h, d, generator=gen, device=dev) * h ** -0.5
+    cap = int(PAR_MOE_CF * (t // n) / e)
+    xl = C.row_block(x, r, n)
+    mine = (C.expert_block(w1, r, n), C.expert_block(w2, r, n))
+    out: dict = {"capacity": cap, "experts": e}
+    for gate in ("switch", "gshard"):
+        y, aux = moe_forward_sharded(axis, _ffn, cap, gate)(xl, gate_w, mine)
+        yl, auxl = moe_forward_local(xl, gate_w, _ffn, (w1, w2), cap, gate)
+        mean_aux = axis.all_reduce_raw(auxl.reshape(1)) / n
+        out[gate] = {
+            "max_abs_err": check_close(f"21b moe_forward_sharded {gate}", y,
+                                       yl, MOE_RTOL, MOE_ATOL),
+            "aux_err": check_close(f"21b moe aux {gate}", aux.reshape(1),
+                                   mean_aux, MOE_RTOL, MOE_ATOL)}
+    return out
+
+
+def par_hier_leg(torch, args, axis) -> dict:
+    """``hierarchical_allreduce`` of an odd-length vector as 2 x 1 and
+    1 x 2 against the sum, on this rank's card, of every rank's vector
+    (rank o's is drawn from seed + 219 + o, so each rank draws them
+    all)."""
+    from paddlebox_tpu_torch.parallel.mesh import (hierarchical_allreduce,
+                                                   make_hierarchical_mesh)
+    dev = axis.device
+    xs = [torch.randn(PAR_HIER, generator=_gen(torch, dev,
+                                               args.seed + 219 + o),
+                      device=dev) for o in range(axis.size)]
+    x = xs[axis.rank]
+    flat = sum(xs[1:], xs[0])
+    del xs
+    out: dict = {}
+    for slices, per in ((2, 1), (1, 2)):
+        dcn, ici = make_hierarchical_mesh(slices, per, device=dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got = hierarchical_allreduce(x, ici, dcn)
+        _sync(torch, dev)
+        out[f"{slices}x{per}"] = {
+            "seconds": time.perf_counter() - t0,
+            "max_abs_err": check_close(f"21b hierarchical all-reduce "
+                                       f"{slices}x{per}", got, flat, 1e-5,
+                                       0.0),
+            "bytes": {key: dcn.nbytes[key] + ici.nbytes[key]
+                      for key in dcn.nbytes}}
+    out["bytes"] = {key: sum(case["bytes"][key] for case in out.values())
+                    for key in dcn.nbytes}
+    return out
+
+
+def par_graph_leg(torch, args, axis, g, sg) -> dict:
+    """``ShardedGraphStore``'s sampler on the rank's shard against the
+    single store's core given the same draws (each owner's stream's
+    first draw, routed as the sampler routes), exactly."""
+    from paddlebox_tpu_torch import convert as C
+    from paddlebox_tpu_torch.device import seeded_generator
+    from paddlebox_tpu_torch.graph import sample_neighbors_core
+    r, n, dev = axis.rank, axis.size, axis.device
+    cap = PAR_QUERIES
+    ip, ix = (t.to(dev) for t in C.graph_shard(sg, r))
+    gen = _gen(torch, dev, args.seed + 215)
+    q = torch.randint(0, g.n_nodes, (n, cap), generator=gen, device=dev,
+                      dtype=torch.int32)[r]
+    sampler = sg.make_sampler(axis, PAR_K, cap, seed=args.seed)
+    b0 = dict(axis.nbytes)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    got = sampler(ip, ix, q)
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    nb = {key: axis.nbytes[key] - b0[key] for key in b0}
+    us = [torch.rand((n * cap, PAR_K), generator=seeded_generator(
+        dev, args.seed, o), device=dev) for o in range(n)]
+    owner = q % n
+    order = torch.argsort(owner, stable=True)
+    dest = owner[order]
+    slot = r * cap + torch.arange(cap, device=dev) \
+        - torch.searchsorted(dest, dest)
+    u_sorted = torch.empty((cap, PAR_K), device=dev)
+    for o in range(n):
+        sel = dest == o
+        u_sorted[sel] = us[o][slot[sel]]
+    u = torch.empty_like(u_sorted)
+    u[order] = u_sorted
+    want = sample_neighbors_core(*g.to_device(dev), q, u)
+    if not torch.equal(got, want):
+        raise AssertionError("21b ShardedGraphStore sampler differs from "
+                             "the single store's core on the same draws")
+    return {"seconds": secs, "bytes": nb, "queries": cap}
+
+
+PAR_LEGS = (("mlp", par_mlp_leg), ("embedding", par_emb_leg),
+            ("pipeline", par_pipe_leg), ("attention", par_attn_leg),
+            ("moe", par_moe_leg), ("hierarchical", par_hier_leg))
+
+
+def parallel_child(torch, args) -> int:
+    """One rank of phase 21b (``--par-child``), started by the parent's
+    ``launch_local``: forms the gloo group (``init_runtime_env``), takes
+    the default group as its axis (staged through pinned memory on a
+    card), builds ``par_graph`` and its ``ShardedGraphStore`` in a
+    thread while the legs of ``PAR_LEGS`` run, then the graph leg, and
+    writes ``par_rank<r>.json`` under ``--par-out``: each leg's seconds,
+    the bytes it exchanged and staged, and its errors. A leg that
+    disagrees with its single-device computation raises."""
+    import torch.distributed as dist
+
+    from paddlebox_tpu_torch.distributed.launch import init_runtime_env
+    from paddlebox_tpu_torch.graph import ShardedGraphStore
+    from paddlebox_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    torch.set_num_threads(1)
+    dev = args.par_device
+    info = init_runtime_env()
+    axis = make_mesh(device=dev)
+    t = {"group_s": time.perf_counter() - t_start}
+    box: dict = {}
+
+    def build() -> None:
+        try:
+            t0 = time.perf_counter()
+            box["g"] = par_graph(args.seed + 21)
+            box["sg"] = ShardedGraphStore(box["g"], axis.size)
+            box["s"] = time.perf_counter() - t0
+        except BaseException as e:   # re-raised by the graph leg
+            box["err"] = e
+
+    th = threading.Thread(target=build, daemon=True, name="phase21-graph")
+    th.start()
+    t0 = time.perf_counter()
+    torch.zeros(1, device=axis.device).add_(1)
+    _sync(torch, dev)
+    t["card_s"] = time.perf_counter() - t0
+    out = {"rank": axis.rank, "world": axis.size, "backend": info["backend"],
+           "staged_path": axis.staged, "device": str(axis.device),
+           "legs": {}}
+    for name, leg in PAR_LEGS:
+        dist.barrier()
+        b0 = dict(axis.nbytes)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        rec = leg(torch, args, axis)
+        _sync(torch, dev)
+        rec.setdefault("seconds", time.perf_counter() - t0)
+        rec.setdefault("bytes", {key: axis.nbytes[key] - b0[key]
+                                 for key in b0})
+        out["legs"][name] = rec
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    th.join()
+    if "err" in box:
+        raise box["err"]
+    t["graph_build_s"] = box["s"]
+    dist.barrier()
+    out["legs"]["graph"] = par_graph_leg(torch, args, axis, box["g"],
+                                         box["sg"])
+    t["total_s"] = time.perf_counter() - t_start
+    out["seconds"] = t
+    with open(os.path.join(args.par_out, f"par_rank{axis.rank}.json"),
+              "w") as fh:
+        json.dump(out, fh, default=str)
+    print(f"parallel rank {axis.rank}/{axis.size} ({info['backend']}, "
+          f"{axis.device}): legs done in {t['total_s']:.1f}s", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(torch, args, card, details, dev: str = "cuda") -> dict:
+    """Phase 21: the ``parallel/`` layers and ``graph.py`` on the card at
+    realistic sizes (no trainer or server of the port calls them, so the
+    phase drives them directly, as phase 8 drives the seqpool family).
+
+    - 21a, in this process (``parallel_local``): ``moe_forward_local``,
+      ``reference_attention`` and the graph samplers, BFS and the walk
+      service on a 2^20-node graph;
+    - 21b, a gang of ``PAR_RANKS`` gloo ranks on the card started by the
+      port's ``launch_local`` (one thread a rank, every collective staged
+      through pinned memory; ``parallel_child``): the column→row MLP,
+      ``vocab_parallel_embedding``, ``pipeline_train_step`` against
+      sequential training, ring and Ulysses attention forward and
+      backward, ``moe_forward_sharded``, ``hierarchical_allreduce`` as
+      2 x 1 and 1 x 2, and ``ShardedGraphStore``'s sampler, each against
+      its single-device computation on the card.
+
+    A failed or stopped rank fails the phase; so does the phase past
+    ``PARALLEL_PHASE_BUDGET_S``. Prints one ``parallel:`` line with each
+    leg's seconds and bytes; launches none of the 13 kernels (returns no
+    launches)."""
+    from paddlebox_tpu_torch.distributed.launch import (LaunchConfig,
+                                                        launch_local)
+
+    t_phase = time.perf_counter()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="pbx_par_")
+    box: dict = {}
+
+    def run_gang() -> None:
+        t0 = time.perf_counter()
+        box["rc"] = launch_local(
+            [sys.executable, os.path.abspath(__file__), "--par-child",
+             "--par-out", root, "--par-device", dev,
+             "--seed", str(args.seed)],
+            LaunchConfig(nproc=PAR_RANKS,
+                         coordinator=f"127.0.0.1:{_free_ports(1)[0]}",
+                         distributed=True, backend="gloo",
+                         timeout_sec=PAR_TIMEOUT_S, stop_grace_sec=5.0))
+        box["gang_s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run_gang, daemon=True, name="phase21-gang")
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        local = parallel_local(torch, args, dev)
+        local_s = time.perf_counter() - t0
+        th.join(PAR_TIMEOUT_S + 30.0)
+        if th.is_alive():
+            raise AssertionError("phase 21: the gang's launcher outlived "
+                                 "its timeout")
+        if box["rc"] != 0:
+            raise AssertionError(f"phase 21b: the gang exited {box['rc']}"
+                                 + (" (stopped at its time limit)"
+                                    if box["rc"] == 124 else ""))
+        ranks = [json.load(open(os.path.join(root, f"par_rank{r}.json")))
+                 for r in range(PAR_RANKS)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in ranks:
+        if r["backend"] != "gloo" or r["staged_path"] != (dev == "cuda"):
+            raise AssertionError(f"phase 21b rank {r['rank']}: backend "
+                                 f"{r['backend']}, staged {r['staged_path']}")
+    phase_s = time.perf_counter() - t_phase
+    out = {"local": local, "local_s": local_s, "gang_s": box["gang_s"],
+           "ranks": ranks, "phase_s": phase_s,
+           "budget_s": PARALLEL_PHASE_BUDGET_S}
+    print("parallel: " + json.dumps(out, default=str), flush=True)
+    legs = {name: round(rec["seconds"], 3)
+            for name, rec in ranks[0]["legs"].items() if "seconds" in rec}
+    log(f"parallel 21a: moe_forward_local switch/gshard "
+        f"{local['seconds']['moe_switch']:.3f}/"
+        f"{local['seconds']['moe_gshard']:.3f}s at {PAR_MOE}, the graph's "
+        f"cores equal the CPU's ({local['graph']['edges']} edges, "
+        f"{local['graph']['without_replacement_tie_rows']} tie rows); 21b "
+        f"rank 0 legs {json.dumps(legs)} s; phase 21 took {phase_s:.1f}s "
+        f"(budget {PARALLEL_PHASE_BUDGET_S:.0f}s), 21a {local_s:.1f}s, "
+        f"gang {box['gang_s']:.1f}s ({card})")
+    details["parallel"] = out
+    if dev == "cuda" and phase_s > PARALLEL_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 21 took {phase_s:.1f}s, past its "
+                             f"{PARALLEL_PHASE_BUDGET_S:.0f}s budget")
+    return {}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -8024,6 +8844,11 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--pod-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--pod-device", default="cuda", help=argparse.SUPPRESS)
+    # phase 21's rank processes (see parallel_child)
+    ap.add_argument("--par-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--par-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--par-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -8036,6 +8861,12 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         return online_child(torch, args)
+    if args.pod_child or args.par_child:
+        # a rank that its launcher stops (SIGTERM) prints every thread's
+        # stack on the way out: where a gang hung
+        import faulthandler
+        import signal
+        faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     if args.pod_child:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -8044,6 +8875,15 @@ def main() -> int:
             print("chip_smoke: pod child: no CUDA device", file=sys.stderr)
             return 2
         return pod_child(torch, args)
+    if args.par_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if args.par_device == "cuda" and not torch.cuda.is_available():
+            print("chip_smoke: parallel child: no CUDA device",
+                  file=sys.stderr)
+            return 2
+        return parallel_child(torch, args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -8439,6 +9279,9 @@ def main() -> int:
     pod_launches = pod_phase(torch, args, card, desc, details)
     for r in kernels:
         r["launches"] += pod_launches.get(r["name"], 0)
+
+    # ---- phase 21: the parallel layers and the graph store ----
+    parallel_phase(torch, args, card, details)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -32,6 +32,15 @@
   the port's ``dense.pt`` (``Trainer.dense_snapshot``), so a reference
   checkpoint restores into the port. Unpickling the reference file needs
   optax, so only a caller that has it (the tests) can produce the input.
+- ``block``, ``column_block``, ``row_block``, ``stage_block``,
+  ``expert_block``, ``sequence_block``, ``graph_shard``: a global numpy
+  array of the JAX side → THIS rank's block of it, the way the
+  reference's ``shard_map`` ``in_specs`` place it (``P(None, "mp")``
+  columns, ``P("mp")`` rows or vocab ranges, ``P("pp")`` stages,
+  ``P("ep")`` experts, contiguous sequence blocks of ``[B, T, H, D]``,
+  row s of a ``ShardedGraphStore``'s padded arrays), so every rank of a
+  ``parallel.collectives.Axis`` computes what its device of the JAX mesh
+  does.
 """
 
 from __future__ import annotations
@@ -323,3 +332,57 @@ def dense_from_jax_checkpoint(blob: Sequence, model: torch.nn.Module,
         "auc": {"buckets": torch.from_numpy(np.stack([pos, neg])),
                 "sums": torch.from_numpy(np.array(
                     [float(x) for x in sums], np.float32))}}
+
+
+def block(arr, rank: int, size: int, dim: int = 0) -> torch.Tensor:
+    """Block ``rank`` of ``size`` contiguous blocks of ``arr`` (a numpy
+    array, or a tensor, whose block stays on its device) along ``dim``
+    (a ``PartitionSpec`` naming the axis at ``dim``)."""
+    t = arr if isinstance(arr, torch.Tensor) else \
+        torch.from_numpy(np.asarray(arr))
+    dim %= t.dim()
+    n = t.shape[dim]
+    if n % size:
+        raise ValueError(f"dimension {dim} of size {n} does not split over "
+                         f"{size} ranks")
+    per = n // size
+    out = t.narrow(dim, rank * per, per).contiguous()
+    # a numpy input's block owns its memory (not a view of the array)
+    return out if isinstance(arr, torch.Tensor) else out.clone()
+
+
+def column_block(w, rank: int, size: int) -> torch.Tensor:
+    """``P(None, "mp")``: a column-parallel weight's output columns (a
+    1-D bias's entries)."""
+    return block(w, rank, size, dim=-1)
+
+
+def row_block(w, rank: int, size: int) -> torch.Tensor:
+    """``P("mp")``: a row-parallel weight's input rows, or a vocab
+    range of an embedding."""
+    return block(w, rank, size, dim=0)
+
+
+def stage_block(ws, rank: int, size: int) -> torch.Tensor:
+    """``P("pp")`` over stacked stage weights ``[S, ...]`` with one stage
+    a rank: this rank's stage, its leading axis dropped (what the
+    reference's ``ws_sharded[0]`` reads)."""
+    return block(ws, rank, size, dim=0)[0]
+
+
+def expert_block(params, rank: int, size: int) -> torch.Tensor:
+    """``P("ep")``: this rank's experts ``[E / size, ...]``."""
+    return block(params, rank, size, dim=0)
+
+
+def sequence_block(x, rank: int, size: int) -> torch.Tensor:
+    """``P(None, axis, None, None)`` over ``[B, T, H, D]``: positions
+    ``[rank * T/size, (rank + 1) * T/size)``."""
+    return block(x, rank, size, dim=1)
+
+
+def graph_shard(store, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row ``s`` of a ``ShardedGraphStore``'s (either package's) padded
+    ``indptr`` / ``indices``: shard s's local CSR."""
+    return (torch.from_numpy(np.ascontiguousarray(store.indptr[s])),
+            torch.from_numpy(np.ascontiguousarray(store.indices[s])))

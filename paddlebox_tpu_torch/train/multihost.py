@@ -22,8 +22,9 @@ array (``stage_global`` / ``stage_global_batch``).
 Backends: ``nccl`` passes CUDA tensors straight to its collectives (one
 rank a card); ``gloo`` moves CPU tensors, so on a card each block is
 staged through pinned host memory on the step's stream (copy out, wait
-for that stream, the collective, copy back in). ``Pod.nbytes`` counts
-both.
+for that stream, the collective, copy back in). ``Pod`` is a
+``parallel/collectives.Axis`` with the shard fields, so the step and the
+``parallel/`` layers move and count bytes (``Pod.nbytes``) one way.
 """
 
 from __future__ import annotations
@@ -34,28 +35,22 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.device import resolve_device
+from paddlebox_tpu_torch.parallel.collectives import Axis
 
 
-class Pod:
+class Pod(Axis):
     """This rank's view of the multi-process job (the reference's global
-    mesh): the process group, ``rank`` of ``world``, ``device``, the N
-    shards' devices as this rank sees them (every shard on ``device``),
-    and ``owned``, the shards whose rows, destinations and ZeRO-1
-    chunks this rank holds."""
+    mesh): an :class:`~paddlebox_tpu_torch.parallel.collectives.Axis`
+    over the process group (``rank`` of ``world``, ``device``, its
+    transport and byte counters) with the shard fields: ``n`` shards in
+    ``world`` contiguous blocks of ``k``, their devices as this rank sees
+    them (every shard on ``device``), and ``owned``, the shards whose
+    rows, destinations and ZeRO-1 chunks this rank holds."""
 
     def __init__(self, num_shards: int,
                  device: Optional[Any] = None, group=None) -> None:
-        import torch.distributed as dist
-        if not (dist.is_available() and dist.is_initialized()):
-            raise RuntimeError(
-                "global_mesh needs a process group: call "
-                "distributed.launch.init_runtime_env() (with "
-                "PBOX_TORCH_DISTRIBUTED=1) or init_process_group first")
-        self.group = group
-        self.rank = dist.get_rank(group)
-        self.world = dist.get_world_size(group)
-        self.backend = dist.get_backend(group)
+        super().__init__(group, name="pod", device=device)
+        self.world = self.size
         if num_shards % self.world:
             raise ValueError(f"{num_shards} shards do not split over "
                              f"{self.world} ranks")
@@ -63,93 +58,11 @@ class Pod:
         self.k = num_shards // self.world
         self.owned = list(range(self.rank * self.k,
                                 (self.rank + 1) * self.k))
-        if device is None:
-            device = (f"cuda:{torch.cuda.current_device()}"
-                      if self.backend == "nccl" else "cuda")
-        self.device = resolve_device(device)
-        if self.backend == "nccl" and self.device.type != "cuda":
-            raise ValueError("an nccl process group moves CUDA tensors: "
-                             f"device {self.device} is not a card")
         self.devices = [self.device] * num_shards
-        # gloo on a card: every collective's blocks go through pinned
-        # host memory
-        self.staged = self.backend == "gloo" and self.device.type == "cuda"
-        # bytes this rank sent to the other ranks, and bytes it copied
-        # between the card and pinned memory for gloo
-        self.nbytes = {"exchanged": 0, "staged": 0}
 
-    # ---- collectives ---------------------------------------------------
-    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
-        """A pinned host copy of ``t``, complete when this returns (the
-        copy is queued on the current stream, which is then waited for)."""
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(t.device).synchronize()
-        self.nbytes["staged"] += t.numel() * t.element_size()
-        return h
-
-    def _from_host(self, h: torch.Tensor) -> torch.Tensor:
-        self.nbytes["staged"] += h.numel() * h.element_size()
-        return h.to(self.device, non_blocking=True)
-
-    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
-        """``send`` [world, ...]: block q goes to rank q; returns
-        [world, ...] with block p from rank p."""
-        import torch.distributed as dist
-        send = send.contiguous()
-        self.nbytes["exchanged"] += (send.numel() * send.element_size()
-                                     * (self.world - 1) // self.world)
-        if self.staged:
-            hs = self._to_host(send)
-            ho = torch.empty(hs.shape, dtype=hs.dtype, pin_memory=True)
-            dist.all_to_all_single(ho, hs, group=self.group)
-            return self._from_host(ho)
-        out = torch.empty_like(send)
-        dist.all_to_all_single(out, send, group=self.group)
-        return out
-
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """[world, *t.shape]: every rank's ``t`` in rank order."""
-        import torch.distributed as dist
-        t = t.contiguous()
-        self.nbytes["exchanged"] += (t.numel() * t.element_size()
-                                     * (self.world - 1))
-        if self.staged:
-            h = self._to_host(t)
-            out = torch.empty((self.world,) + tuple(t.shape), dtype=t.dtype,
-                              pin_memory=True)
-            dist.all_gather(list(out.unbind(0)), h, group=self.group)
-            return self._from_host(out)
-        out = torch.empty((self.world,) + tuple(t.shape), dtype=t.dtype,
-                          device=t.device)
-        dist.all_gather(list(out.unbind(0)), t, group=self.group)
-        return out
-
-    def all_gather_object(self, obj) -> list:
-        """Every rank's picklable ``obj`` in rank order."""
-        import torch.distributed as dist
-        out: list = [None] * self.world
-        dist.all_gather_object(out, obj, group=self.group)
-        return out
-
-    def broadcast_(self, t: torch.Tensor, src: int = 0) -> None:
-        """``t`` in place from rank ``src``."""
-        import torch.distributed as dist
-        if self.staged:
-            h = self._to_host(t.contiguous())
-            dist.broadcast(h, src, group=self.group)
-            with torch.no_grad():
-                t.copy_(self._from_host(h))
-            return
-        with torch.no_grad():
-            buf = t.contiguous()
-            dist.broadcast(buf, src, group=self.group)
-            if buf.data_ptr() != t.data_ptr():
-                t.copy_(buf)
-
-    def barrier(self) -> None:
-        import torch.distributed as dist
-        dist.barrier(group=self.group)
+    # the step's collectives are the axis's, without autograd
+    all_to_all = Axis.all_to_all_raw
+    all_gather = Axis.all_gather_raw
 
     def exchange(self, blocks: Sequence[Optional[torch.Tensor]]
                  ) -> List[Optional[torch.Tensor]]:

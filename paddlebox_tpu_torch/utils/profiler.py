@@ -216,53 +216,92 @@ TRACE_FILE = "trace.json"
 #: top-level key of ``trace.json`` under which ``trace()`` records its
 #: window (:func:`window_record`)
 WINDOW_KEY = "pbxWindow"
-#: small kernels launched on the card while the profiler warms up, before
-#: its window opens. Late in a long process a trace opened cold lost the
-#: first ~40-60 device events of its window (the first kernels of the
-#: step it was meant to show); events of the warm-up fall before the
-#: window and stay out of the trace
+#: small kernels launched on the card at the start of ``trace()``'s
+#: session, before its window opens. Late in a long process a session
+#: loses the device events of its first ~40-70 kernel launches; the
+#: warm-up's launches take that loss, and its events are cut out of the
+#: trace (:func:`strip_warmup`)
 WARMUP_LAUNCHES = 256
+#: name of the annotation around the warm-up; its end is where the
+#: window opens
+WARMUP_LABEL = "pbx_trace_warmup"
 #: seconds the window stays open with the card idle, after it opens and
 #: before it closes. The profiler keeps a device event only when its
-#: CUPTI timestamps fall inside the window's bounds, which are taken on
-#: the host's clock, and a kernel's device timestamp can read earlier
-#: than the host's timestamp of its own launch, by more late in a long
-#: process. A kernel launched within that error of the window's opening
-#: was stamped before it and dropped (once, the step's first kernel).
-#: With the card idle for longer than the error at both edges, every
-#: event of the body falls inside; where the error outgrows the margin,
-#: the window's record (:func:`window_record`) says so and ``trace()``
-#: logs a warning. Both idle spans lie inside the window: a reader of
-#: the card's idle share subtracts ``2 * margin_us`` of the record
-WINDOW_MARGIN_S = 0.025
+#: CUPTI timestamps fall inside the session's bounds, which are taken on
+#: the host's clock, and the card's timestamps of one session can all be
+#: off from the host's clock by one offset of either sign: within 2 ms
+#: in most sessions, by more where other Python threads keep the GIL
+#: busy (up to 26.5 ms in a few hundred on the H100). With the card
+#: idle for longer than the offset at both edges, every event of the
+#: body falls inside; where the offset outgrows the margin, the window's
+#: record (:func:`window_record`) says so and ``trace()`` logs a
+#: warning. Both idle spans lie inside the window: a reader of the
+#: card's idle share subtracts ``2 * margin_us`` of the record
+WINDOW_MARGIN_S = 0.1
+
+
+#: chrome trace categories of the card's own events, stamped on its clock
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
+
+
+def _corr(e: dict):
+    return (e.get("args") or {}).get("correlation")
+
+
+def strip_warmup(events: List[dict]) -> List[dict]:
+    """A chrome trace's events less those of ``trace()``'s warm-up: the
+    host's events that lie inside the :data:`WARMUP_LABEL` annotation,
+    and every event linked to a call made there (its kernels, copies and
+    flow arrows, by correlation id). The annotation stays: its end is
+    where the window opened. Events without the annotation pass as they
+    are."""
+    warm = next((e for e in events if e.get("name") == WARMUP_LABEL
+                 and e.get("cat") == "user_annotation"), None)
+    if warm is None:
+        return events
+    lo, hi = warm["ts"], warm["ts"] + warm.get("dur", 0.0)
+
+    def inside(e):          # a host event of the warm-up
+        return ("ts" in e and e.get("ph") == "X"
+                and e.get("cat") not in DEVICE_CATS and lo <= e["ts"]
+                and e["ts"] + e.get("dur", 0.0) <= hi)
+
+    calls = {_corr(e) for e in events if e.get("cat") == "cuda_runtime"
+             and inside(e)} - {None}
+    return [e for e in events if e is warm or not (
+        inside(e) or _corr(e) in calls
+        or (e.get("ph") in ("s", "f") and e.get("id") in calls)
+        or e.get("name") == WARMUP_LABEL)]
 
 
 def window_record(events: List[dict], margin_s: float) -> dict:
-    """Of a chrome trace's events (``torch.profiler``'s export): the
-    window's span on the host's clock (``Iteration Start`` to ``Record
-    Window End``), the idle margin held at each edge, the host's kernel
-    launches and the CUDA kernel events, the least and the greatest of a
-    kernel's start less its launch's (microseconds, linked by correlation
-    id; below 0, the card's stamp reads before the launch that caused
-    it), and the launches whose kernel the trace lacks, with how long
-    after the window opened they came. A few kernels, the library's own,
-    come without a launch event; every launch should have its kernel."""
+    """Of a chrome trace's events (``torch.profiler``'s export, less the
+    warm-up: :func:`strip_warmup`): the window's span on the host's
+    clock (the end of the warm-up's annotation, else ``Iteration
+    Start``, to ``Record Window End``), the idle margin held at each
+    edge, the host's kernel launches and the CUDA kernel events, the
+    least and the greatest of a kernel's start less its launch's
+    (microseconds, linked by correlation id; below 0, the card's stamp
+    reads before the launch that caused it), and the launches whose
+    kernel the trace lacks, with how long after the window opened they
+    came. A few kernels, the library's own, come without a launch
+    event; every launch should have its kernel."""
     kerns = [e for e in events if e.get("cat") == "kernel"]
     launches = [e for e in events if e.get("cat") == "cuda_runtime"
                 and "LaunchKernel" in e.get("name", "")]
-    start = next((e["ts"] for e in events if str(e.get("name", ""))
-                  .startswith("Iteration Start")), None)
+    warm = next((e for e in events if e.get("name") == WARMUP_LABEL
+                 and e.get("cat") == "user_annotation"), None)
+    start = (warm["ts"] + warm.get("dur", 0.0) if warm is not None else
+             next((e["ts"] for e in events if str(e.get("name", ""))
+                   .startswith("Iteration Start")), None))
     end = next((e["ts"] for e in events
                 if e.get("name") == "Record Window End"), None)
 
-    def corr(e):
-        return (e.get("args") or {}).get("correlation")
-
-    by_corr = {corr(e): e for e in launches if corr(e) is not None}
-    lag = [k["ts"] - by_corr[corr(k)]["ts"] for k in kerns
-           if corr(k) in by_corr]
-    kept = {corr(k) for k in kerns}
-    lost = sorted(e["ts"] for e in launches if corr(e) not in kept)
+    by_corr = {_corr(e): e for e in launches if _corr(e) is not None}
+    lag = [k["ts"] - by_corr[_corr(k)]["ts"] for k in kerns
+           if _corr(k) in by_corr]
+    kept = {_corr(k) for k in kerns}
+    lost = sorted(e["ts"] for e in launches if _corr(e) not in kept)
     origin = start if start is not None else 0.0
     return {"margin_us": margin_s * 1e6,
             "window_us": (end - start if start is not None
@@ -275,11 +314,18 @@ def window_record(events: List[dict], margin_s: float) -> dict:
 
 
 def _record_window(path: str, margin_s: float) -> dict:
-    """Add :func:`window_record` of the chrome trace at ``path`` to the
-    file under :data:`WINDOW_KEY`; warn when a launch lost its kernel."""
+    """Cut the warm-up out of the chrome trace at ``path``
+    (:func:`strip_warmup`) and add :func:`window_record` of the rest,
+    with ``warmup_lost`` (the warm-up's launches whose kernel is
+    missing), to the file under :data:`WINDOW_KEY`; warn when a launch
+    of the body lost its kernel."""
     with open(path) as fh:
         doc = json.load(fh)
-    rec = window_record(doc.get("traceEvents", []), margin_s)
+    events = doc.get("traceEvents", [])
+    doc["traceEvents"] = strip_warmup(events)
+    rec = window_record(doc["traceEvents"], margin_s)
+    rec["warmup_lost"] = (window_record(events, margin_s)["lost_launches"]
+                          - rec["lost_launches"])
     doc[WINDOW_KEY] = rec
     with open(path, "w") as fh:
         json.dump(doc, fh)
@@ -304,21 +350,26 @@ def _warm_device(torch) -> None:
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
-    """Device trace window (tier c): a ``torch.profiler.profile`` with
-    the CPU activity, and the CUDA one when a card is present, whose
-    chrome trace lands at ``<logdir>/trace.json`` on exit. The profiler
-    starts in its warm-up state (device tracing on, nothing kept), runs
-    :func:`_warm_device` on the card, and opens its recording window
-    just before it yields; the card is idle for
-    :data:`WINDOW_MARGIN_S` after the window opens and, after the
-    body's work has finished, before it closes. So the trace holds every
-    device event of the body and none of the warm-up. On exit the
-    window's record (:func:`window_record`) goes into the trace under
-    :data:`WINDOW_KEY` and onto the profiler as ``window``, and a
-    launch whose kernel the trace lacks is logged as a warning. Yields
-    the profiler (``key_averages()`` reads it), or None: a no-op unless
-    ``FLAGS.profile`` or an explicit ``logdir`` is given (the flag's
-    directory is ``paddlebox_tpu_torch_trace`` under the temp dir)."""
+    """Device trace window (tier c): one ``torch.profiler.profile``
+    session with the CPU activity, and the CUDA one when a card is
+    present, whose chrome trace lands at ``<logdir>/trace.json`` on
+    exit. The session opens with :func:`_warm_device` on the card inside
+    the :data:`WARMUP_LABEL` annotation, and its window opens at the
+    annotation's end; the card is idle for :data:`WINDOW_MARGIN_S` after
+    that and, after the body's work has finished, before the session
+    closes. On exit the warm-up is cut out of the trace
+    (:func:`strip_warmup`), so the trace holds every device event of the
+    body and none of the warm-up; the window's record
+    (:func:`window_record`) goes into the trace under
+    :data:`WINDOW_KEY` and onto the profiler as ``window``, and a launch
+    whose kernel the trace lacks is logged as a warning. The session
+    has no schedule: the profiler's switch from warm-up to recording
+    lost every kernel of a window now and then. Yields the profiler
+    (``key_averages()`` reads it, the warm-up's
+    :data:`WARMUP_LAUNCHES` one-element adds included), or None: a
+    no-op unless ``FLAGS.profile`` or an explicit ``logdir`` is given
+    (the flag's directory is ``paddlebox_tpu_torch_trace`` under the
+    temp dir)."""
     target = logdir or (os.path.join(tempfile.gettempdir(),
                                       "paddlebox_tpu_torch_trace")
                         if FLAGS.profile else None)
@@ -326,20 +377,19 @@ def trace(logdir: Optional[str] = None) -> Iterator[Optional[object]]:
         yield None
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile, record_function
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     margin = WINDOW_MARGIN_S if cuda else 0.0
     os.makedirs(target, exist_ok=True)
-    prof = profile(activities=activities,
-                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+    prof = profile(activities=activities)
     prof.__enter__()
     try:
         if cuda:
-            _warm_device(torch)
-        prof.step()
+            with record_function(WARMUP_LABEL):
+                _warm_device(torch)
         time.sleep(margin)
         yield prof
     finally:

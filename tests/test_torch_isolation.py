@@ -71,7 +71,11 @@ def test_observability_layer_is_checked():
 MULTIPROCESS_MODULES = ("distributed/launch.py", "train/multihost.py",
                         "ps/tiered_multihost.py", "tools/elastic_check.py",
                         "tools/scaling_check.py",
-                        "examples/train_multihost.py")
+                        "examples/train_multihost.py",
+                        "parallel/__init__.py",
+                        "parallel/collectives.py", "parallel/mesh.py",
+                        "parallel/layers.py", "parallel/moe.py",
+                        "parallel/ring_attention.py", "graph.py")
 
 
 def test_multiprocess_layer_is_checked():

@@ -135,3 +135,187 @@ def test_main_runs_the_worker_command(tmp_path, monkeypatch):
     assert main(["--nproc", "2", "--distributed", "--", sys.executable,
                  "-c", RANK_CODE]) == 0
     assert (out / "1").read_text() == f"2 {choose_backend(2)} 1"
+
+
+ELASTIC_WORKER = """
+import json, os, pathlib, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+
+from paddlebox_tpu_torch.config import FLAGS
+from paddlebox_tpu_torch.data import DataFeedDesc, DatasetFactory
+from paddlebox_tpu_torch.data.criteo import generate_criteo_files
+from paddlebox_tpu_torch.distributed import ElasticManager, TcpKVStore
+from paddlebox_tpu_torch.models import DeepFM
+from paddlebox_tpu_torch.ps import (BoxPSHelper, ShardedEmbeddingTable,
+                                    SparseSGDConfig,
+                                    TieredShardedEmbeddingTable)
+from paddlebox_tpu_torch.train.checkpoint import CheckpointManager
+from paddlebox_tpu_torch.train.sharded import ShardedTrainer
+
+rank = int(os.environ["PBOX_RANK"])
+table_kind = os.environ.get("TABLE_KIND", "sharded")
+world = int(os.environ["PBOX_WORLD_SIZE"])
+out_dir = pathlib.Path(sys.argv[1])
+n_passes = int(os.environ["N_PASSES"])
+kill_after = os.environ.get("KILL_RANK1_AFTER_PASS")
+resume = os.environ.get("PBOX_RESUME_CKPT")
+FLAGS.log_period_steps = 10 ** 9
+
+# membership over the network KV; checkpoint pointers publish to the
+# launcher's job id ("jobE"), where launch_local reads the restart pointer
+kv = TcpKVStore(os.environ["KV_ENDPOINT"])
+em = ElasticManager(kv, "jobE-workers", f"host{rank}", np=world,
+                    min_np=world, ttl=5.0)
+pub = ElasticManager(kv, "jobE", f"pub{rank}", np=1)  # not registered
+em.register()
+em.wait_for_np(timeout=60)
+
+data_dir = out_dir / f"data_r{rank}"
+files = generate_criteo_files(str(data_dir), num_files=1,
+                              rows_per_file=600, vocab_per_slot=30,
+                              seed=100 + rank)
+desc = DataFeedDesc.criteo(batch_size=32)
+desc.key_bucket_min = 1024
+ds = DatasetFactory().create_dataset("InMemoryDataset", desc)
+ds.set_filelist(files)
+ds.load_into_memory()
+
+MESH_N = 4
+cfg = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0,
+                      learning_rate=0.1, mf_learning_rate=0.1)
+kw = dict(mf_dim=4, capacity_per_shard=4096, cfg=cfg, req_bucket_min=128,
+          serve_bucket_min=128, devices=["cpu"] * MESH_N)
+if table_kind == "tiered":
+    # per-process host stores fronting the pass windows: a replacement
+    # rank has EMPTY stores and rebuilds them from the base + delta chain
+    table = TieredShardedEmbeddingTable(MESH_N, **kw)
+else:
+    table = ShardedEmbeddingTable(MESH_N, **kw)
+torch.manual_seed(7 + rank)
+model = DeepFM(26, 3 + 4, 13, hidden=(16, 16))
+tr = ShardedTrainer(model, table, desc, seed=7 + rank,
+                    tx=lambda p: torch.optim.Adam(p, lr=2e-3))
+helper = BoxPSHelper(table, trainer=tr) if table_kind == "tiered" else None
+nb_per_pass = sum(1 for _ in tr._group_iter(ds.batches()))
+
+cm = CheckpointManager(str(out_dir / f"ckpt_r{rank}"), keep=10)
+start_pass = 0
+if resume:
+    restored = cm.restore(tr)
+    if restored is not None:
+        start_pass = restored // nb_per_pass
+        print(f"rank {rank}: resumed step {restored} -> pass {start_pass}",
+              flush=True)
+
+res = None
+for p in range(start_pass, n_passes):
+    if helper is not None:
+        helper.begin_pass(ds)
+    res = tr.train_pass(ds)
+    if helper is not None:
+        helper.end_pass(ds)
+    if kill_after is not None and resume is None and rank == 1 \\
+            and p == int(kill_after):
+        # die WITHOUT checkpointing this pass, once rank 0 has published
+        # a pointer (else the restart sees none and dies again)
+        import time as _time
+        deadline = _time.time() + 120
+        reader = ElasticManager(kv, "jobE", f"rd{rank}", np=1)
+        while _time.time() < deadline \\
+                and reader.latest_checkpoint() is None:
+            _time.sleep(0.2)
+        os._exit(1)
+    cm.save(tr, delta=(table_kind == "tiered" and p > 0))
+    if rank == 0:
+        pub.publish_checkpoint(str(out_dir), pass_id=p)
+
+if res is not None:
+    params = torch.cat([q.detach().reshape(-1)
+                        for q in tr.model.parameters()]).numpy()
+    out = dict(rank=rank, auc=float(res["auc"]),
+               last_loss=float(res["last_loss"]),
+               global_step=int(tr.global_step),
+               param_sum=float(np.abs(params).sum()),
+               features=int(table.feature_count()))
+    if table_kind == "tiered":
+        hsum = 0.0
+        for hs in table.hosts:
+            ks, _ = hs.index.items()
+            if len(ks):
+                hsum += float(np.abs(
+                    hs.fetch(np.sort(ks))["embed_w"]).sum())
+        out["host_sum"] = hsum
+    with open(out_dir / f"final_r{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    np.save(out_dir / f"params_r{rank}.npy", params)
+else:
+    # this rank had finished before a peer-triggered gang restart: its
+    # final artifacts are on disk from the first attempt
+    assert (out_dir / f"final_r{rank}.json").exists()
+em.deregister()
+"""
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("table_kind", ["sharded", "tiered"])
+def test_elastic_restart_of_real_sharded_trainer(tmp_path, monkeypatch,
+                                                 table_kind):
+    """The reference's gang restart of real sharded trainers
+    (``tests/test_distributed_launch.py``) on the port: a gang of 2 ranks,
+    each its own ``ShardedTrainer`` over 4 CPU shards with its own
+    ``CheckpointManager``, membership over the port's ``TcpKVStore``.
+    Rank 1 dies after pass 1 without saving it; the launcher restarts the
+    gang from the published pointer; both ranks resume at their last pass
+    boundary, and the final AUC, loss, params (and, tiered, the host
+    tiers rebuilt from the base + delta chain) match an uninterrupted
+    run."""
+    import json
+
+    import numpy as np
+
+    from paddlebox_tpu_torch.distributed import KVServer
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = tmp_path / "worker.py"
+    worker.write_text(ELASTIC_WORKER)
+    monkeypatch.setenv("PBOX_WORLD_SIZE", "2")
+    monkeypatch.setenv("N_PASSES", "4")
+    monkeypatch.setenv("TABLE_KIND", table_kind)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPATH", repo + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+
+    def run(out_dir, kill: bool) -> int:
+        out_dir.mkdir()
+        srv = KVServer()
+        try:
+            monkeypatch.setenv("KV_ENDPOINT", srv.endpoint)
+            if kill:
+                monkeypatch.setenv("KILL_RANK1_AFTER_PASS", "1")
+            else:
+                monkeypatch.delenv("KILL_RANK1_AFTER_PASS", raising=False)
+            return launch_local(
+                [sys.executable, str(worker), str(out_dir)],
+                LaunchConfig(nproc=2, job_id="jobE",
+                             elastic_endpoint=srv.endpoint, max_restarts=2,
+                             stop_grace_sec=15.0, timeout_sec=600.0))
+        finally:
+            srv.close()
+
+    assert run(tmp_path / "killed", kill=True) == 0
+    assert run(tmp_path / "clean", kill=False) == 0
+    for r in range(2):
+        a = json.load(open(tmp_path / "killed" / f"final_r{r}.json"))
+        b = json.load(open(tmp_path / "clean" / f"final_r{r}.json"))
+        assert a["global_step"] == b["global_step"], (a, b)
+        assert a["features"] == b["features"], (a, b)
+        assert np.isclose(a["auc"], b["auc"], atol=1e-6), (a, b)
+        assert np.isclose(a["last_loss"], b["last_loss"], atol=1e-6), (a, b)
+        pa = np.load(tmp_path / "killed" / f"params_r{r}.npy")
+        pb = np.load(tmp_path / "clean" / f"params_r{r}.npy")
+        np.testing.assert_allclose(pa, pb, rtol=1e-6, atol=1e-7)
+        if table_kind == "tiered":
+            assert np.isclose(a["host_sum"], b["host_sum"], rtol=1e-6), \
+                (a, b)

@@ -453,6 +453,47 @@ def test_window_record_links_launches_to_kernels():
     assert clean["lost_launch_after_open_us"] == []
 
 
+def _runtime(corr, ts, name="cudaLaunchKernel"):
+    return {"ph": "X", "cat": "cuda_runtime", "name": name, "ts": ts,
+            "dur": 5.0, "args": {"correlation": corr}}
+
+
+def test_strip_warmup_cuts_the_warmup_and_opens_the_window_after_it():
+    """``trace()``'s warm-up leaves the trace: its host events, its
+    calls' kernels and flow arrows (one of its kernels lost, as a fresh
+    session loses its first launches'); the body's kernel stamped before
+    its launch stays, and the window opens where the warm-up ended."""
+    from paddlebox_tpu_torch.utils import profiler
+    label = profiler.WARMUP_LABEL
+    warm = [{"ph": "X", "cat": "user_annotation", "name": label,
+             "ts": 10.0, "dur": 90.0},
+            {"ph": "X", "cat": "gpu_user_annotation", "name": label,
+             "ts": 12.0, "dur": 95.0},
+            {"ph": "X", "cat": "cpu_op", "name": "aten::add_", "ts": 20.0,
+             "dur": 10.0},
+            _runtime(1, 22.0), _runtime(2, 40.0), _kernel(2, 150.0),
+            {"ph": "s", "cat": "ac2g", "id": 2, "ts": 40.0},
+            {"ph": "f", "cat": "ac2g", "id": 2, "ts": 150.0},
+            _runtime(3, 60.0, "cudaDeviceSynchronize")]
+    session = [{"ph": "X", "cat": "Trace", "name": "PyTorch Profiler (0)",
+                "ts": 0.0, "dur": 1000.0}]
+    body = [_runtime(10, 300.0), _kernel(10, 96.0),
+            _runtime(11, 400.0), _kernel(11, 420.0)]
+    events = ([{"name": "Iteration Start: PyTorch Profiler", "ts": 0.0}]
+              + session + warm + body
+              + [{"name": "Record Window End", "ts": 900.0}])
+    kept = profiler.strip_warmup(events)
+    assert kept == ([events[0]] + session + warm[:1] + body
+                    + [events[-1]])
+    rec = profiler.window_record(kept, 0.1)
+    assert rec == {"margin_us": 100000.0, "window_us": 800.0,
+                   "runtime_launches": 2, "kernels": 2,
+                   "kernel_minus_launch_us": [-204.0, 20.0],
+                   "lost_launches": 0, "lost_launch_after_open_us": []}
+    assert profiler.window_record(events, 0.1)["lost_launches"] == 1
+    assert profiler.strip_warmup(WINDOW_EVENTS) == WINDOW_EVENTS
+
+
 def test_record_window_writes_the_trace_and_warns_on_a_lost_launch(
         tmp_path, caplog):
     """A launch without its kernel makes ``trace()``'s record loud: a
@@ -485,6 +526,26 @@ def test_trace_records_its_window_on_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         assert prof.window["margin_us"] == 0.0
         assert prof.window["runtime_launches"] == 0
+
+
+def test_trace_clock_summarizes_the_windows_error():
+    """``tools/trace_clock`` counts the windows that lost a kernel and
+    the ones whose kernels were stamped early past each bin; without a
+    card it refuses to run."""
+    from paddlebox_tpu_torch.tools import trace_clock
+    from paddlebox_tpu_torch.utils.profiler import window_record
+    no_kernels = [e for e in WINDOW_EVENTS if e.get("cat") != "kernel"]
+    recs = [{**window_record(evs, 0.025),
+             "body_lost": trace_clock.body_lost(evs, 3)}
+            for evs in (WINDOW_EVENTS, no_kernels)]
+    got = trace_clock.summarize(recs)
+    assert got["windows"] == 2 and got["windows_with_lost"] == 2
+    assert got["lost_launches"] == 4 and got["windows_without_kernels"] == 1
+    assert got["least_lag_us"] == -50.0 and got["greatest_lag_us"] == 40.0
+    assert got["early_by_more_than_us"] == {
+        str(b): 0 for b in trace_clock.EARLY_US}
+    if not torch.cuda.is_available():
+        assert trace_clock.main(["--turns", "1"]) == 2
 
 
 # ---- channel gauges ----------------------------------------------------
