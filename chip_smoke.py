@@ -394,6 +394,19 @@ Phases, each of which fails the run:
    the ``ShardedGraphStore`` sampler, each against its single-device
    computation on the card); see its docstring. Prints one ``parallel:``
    line; launches none of the 13 kernels.
+22. ladder rung 4, bench.py's "thousand" shape at full width
+   (``thousand_phase``): 1000 one-key slots from 4 000 ids each, batch
+   512, DeepFM (512, 256, 128): the single table's ``train_pass`` and
+   compact-wire resident pass over 16 384 records (half of bench.py's
+   pass) against each other,
+   batch 0 on the card against the CPU, rows 1, 6, 7 and 13 at batch 0's
+   512 000 one-key segments against their plain versions and timed
+   (22a); 4 shards, streaming against resident with the ``u16``
+   serve-slot wire (22b); multi-mf sharded at slot widths 4 and 8 (22c);
+   ``train/a2a_probe.probe_exchange`` on phase 13's cell at chunks 4 and
+   1 against a twin trainer (22d); see its docstring. Prints one
+   ``thousand:`` and one ``a2a_probe:`` line; rows 1, 6, 7 and 13's
+   launches join the ``kernels`` line.
 
 The second-to-last line is the ``kernels`` JSON object, the last line
 ``{"ok": true, "device": {...}}``. Details (build logs, per-batch times)
@@ -4459,15 +4472,17 @@ WINDOW_CAPACITY = 1 << 19        # 15b: window rows a shard
 WINDOW_HOST = 1 << 19            # 15b: host-RAM rows a shard
 
 
-def _uniform_records(rng, n: int, SlotRecord):
-    """bench.py ``build_records`` at the "uniform" shape: one key in each
-    of ``TIER_SLOTS`` slots (slot s holds ids from s * TIER_VOCAB), 13
-    dense, label 1 with probability 0.25."""
-    keys = (rng.integers(0, TIER_VOCAB, size=(n, TIER_SLOTS))
-            + np.arange(TIER_SLOTS) * TIER_VOCAB).astype(np.uint64)
+def _uniform_records(rng, n: int, SlotRecord, slots: int = TIER_SLOTS,
+                     vocab: int = TIER_VOCAB):
+    """bench.py ``build_records`` at a one-key-a-slot shape ("uniform" by
+    default, "thousand" in phase 22): one key in each of ``slots`` slots
+    (slot s holds ids from s * vocab), 13 dense, label 1 with
+    probability 0.25."""
+    keys = (rng.integers(0, vocab, size=(n, slots))
+            + np.arange(slots) * vocab).astype(np.uint64)
     dense = rng.normal(size=(n, DENSE_DIM)).astype(np.float32)
     labels = (rng.random(n) < 0.25).astype(np.float32)
-    offs = np.arange(TIER_SLOTS + 1, dtype=np.int32)
+    offs = np.arange(slots + 1, dtype=np.int32)
     return [SlotRecord(keys=keys[i], slot_offsets=offs, dense=dense[i],
                        label=float(labels[i]), show=1.0,
                        clk=float(labels[i])) for i in range(n)]
@@ -5068,7 +5083,8 @@ def make_mmf_blobs(rng, convert, dims, vocab: int = TRAIN_BASE_VOCAB,
     return out
 
 
-def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
+def _class_width_timing(torch, K, state, cb, dev, flush, gen,
+                        what: str = "phase 16") -> dict:
     """Rows 1, 7, 6 and 13 on one class's sub-batch of batch 0 at its
     widths, each against its plain version (exact but the pool, which
     holds the pooling class) and, on the card, timed alone beside its
@@ -5095,13 +5111,13 @@ def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
     # row 1: the pull's gather of the class's unique rows
     got = K.gather_rows(table, rows)
     if not torch.equal(got, K.gather_rows_plain(table, rows)):
-        raise AssertionError(f"phase 16: gather_rows differs at width {feat}")
+        raise AssertionError(f"{what}: gather_rows differs at width {feat}")
     values = expand_pull(pull_values(got, d),
                          dv.gather_idx[:k]).contiguous()
     segs = dv.segments[:k].contiguous()
     # row 7: the pool over the class's slots at value width 3 + d
     pooled = K.pool_cvm(values, segs, None, b, s_c)
-    err7 = check_close(f"phase 16: pool_cvm at width {3 + d}", pooled,
+    err7 = check_close(f"{what}: pool_cvm at width {3 + d}", pooled,
                        K.pool_cvm_plain(values, segs, None, b, s_c),
                        POOL_RTOL, POOL_ATOL)
     # row 6: the pool backward's fused gather (head show/clk)
@@ -5111,7 +5127,7 @@ def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
     sg_args = (src, segs, head, None, b, s_c, 0)
     if not torch.equal(K.segment_gather(*sg_args),
                        K.segment_gather_plain(*sg_args)):
-        raise AssertionError(f"phase 16: segment_gather differs at width "
+        raise AssertionError(f"{what}: segment_gather differs at width "
                              f"{3 + d}")
     # row 13: the push's write-back into a copy of the class table
     deltas = torch.randn((rows.shape[0], feat), generator=gen,
@@ -5120,7 +5136,7 @@ def _class_width_timing(torch, K, state, cb, dev, flush, gen) -> dict:
     K.scatter_add_update(vals_k, rows, deltas)
     K.scatter_add_update_plain(vals_p, rows, deltas)
     if not torch.equal(vals_k, vals_p):
-        raise AssertionError(f"phase 16: scatter_add_update differs at "
+        raise AssertionError(f"{what}: scatter_add_update differs at "
                              f"width {feat}")
     out["pool_max_abs_err"] = err7
     n_src = int(torch.unique(segs[(segs >= 0) & (segs < n_seg)]).numel())
@@ -8828,6 +8844,480 @@ def parallel_phase(torch, args, card, details, dev: str = "cuda") -> dict:
     return {}
 
 
+THOUSAND_PHASE_BUDGET_S = 60.0   # phase 22's wall budget
+TH_SLOTS = 1000                  # bench.py:107 SHAPES["thousand"]: 1000
+TH_BATCH = 512                   # one-key slots, batch 512,
+TH_RECORDS = 32768               # 32 768 records a pass (64 batches),
+TH_VOCAB = 4000                  # 4 000 ids a slot
+TH_A_RECORDS = TH_RECORDS // 2   # 22a: records a pass (depth cut, budget)
+TH_CAPACITY = 1 << 23            # 22a: rows (bench.py's 1 << 23)
+TH_UNIQUE_MIN = 1 << 12          # 22a: bench.py's unique_bucket_min
+TH_CHECK_CAPACITY = 1 << 20      # 22a: rows of the card/CPU first step
+TH_SHARD_CAPACITY = 1 << 21      # 22b: rows a shard
+TH_SHARD_STEPS = 2               # 22b, 22c: global steps of 4 x 512
+TH_MMF_DIMS = [4, 8] * (TH_SLOTS // 2)  # 22c: test_thousand_slot_multi_mf
+TH_MMF_CAPACITY = 1 << 20        # 22c: rows a class a shard
+TH_PROBE_REPS = 2                # 22d: a2a_probe's best-of
+
+
+def thousand_desc():
+    """bench.py's "thousand" feed: label, 13 dense floats, ``TH_SLOTS``
+    uint64 slots, batch ``TH_BATCH``, the key bucket exactly B x S."""
+    from paddlebox_tpu_torch.data import DataFeedDesc, SlotDef
+    slots = ([SlotDef("label", "float", 1),
+              SlotDef("dense", "float", DENSE_DIM)]
+             + [SlotDef(f"C{i}", "uint64") for i in range(1, TH_SLOTS + 1)])
+    return DataFeedDesc(slots=slots, batch_size=TH_BATCH, label_slot="label",
+                        key_bucket_min=TH_BATCH * TH_SLOTS)
+
+
+def _keyed_rows(keys_rows) -> tuple:
+    """(keys sorted, rows [n, F] in that order) from (keys, rows) parts."""
+    keys = np.concatenate([k for k, _ in keys_rows])
+    rows = np.concatenate([r for _, r in keys_rows])
+    order = np.argsort(keys)
+    return keys[order], rows[order]
+
+
+def _single_rows(table) -> tuple:
+    """A single table's logical rows keyed by feasign (host)."""
+    import torch
+    keys, rows = table.index.items()
+    idx = torch.from_numpy(rows.astype(np.int64)).to(table.device)
+    return _keyed_rows([(keys, table.state.data.index_select(0, idx)
+                         .cpu().numpy())])
+
+
+def _sharded_rows(table) -> tuple:
+    """A sharded table's logical rows keyed by feasign (host)."""
+    return _keyed_rows([(table.indexes[s].items()[0],
+                         table._rows_host(s, table.indexes[s].items()[1]))
+                        for s in range(table.n)])
+
+
+def _hold_rows(what: str, got: tuple, want: tuple, exact_cols) -> float:
+    """Keys equal, ``exact_cols`` equal, every column within the ragged
+    train-state class; returns the max abs error."""
+    import torch
+    (k, r), (wk, wr) = got, want
+    if not np.array_equal(k, wk):
+        raise AssertionError(f"{what}: the key sets differ ({len(k)} vs "
+                             f"{len(wk)} keys)")
+    if not np.array_equal(r[:, exact_cols], wr[:, exact_cols]):
+        raise AssertionError(f"{what}: columns {list(exact_cols)} differ")
+    return check_close(what, torch.from_numpy(r), torch.from_numpy(wr),
+                       STATE_RTOL, STATE_ATOL)
+
+
+def thousand_phase(torch, args, card, details, dev: str = "cuda") -> dict:
+    """Phase 22: ladder rung 4, bench.py's "thousand" shape (``TH_SLOTS``
+    one-key slots from ``TH_VOCAB`` ids each, 13 dense, batch
+    ``TH_BATCH``, ``TH_RECORDS`` records a pass) at full width: DeepFM
+    (``HIDDEN``), mf_dim 8 Adagrad, dense Adam 1e-3, under deterministic
+    algorithms.
+
+    - 22a, the single table, ``TH_CAPACITY`` rows with a slot arena of
+      ``TH_SLOTS`` (the compact resident wire): one pass of
+      ``TH_A_RECORDS`` through ``train_pass``, and from the same dense
+      init and an empty table one through ``train_pass_resident``
+      (``ResidentPass.build_streamed``, which must ship the compact
+      wire); the two held against each other (logical rows keyed by
+      feasign: keys, show and clk exact, every value in the ragged
+      train-state class; AUC within 2e-3). Both run with
+      ``mf_initial_range`` 0: the compact wire's steps lay a batch's
+      unique rows out sorted, ``train_pass`` in first-seen order, so the
+      lazy-mf draws would land on other rows (phase 6's reason). Then
+      batch 0's step with the f32 tower on the card and on the CPU
+      (``TH_CHECK_CAPACITY`` rows, no arena) in the class, and rows 1,
+      7, 6 and 13 alone at batch 0's shape against their plain versions
+      (phase 3's tolerances), timed beside their bounds and library
+      calls (``_class_width_timing``).
+    - 22b, 4 shards of ``TH_SHARD_CAPACITY`` rows on the card, the f32
+      float wire, the bench config (``mf_initial_range`` 1e-3):
+      ``TH_SHARD_STEPS`` global steps through ``train_pass`` and the
+      same records through ``train_pass_resident``, whose ``serve_slot``
+      wire is ``u16``; equal by ``sharded_state_digest``.
+    - 22c, multi-mf sharded at slot widths ``TH_MMF_DIMS`` (4 shards,
+      ``TH_MMF_CAPACITY`` rows a class a shard, ``CtrDnn(HIDDEN)``):
+      ``TH_SHARD_STEPS`` global steps, finite loss, every class holding
+      keys on every shard; the first global step on the card against the
+      same step on the CPU (f32 tower, ``mf_initial_range`` 0) in the
+      class.
+    - 22d, ``train/a2a_probe.probe_exchange`` on phase 13's cell
+      (``SHARD_N`` shards of ``SHARD_CAPACITY`` rows loaded from phase
+      5's base, one global batch of phase 13's records) with chunks
+      ``SHARD_CHUNKS`` and 1, best of ``TH_PROBE_REPS``: the arity,
+      0 <= frac <= 1, every piece > 0, and the state after the probes
+      equal by ``sharded_state_digest`` to a twin trainer that ran the
+      same steps on the same staged batches without the probe.
+
+    Depth is cut, never width: 22a's passes run ``TH_A_RECORDS``, 22b
+    and 22c ``TH_SHARD_STEPS`` global steps, 22a's card/CPU check one
+    batch. The main path (22a's two
+    passes, 22b, 22c's pass, 22d's probes) must launch rows 1, 6, 7 and
+    13. Fails past ``THOUSAND_PHASE_BUDGET_S``. Prints one ``thousand:``
+    and one ``a2a_probe:`` JSON line; returns the main path's launches."""
+    import types
+
+    from paddlebox_tpu_torch import (DeepFM, EmbeddingTable, InMemoryDataset,
+                                     Trainer, convert)
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.data import BatchBuilder, SlotRecord
+    from paddlebox_tpu_torch.models import CtrDnn
+    from paddlebox_tpu_torch.ops import kernels as K
+    from paddlebox_tpu_torch.ps import MultiMfShardedTable
+    from paddlebox_tpu_torch.ps.sgd import SparseSGDConfig
+    from paddlebox_tpu_torch.ps.sharded import (ShardedEmbeddingTable,
+                                                plan_sections)
+    from paddlebox_tpu_torch.train import MultiMfShardedTrainer
+    from paddlebox_tpu_torch.train import sharded as SH
+    from paddlebox_tpu_torch.train.a2a_probe import probe_exchange
+    from paddlebox_tpu_torch.train.checkpoint import sharded_state_digest
+    from paddlebox_tpu_torch.train.device_pass import ResidentPass
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    fns = {"gather_rows": K.gather_rows, "pool_cvm": K.pool_cvm,
+           "segment_gather": K.segment_gather,
+           "scatter_add_update": K.scatter_add_update}
+    launches = {k: 0 for k in fns}
+    part_launches = {}
+
+    def count(part, run):
+        """``run()`` with every count set to 0 before and read after."""
+        for f in fns.values():
+            f.launches = 0
+        out = run()
+        sync()
+        got = {k: f.launches for k, f in fns.items()}
+        part_launches[part] = got
+        for k, n in got.items():
+            launches[k] += n
+        return out
+
+    t = {}
+    out = {"shape": {"slots": TH_SLOTS, "batch": TH_BATCH,
+                     "records": TH_RECORDS, "pass_records": TH_A_RECORDS,
+                     "vocab": TH_VOCAB}}
+    desc = thousand_desc()
+    cfg0 = SparseSGDConfig(mf_create_thresholds=0.0, mf_initial_range=0.0)
+    cfg_bench = SparseSGDConfig(mf_create_thresholds=0.0,
+                                mf_initial_range=1e-3)
+    t0 = time.perf_counter()
+    records = _uniform_records(np.random.default_rng(args.seed + 22),
+                               max(TH_A_RECORDS,
+                                   SHARD_N * TH_BATCH * TH_SHARD_STEPS),
+                               SlotRecord, TH_SLOTS, TH_VOCAB)
+
+    def dataset(recs):
+        ds = InMemoryDataset(desc)
+        ds.records = recs
+        ds.columnarize()
+        return ds
+
+    ds = dataset(records[:TH_A_RECORDS])
+    b0 = BatchBuilder(desc).build(records[:TH_BATCH])
+    t["data_s"] = time.perf_counter() - t0
+
+    def deepfm(dtype=None):
+        torch.manual_seed(args.seed + 22)
+        kw = {} if dtype is None else {"compute_dtype": dtype}
+        return DeepFM(TH_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN, **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        # ==== 22a: the single table, train_pass and the resident pass ====
+        t_a = time.perf_counter()
+
+        def single(cap=TH_CAPACITY, arena=True, where=dev):
+            return EmbeddingTable(mf_dim=MF_DIM, capacity=cap, cfg=cfg0,
+                                  seed=args.seed,
+                                  unique_bucket_min=TH_UNIQUE_MIN,
+                                  device=where,
+                                  arena_slots=TH_SLOTS if arena else None)
+
+        tr_s = Trainer(deepfm(), single(), desc, seed=args.seed,
+                       check_nan_inf=True, device=dev)
+        t0 = time.perf_counter()
+        res_s = count("22a train_pass", lambda: tr_s.train_pass(ds))
+        t["a_train_pass_s"] = time.perf_counter() - t0
+        tr_r = Trainer(deepfm(), single(), desc, seed=args.seed,
+                       check_nan_inf=True, device=dev)
+        t0 = time.perf_counter()
+        rp = ResidentPass.build_streamed(ds, tr_r.table)
+        t["a_build_s"] = time.perf_counter() - t0
+        if rp.wire != "compact":
+            raise AssertionError(f"phase 22a: the resident pass shipped the "
+                                 f"{rp.wire} wire, not the compact one")
+        t0 = time.perf_counter()
+        res_r = count("22a train_pass_resident",
+                      lambda: tr_r.train_pass_resident(rp))
+        t["a_resident_s"] = time.perf_counter() - t0
+        wire_bytes = rp.nbytes()
+        del rp
+        for name, r in (("train_pass", res_s), ("resident", res_r)):
+            if (r["batches"] != TH_A_RECORDS // TH_BATCH
+                    or not np.isfinite(r["last_loss"])):
+                raise AssertionError(f"phase 22a {name}: {r}")
+        if abs(res_s["auc"] - res_r["auc"]) >= 2e-3:
+            raise AssertionError(f"phase 22a: resident auc {res_r['auc']} "
+                                 f"vs train_pass {res_s['auc']}")
+        a_err = _hold_rows("phase 22a: resident vs train_pass rows",
+                           _single_rows(tr_r.table),
+                           _single_rows(tr_s.table), [0, 1])
+        features = tr_s.table.feature_count
+        del tr_r
+
+        # batch 0 on the card and on the CPU: f32 tower, no mf draws
+        first = {}
+        for where in (dev, "cpu"):
+            tr = Trainer(deepfm(torch.float32),
+                         single(TH_CHECK_CAPACITY, False, where), desc,
+                         seed=args.seed, device=where)
+            tr.train_pass(dataset(records[:TH_BATCH]))
+            first[where] = (_single_rows(tr.table),
+                            {k: v.detach().cpu() for k, v in
+                             tr.model.state_dict().items()})
+            del tr
+        a_cpu_row_err = _hold_rows("phase 22a: batch 0, card vs CPU rows",
+                                   first[dev][0], first["cpu"][0], [0, 1])
+        a_cpu_param_err = max(check_close(
+            f"phase 22a: batch 0, card vs CPU param {k}", v,
+            first["cpu"][1][k], STATE_RTOL, STATE_ATOL)
+            for k, v in first[dev][1].items())
+        del first
+
+        # rows 1, 7, 6 and 13 alone at batch 0's shape
+        flush = (torch.empty(64 << 20, dtype=torch.float32, device=dev)
+                 if dev == "cuda" else None)
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 22)
+        cb = types.SimpleNamespace(batch=b0,
+                                   index=tr_s.table.prepare_eval(b0))
+        kt = _class_width_timing(torch, K, tr_s.table.state, cb, dev, flush,
+                                 gen, what="phase 22a")
+        del tr_s, cb, flush
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        t["a_s"] = time.perf_counter() - t_a
+        out["a"] = dict(train_pass=res_s, resident=res_r,
+                        features=features, resident_wire_bytes=wire_bytes,
+                        rows_max_abs_err=a_err,
+                        card_vs_cpu_rows_max_abs_err=a_cpu_row_err,
+                        card_vs_cpu_param_max_abs_err=a_cpu_param_err,
+                        kernels=kt)
+
+        # ==== 22b: sharded, the streaming and the resident pass ====
+        t_b = time.perf_counter()
+        n_sh = SHARD_N * TH_BATCH * TH_SHARD_STEPS
+        ds_b = dataset(records[:n_sh])
+
+        def sharded():
+            return ShardedEmbeddingTable(
+                SHARD_N, mf_dim=MF_DIM, capacity_per_shard=TH_SHARD_CAPACITY,
+                cfg=cfg_bench, devices=dev)
+
+        sh_s = SH.ShardedTrainer(deepfm(), sharded(), desc, seed=args.seed)
+        res_bs = count("22b train_pass", lambda: sh_s.train_pass(ds_b))
+        sh_r = SH.ShardedTrainer(deepfm(), sharded(), desc, seed=args.seed)
+        t0 = time.perf_counter()
+        srp = sh_r.build_resident_pass(ds_b)
+        t["b_build_s"] = time.perf_counter() - t0
+        if srp.fmt.get("serve_slot") != "u16":
+            raise AssertionError(f"phase 22b: the resident wire's "
+                                 f"serve_slot is {srp.fmt.get('serve_slot')}"
+                                 f", not u16")
+        b_fmt = dict(srp.fmt)
+        res_br = count("22b train_pass_resident",
+                       lambda: sh_r.train_pass_resident(srp))
+        del srp
+        for name, r in (("train_pass", res_bs), ("resident", res_br)):
+            if (r["batches"] != TH_SHARD_STEPS
+                    or not np.isfinite(r["last_loss"])):
+                raise AssertionError(f"phase 22b {name}: {r}")
+        if sharded_state_digest(sh_s) != sharded_state_digest(sh_r):
+            raise AssertionError("phase 22b: train_pass_resident != "
+                                 "train_pass by sharded_state_digest")
+        b_per_shard = [len(ix) for ix in sh_s.table.indexes]
+        del sh_s, sh_r
+        t["b_s"] = time.perf_counter() - t_b
+        out["b"] = dict(train_pass=res_bs, resident=res_br, fmt=b_fmt,
+                        per_shard_keys=b_per_shard)
+
+        # ==== 22c: multi-mf sharded ====
+        t_c = time.perf_counter()
+
+        def ctr_dnn(width, dtype=None):
+            torch.manual_seed(args.seed + 22)
+            kw = {} if dtype is None else {"compute_dtype": dtype}
+            return CtrDnn(1, width, DENSE_DIM, hidden=HIDDEN, **kw)
+
+        def mmf(cfg, where=dev):
+            return MultiMfShardedTable(SHARD_N, TH_MMF_DIMS,
+                                       capacity_per_shard=TH_MMF_CAPACITY,
+                                       cfg=cfg, devices=where)
+
+        tab_c = mmf(cfg_bench)
+        tr_c = MultiMfShardedTrainer(ctr_dnn(tab_c.pooled_width()), tab_c,
+                                     desc, seed=args.seed)
+        res_c = count("22c train_pass", lambda: tr_c.train_pass(ds_b))
+        if res_c["batches"] != TH_SHARD_STEPS or not np.isfinite(
+                res_c["last_loss"]):
+            raise AssertionError(f"phase 22c train_pass: {res_c}")
+        c_keys = [[len(ix) for ix in tb.indexes] for tb in tab_c.tables]
+        if not all(n > 0 for per in c_keys for n in per):
+            raise AssertionError(f"phase 22c: a class holds no keys on a "
+                                 f"shard: {c_keys}")
+        del tr_c, tab_c
+        # the first global step on the card and on the CPU
+        first = {}
+        ds_c1 = dataset(records[:SHARD_N * TH_BATCH])
+        for where in (dev, "cpu"):
+            tab = mmf(cfg0, where)
+            tr = MultiMfShardedTrainer(
+                ctr_dnn(tab.pooled_width(), torch.float32), tab, desc,
+                seed=args.seed)
+            tr.train_pass(ds_c1)
+            first[where] = ([_sharded_rows(tb) for tb in tab.tables],
+                            {k: v.detach().cpu() for k, v in
+                             tr.model.state_dict().items()})
+            del tr, tab
+        c_row_err = max(_hold_rows(f"phase 22c: class {c}, card vs CPU",
+                                   got, want, [0, 1, 3])
+                        for c, (got, want) in enumerate(
+                            zip(first[dev][0], first["cpu"][0])))
+        c_param_err = max(check_close(
+            f"phase 22c: card vs CPU param {k}", v, first["cpu"][1][k],
+            STATE_RTOL, STATE_ATOL) for k, v in first[dev][1].items())
+        del first, ds_c1, ds_b
+        t["c_s"] = time.perf_counter() - t_c
+        out["c"] = dict(train_pass=res_c, class_shard_keys=c_keys,
+                        card_vs_cpu_rows_max_abs_err=c_row_err,
+                        card_vs_cpu_param_max_abs_err=c_param_err)
+
+        # ==== 22d: the exchange probe on phase 13's cell ====
+        t_d = time.perf_counter()
+        base = make_table_blob(np.random.default_rng(args.seed + 1), convert,
+                               vocab=TRAIN_BASE_VOCAB, no_mf=0.25)
+        rdesc = ragged_desc()
+        rrecs = make_records(np.random.default_rng(args.seed + 13),
+                             BATCH * SHARD_N, SlotRecord)
+        builder = BatchBuilder(rdesc)
+        group = [builder.build(rrecs[i:i + BATCH])
+                 for i in range(0, len(rrecs), BATCH)]
+
+        def cell():
+            tab = ShardedEmbeddingTable(SHARD_N, mf_dim=MF_DIM,
+                                        capacity_per_shard=SHARD_CAPACITY,
+                                        devices=dev)
+            tab.load(base)
+            torch.manual_seed(args.seed + 2)      # phase 13's init
+            with flags_scope(a2a_chunks=SHARD_CHUNKS):
+                return SH.ShardedTrainer(
+                    DeepFM(NUM_SLOTS, 3 + MF_DIM, DENSE_DIM, hidden=HIDDEN),
+                    tab, rdesc, seed=args.seed)
+
+        probed = cell()
+        probes = {}
+
+        def run_probes():
+            for c in (SHARD_CHUNKS, 1):
+                probes[c] = probe_exchange(probed, group=group, chunks=c,
+                                           reps=TH_PROBE_REPS)
+
+        count("22d a2a_probe", run_probes)
+        twin = cell()
+        for c in (SHARD_CHUNKS, 1):
+            idx = twin.table.prepare_global(group, groups=c)
+            gb = twin._stage_batch(group, idx)
+            secs = plan_sections(idx)
+            for s in ([()] * (1 + TH_PROBE_REPS)
+                      + [secs] * ((1 + TH_PROBE_REPS) if secs else 0)):
+                twin.step_fn(twin.state, gb, SH.push_generators(
+                    twin.devices, twin.seed, 0), s)
+        sync()
+        if sharded_state_digest(probed) != sharded_state_digest(twin):
+            raise AssertionError("phase 22d: the state after the probe "
+                                 "differs from the twin's by "
+                                 "sharded_state_digest")
+        del probed, twin, base
+        for c, pr in probes.items():
+            if (pr["a2a_chunks"] != c or len(pr["a2a_pull_sec"]) != c
+                    or len(pr["pool_sec"]) != c
+                    or len(pr["a2a_sections"]) != c):
+                raise AssertionError(f"phase 22d: chunks {c}: arity {pr}")
+            pieces = (pr["a2a_pull_sec"] + pr["pool_sec"]
+                      + [pr[k] for k in ("serve_sec", "dense_sec",
+                                         "push_sec", "dense_sync_sec",
+                                         "step_monolithic_sec",
+                                         "step_chunked_sec")])
+            if not all(x > 0 for x in pieces):
+                raise AssertionError(f"phase 22d: chunks {c}: a piece "
+                                     f"took no time: {pr}")
+            if not 0.0 <= pr["exchange_overlap_frac"] <= 1.0:
+                raise AssertionError(f"phase 22d: chunks {c}: frac {pr}")
+        t["d_s"] = time.perf_counter() - t_d
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if dev == "cuda":
+        for name, k in launches.items():
+            if k == 0:
+                raise AssertionError(f"phase 22: {name} never launched")
+    phase_s = time.perf_counter() - t_phase
+    out.update(launches=launches, part_launches=part_launches, seconds=t,
+               phase_s=phase_s, budget_s=THOUSAND_PHASE_BUDGET_S)
+    print("thousand: " + json.dumps(out, default=str), flush=True)
+    print("a2a_probe: " + json.dumps(
+        {"cell": {"shards": SHARD_N, "batch": BATCH,
+                  "slots": NUM_SLOTS, "reps": TH_PROBE_REPS},
+         "probes": {str(c): pr for c, pr in probes.items()},
+         "seconds": t["d_s"]}), flush=True)
+    a = out["a"]
+    rt = a["kernels"]
+    times = ({n: (round(rt["ms"][n], 4), round(rt["bound_ms"][n], 5),
+                  round(rt["library_ms"][n], 4)) for n in rt["ms"]}
+             if "ms" in rt else {})
+    log(f"thousand 22a: train_pass {a['train_pass']['examples_per_sec']:.0f}"
+        f" examples/s, resident (build {t['a_build_s']:.2f}s) "
+        f"{a['resident']['examples_per_sec']:.0f} staged, "
+        f"{TH_A_RECORDS / (t['a_build_s'] + t['a_resident_s']):.0f} with the "
+        f"build, compact wire; {a['features']} rows; resident vs "
+        f"train_pass max abs err {a['rows_max_abs_err']:.3g}, auc "
+        f"{a['resident']['auc']:.6f} vs {a['train_pass']['auc']:.6f}; "
+        f"batch 0 card vs CPU rows {a['card_vs_cpu_rows_max_abs_err']:.3g}"
+        f" params {a['card_vs_cpu_param_max_abs_err']:.3g}; rows 1/7/6/13 "
+        f"at {rt['unique_rows']} unique rows, {rt['keys']} keys (ms, bound "
+        f"ms, library ms) {json.dumps(times)} ({card})")
+    b, c = out["b"], out["c"]
+    log(f"thousand 22b: {SHARD_N} shards, train_pass "
+        f"{b['train_pass']['examples_per_sec']:.0f} examples/s, resident "
+        f"(build {t['b_build_s']:.2f}s) "
+        f"{b['resident']['examples_per_sec']:.0f}, serve_slot "
+        f"{b['fmt'].get('serve_slot')}, equal by sharded_state_digest; "
+        f"22c: multi-mf {c['train_pass']['examples_per_sec']:.0f} "
+        f"examples/s, card vs CPU rows "
+        f"{c['card_vs_cpu_rows_max_abs_err']:.3g} params "
+        f"{c['card_vs_cpu_param_max_abs_err']:.3g}; 22d: probe frac "
+        f"{probes[SHARD_CHUNKS]['exchange_overlap_frac']} at chunks "
+        f"{SHARD_CHUNKS} (steps: monolithic "
+        f"{probes[SHARD_CHUNKS]['step_monolithic_sec'] * 1e3:.2f} ms over "
+        f"the grouped plan, "
+        f"{probes[1]['step_monolithic_sec'] * 1e3:.2f} over a monolithic "
+        f"one; chunked "
+        f"{probes[SHARD_CHUNKS]['step_chunked_sec'] * 1e3:.2f}), == twin; "
+        f"launches {json.dumps(launches)}; "
+        f"phase 22 took {phase_s:.1f}s (budget "
+        f"{THOUSAND_PHASE_BUDGET_S:.0f}s) "
+        f"{json.dumps({k: round(v, 2) for k, v in t.items()})} ({card})")
+    details["thousand"] = out
+    details["a2a_probe"] = probes
+    if dev == "cuda" and phase_s > THOUSAND_PHASE_BUDGET_S:
+        raise AssertionError(f"phase 22 took {phase_s:.1f}s, past its "
+                             f"{THOUSAND_PHASE_BUDGET_S:.0f}s budget")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, default=8)
@@ -9282,6 +9772,11 @@ def main() -> int:
 
     # ---- phase 21: the parallel layers and the graph store ----
     parallel_phase(torch, args, card, details)
+
+    # ---- phase 22: ladder rung 4 (1000 slots), the exchange probe ----
+    th_launches = thousand_phase(torch, args, card, details)
+    for r in kernels:
+        r["launches"] += th_launches.get(r["name"], 0)
     details["kernels"] = kernels
     details["wall_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: {details['wall_s']:.1f}s wall, the build included")

@@ -141,11 +141,14 @@ class GlobalBatch(NamedTuple):
     # shown examples of the whole global batch (host): the loss's weight
     # sum, also where a rank holds only its own destinations
     weight_sum: float = 0.0
+    # the plan's ``plan_sections`` (host), () for a monolithic plan
+    plan_sections: Tuple = ()
 
 
 # the GlobalBatch fields that hold one device tensor a shard
 _DEVICE_FIELDS = tuple(f for f in GlobalBatch._fields
-                       if not f.endswith("_counts") and f != "weight_sum")
+                       if not f.endswith("_counts")
+                       and f not in ("weight_sum", "plan_sections"))
 
 
 def make_global_arrays(batches: List[SlotBatch],
@@ -222,7 +225,8 @@ def make_global_batch(batches: List[SlotBatch], idx: ShardedPullIndex,
         out["floats"][s] = tf[2 * a2:].view(len(host["label"][s]), -1)
     return GlobalBatch(key_counts=tuple(counts),
                        serve_counts=_serve_counts(idx.serve_valid),
-                       weight_sum=float((host["show"] > 0).sum()), **out)
+                       weight_sum=float((host["show"] > 0).sum()),
+                       plan_sections=plan_sections(idx), **out)
 
 
 def _key_counts(key_valid: np.ndarray, secs) -> Tuple[int, ...]:
@@ -482,18 +486,19 @@ class ShardedTrainStep:
         send = rows.view(k, world, k * c).transpose(0, 1)
         return self.pod.all_to_all(send).reshape(self.n, k * c)
 
-    def _dense_sync(self, state: ShardedStepState,
-                    grads: List[Optional[List[torch.Tensor]]],
-                    losses: List[Optional[torch.Tensor]]) -> torch.Tensor:
-        """Sum every destination's dense grads and losses in shard order
-        on the model's device (the psum, SyncParam's allreduce), then one
-        optimizer step (or ZeRO-1's chunked one: its chunk spans summed,
-        the owned chunks stepped, the chunks gathered into the params).
-        Each owned destination's grads are one flat row; only how every
-        shard's rows reach this process differs between a single
-        controller and a pod (``_gather``, ``_chunk_spans``), so both sum
-        the same numbers in the same order. Returns the summed loss."""
-        home, n = self.home, self.n
+    def _dense_reduce(self, state: ShardedStepState,
+                      grads: List[Optional[List[torch.Tensor]]],
+                      losses: List[Optional[torch.Tensor]]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The dense sync's sum (the psum, SyncParam's allreduce): every
+        destination's dense grads and losses summed in shard order on the
+        model's device. Each owned destination's grads are one flat row;
+        only how every shard's rows reach this process differs between a
+        single controller and a pod (``_gather``, ``_chunk_spans``), so
+        both sum the same numbers in the same order. Returns the summed
+        flat grads (under ZeRO-1 this process's chunk span of them) and
+        the summed loss; reads and changes no state."""
+        home = self.home
         params = list(state.model.parameters())
 
         def flat(d):
@@ -509,83 +514,160 @@ class ShardedTrainStep:
 
         loss_rows = [losses[d].reshape(1).to(home) for d in self.local]
         if self.zero1:
-            opt, c = state.opt, state.opt.chunk
+            opt = state.opt
             rows = torch.stack([opt._flat([flat(d)]) for d in self.local])
-            span = fold(self._chunk_spans(rows, c))
-            lo = self.local[0]
+            span = fold(self._chunk_spans(rows, opt.chunk))
+            return span, fold(self._gather(torch.cat(loss_rows)))
+        rows = torch.stack([torch.cat([flat(d), lr])
+                            for d, lr in zip(self.local, loss_rows)])
+        allg = self._gather(rows)
+        return fold(allg[:, :-1]), fold(allg[:, -1])
+
+    def _dense_apply(self, state: ShardedStepState,
+                     summed: torch.Tensor) -> None:
+        """One optimizer step on ``_dense_reduce``'s sum (or ZeRO-1's
+        chunked one: the owned chunks stepped, the chunks gathered into
+        the params), then the replicas refreshed."""
+        params = list(state.model.parameters())
+        if self.zero1:
+            opt, c, lo = state.opt, state.opt.chunk, self.local[0]
             opt.step_chunks(
-                lambda s: span[(s - lo) * c:(s - lo + 1) * c])
+                lambda s: summed[(s - lo) * c:(s - lo + 1) * c])
             opt.write_params(self._gather(torch.stack(
-                [ch.detach().to(home) for ch in opt.chunks])).reshape(-1))
-            loss = fold(self._gather(torch.cat(loss_rows)))
+                [ch.detach().to(self.home) for ch in opt.chunks]
+            )).reshape(-1))
         else:
-            rows = torch.stack([torch.cat([flat(d), lr])
-                                for d, lr in zip(self.local, loss_rows)])
-            allg = self._gather(rows)
-            total = fold(allg[:, :-1])
-            loss = fold(allg[:, -1])
             off = 0
             for p in params:
                 # a tensor of its own a param
-                p.grad = total[off:off + p.numel()].view_as(p).clone()
+                p.grad = summed[off:off + p.numel()].view_as(p).clone()
                 off += p.numel()
             state.opt.step()
             for p in params:
                 p.grad = None
         self._refresh_replicas(state.model)
+
+    def _dense_sync(self, state: ShardedStepState,
+                    grads: List[Optional[List[torch.Tensor]]],
+                    losses: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """``_dense_reduce`` then ``_dense_apply``; returns the summed
+        loss."""
+        summed, loss = self._dense_reduce(state, grads, losses)
+        self._dense_apply(state, summed)
         return loss
+
+    def _serve(self, tables: List[TableState], gb: GlobalBatch):
+        """The owners' side of the pull: (rows_full, served values
+        [A2, D]) per owner, None at the shards of other ranks."""
+        rows_full: List[Optional[torch.Tensor]] = [None] * self.n
+        serve_vals: List[Optional[torch.Tensor]] = [None] * self.n
+        for s in self.local:
+            rf = gather_full_rows(tables[s], gb.serve_rows[s], self.ops)
+            rows_full[s] = rf
+            serve_vals[s] = pull_values(rf, tables[s].mf_dim)
+        return rows_full, serve_vals
+
+    def _pull_section(self, serve_vals: List[Optional[torch.Tensor]],
+                      gb: GlobalBatch, lo: int, ag: int
+                      ) -> List[Optional[torch.Tensor]]:
+        """One section's pull exchange: each owner's values expanded by
+        its requests [lo, lo + ag), exchanged; per destination the
+        received [N*ag, D] block."""
+        n = self.n
+        d = serve_vals[self.local[0]].shape[1]
+        resp = [None if serve_vals[s] is None else
+                expand_pull(serve_vals[s],
+                            gb.resp_idx[s][:, lo:lo + ag].reshape(-1))
+                .view(n, ag, d) for s in range(n)]
+        return [None if r is None else r.reshape(n * ag, d)
+                for r in self._exchange(resp)]
 
     def _pull(self, tables: List[TableState], gb: GlobalBatch,
               a_secs: Sequence[int]):
         """Owner-side gathers and the pull exchange(s): (rows_full per
         owner, per section the received [N*A_g, D] block per
         destination), None at the shards of other ranks."""
-        n = self.n
-        rows_full: List[Optional[torch.Tensor]] = [None] * n
-        serve_vals: List[Optional[torch.Tensor]] = [None] * n
-        for s in self.local:
-            rf = gather_full_rows(tables[s], gb.serve_rows[s], self.ops)
-            rows_full[s] = rf
-            serve_vals[s] = pull_values(rf, tables[s].mf_dim)
-        d = serve_vals[self.local[0]].shape[1]
-        recvs, lo = [], 0
-        for ag in a_secs:
-            resp = [None if serve_vals[s] is None else
-                    expand_pull(serve_vals[s],
-                                gb.resp_idx[s][:, lo:lo + ag].reshape(-1))
-                    .view(n, ag, d) for s in range(n)]
-            recvs.append([None if r is None else r.reshape(n * ag, d)
-                          for r in self._exchange(resp)])
-            lo += ag
+        rows_full, serve_vals = self._serve(tables, gb)
+        recvs = [self._pull_section(serve_vals, gb, lo, ag)
+                 for lo, ag in zip(section_offsets(a_secs), a_secs)]
         return rows_full, recvs
 
-    def _pool(self, recvs_d: List[torch.Tensor], gb: GlobalBatch, d: int,
-              a: int, sections: tuple) -> torch.Tensor:
-        """Destination ``d``'s pooled [B, S, D'] block from its received
-        values, over its real keys only (the padded keys pool into the
-        discard bin in the reference and take no grad)."""
+    def _pool_section(self, recv: torch.Tensor, gb: GlobalBatch, d: int,
+                      a: int, sections: tuple, g: int = 0,
+                      whole: bool = False) -> torch.Tensor:
+        """Destination ``d``'s pooled block of section ``g`` from its
+        received values (``sections`` = (): the whole [B, S, D'] block),
+        over its real keys only (the padded keys pool into the discard
+        bin in the reference and take no grad). ``whole``: ``recv`` is
+        the monolithic exchange's [N*A, D] block, which the section's
+        global positions index as they are."""
         b, s, counts = self.batch_size, self.num_slots, gb.key_counts[d]
         show_clk = gb.floats[d][:, -2:]
         if not sections:
             nk = counts[0]
             return fused_seqpool_cvm(
-                expand_pull(recvs_d[0], gb.gather_idx[d][:nk]),
+                expand_pull(recv, gb.gather_idx[d][:nk]),
                 gb.segments[d][:nk], show_clk, b, s, self.use_cvm,
                 self.cvm_offset, ops=self.ops)
         a_secs, k_secs, s_secs = sections
-        a_off, k_off = section_offsets(a_secs), section_offsets(k_secs)
-        s_off = section_offsets(s_secs)
-        parts = []
-        for g, (ag, sg) in enumerate(zip(a_secs, s_secs)):
-            lo, nk = k_off[g], counts[g]
+        lo, nk = section_offsets(k_secs)[g], counts[g]
+        s_lo = section_offsets(s_secs)[g]
+        pos = gb.gather_idx[d][lo:lo + nk]
+        if not whole:
             # global position owner*A + j → the chunk's own positions
-            local = chunk_local_positions(
-                gb.gather_idx[d][lo:lo + nk].long(), a, a_off[g], ag)
-            parts.append(fused_seqpool_cvm_slot_group(
-                expand_pull(recvs_d[g], local), gb.segments[d][lo:lo + nk],
-                show_clk, b, s, s_off[g], s_off[g] + sg, self.use_cvm,
-                self.cvm_offset, ops=self.ops))
-        return torch.cat(parts, dim=1)
+            pos = chunk_local_positions(pos.long(), a,
+                                        section_offsets(a_secs)[g],
+                                        a_secs[g])
+        return fused_seqpool_cvm_slot_group(
+            expand_pull(recv, pos), gb.segments[d][lo:lo + nk],
+            show_clk, b, s, s_lo, s_lo + s_secs[g], self.use_cvm,
+            self.cvm_offset, ops=self.ops)
+
+    def _pool(self, recvs_d: List[torch.Tensor], gb: GlobalBatch, d: int,
+              a: int, sections: tuple) -> torch.Tensor:
+        """Destination ``d``'s pooled [B, S, D'] block, one section at a
+        time in the chunked schedule. The monolithic schedule over a
+        grouped plan (``gb.plan_sections``) pools its one block section
+        by section too, so it sums what the chunked schedule sums."""
+        if sections:
+            return torch.cat([self._pool_section(r, gb, d, a, sections, g)
+                              for g, r in enumerate(recvs_d)], dim=1)
+        secs = gb.plan_sections
+        if secs:
+            return torch.cat([self._pool_section(recvs_d[0], gb, d, a,
+                                                 secs, g, whole=True)
+                              for g in range(len(secs[0]))], dim=1)
+        return self._pool_section(recvs_d[0], gb, d, a, ())
+
+    def _loss(self, model: nn.Module, pooled: torch.Tensor,
+              gb: GlobalBatch, d: int, wsum: torch.Tensor):
+        """Destination ``d``'s (logits, loss, label, instance weights):
+        the model on its pooled block, the weighted BCE over the global
+        batch's weight sum."""
+        dense, label, _, _ = unpack_floats(gb.floats[d])
+        ins_w = (gb.floats[d][:, -2] > 0).float()
+        logits = model(pooled, dense)
+        ls = F.binary_cross_entropy_with_logits(logits, label,
+                                                reduction="none")
+        loss = (ls * ins_w).sum() / wsum.to(pooled.device).clamp_min(1.0)
+        return logits, loss, label, ins_w
+
+    def _push_merge(self, g_vals: List[Optional[torch.Tensor]],
+                    gb: GlobalBatch, a: int, a2: int
+                    ) -> List[Optional[torch.Tensor]]:
+        """The push exchange (grads back to their owners) and each
+        owner's merge of its real requests: per owner the [A2, D] grads
+        of its served rows, unscaled."""
+        n = self.n
+        merged: List[Optional[torch.Tensor]] = [None] * n
+        g_backs = self._exchange(g_vals)
+        for s in self.local:
+            g_back = g_backs[s]
+            live = gb.live[s].long()
+            dd = g_back.shape[-1]
+            merged[s] = merge_rows(g_back.reshape(n * a, dd)[live],
+                                   gb.resp_idx[s].reshape(-1)[live], a2)
+        return merged
 
     def __call__(self, state: ShardedStepState, gb: GlobalBatch,
                  generators: Sequence[torch.Generator],
@@ -603,27 +685,21 @@ class ShardedTrainStep:
         a2 = gb.serve_rows[lo].shape[0]
         a_secs = sections[0] if sections else (a,)
         rows_full, recvs = self._pull(state.tables, gb, a_secs)
-        home = self.home
-        ins_w = [None if f is None else (f[:, -2] > 0).float()
-                 for f in gb.floats]
         # every destination's weights, the other ranks' too (host; an
         # integer count, exact in f32)
-        wsum = torch.tensor(gb.weight_sum, dtype=torch.float32, device=home)
+        wsum = torch.tensor(gb.weight_sum, dtype=torch.float32,
+                            device=self.home)
 
         losses: List[Optional[torch.Tensor]] = [None] * n
         preds: List[Optional[torch.Tensor]] = [None] * n
         dense_grads: List[Optional[list]] = [None] * n
         g_vals: List[Optional[torch.Tensor]] = [None] * n
         for d in self.local:
-            dev = self.devices[d]
-            model = self._model_on(state.model, dev)
+            model = self._model_on(state.model, self.devices[d])
             leaves = [recvs[g][d].detach().requires_grad_(True)
                       for g in range(len(a_secs))]
-            dense, label, _, _ = unpack_floats(gb.floats[d])
-            logits = model(self._pool(leaves, gb, d, a, sections), dense)
-            ls = F.binary_cross_entropy_with_logits(logits, label,
-                                                    reduction="none")
-            loss = (ls * ins_w[d]).sum() / wsum.to(dev).clamp_min(1.0)
+            logits, loss, label, ins_w = self._loss(
+                model, self._pool(leaves, gb, d, a, sections), gb, d, wsum)
             params = list(model.parameters())
             grads = torch.autograd.grad(loss, leaves + params,
                                         allow_unused=True)
@@ -637,18 +713,13 @@ class ShardedTrainStep:
             dense_grads[d] = list(g_params)
             losses[d] = loss.detach()
             pred = torch.sigmoid(logits.detach())
-            auc_add_batch(state.auc[d], pred, label, ins_w[d])
+            auc_add_batch(state.auc[d], pred, label, ins_w)
             preds[d] = pred
 
         # ---- push: grads back to their owners, merge, update ----
-        pushed: List[Optional[torch.Tensor]] = [None] * n
-        g_backs = self._exchange(g_vals)
+        pushed = self._push_merge(g_vals, gb, a, a2)
         for s in self.local:
-            g_back = g_backs[s]
-            live = gb.live[s].long()
-            dd = g_back.shape[-1]
-            g_serve = merge_rows(g_back.reshape(n * a, dd)[live],
-                                 gb.resp_idx[s].reshape(-1)[live], a2)
+            g_serve = pushed[s]
             # PushCopy scaling (box_wrapper.cu:368): negate the embed
             # grads and scale by the global batch (the loss is the
             # global mean)
@@ -661,7 +732,6 @@ class ShardedTrainStep:
                        touched=gb.serve_valid[s] > 0,
                        slot_val=gb.serve_slot[s],
                        draw_rows=gb.serve_counts[s])
-            pushed[s] = g_serve
 
         loss = self._dense_sync(state, dense_grads, losses)
         state.step += 1
@@ -805,6 +875,9 @@ class ShardedTrainer:
         self._dump_cfg: Optional[DumpConfig] = None
         # the metric variants fed every batch, per destination row
         self.metrics = MetricRegistry()
+        # the last train/a2a_probe result: its exchange_overlap_frac rides
+        # the resident pass events
+        self._last_exchange_probe: Optional[Dict[str, Any]] = None
 
     def set_dump(self, cfg: Optional[DumpConfig]) -> None:
         """Per-sample prediction dump for later passes; None turns it
@@ -1171,8 +1244,12 @@ class ShardedTrainer:
                  "auc=%.4f", log_prefix, rp.num_batches,
                  out["examples_per_sec"], out["auc"])
         if get_hub().active:
-            emit_pass_event("train_pass_resident_sharded",
-                            dict(out, global_step=self.global_step),
+            ev = dict(out, global_step=self.global_step)
+            pr = self._last_exchange_probe
+            if pr is not None:
+                # telemetry_report's "a2a ovl" column
+                ev["exchange_overlap_frac"] = pr["exchange_overlap_frac"]
+            emit_pass_event("train_pass_resident_sharded", ev,
                             table=self.table, examples=rp.num_records)
         return out
 
@@ -1659,4 +1736,5 @@ def _decode_wire_step(rp: ShardedResidentPass, i: int) -> GlobalBatch:
         out["floats"][s] = torch.cat([dense.float()] + lsc, dim=1)
     return GlobalBatch(key_counts=rp.key_counts[i],
                        serve_counts=rp.serve_counts[i],
-                       weight_sum=rp.weight_sums[i], **out)
+                       weight_sum=rp.weight_sums[i],
+                       plan_sections=rp.sections, **out)

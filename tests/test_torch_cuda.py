@@ -105,6 +105,52 @@ def test_pool_cvm_matches_plain(cuda, mode, offset):
     torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
 
 
+def _one_key_segments(rng, b=512, s=1000, d=11):
+    """Ladder rung 4's pool input: B x S one-key segments in order (each
+    record's slot holds one key), values of width ``d`` (3 + mf 8)."""
+    n = b * s
+    values = rng.normal(size=(n, d)).astype(np.float32)
+    values[:, :3] = np.abs(values[:, :3]) * 4
+    return values, np.arange(n, dtype=np.int32), b, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,offset", [(tk.CVM_NONE, 2), (tk.CVM_FULL, 2),
+                                         (tk.CVM_SHOW, 2), (tk.CVM_CONV, 3)])
+def test_pool_cvm_one_key_segments(cuda, mode, offset):
+    """Row 7 at rung 4's 512 000 one-key segments (B 512, S 1000)."""
+    values, segs, b, s = _one_key_segments(np.random.default_rng(mode))
+    v, sg = torch.from_numpy(values).to(cuda), torch.from_numpy(segs).to(cuda)
+    before = tk.pool_cvm.launches
+    got = tk.pool_cvm(v, sg, None, b, s, mode, offset, 0, 0.25)
+    ref = tk.pool_cvm_plain(v, sg, None, b, s, mode, offset, 0, 0.25)
+    torch.cuda.synchronize()
+    assert tk.pool_cvm.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_segment_gather_one_key_segments(cuda, fused):
+    """Row 6 at rung 4's 512 000 one-key segments: each key's segment
+    grad, alone and with the show/clk head (the pool backward's call),
+    exact."""
+    rng = np.random.default_rng(6 + fused)
+    values, segs, b, s = _one_key_segments(rng)
+    g = torch.from_numpy(values).to(cuda)
+    src = g[:, 2:]
+    ids = torch.from_numpy(segs).to(cuda)
+    head = torch.from_numpy(
+        rng.normal(size=(b, 2)).astype(np.float32)).to(cuda)
+    args = (src, ids, head, None, b, s, 0) if fused else (src, ids)
+    before = tk.segment_gather.launches
+    got = tk.segment_gather(*args)
+    want = tk.segment_gather_plain(*args)
+    torch.cuda.synchronize()
+    assert tk.segment_gather.launches == before + 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_serving_on_card_matches_cpu(cuda):
     """The whole serving path on the card (both kernels launched once per
@@ -1973,6 +2019,47 @@ def test_sharded_trainer_chunks_and_index_route(cuda, deterministic):
     on = run(cuda, flag=True)
     assert elastic_state_digest(on[0]) == elastic_state_digest(mono)
     assert on[2]["auc"] == ev["auc"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_sharded_monolithic_step_on_a_grouped_plan(cuda, deterministic,
+                                                   chunks):
+    """The exchange probe's A/B on the card: the monolithic step over a
+    grouped plan (its one block pooled section by section) equals the
+    chunked step over the same staged batch bit for bit, and the probe's
+    state equals a twin's that ran the same steps."""
+    from paddlebox_tpu_torch.config import flags_scope
+    from paddlebox_tpu_torch.ps.sharded import plan_sections
+    from paddlebox_tpu_torch.train.a2a_probe import probe_exchange
+    from paddlebox_tpu_torch.train.checkpoint import sharded_state_digest
+    from paddlebox_tpu_torch.train.sharded import (ShardedTrainer,
+                                                   push_generators)
+    desc, table, dataset, model = _sharded_setup(cuda)
+    digests = []
+    for mono in (False, True):
+        with flags_scope(a2a_chunks=chunks):
+            tr = ShardedTrainer(model(), table(), desc, seed=2)
+        group = next(iter(tr._group_iter(dataset().batches())))
+        idx = tr.table.prepare_global(group, groups=chunks)
+        gb, secs = tr._stage_batch(group, idx), plan_sections(idx)
+        assert secs and gb.plan_sections == secs
+        tr.step_fn(tr.state, gb, push_generators(tr.devices, 2, 1),
+                   () if mono else secs)
+        digests.append(sharded_state_digest(tr))
+    assert digests[0] == digests[1]
+    with flags_scope(a2a_chunks=chunks):
+        a = ShardedTrainer(model(), table(), desc, seed=2)
+        b = ShardedTrainer(model(), table(), desc, seed=2)
+    group = next(iter(a._group_iter(dataset().batches())))
+    pr = probe_exchange(a, group=group, reps=1)
+    assert pr["a2a_chunks"] == chunks
+    idx = b.table.prepare_global(group, groups=chunks)
+    gb, secs = b._stage_batch(group, idx), plan_sections(idx)
+    for sec in ((), (), secs, secs):
+        b.step_fn(b.state, gb, push_generators(b.devices, 2, 0), sec)
+    torch.cuda.synchronize()
+    assert sharded_state_digest(a) == sharded_state_digest(b)
 
 
 def _sharded_logical(table):

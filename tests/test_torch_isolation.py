@@ -44,6 +44,7 @@ def test_import_pulls_in_no_jax():
             "import paddlebox_tpu_torch.utils.profiler\n"
             "import paddlebox_tpu_torch.utils.timer\n"
             "import paddlebox_tpu_torch.utils.logging\n"
+            "import paddlebox_tpu_torch.train.a2a_probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")

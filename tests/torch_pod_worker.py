@@ -1,9 +1,10 @@
 """One rank of the multi-process CPU tests (``tests/test_torch_multihost.py``,
 ``test_torch_tiered_multihost.py``, ``test_torch_pod_reduce.py``,
-``test_torch_launch.py``): started by ``distributed.launch.launch_local``
-with ``PBOX_TORCH_DISTRIBUTED=1`` over gloo, it forms the process group
-with ``init_runtime_env``, runs one scenario and writes its results to
-``<out>/rank<r>.pt``. The port only: no JAX here.
+``test_torch_launch.py``, ``test_torch_a2a_probe.py``): started by
+``distributed.launch.launch_local`` with ``PBOX_TORCH_DISTRIBUTED=1``
+over gloo, it forms the process group with ``init_runtime_env``, runs
+one scenario and writes its results to ``<out>/rank<r>.pt``. The port
+only: no JAX here.
 
     python tests/torch_pod_worker.py <scenario> <in.pt> <out_dir>
 """
@@ -151,6 +152,36 @@ def scenario_train(cfg, out_dir, rank):
     return out
 
 
+def run_probe(cfg, pod=None):
+    """One ``train_pass`` of ``cfg``'s sharded trainer, then
+    ``train/a2a_probe.probe_exchange`` (reps 1) on the dataset's first
+    global batch; the report and, per owned shard, the logical rows
+    after it, and the params."""
+    from paddlebox_tpu_torch import InMemoryDataset
+    from paddlebox_tpu_torch.train.a2a_probe import probe_exchange
+
+    tr = make_trainer(cfg, pod)
+    ds = InMemoryDataset(tr.desc)
+    ds.records = _records(cfg["arrays"])
+    tr.train_pass(ds)
+    pr = probe_exchange(tr, dataset=ds, reps=1)
+    rows = {}
+    for s in tr.table.owned:
+        keys, r = tr.table.indexes[s].items()
+        order = np.argsort(keys)
+        rows[s] = (keys[order], tr.table._rows_host(s, r[order]))
+    return {"probe": pr, "rows": rows,
+            "params": {k: v.clone() for k, v in
+                       tr.model.state_dict().items()}}
+
+
+def scenario_probe(cfg, out_dir, rank):
+    """``run_probe`` as this rank of a pod on the CPU."""
+    from paddlebox_tpu_torch.train.multihost import global_mesh
+    pod = global_mesh(cfg["shards"], device="cpu")
+    return dict(run_probe(cfg, pod=pod), owned=pod.owned)
+
+
 def scenario_tiered(cfg, out_dir, rank):
     """Two passes over the multi-process tiered table, the host tiers'
     keys, a save per rank and ``load_reshard`` of the whole save set into
@@ -251,7 +282,7 @@ def scenario_reduce(cfg, out_dir, rank):
 
 
 SCENARIOS = {"train": scenario_train, "tiered": scenario_tiered,
-             "reduce": scenario_reduce}
+             "reduce": scenario_reduce, "probe": scenario_probe}
 
 WORKER = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(WORKER))
